@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
 
 1. env     — the card (nvidia-smi name and power limit), torch and CUDA
              versions; TF32 off for the whole run.
-2. build   — compiles simpb_tpu_torch/csrc/*.cu with nvcc for sm_90a.
+2. build   — compiles the three sources simpb_tpu_torch/csrc/{conv_fused,
+             mosaic_probe,sampling}.cu with nvcc for sm_90a, one nvcc
+             each, all started together.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
              version at every full-width shape of the main path, fp32
@@ -16,15 +18,31 @@ Phases, each printing one JSON line:
              one exists (timed only), and the least time the card could
              take (bytes over 3.35 TB/s or operations over the peak rate
              of the type, published H100 SXM figures).
-4. slice   — the main path: `simpb_r50_704x256_fast` with the fused trunk
+4. probes  — the probe tool's path (`simpb_tpu_torch.tools.mosaic_probe`,
+             the Hopper counterparts of tools/mosaic_probe.py) with the
+             launch counts set to 0 before it and read after; then each
+             probe kernel against its plain version (bf16 through fp32 is
+             a copy: exactly equal), timed beside its plain version and
+             the one strided-copy call computing the same function.
+5. slice   — the main path: `simpb_r50_704x256_fast` with the fused trunk
              at full width (ResNet-50, 704x256, 6 cameras, 900 anchors,
              600 temporal instances), trunk bf16, head fp32, seeded
              random weights; one cold frame and FRAMES (8) stream frames.
-             Launch counts must be K1 1, K2 4, K3 12, K4 4 per frame.
-             Prints each frame's ms, the trunk's ms alone and the peak
-             device memory.
-5. parity  — the same slice in fp32 once through the kernels and once
-             through their plain versions; head outputs compared.
+             Launch counts must be K1 1, K2 4, K3 12, K4 4, DFA 3 and
+             MSDA-sel 3 per frame. Prints each frame's ms, the trunk's ms
+             alone and the peak device memory. The arguments of every
+             sampling call of the last stream frame are recorded.
+6. sampling — the DFA and windowed-MSDA kernels against their plain
+             versions: (a) on the recorded calls of that stream frame, in
+             the main path's dtypes; (b) on synthetic cases in fp32 and
+             bf16 (more in-range DFA slots than the capacity, locations at
+             and beyond the borders; MSDA samples spread past the window,
+             queries with every sample dropped, tied level masses, window
+             mids on rounding ties). Timed beside the plain version, with
+             the bound from the rows the call gathers.
+7. parity  — the same slice in fp32 once through the kernels and once
+             through their plain versions (trunk and sampling); head
+             outputs compared.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -49,7 +67,17 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # 16 blocks and 6 decoder layers; the CPU parity of the tiny slice with
 # the JAX package holds 5e-4 (tests/test_torch_port_slice.py)
 SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
+# sampling kernels against their plain versions, relative to max(|plain|,
+# 1). fp32: every sample is bit-identical (explicit roundings, no FMA
+# contraction), only the fp32 sums run in another order. bf16 DFA: every
+# bf16 rounding is the plain version's too, so again only the order of
+# the fp32 sums of up to cams * points * levels weighted samples differs
+# (<= 312 * 2^-24 of the sum of their magnitudes); 1e-3 leaves room for
+# that and stays far below the ~0.37 that fp32 position arithmetic gives.
+# MSDA computes in fp32 whatever the value dtype.
+SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame
+SOURCES = ("conv_fused", "mosaic_probe", "sampling")
 
 # ResNet-50 stages at 704x256: (mid channels, out channels, output H, W,
 # stride of the stage head, blocks)
@@ -241,10 +269,52 @@ def stream_inputs(torch, cfg, frames, seed=0):
         torch.full((1,), 0.5, device="cuda")
 
 
-def run_stream(torch, model, cfg, frames):
+def launch_counts():
+    from simpb_tpu_torch.ops import conv_fused, sampling
+    from simpb_tpu_torch.tools import mosaic_probe
+
+    return {**conv_fused.launch_counts(), **sampling.launch_counts(),
+            **mosaic_probe.launch_counts()}
+
+
+def reset_launch_counts():
+    from simpb_tpu_torch.ops import conv_fused, sampling
+    from simpb_tpu_torch.tools import mosaic_probe
+
+    for mod in (conv_fused, sampling, mosaic_probe):
+        mod.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Append (name, args, kwargs) of every sampling-wrapper call to
+    `calls`, then run the wrapper itself."""
+    from simpb_tpu_torch.models import dfa
+    from simpb_tpu_torch.ops import sampling
+
+    sites = ((dfa, "deformable_aggregation", "deformable_aggregation"),
+             (sampling, "_msda_patch_sel", "msda_patch_sel"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    try:
+        for (mod, attr, name), (_, _, fn) in zip(sites, saved):
+            setattr(mod, attr, recorder(name, fn))
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def run_stream(torch, model, cfg, frames, calls=None):
     """Cold frame + `frames` stream frames; returns (decoded list,
-    per-frame ms, per-frame launch counts)."""
-    from simpb_tpu_torch.ops import conv_fused
+    per-frame ms, per-frame launch counts). With `calls`, the sampling
+    calls of the last frame are recorded there."""
     from simpb_tpu_torch.training.evaluate import make_stream_steps
 
     cold, stream = make_stream_steps(model, cfg)
@@ -252,17 +322,21 @@ def run_stream(torch, model, cfg, frames):
     decs, times, counts = [], [], []
     state = None
     for f, img in enumerate(imgs):
-        before = conv_fused.launch_counts()
+        rec = (recording(calls) if calls is not None and f == len(imgs) - 1
+               else contextlib.nullcontext())
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if f == 0:
-            dec, state = cold(img, proj)
-        else:
-            dec, state = stream(img, proj, state, dt, t2c)
+        with rec:
+            if f == 0:
+                dec, state = cold(img, proj)
+            else:
+                dec, state = stream(img, proj, state, dt, t2c)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        after = conv_fused.launch_counts()
-        counts.append({k: after[k] - before[k] for k in after})
+        after = launch_counts()
+        counts.append({k: after[k] - before[k] for k in after
+                       if after[k] - before[k]})
         decs.append(dec)
     return decs, times, counts
 
@@ -290,7 +364,6 @@ def phase_slice(torch, frames):
     import dataclasses
 
     from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
-    from simpb_tpu_torch.ops import conv_fused
     from simpb_tpu_torch.training.evaluate import build_model
 
     cfg = dataclasses.replace(simpb_r50_704x256_fast(),
@@ -298,11 +371,13 @@ def phase_slice(torch, frames):
                               compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
-    conv_fused.reset_launch_counts()
-    decs, times, counts = run_stream(torch, model, cfg, frames)
-    launches = conv_fused.launch_counts()
+    calls = []
+    reset_launch_counts()
+    decs, times, counts = run_stream(torch, model, cfg, frames, calls)
+    launches = launch_counts()
     want = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 12,
-            "conv3x3_bias": 4}
+            "conv3x3_bias": 4, "deformable_aggregation": 3,
+            "msda_patch_sel": 3}
     for f, c in enumerate(counts):
         if c != want:
             raise AssertionError(f"frame {f}: launches {c}, want {want}")
@@ -322,33 +397,249 @@ def phase_slice(torch, frames):
               launches=launches, launches_per_frame=counts[-1],
               ids_carried_last_frame=carried,
               valid_last_frame=int(d["valid"].sum().item()),
-              top_score_last_frame=float(d["scores_3d"][0, 0].item())))
+              top_score_last_frame=float(d["scores_3d"][0, 0].item()),
+              sampling_calls_recorded=[c[0] for c in calls]))
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, calls
 
 
 @contextlib.contextmanager
-def plain_trunk():
-    """Route the trunk through the kernels' plain versions (the parity
-    reference); the wrappers themselves never do that on the card."""
-    from simpb_tpu_torch.models import backbone
-    from simpb_tpu_torch.ops import conv_fused
+def plain_route():
+    """Route the trunk and the sampling ops through the kernels' plain
+    versions (the parity reference); the wrappers themselves never do
+    that on the card."""
+    from simpb_tpu_torch.models import backbone, dfa
+    from simpb_tpu_torch.ops import conv_fused, sampling
 
-    names = {
-        "maxpool_3x3_s2_fused": conv_fused.maxpool_3x3_s2_plain,
-        "bottleneck_down_fused_infer": conv_fused.bottleneck_plain,
-        "bottleneck_fused_infer": conv_fused.bottleneck_plain,
-        "conv3x3_bias_fused": conv_fused.conv3x3_bias_plain,
-    }
-    saved = {n: getattr(backbone, n) for n in names}
+    sites = (
+        (backbone, "maxpool_3x3_s2_fused", conv_fused.maxpool_3x3_s2_plain),
+        (backbone, "bottleneck_down_fused_infer", conv_fused.bottleneck_plain),
+        (backbone, "bottleneck_fused_infer", conv_fused.bottleneck_plain),
+        (backbone, "conv3x3_bias_fused", conv_fused.conv3x3_bias_plain),
+        (dfa, "deformable_aggregation", sampling.deformable_aggregation_plain),
+        (sampling, "_msda_patch_sel", sampling._msda_patch_sel_plain),
+    )
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in sites]
     try:
-        for n, fn in names.items():
-            setattr(backbone, n, fn)
+        for mod, n, fn in sites:
+            setattr(mod, n, fn)
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(backbone, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def strided_view(label, x):
+    """The probe's selection as a strided view of x; `.contiguous()` of it
+    is the one PyTorch call computing the probe's function."""
+    if label.startswith("P5"):
+        return x[:, ::2]
+    if label.startswith("P6"):
+        return x[:, :, ::2]
+    return x[:, ::2, ::2]
+
+
+def phase_probes(torch):
+    """The probe tool's path, then each probe kernel against its plain
+    version. Returns {label: summary} for the kernels line."""
+    from simpb_tpu_torch.tools import mosaic_probe as mp
+
+    reset_launch_counts()
+    results = mp.run("cuda")  # the tool's own path: prints its lines
+    counts = mp.launch_counts()
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"probe tool: {name} never launched")
+    if sum(r["launches"] for r in results) != sum(counts.values()):
+        raise AssertionError(f"probe tool: launches {counts} do not add up")
+    summary = {}
+    for (label, wrapper, plain, c, tpu), r in zip(mp.PROBES, results):
+        x = mp.mk((1, mp.H, mp.W, c), device="cuda")
+        got = wrapper(x)
+        ref = plain(x)
+        torch.cuda.synchronize()
+        exact = got.shape == ref.shape and torch.equal(got, ref)
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: wrapper(x))
+        plain_ms = cuda_ms(lambda: plain(x))
+        lib_ms = cuda_ms(lambda: strided_view(label, x).contiguous())
+        bound_ms = (x.numel() + ref.numel()) * 2 / PEAK_BYTES * 1e3
+        emit(dict(phase="probe", name=label, shape=list(x.shape),
+                  exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes",
+                  launches=r["launches"]))
+        if not exact:
+            raise AssertionError(f"{label}: kernel differs from its plain "
+                                 f"version by {err}")
+        summary[label] = dict(
+            name=label, route="cuda",
+            source="simpb_tpu_torch/csrc/mosaic_probe.cu", replaces=tpu,
+            launches=r["launches"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=lib_ms)
+    return summary
+
+
+def dfa_work(sampling, args, kwargs):
+    """(bytes, operations) a DFA call must move and do at least: the
+    distinct feature rows its counted samples read at a corner of nonzero
+    weight, the counted slots' points and weights, and the output; about
+    11 operations per (counted slot, level, channel)."""
+    import torch
+
+    col, ss, pts, wts = args[:4]
+    loc, _, valid, _ = sampling.dfa_slots(pts, wts,
+                                          kwargs.get("gather_capacity"))
+    b, total, c = loc.shape[0], col.shape[2], col.shape[3]
+    item = col.element_size()
+    base = torch.arange(b, device=loc.device)[:, None] * total
+    rows = []
+    for lvl, (h, w) in enumerate(ss.shapes):
+        wx0, wx1, wy0, wy1, x0, y0, y1 = sampling._corner_weights(
+            loc, h, w, col.dtype, True)
+        start = base + ss.start_indices[lvl]
+        for wy, yy in ((wy0, y0), (wy1, y1)):
+            for wx, xx in ((wx0, x0), (wx1, x0 + 1)):
+                r = start + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+                rows.append(r[valid & (wx != 0) & (wy != 0)])
+    n_rows = torch.cat(rows).unique().numel()
+    n_slots = int(valid.sum().item())
+    levels, groups = wts.shape[-2:]
+    out = pts.shape[0] * pts.shape[1] * c * 4
+    byts = (n_rows * c + n_slots * (2 + levels * groups)) * item + out
+    return byts, 11 * n_slots * levels * c
+
+
+def msda_work(sampling, args):
+    """(bytes, operations) an MSDA-sel call must move and do at least:
+    the distinct value rows of its windows, the locations and weights, the
+    outputs; 2 operations per (query, level, head, pixel, channel)."""
+    value, ss, loc, attw, heads, ph, pw, k = args
+    b, total, c = value.shape
+    rows = sampling.msda_sel_windows(total, ss, loc, attw, ph, pw, k)[0]
+    q = loc.shape[1]
+    byts = (rows.unique().numel() * c * value.element_size()
+            + (loc.numel() + attw.numel()) * 4 + b * q * heads * (c + 1) * 4)
+    return byts, 2 * b * q * k * heads * ph * pw * c
+
+
+def synthetic_sampling(torch, dtype, gen, dev="cuda"):
+    """Synthetic full-width cases: (label, name, args, kwargs)."""
+    from simpb_tpu_torch.ops.format import SpatialShapes
+
+    ss = SpatialShapes(((64, 176), (32, 88), (16, 44), (8, 22)))
+    rnd = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    col = torch.randn(1, 6, ss.total, 256, generator=gen,
+                      device=dev).to(dtype)
+    a, p, cams = 900, 13, 6
+    wts = rnd(1, a, p, cams, 4, 8)
+    wts = (wts / wts.sum((2, 3, 4), keepdim=True)).to(dtype)
+    # every slot in range: 11700 per camera, far above the capacity
+    dense = (0.02 + 0.96 * rnd(1, a, p, cams, 2)).to(dtype)
+    # coordinates at 0, at 1, beyond them and just inside
+    edges = torch.tensor([0.0, 1.0, -0.1, 1.1, 2 ** -9, 1 - 2 ** -8, 0.5,
+                          0.3], device=dev)
+    border = edges[(rnd(1, a, p, cams, 2) * len(edges)).long()].to(dtype)
+    cases = [
+        ("dfa_capacity_bites", "deformable_aggregation",
+         (col, ss, dense, wts), dict(gather_capacity=2048)),
+        ("dfa_border", "deformable_aggregation",
+         (col, ss, border, wts), dict(gather_capacity=2048)),
+        ("dfa_border_no_capacity", "deformable_aggregation",
+         (col, ss, border, wts), dict(gather_capacity=None)),
+    ]
+    # MSDA-sel: 6 camera rows x 208 queries, 8 heads x 4 points, 4 levels
+    bq, q, heads, pts_ = 6, 208, 8, 4
+    n = heads * pts_
+    value = col.reshape(bq, ss.total, 256)
+    ref = rnd(bq, q, 1, 1, 2)
+    loc = ref + 0.1 * torch.randn(bq, q, 4, n, 2, generator=gen, device=dev)
+    # queries 40-79: on a 1/16 grid, where window mids fall on rounding
+    # ties (loc * size is exact at every level of this pyramid)
+    loc[:, 40:80] = torch.floor(rnd(bq, 40, 4, n, 2) * 15 + 1) / 16
+    loc[:, 80:100] = -0.5  # every sample dropped
+    attw = rnd(bq, q, 4, n)
+    attw = attw / attw.sum((2, 3), keepdim=True)
+    attw[:, 100:140] = 1.0 / 128  # equal level masses: a tie at every level
+    cases.append(("msda_sel_synthetic", "msda_patch_sel",
+                  (value, ss, loc.contiguous(), attw.contiguous(), heads, 8,
+                   8, 2), {}))
+    return cases
+
+
+def phase_sampling(torch, calls, slice_launches):
+    """DFA and MSDA-sel kernels against their plain versions on the
+    recorded main-path calls and the synthetic cases. Returns {name:
+    summary} for the kernels line (ms, plain and bound summed over one
+    frame's recorded calls)."""
+    from simpb_tpu_torch.ops import sampling
+
+    kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS}
+    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                       bound={"bytes": 0.0, "operations": 0.0})
+               for n in kernels}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [(f"frame_call_{i}", name, args, kwargs)
+             for i, (name, args, kwargs) in enumerate(calls)]
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += synthetic_sampling(torch, dtype, gen)
+    for label, name, args, kwargs in cases:
+        wrapper, plain, _ = kernels[name]
+        before = sampling.launch_counts()[name]
+        got = wrapper(*args, **kwargs)
+        launched = sampling.launch_counts()[name] - before
+        ref = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        dname = str(args[0].dtype).split(".")[-1]
+        tol = SAMPLING_TOL[dname if name == "deformable_aggregation"
+                           else "float32"]
+        errs, ok = [], launched == 1
+        for g_, r_ in zip(got, ref):
+            if g_.shape != r_.shape or g_.dtype != r_.dtype:
+                raise AssertionError(f"{label}: {g_.shape}/{g_.dtype} vs "
+                                     f"{r_.shape}/{r_.dtype}")
+            err = (g_ - r_).abs().max().item()
+            scale = max(r_.abs().max().item(), 1.0)
+            errs.append(err)
+            ok = ok and err <= tol * scale
+        ms = cuda_ms(lambda: wrapper(*args, **kwargs))
+        plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
+        if name == "deformable_aggregation":
+            byts, ops = dfa_work(sampling, args, kwargs)
+        else:
+            byts, ops = msda_work(sampling, args)
+        peak = PEAK_OPS[dname if name == "deformable_aggregation"
+                        else "float32"]
+        b_ms, o_ms = byts / PEAK_BYTES * 1e3, ops / peak * 1e3
+        bound_by = "bytes" if b_ms >= o_ms else "operations"
+        emit(dict(phase="sampling", case=label, name=name, dtype=dname,
+                  max_abs_err=errs, tol_share=tol, ok=ok, launches=launched,
+                  ms=ms, plain_ms=plain_ms, library_ms=None,
+                  bound_ms=max(b_ms, o_ms), bound_by=bound_by,
+                  bytes=byts, operations=ops))
+        if not ok:
+            raise AssertionError(f"{label}: max abs err {errs} above "
+                                 f"{tol} of max(|plain|, 1), or "
+                                 f"{launched} launches")
+        s = summary[name]
+        s["max_abs_err"] = max([s["max_abs_err"]] + errs)
+        if label.startswith("frame_call"):  # one stream frame's calls
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["bound"][bound_by] += max(b_ms, o_ms)
+    out = {}
+    for name, s in summary.items():
+        out[name] = dict(
+            name=name, route="cuda",
+            source="simpb_tpu_torch/csrc/sampling.cu",
+            replaces=kernels[name][2], launches=slice_launches[name],
+            max_abs_err=s["max_abs_err"], ms=s["ms"],
+            plain_ms=s["plain_ms"], bound_ms=sum(s["bound"].values()),
+            bound_by=max(s["bound"], key=s["bound"].get), library_ms=None)
+    return out
 
 
 def phase_parity(torch):
@@ -363,7 +654,7 @@ def phase_parity(torch):
     model = build_model(cfg, device="cuda", seed=0)
     outs = {}
     for route in ("kernels", "plain"):
-        ctx = plain_trunk() if route == "plain" else contextlib.nullcontext()
+        ctx = plain_route() if route == "plain" else contextlib.nullcontext()
         with ctx, torch.inference_mode():
             imgs, proj, _, _ = stream_inputs(torch, cfg, 0)
             outs[route] = model(imgs[0], proj)
@@ -398,16 +689,23 @@ def main() -> int:
               count=torch.cuda.device_count(), tf32=False))
 
     t0 = time.perf_counter()
-    lib = _kernels.build("conv_fused")
-    log = _kernels.BUILD_DIR / "conv_fused.ptxas.txt"
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    libs = _kernels.build_all(SOURCES)
+    ptxas = {}
+    for name in SOURCES:
+        log = _kernels.BUILD_DIR / f"{name}.ptxas.txt"
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln] \
+            if log.exists() else []
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              library=str(lib.relative_to(_kernels.PKG_DIR.parent)),
+              libraries=[str(p.relative_to(_kernels.PKG_DIR.parent))
+                         for p in libs],
               ptxas=ptxas))
 
     summary, wrappers = phase_kernels(torch, conv_fused)
-    launches = phase_slice(torch, FRAMES)
+    probes = phase_probes(torch)
+    launches, calls = phase_slice(torch, FRAMES)
+    sampling = phase_sampling(torch, calls, launches)
+    del calls
     phase_parity(torch)
 
     kernels = []
@@ -422,6 +720,9 @@ def main() -> int:
             bound_by=max(s["bound"], key=s["bound"].get),
             library_ms=s["library_ms"],
         ))
+    kernels += list(sampling.values()) + list(probes.values())
+    if len(kernels) != 13:
+        raise AssertionError(f"{len(kernels)} kernels, want 13")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

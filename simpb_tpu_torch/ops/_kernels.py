@@ -20,10 +20,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (H100)
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "simpb_tpu_torch"
@@ -33,7 +34,8 @@ NVCC_FLAGS = (
 )
 
 P, I = ctypes.c_void_p, ctypes.c_int
-# C signatures: name -> (argtypes, restype)
+# C signatures: source name -> {function: (argtypes, restype)}
+PROBE_SIG = ((P, P, I, I, I, I, P), I)  # x, y, N, H, W, C, stream
 SIGNATURES = {
     "conv_fused": {
         "simpb_maxpool_3x3_s2": ((P, P, I, I, I, I, I, P), I),
@@ -41,6 +43,21 @@ SIGNATURES = {
             (P,) * 10 + (I,) * 10 + (P,), I,
         ),
         "simpb_conv3x3_bias": ((P, P, P, P) + (I,) * 8 + (P,), I),
+    },
+    "mosaic_probe": {
+        "simpb_probe_lane": PROBE_SIG,
+        "simpb_probe_chunk": PROBE_SIG,
+        "simpb_probe_reshape": PROBE_SIG,
+        "simpb_probe_outer": PROBE_SIG,
+        "simpb_probe_refshape": PROBE_SIG,
+        "simpb_probe_chunk_flat": PROBE_SIG,
+    },
+    "sampling": {
+        # col, points, weights, counted, out, dims (host int[]), strides
+        # (host int64[]), dtype, stream
+        "simpb_dfa": ((P,) * 7 + (I, P), I),
+        # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
+        "simpb_msda_sel": ((P,) * 6 + (I, P), I),
     },
 }
 
@@ -63,25 +80,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def build_all(names: Sequence[str]) -> List[Path]:
+    """Compile each `csrc/<name>.cu` whose library is not up to date, one
+    `nvcc` per source, all started together; keeps each `-Xptxas -v`
+    report beside its library. Raises with the compiler's output on
+    failure."""
+    outs = [library_path(n) for n in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless its library is up to date, keeping
-    the `-Xptxas -v` report beside it. Raises with the compiler's output
-    on failure."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-         str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stdout)
-    return out
+    """Compile `csrc/<name>.cu` unless its library is up to date."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -103,8 +134,18 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 
 
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device address for a `void*` argument (NULL for None)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def int_array(values: Sequence[int], ctype=ctypes.c_int):
+    """A host array for a `const int*` (or `const long long*`) argument."""
+    return (ctype * len(values))(*values)

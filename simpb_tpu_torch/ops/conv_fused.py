@@ -30,7 +30,6 @@ from . import _kernels
 BN_EPS = 1e-5  # torch BatchNorm default; the JAX package folds with it too
 KC = 16  # channel granularity of the CUDA kernels' weight chunks
 MAX_COLS = 256  # widest block tile of the CUDA kernels' products
-MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (H100)
 
 Folded = Tuple[torch.Tensor, ...]
 
@@ -142,10 +141,6 @@ def _param(t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype,
     return t.to(device=like.device, dtype=dtype).contiguous()
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
-
-
 def _smem_bytes(region_px: int, tile_px: int, channels: int,
                 itemsize: int) -> int:
     """Dynamic shared memory of a launch, laid out as the CUDA kernels lay
@@ -162,9 +157,9 @@ def _bottleneck_tile(h: int, w: int, cm: int, stride: int, itemsize: int):
         return _smem_bytes(((t - 1) * stride + 3) ** 2, t * t, cm, itemsize)
 
     t = 8 if cm <= 128 else 4
-    while t > 1 and smem(t) > MAX_SMEM:
+    while t > 1 and smem(t) > _kernels.MAX_SMEM:
         t //= 2
-    if smem(t) > MAX_SMEM:
+    if smem(t) > _kernels.MAX_SMEM:
         raise ValueError(f"bottleneck with {cm} mid channels does not fit "
                          "in shared memory")
     return min(t, h), min(t, w)
@@ -181,8 +176,8 @@ def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
                     device=x.device)
     lib = _kernels.load("conv_fused")
     code = lib.simpb_maxpool_3x3_s2(
-        _ptr(x), _ptr(y), b, h, w, c, _kernels.DTYPE_CODE[x.dtype],
-        ctypes.c_void_p(_kernels.stream_ptr(x)),
+        _kernels.ptr(x), _kernels.ptr(y), b, h, w, c,
+        _kernels.DTYPE_CODE[x.dtype], ctypes.c_void_p(_kernels.stream_ptr(x)),
     )
     _kernels.check(code, "maxpool_3x3_s2_fused")
     maxpool_3x3_s2_fused.launches += 1
@@ -219,8 +214,8 @@ def _bottleneck_cuda(x, folded, folded_down, stride, what):
     y = torch.empty((b, oh, ow, co), dtype=cdt, device=x.device)
     lib = _kernels.load("conv_fused")
     code = lib.simpb_bottleneck(
-        _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(w3), _ptr(b3),
-        _ptr(wd), _ptr(bd), _ptr(y), b, h, w, c, cm, co, stride, th, tw,
+        *map(_kernels.ptr, (x, w1, b1, w2, b2, w3, b3, wd, bd, y)),
+        b, h, w, c, cm, co, stride, th, tw,
         _kernels.DTYPE_CODE[cdt], ctypes.c_void_p(_kernels.stream_ptr(x)),
     )
     _kernels.check(code, what)
@@ -268,12 +263,12 @@ def conv3x3_bias_fused(
     bias = _param(bias, x, torch.float32, (co,), what)
     th, tw = min(8, h), min(8, w)
     while th > 1 and _smem_bytes((th + 2) * (tw + 2), 0, c,
-                                 x.element_size()) > MAX_SMEM:
+                                 x.element_size()) > _kernels.MAX_SMEM:
         th, tw = max(1, th // 2), max(1, tw // 2)
     y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     lib = _kernels.load("conv_fused")
     code = lib.simpb_conv3x3_bias(
-        _ptr(x), _ptr(kernel), _ptr(bias), _ptr(y), b, h, w, c, co, th, tw,
+        *map(_kernels.ptr, (x, kernel, bias, y)), b, h, w, c, co, th, tw,
         _kernels.DTYPE_CODE[x.dtype], ctypes.c_void_p(_kernels.stream_ptr(x)),
     )
     _kernels.check(code, what)

@@ -19,16 +19,29 @@ row carries zero weight, so sampling the pixels directly, with indices
 clamped into range, gives the same values. Indices are always clamped
 explicitly: unlike JAX gathers, torch indexing does not clamp.
 
-On the TPU these ops were XLA gathers, not Pallas kernels; their
-hand-written Hopper kernels come later.
+On the TPU these ops were XLA gathers, not Pallas kernels. On Hopper
+the forward of each is a hand-written CUDA kernel in `csrc/sampling.cu`:
+`deformable_aggregation` and `_msda_patch_sel` are the wrappers, and
+`deformable_aggregation_plain` / `_msda_patch_sel_plain` their plain
+versions. A wrapper checks its arguments, runs the plain version only
+for tensors on the CPU, and for CUDA tensors launches the kernel or
+raises. Each wrapper counts its launches (`launch_counts()`); the count
+lives in this module, so it holds even while a caller has rebound a
+wrapper's name to record or reroute its calls.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from . import _kernels
 from .format import SpatialShapes
+
+MAX_LEVELS = 8  # level table of the CUDA kernels
+MAX_HEADS = 16  # per-thread head accumulators of the MSDA kernel
+_LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0}
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,29 +125,21 @@ def bilinear_sample(
                         drop_out_of_range)[0]
 
 
-def deformable_aggregation(
-    col_feats: torch.Tensor,  # [bs, cams, ΣHW, C]
-    spatial_shapes: SpatialShapes,
-    points_2d: torch.Tensor,  # [bs, A, P, cams, 2]
-    weights: torch.Tensor,  # [bs, A, P, cams, L, G]
-    gather_capacity: Optional[int] = None,
-) -> torch.Tensor:
-    """Fused multi-camera multi-scale deformable aggregation.
+def dfa_slots(points_2d: torch.Tensor, weights: torch.Tensor,
+              gather_capacity: Optional[int] = None):
+    """The (camera row, slot) samples DFA gathers: (loc [b, m, 2], w_all
+    [b, m, L, G], sel_valid [b, m], anchor_idx [b, m]) with b = bs * cams.
 
-    With `gather_capacity` M < A*P, each camera samples only its first M
-    in-range (anchor, point) slots in anchor order (the score
+    With `gather_capacity` M < A*P, each camera keeps only its first M
+    in-range (anchor, point) slots in slot order a * P + p (the score
     `in_range * 2s - arange` and a top-k, tie-free by construction);
-    results scatter back to their anchors. Returns [bs, A, C] float32.
-    """
-    bs, cams, total_hw, c = col_feats.shape
-    _, num_anchor, num_pts = points_2d.shape[:3]
-    num_levels = spatial_shapes.num_levels
-    num_groups = weights.shape[-1]
-    group_dims = c // num_groups
+    otherwise every slot, in range or not (`sel_valid` marks those that
+    count)."""
+    bs, num_anchor, num_pts, cams = points_2d.shape[:4]
+    num_levels, num_groups = weights.shape[-2:]
     b = bs * cams
     s = num_anchor * num_pts
-    dev = col_feats.device
-
+    dev = points_2d.device
     loc = points_2d.permute(0, 3, 1, 2, 4).reshape(b, s, 2)
     w_all = weights.permute(0, 3, 1, 2, 4, 5).reshape(
         b, s, num_levels, num_groups
@@ -143,24 +148,44 @@ def deformable_aggregation(
         (loc[..., 0] > 0.0) & (loc[..., 0] < 1.0)
         & (loc[..., 1] > 0.0) & (loc[..., 1] < 1.0)
     )
-    if gather_capacity is not None and gather_capacity < s:
-        m = gather_capacity
-        score = in_range.float() * (2.0 * s) - torch.arange(
-            s, dtype=torch.float32, device=dev
-        )
-        _, sel = topk_stable(score, m)  # [b, m]
-        loc = torch.gather(loc, 1, sel[..., None].expand(b, m, 2))
-        w_all = torch.gather(
-            w_all, 1, sel[..., None, None].expand(b, m, num_levels, num_groups)
-        )
-        sel_valid = torch.gather(in_range, 1, sel)
-        anchor_idx = sel // num_pts
-    else:
-        m = s
-        sel_valid = in_range
+    if gather_capacity is None or gather_capacity >= s:
         anchor_idx = (torch.arange(s, device=dev) // num_pts)[None].expand(
             b, s
         )
+        return loc, w_all, in_range, anchor_idx
+    m = gather_capacity
+    score = in_range.float() * (2.0 * s) - torch.arange(
+        s, dtype=torch.float32, device=dev
+    )
+    _, sel = topk_stable(score, m)  # [b, m]
+    loc = torch.gather(loc, 1, sel[..., None].expand(b, m, 2))
+    w_all = torch.gather(
+        w_all, 1, sel[..., None, None].expand(b, m, num_levels, num_groups)
+    )
+    return loc, w_all, torch.gather(in_range, 1, sel), sel // num_pts
+
+
+def deformable_aggregation_plain(
+    col_feats: torch.Tensor,  # [bs, cams, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    points_2d: torch.Tensor,  # [bs, A, P, cams, 2]
+    weights: torch.Tensor,  # [bs, A, P, cams, L, G]
+    gather_capacity: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused multi-camera multi-scale deformable aggregation, plain
+    PyTorch: each slot that `dfa_slots` keeps samples every level
+    bilinearly (in the storage type), is weighted per group and sums
+    into its anchor. Returns [bs, A, C] float32."""
+    bs, cams, total_hw, c = col_feats.shape
+    num_anchor = points_2d.shape[1]
+    num_levels = spatial_shapes.num_levels
+    num_groups = weights.shape[-1]
+    group_dims = c // num_groups
+    b = bs * cams
+    dev = col_feats.device
+    loc, w_all, sel_valid, anchor_idx = dfa_slots(points_2d, weights,
+                                                  gather_capacity)
+    m = loc.shape[1]
 
     table = col_feats.reshape(b * total_hw, c)
     batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
@@ -182,6 +207,96 @@ def deformable_aggregation(
     out.index_add_(0, rows.reshape(-1),
                    (out_c * sel_valid[..., None].float()).reshape(-1, c))
     return out.reshape(bs, cams, num_anchor, c).sum(dim=1)
+
+
+def _check_devices(what: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: expected CPU or CUDA tensors, got {dev}")
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+
+
+def _check_storage(what: str, t: torch.Tensor, name: str) -> None:
+    if t.dtype not in _kernels.DTYPE_CODE:
+        raise TypeError(f"{what}: {name} dtype {t.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _level_dims(what: str, spatial_shapes: SpatialShapes, total_hw: int):
+    """Level heights, widths and start rows as the kernels read them."""
+    if spatial_shapes.num_levels > MAX_LEVELS:
+        raise ValueError(f"{what}: at most {MAX_LEVELS} levels, got "
+                         f"{spatial_shapes.num_levels}")
+    if spatial_shapes.total != total_hw:
+        raise ValueError(f"{what}: spatial shapes cover "
+                         f"{spatial_shapes.total} rows, features {total_hw}")
+    return ([h for h, _ in spatial_shapes.shapes]
+            + [w for _, w in spatial_shapes.shapes]
+            + list(spatial_shapes.start_indices))
+
+
+def deformable_aggregation(
+    col_feats: torch.Tensor,  # [bs, cams, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    points_2d: torch.Tensor,  # [bs, A, P, cams, 2]
+    weights: torch.Tensor,  # [bs, A, P, cams, L, G]
+    gather_capacity: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused multi-camera multi-scale deformable aggregation ->
+    [bs, A, C] float32 (see `deformable_aggregation_plain`).
+
+    Points and weights share the features' dtype (float32 or bfloat16)
+    and may have any strides; the features must be contiguous."""
+    what = "deformable_aggregation"
+    _check_devices(what, col_feats, points_2d, weights)
+    _check_storage(what, col_feats, "col_feats")
+    if points_2d.dtype != col_feats.dtype or weights.dtype != col_feats.dtype:
+        raise TypeError(f"{what}: points {points_2d.dtype} and weights "
+                        f"{weights.dtype} must match col_feats "
+                        f"{col_feats.dtype}")
+    bs, cams, total_hw, c = col_feats.shape
+    _, num_anchor, num_pts = points_2d.shape[:3]
+    num_levels, num_groups = weights.shape[-2:]
+    if (tuple(points_2d.shape) != (bs, num_anchor, num_pts, cams, 2)
+            or tuple(weights.shape[:4]) != (bs, num_anchor, num_pts, cams)
+            or num_levels != spatial_shapes.num_levels
+            or c % num_groups):
+        raise ValueError(f"{what}: shapes {tuple(col_feats.shape)}, "
+                         f"{tuple(points_2d.shape)}, {tuple(weights.shape)} "
+                         "do not fit together")
+    levels = _level_dims(what, spatial_shapes, total_hw)
+    if col_feats.device.type == "cpu":
+        return deformable_aggregation_plain(
+            col_feats, spatial_shapes, points_2d, weights, gather_capacity)
+    entries = cams * num_pts * num_levels
+    if entries * (4 + num_groups) * 4 + entries * 5 * 4 > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {entries} samples per anchor do not fit "
+                         "in shared memory")
+    s = num_anchor * num_pts
+    cap = -1 if gather_capacity is None or gather_capacity >= s \
+        else gather_capacity
+    dev = col_feats.device
+    counted = (torch.empty((bs * cams, s), dtype=torch.uint8, device=dev)
+               if cap >= 0 else None)
+    out = torch.empty((bs, num_anchor, c), dtype=torch.float32, device=dev)
+    dims = [bs, cams, num_anchor, num_pts, num_levels, num_groups, c,
+            total_hw, cap] + levels
+    strides = list(points_2d.stride()) + list(weights.stride())
+    lib = _kernels.load("sampling")
+    code = lib.simpb_dfa(
+        *map(_kernels.ptr, (col_feats, points_2d, weights, counted, out)),
+        _kernels.int_array(dims),
+        _kernels.int_array(strides, ctypes.c_longlong),
+        _kernels.DTYPE_CODE[col_feats.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(col_feats)),
+    )
+    _kernels.check(code, what)
+    _LAUNCHES["deformable_aggregation"] += 1
+    return out
 
 
 def _window_base(px, py, keep, ph, pw, hlim, wlim):
@@ -318,25 +433,23 @@ def msda_patch(
     return torch.einsum("bqhc,hc->bqc", acc, head_mask)
 
 
-def _msda_patch_sel(
-    value: torch.Tensor,  # [B, ΣHW, C]
+def msda_sel_windows(
+    total_hw: int,
     spatial_shapes: SpatialShapes,
-    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    loc: torch.Tensor,  # [B, Q, L, n, 2]
     attw: torch.Tensor,  # [B, Q, L, n]
-    heads: int,
     patch_h: int,
     patch_w: int,
     sel_levels: int,
 ):
-    """`msda_patch` at each query's top-`sel_levels` levels by attention
-    mass; per-level constants come from small lookup vectors. Returns
-    (sampled [B, Q, heads, C], wsum [B, Q, heads])."""
-    b, total_hw, c = value.shape
-    q, num_levels, n = loc.shape[1:4]
-    num_points = n // heads
+    """Where `_msda_patch_sel` samples: each query's top-`sel_levels`
+    levels by attention mass and their windows. Returns (rows [B, Q, k,
+    ph, pw] of the flat [B * ΣHW] value table, px, py, keep, a_s
+    [B, Q, k, n], base_x, base_y [B, Q, k])."""
+    b, q, num_levels, n = loc.shape[:4]
     k = sel_levels
     ph, pw = patch_h, patch_w
-    dev = value.device
+    dev = loc.device
     h_vec = torch.tensor([h_ for h_, _ in spatial_shapes.shapes], device=dev)
     w_vec = torch.tensor([w_ for _, w_ in spatial_shapes.shapes], device=dev)
     start_vec = torch.tensor(spatial_shapes.start_indices, device=dev)
@@ -365,6 +478,30 @@ def _msda_patch_sel(
         + (base_y[..., None, None] + dy) * ww[..., None, None]
         + base_x[..., None, None] + dx
     )  # [B, Q, k, ph, pw]
+    return rows, px, py, keep, a_s, base_x, base_y
+
+
+def _msda_patch_sel_plain(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    attw: torch.Tensor,  # [B, Q, L, n]
+    heads: int,
+    patch_h: int,
+    patch_w: int,
+    sel_levels: int,
+):
+    """`msda_patch` at each query's top-`sel_levels` levels by attention
+    mass, plain PyTorch; per-level constants come from small lookup
+    vectors. Returns (sampled [B, Q, heads, C], wsum [B, Q, heads]),
+    float32."""
+    b, total_hw, c = value.shape
+    q, n = loc.shape[1], loc.shape[3]
+    num_points = n // heads
+    k = sel_levels
+    ph, pw = patch_h, patch_w
+    rows, px, py, keep, a_s, base_x, base_y = msda_sel_windows(
+        total_hw, spatial_shapes, loc, attw, ph, pw, k)
     patch = _take_rows(value.reshape(b * total_hw, c), rows).reshape(
         b, q, k, ph * pw, c
     )
@@ -372,3 +509,84 @@ def _msda_patch_sel(
     wpix = wpix.reshape(b, q, k, heads, num_points, ph * pw).sum(4)
     weighted = torch.einsum("bqkhe,bqkec->bqhc", wpix, patch.float())
     return weighted, wpix.sum(-1).sum(2)
+
+
+def _msda_patch_sel(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    attw: torch.Tensor,  # [B, Q, L, n]
+    heads: int,
+    patch_h: int,
+    patch_w: int,
+    sel_levels: int,
+):
+    """Windowed MSDA at each query's top-`sel_levels` levels (see
+    `_msda_patch_sel_plain`) -> (sampled [B, Q, heads, C], wsum
+    [B, Q, heads]), float32. Value float32 or bfloat16, locations and
+    weights float32, all contiguous; every level must hold the window."""
+    what = "_msda_patch_sel"
+    _check_devices(what, value, loc, attw)
+    _check_storage(what, value, "value")
+    for name, t in (("loc", loc), ("attw", attw)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    b, total_hw, c = value.shape
+    q, num_levels, n = loc.shape[1:4]
+    if (tuple(loc.shape) != (b, q, num_levels, n, 2)
+            or tuple(attw.shape) != (b, q, num_levels, n)
+            or num_levels != spatial_shapes.num_levels
+            or n % heads or heads > MAX_HEADS
+            or not 0 < sel_levels <= num_levels):
+        raise ValueError(f"{what}: shapes {tuple(value.shape)}, "
+                         f"{tuple(loc.shape)}, {tuple(attw.shape)} with "
+                         f"{heads} heads (at most {MAX_HEADS}) and "
+                         f"{sel_levels} levels do not fit together")
+    if patch_w % 2 or any(h_ < patch_h or w_ < patch_w
+                          for h_, w_ in spatial_shapes.shapes):
+        raise ValueError(f"{what}: a {patch_h}x{patch_w} window (even "
+                         f"width) must fit every level of "
+                         f"{spatial_shapes.shapes}")
+    levels = _level_dims(what, spatial_shapes, total_hw)
+    if value.device.type == "cpu":
+        return _msda_patch_sel_plain(value, spatial_shapes, loc, attw, heads,
+                                     patch_h, patch_w, sel_levels)
+    k = sel_levels
+    if (k * heads * patch_h * patch_w + 5 * k * n) * 4 > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: the window weights do not fit in shared "
+                         "memory")
+    dev = value.device
+    sampled = torch.empty((b, q, heads, c), dtype=torch.float32, device=dev)
+    wsum = torch.empty((b, q, heads), dtype=torch.float32, device=dev)
+    dims = [b, q, num_levels, n, heads, c, total_hw, k, patch_h,
+            patch_w] + levels
+    lib = _kernels.load("sampling")
+    code = lib.simpb_msda_sel(
+        *map(_kernels.ptr, (value, loc, attw, sampled, wsum)),
+        _kernels.int_array(dims), _kernels.DTYPE_CODE[value.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(value)),
+    )
+    _kernels.check(code, what)
+    _LAUNCHES["msda_patch_sel"] += 1
+    return sampled, wsum
+
+
+# the kernels of this module: (name, wrapper, plain version, the TPU op
+# it replaces, an XLA gather there)
+KERNELS = (
+    ("deformable_aggregation", deformable_aggregation,
+     deformable_aggregation_plain, "simpb_tpu/ops/sampling.py:350"),
+    ("msda_patch_sel", _msda_patch_sel, _msda_patch_sel_plain,
+     "simpb_tpu/ops/sampling.py:892"),
+)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)

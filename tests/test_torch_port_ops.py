@@ -125,25 +125,50 @@ def test_bilinear_sample():
                     feat, loc))
 
 
-@pytest.mark.parametrize("capacity", [None, 40])
-def test_deformable_aggregation(capacity):
+SHAPES_MAIN = ((64, 176), (32, 88), (16, 44), (8, 22))  # 704x256 FPN
+
+
+@pytest.mark.parametrize("capacity,dtype", [
+    (None, "float32"), (40, "float32"),
+    pytest.param(None, "bfloat16", id="bf16-None"),
+    pytest.param(100, "bfloat16", id="bf16-100"),
+], ids=["None", "40", "bf16-None", "bf16-100"])
+def test_deformable_aggregation(capacity, dtype):
     """Border-straddling locations exercise the whole-sample drop; a
-    capacity below the in-range count exercises the compaction."""
+    capacity below the in-range count exercises the compaction. In bf16
+    (the main path's type: positions and weights in the features' dtype)
+    at the main path's level sizes, where bf16 steps by up to 0.5 px, the
+    port rounds where JAX rounds: 1e-2 of the output range, the bf16
+    bound of the plain trunk kernels below (fp32 positions would be off
+    by about a third of it)."""
     rng = np.random.default_rng(4)
-    ss = jfmt.SpatialShapes(SHAPES_TINY)
+    bf16 = dtype == "bfloat16"
+    shapes = SHAPES_MAIN if bf16 else SHAPES_TINY
+    ss = jfmt.SpatialShapes(shapes)
+    anchors = 32 if bf16 else 8
     col = rng.normal(size=(1, 6, ss.total, 16)).astype(np.float32)
-    pts = rng.uniform(-0.3, 1.3, (1, 8, 13, 6, 2)).astype(np.float32)
-    w = rng.uniform(size=(1, 8, 13, 6, 4, 4)).astype(np.float32)
+    pts = rng.uniform(-0.3, 1.3, (1, anchors, 13, 6, 2)).astype(np.float32)
+    w = rng.uniform(size=(1, anchors, 13, 6, 4, 4)).astype(np.float32)
+    if bf16:
+        jargs = [jnp.asarray(a, jnp.bfloat16) for a in (col, pts, w)]
+        targs = [_t(a).to(torch.bfloat16) for a in (col, pts, w)]
+    else:
+        jargs, targs = (col, pts, w), [_t(a) for a in (col, pts, w)]
     ref = jax.jit(lambda c, p, w_: jsmp.deformable_aggregation(
-        c, ss, p, w_, gather_capacity=capacity))(col, pts, w)
+        c, ss, p, w_, gather_capacity=capacity))(*jargs)
     got = tsmp.deformable_aggregation(
-        _t(col), tfmt.SpatialShapes(SHAPES_TINY), _t(pts), _t(w),
+        targs[0], tfmt.SpatialShapes(shapes), *targs[1:],
         gather_capacity=capacity,
     )
-    _close(got, ref)
+    if bf16:
+        ref = np.asarray(ref, np.float32)
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+    else:
+        _close(got, ref)
     if capacity is not None:  # compaction really dropped slots
         full = tsmp.deformable_aggregation(
-            _t(col), tfmt.SpatialShapes(SHAPES_TINY), _t(pts), _t(w))
+            targs[0], tfmt.SpatialShapes(shapes), *targs[1:])
         assert (full - got).abs().max() > 1e-3
 
 

@@ -245,13 +245,16 @@ def test_from_jax_variables_strict(slice_run):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither JAX nor the JAX package."""
+    """The port (every module `walk_packages` finds, the probe tool
+    among them) and chip_smoke.py import neither JAX nor the JAX
+    package."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import simpb_tpu_torch
         for m in pkgutil.walk_packages(simpb_tpu_torch.__path__,
                                        "simpb_tpu_torch."):
             importlib.import_module(m.name)
+        assert "simpb_tpu_torch.tools.mosaic_probe" in sys.modules
         import chip_smoke
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "simpb_tpu")]
