@@ -7,17 +7,21 @@ Phases, each printing one JSON line:
 
 1. env     — the card (nvidia-smi name and power limit), torch and CUDA
              versions; TF32 off for the whole run.
-2. build   — compiles the three sources simpb_tpu_torch/csrc/{conv_fused,
-             mosaic_probe,sampling}.cu with nvcc for sm_90a, one nvcc
-             each, all started together.
+2. build   — compiles the four sources simpb_tpu_torch/csrc/{conv_fused,
+             conv_tc,mosaic_probe,sampling}.cu with nvcc for sm_90a, one
+             nvcc each, all started together.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
              version at every full-width shape of the main path, fp32
-             and bf16, with its time (CUDA events, warm), the plain
-             version's, the cuDNN call computing the same function where
-             one exists (timed only), and the least time the card could
-             take (bytes over 3.35 TB/s or operations over the peak rate
-             of the type, published H100 SXM figures).
+             and bf16 (bf16 K3 and K4 are the tensor-core kernels of
+             conv_tc.cu, fp32 the CUDA-core ones of conv_fused.cu), with
+             its time (CUDA events, warm), the plain version's, the cuDNN
+             call computing the same function where one exists (timed
+             only), for K3 the unfused cuDNN chain of three convs with
+             bias, ReLU and the residual add (`cudnn_chain_ms`, timed
+             only), and the least time the card could take (bytes over
+             3.35 TB/s or operations over the peak rate of the type,
+             published H100 SXM figures).
 4. probes  — the probe tool's path (`simpb_tpu_torch.tools.mosaic_probe`,
              the Hopper counterparts of tools/mosaic_probe.py) with the
              launch counts set to 0 before it and read after; then each
@@ -43,6 +47,9 @@ Phases, each printing one JSON line:
 7. parity  — the same slice in fp32 once through the kernels and once
              through their plain versions (trunk and sampling); head
              outputs compared.
+8. trunk   — ResNet-50 + FPN at the main path's input in bf16, once
+             through the kernels and once through their plain versions,
+             each held against the fp32 plain trunk per FPN level.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -77,7 +84,19 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
 # MSDA computes in fp32 whatever the value dtype.
 SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame
-SOURCES = ("conv_fused", "mosaic_probe", "sampling")
+SOURCES = ("conv_fused", "conv_tc", "mosaic_probe", "sampling")
+# the source of each trunk kernel on the main path (bf16)
+TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_fused",
+                "bottleneck": "conv_tc", "conv3x3_bias": "conv_tc"}
+# bf16 trunk check: per FPN level, the kernels' relative L2 error
+# against the fp32 plain trunk may be at most TRUNK_RATIO times the plain
+# bf16 route's plus TRUNK_FLOOR. Both bf16 routes round the same
+# intermediates at the same points, so their errors are both the bf16
+# rounding of the activations; only the fp32 sums run in another order,
+# which flips a rounding now and then, and such flips compound through
+# 16 blocks and the FPN: 1.5 leaves room for that. The floor, a tenth of
+# a bf16 ulp (2^-8), covers a level whose plain error happens to be small.
+TRUNK_RATIO, TRUNK_FLOOR = 1.5, 4e-4
 
 # ResNet-50 stages at 704x256: (mid channels, out channels, output H, W,
 # stride of the stage head, blocks)
@@ -87,6 +106,43 @@ STAGES = ((64, 256, 64, 176, 1, 3), (128, 512, 32, 88, 2, 4),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_summary(log: str):
+    """One line per kernel instance of an `nvcc -Xptxas -v` report:
+    its name with the template's integer arguments, registers, stack
+    and spills."""
+    import re
+
+    def demangle(sym):
+        # the length-prefixed source name ending in _kernel, then the
+        # integer template arguments that follow it
+        for m in re.finditer(r"(?=\d{1,3}[A-Za-z_])", sym):
+            for k in (3, 2, 1):
+                digits = sym[m.start():m.start() + k]
+                rest = sym[m.start() + k:]
+                if digits.isdigit() and rest[int(digits) - 7:int(digits)] \
+                        == "_kernel":
+                    tail = rest[int(digits):].split("EEv")[0]
+                    args = (["bf16"] if "bfloat16" in tail else
+                            ["f32"] if tail.startswith("If") else []) \
+                        + re.findall(r"L[ib](\d+)E", tail)
+                    return rest[:int(digits)] + (
+                        f"<{','.join(args)}>" if args else "")
+        return sym
+
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = demangle(m.group(1))
+        elif "spill" in ln:
+            out.append(f"{name}: {ln.strip()}")
+        elif "registers" in ln:
+            out[-1:] = [f"{out[-1]}; {ln.split(':', 1)[1].strip()}"] \
+                if out and out[-1].startswith(name) else \
+                [*out, f"{name}: {ln.split(':', 1)[1].strip()}"]
+    return out
 
 
 def card_line() -> str:
@@ -116,7 +172,8 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 def kernel_cases():
     """(name, calls per frame, shapes) for every distinct full-width
-    call of the main path, and an odd-sized max-pool (no call a frame)."""
+    call of the main path, an odd-sized max-pool and the tiny config's
+    smallest maps (no call a frame)."""
     cases = [("maxpool_3x3_s2", 1, dict(x=(6, 128, 352, 64))),
              ("maxpool_3x3_s2", 0, dict(x=(6, 127, 351, 64)))]
     cin = 64
@@ -129,6 +186,13 @@ def kernel_cases():
         cases.append(("conv3x3_bias", 1, dict(x=(6, h, w, 256), c=256,
                                               co=256)))
         cin = co
+    # no call a frame: the last two stages of simpb_tiny (64x32 input),
+    # maps smaller than one tile
+    cases += [("bottleneck", 0, dict(x=(6, 2, 4, 1024), c=1024, cm=256,
+                                     co=1024, stride=1)),
+              ("bottleneck", 0, dict(x=(6, 1, 2, 2048), c=2048, cm=512,
+                                     co=2048, stride=1)),
+              ("conv3x3_bias", 0, dict(x=(6, 1, 2, 256), c=256, co=256))]
     return cases
 
 
@@ -199,12 +263,37 @@ def library_call(case, args):
     return None
 
 
+def cudnn_chain(case, args):
+    """K3's function as the unfused cuDNN chain (three bf16 convs with
+    bias, ReLU, the residual add), timed as a yardstick only; None for
+    the other kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    if case[0] != "bottleneck":
+        return None
+    x, (w1, b1, w2, b2, w3, b3) = args
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)
+    w1c = w1.t()[:, :, None, None].contiguous(memory_format=cl)
+    w2c = w2.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    w3c = w3.t()[:, :, None, None].contiguous(memory_format=cl)
+    b1c, b2c, b3c = (t.to(x.dtype) for t in (b1, b2, b3))
+
+    def chain():
+        y = torch.relu(F.conv2d(xc, w1c, b1c))
+        y = torch.relu(F.conv2d(y, w2c, b2c, padding=1))
+        return torch.relu(F.conv2d(y, w3c, b3c) + xc)
+    return chain
+
+
 def phase_kernels(torch, conv_fused):
     gen = torch.Generator(device="cuda").manual_seed(0)
     wrappers = {n: (w, p, tpu) for n, w, p, tpu in conv_fused.KERNELS}
     # per kernel, over a frame's calls at bf16 (the main path's type);
     # `bound` sums each call's bound by what bounds that call
     summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       cudnn_chain_ms=0.0,
                        bound={"bytes": 0.0, "operations": 0.0})
                for n in wrappers}
     for case in kernel_cases():
@@ -226,6 +315,8 @@ def phase_kernels(torch, conv_fused):
             plain_ms = cuda_ms(lambda: plain(*args))
             lib = library_call(case, args)
             lib_ms = cuda_ms(lib) if lib is not None else None
+            chain = cudnn_chain(case, args)
+            chain_ms = cuda_ms(chain) if chain is not None else None
             byts, ops = work(case, args[0].element_size())
             b_ms = byts / PEAK_BYTES * 1e3
             o_ms = ops / PEAK_OPS[dname] * 1e3
@@ -234,6 +325,7 @@ def phase_kernels(torch, conv_fused):
                       shape=list(a["x"]), per_frame=count,
                       max_abs_err=err, tol=TOL[dname] * scale, ok=ok,
                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      cudnn_chain_ms=chain_ms,
                       bound_ms=max(b_ms, o_ms), bound_by=bound_by))
             if not ok:
                 raise AssertionError(f"{name} {dname} {a['x']}: max abs err "
@@ -247,6 +339,8 @@ def phase_kernels(torch, conv_fused):
                 s["library_ms"] = (None if lib_ms is None or
                                    s["library_ms"] is None else
                                    s["library_ms"] + count * lib_ms)
+                s["cudnn_chain_ms"] = (None if chain_ms is None else
+                                       s["cudnn_chain_ms"] + count * chain_ms)
             del args, got, ref
     return summary, wrappers
 
@@ -670,6 +764,52 @@ def phase_parity(torch):
               tf32=False, atol=SLICE_ATOL, rtol=SLICE_RTOL, max_abs_err=errs))
 
 
+def phase_trunk(torch):
+    """ResNet-50 + FPN at the main path's input in bf16 through the
+    kernels and through their plain versions, each against the fp32
+    plain trunk: per FPN level the kernels' relative L2 error may be at
+    most TRUNK_RATIO times the plain route's plus TRUNK_FLOOR. The
+    kernel phase's checks use random activations; this one the trunk's
+    own."""
+    import dataclasses
+
+    from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
+    from simpb_tpu_torch.training.evaluate import build_model
+
+    cfg = dataclasses.replace(simpb_r50_704x256_fast(),
+                              backbone_fused_infer=True)
+    model = build_model(cfg, device="cuda", seed=0)
+    w, h = cfg.input_size
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(6, h, w, 3, generator=gen, device="cuda")
+
+    def trunk(dtype):
+        with torch.inference_mode():
+            return [f.float() for f in model.img_neck(
+                model.img_backbone(x, dtype), dtype)]
+
+    with plain_route():
+        ref = trunk(torch.float32)
+        plain = trunk(torch.bfloat16)
+    kern = trunk(torch.bfloat16)
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    levels = []
+    for lvl, (k, p, r) in enumerate(zip(kern, plain, ref)):
+        ek, ep = rel(k, r), rel(p, r)
+        ok = bool(torch.isfinite(k).all()) and k.shape == r.shape and \
+            ek <= TRUNK_RATIO * ep + TRUNK_FLOOR
+        levels.append(dict(level=lvl, shape=list(k.shape), kernels=ek,
+                           plain_bf16=ep, ok=ok))
+    emit(dict(phase="trunk", config="simpb_r50_704x256_fast",
+              dtype="bfloat16", ratio=TRUNK_RATIO, floor=TRUNK_FLOOR,
+              rel_l2_vs_fp32_plain=levels))
+    bad = [lv for lv in levels if not lv["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 trunk check failed: {bad}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -693,9 +833,7 @@ def main() -> int:
     ptxas = {}
     for name in SOURCES:
         log = _kernels.BUILD_DIR / f"{name}.ptxas.txt"
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln] \
-            if log.exists() else []
+        ptxas[name] = ptxas_summary(log.read_text()) if log.exists() else []
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries=[str(p.relative_to(_kernels.PKG_DIR.parent))
                          for p in libs],
@@ -707,18 +845,21 @@ def main() -> int:
     sampling = phase_sampling(torch, calls, launches)
     del calls
     phase_parity(torch)
+    phase_trunk(torch)
 
     kernels = []
     for name, s in summary.items():
         kernels.append(dict(
             name=name, route="cuda",
-            source="simpb_tpu_torch/csrc/conv_fused.cu",
+            source=f"simpb_tpu_torch/csrc/{TRUNK_SOURCE[name]}.cu",
             replaces=wrappers[name][2], launches=launches[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"],
             bound_ms=sum(s["bound"].values()),
             bound_by=max(s["bound"], key=s["bound"].get),
             library_ms=s["library_ms"],
+            **({"cudnn_chain_ms": s["cudnn_chain_ms"]}
+               if s["cudnn_chain_ms"] is not None else {}),
         ))
     kernels += list(sampling.values()) + list(probes.values())
     if len(kernels) != 13:

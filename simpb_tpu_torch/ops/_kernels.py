@@ -44,6 +44,14 @@ SIGNATURES = {
         ),
         "simpb_conv3x3_bias": ((P, P, P, P) + (I,) * 8 + (P,), I),
     },
+    "conv_tc": {
+        # x, w, bias, y; B, H, W, C, Co, th, tw, mt, bk, wm, smem;
+        # stream
+        "simpb_conv3x3_tc": ((P,) * 4 + (I,) * 11 + (P,), I),
+        # x, w1, b1, w2, b2, w3, b3, y; B, H, W, C, Cm, th, tw, mt, bk,
+        # wm a/b/c, smem; stream
+        "simpb_bottleneck_tc": ((P,) * 8 + (I,) * 13 + (P,), I),
+    },
     "mosaic_probe": {
         "simpb_probe_lane": PROBE_SIG,
         "simpb_probe_chunk": PROBE_SIG,

@@ -2,8 +2,12 @@
 PyTorch versions.
 
 Port of `simpb_tpu/ops/conv_fused.py`. Four ops, each a hand-written
-CUDA kernel for Hopper in `csrc/conv_fused.cu` (see the notes there on
-what bounds each one and how the design answers it):
+CUDA kernel for Hopper in `csrc/conv_fused.cu`; in bf16, K3 and K4 run
+on the tensor cores instead, `csrc/conv_tc.cu`, with their tiles chosen
+by the planner below (`plan_bottleneck_tc`, `plan_conv3x3_tc`). The
+kernel is picked by dtype alone; a bf16 shape the planner refuses
+raises `ValueError`. See the sources' notes on what bounds each kernel
+and how its design answers it:
 
 * `maxpool_3x3_s2_fused` — 3x3/s2/p1 max-pool, -inf padding (K1);
 * `bottleneck_down_fused_infer` — stage-head bottleneck with the strided
@@ -20,7 +24,9 @@ Each wrapper counts its kernel launches in its `launches` attribute.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import functools
+import itertools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -165,6 +171,181 @@ def _bottleneck_tile(h: int, w: int, cm: int, stride: int, itemsize: int):
     return min(t, h), min(t, w)
 
 
+# ----------------------------------------------------------------------
+# launch planner of the bf16 tensor-core kernels (csrc/conv_tc.cu)
+# ----------------------------------------------------------------------
+# The constants mirror conv_tc.cu: 256 threads (8 warps) a block, weight
+# chunks bk rows deep in a ring of TC_STAGES stages, every shared-memory
+# row padded by TC_PAD bf16; a warp owns a (16 mt) x 64 tile of a pass
+# and a pass lays 8 warps out wm x (8 / wm).
+TC_WARPS, TC_STAGES, TC_PAD = 8, 3, 8
+TC_BK = (32, 64)  # chunk depths (conv_tc.cu instances)
+TC_CHANNELS = 64  # every channel count must be a multiple of it
+TC_MT = (1, 2, 4)  # 16-row sub-tiles a warp may own (conv_tc.cu instances)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SM_SMEM = 228 * 1024  # shared memory of one SM; a block reserves 1 KB more
+# Planning model, not a measurement: an SM reads shared memory at 128 B
+# a clock (about 1.7 GHz). Three rates are fitted so that the model's
+# picks come closest to the fastest of tools/conv_tc_sweep.py's timings
+# of every plan on the H100 (PERF.md): an SM sustains 35 % of its share
+# of the bf16 peak with mma.sync, a weight chunk costs a block 0.2 us of
+# barrier and pipeline latency, and the card serves 2 TB/s from L2.
+# Blocks an SM holds by registers, from nvcc's -Xptxas -v report (about
+# 64-128 registers for mt 1 and 2, 240 for mt 4, at 256 threads).
+_SM_FLOPS, _SM_SMEM_BYTES = 989e12 / SMS * 0.35, 2.2e11
+_CHUNK_S, _L2_BYTES = 2e-7, 2e12
+_REG_BLOCKS = {1: 2, 2: 2, 4: 1}
+_TILE_H, _TILE_W = (1, 2, 4, 8, 16), (8, 16)
+
+
+class TcPlan(NamedTuple):
+    """Tile and grid of one tensor-core launch: output tile th x tw;
+    mt 16-row sub-tiles per warp; bk, the depth of a weight chunk; wm,
+    the warp layout of each product (K4: one; K3: the reduce, the 3x3
+    and the expansion); the blocks of the grid and the dynamic shared
+    memory (bytes) of each."""
+    th: int
+    tw: int
+    mt: int
+    bk: int
+    wm: Tuple[int, ...]
+    blocks: int
+    smem: int
+
+
+def tc_pass_shape(mt: int, wm: int) -> Tuple[int, int]:
+    """(rows, columns) of one pass tile."""
+    return 16 * mt * wm, 64 * (TC_WARPS // wm)
+
+
+def _stage_elems(mt: int, wm: int, stream_a: bool, bk: int) -> int:
+    bm, bn = tc_pass_shape(mt, wm)
+    return (bm * (bk + TC_PAD) if stream_a else 0) + bk * (bn + TC_PAD)
+
+
+def _pick_wm(mt: int, bk: int, m: int, n: int) -> int:
+    """The warp layout of an m x n product: fewest padded rows, then
+    fewest passes, then the smallest ring stage; its pass width must
+    divide n."""
+    def key(wm):
+        bm, bn = tc_pass_shape(mt, wm)
+        mp = -(-m // bm)
+        return mp * bm, mp * (n // bn), _stage_elems(mt, wm, True, bk)
+
+    return min((wm for wm in (1, 2, 4, 8)
+                if n % tc_pass_shape(mt, wm)[1] == 0), key=key)
+
+
+def _product_cost(mt, wm, bk, m, n, k, stream_a):
+    """(MACs, bytes drawn from L2, bytes of ldmatrix reads, weight chunks)
+    of one product in a block: per 16-deep step a warp loads mt A and 4 B
+    8x8 quads of 512 B each."""
+    bm, bn = tc_pass_shape(mt, wm)
+    passes = -(-m // bm) * (n // bn)
+    macs = passes * bm * bn * k
+    l2 = passes * (k * bn + (bm * k if stream_a else 0)) * 2
+    smem = passes * (k // 16) * TC_WARPS * (mt + 4) * 512
+    return macs, l2, smem, passes * (k // bk)
+
+
+def _estimate(blocks, costs, mt, smem_bytes):
+    """Planning estimate of a launch's seconds: waves of blocks, each
+    bound by its products or its shared-memory reads, the blocks an SM
+    holds at once sharing it; or the launch's L2 traffic, if larger."""
+    macs, l2, reads, chunks = (sum(c[i] for c in costs) for i in range(4))
+    per_block = max(2 * macs / _SM_FLOPS, reads / _SM_SMEM_BYTES) \
+        + chunks * _CHUNK_S
+    per_sm = max(1, min(SM_SMEM // (smem_bytes + 1024), _REG_BLOCKS[mt]))
+    if blocks > SMS:
+        per_block *= -(-blocks // (SMS * per_sm)) * per_sm
+    return max(per_block, blocks * l2 / _L2_BYTES), macs
+
+
+def _check_tc_aligned(what, *tensors):
+    """The tensor-core kernels copy 16 bytes at a time (cp.async)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: bf16 tensor-core kernel needs "
+                             "16-byte aligned tensors")
+
+
+def _check_tc_channels(what, **chans):
+    for name, c in chans.items():
+        if c % TC_CHANNELS:
+            raise ValueError(f"{what}: bf16 tensor-core kernel needs {name} "
+                             f"a multiple of {TC_CHANNELS}, got {c}")
+
+
+def conv3x3_tc_plans(b: int, h: int, w: int, c: int, co: int):
+    """Every plan of K4's bf16 kernel that fits, as (estimate, plan)."""
+    _check_tc_channels("conv3x3_bias_fused", C=c, Co=co)
+    out = []
+    for th in _TILE_H:
+        for tw in _TILE_W:
+            for mt, bk, wm in itertools.product(TC_MT, TC_BK, (1, 2, 4, 8)):
+                bm, bn = tc_pass_shape(mt, wm)
+                if co % bn:
+                    continue
+                smem = 2 * ((th + 2) * (tw + 2) * (c + TC_PAD)
+                            + TC_STAGES * _stage_elems(mt, wm, False, bk))
+                if smem > _kernels.MAX_SMEM:
+                    continue
+                blocks = -(-h // th) * -(-w // tw) * (co // bn) * b
+                halo = (0, (th + 2) * (tw + 2) * c * 2, 0, 0)
+                est = _estimate(blocks, (_product_cost(
+                    mt, wm, bk, th * tw, bn, 9 * c, False), halo), mt, smem)
+                out.append((est + (smem,),
+                            TcPlan(th, tw, mt, bk, (wm,), blocks, smem)))
+    return out
+
+
+def bottleneck_tc_plans(b: int, h: int, w: int, c: int, cm: int):
+    """Every plan of K3's bf16 kernel that fits, as (estimate, plan)."""
+    _check_tc_channels("bottleneck_fused_infer", C=c, Cm=cm)
+    out = []
+    for th in _TILE_H:
+        for tw in _TILE_W:
+            p, rp = th * tw, (th + 2) * (tw + 2)
+            for mt, bk in itertools.product(TC_MT, TC_BK):
+                wm = (_pick_wm(mt, bk, rp, cm), _pick_wm(mt, bk, p, cm),
+                      _pick_wm(mt, bk, p, c))
+                stage = max(_stage_elems(mt, wm[0], True, bk),
+                            _stage_elems(mt, wm[1], False, bk),
+                            _stage_elems(mt, wm[2], False, bk))
+                smem = 2 * ((rp + p) * (cm + TC_PAD) + TC_STAGES * stage)
+                if smem > _kernels.MAX_SMEM:
+                    continue
+                blocks = -(-h // th) * -(-w // tw) * b
+                est = _estimate(blocks, (
+                    _product_cost(mt, wm[0], bk, rp, cm, c, True),
+                    _product_cost(mt, wm[1], bk, p, cm, 9 * cm, False),
+                    _product_cost(mt, wm[2], bk, p, c, cm, False)), mt, smem)
+                out.append((est + (smem,),
+                            TcPlan(th, tw, mt, bk, wm, blocks, smem)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv3x3_tc(b: int, h: int, w: int, c: int, co: int) -> TcPlan:
+    """Tiles of K4's bf16 kernel for an NHWC [b, h, w, c] input and co
+    outputs: one block per (tile, pass-wide slice of co, image)."""
+    plans = conv3x3_tc_plans(b, h, w, c, co)
+    if not plans:
+        raise ValueError(f"conv3x3_bias_fused: no bf16 tile fits C={c}")
+    return min(plans)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bottleneck_tc(b: int, h: int, w: int, c: int, cm: int) -> TcPlan:
+    """Tiles of K3's bf16 kernel for an NHWC [b, h, w, c] input with cm
+    mid channels: one block per (tile, image), all channels."""
+    plans = bottleneck_tc_plans(b, h, w, c, cm)
+    if not plans:
+        raise ValueError(f"bottleneck_fused_infer: no bf16 tile fits "
+                         f"Cm={cm}")
+    return min(plans)[1]
+
+
 def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
     """3x3/s2/p1 max-pool of an NHWC map, [B, H, W, C] ->
     [B, ceil(H/2), ceil(W/2), C]."""
@@ -222,12 +403,60 @@ def _bottleneck_cuda(x, folded, folded_down, stride, what):
     return y
 
 
+def _bottleneck_tc(x, folded, what):
+    """K3 in bf16 on the tensor cores (csrc/conv_tc.cu)."""
+    b, h, w, c = x.shape
+    w1, b1, w2, b2, w3, b3 = folded
+    cm = w1.shape[1]
+    plan = plan_bottleneck_tc(b, h, w, c, cm)
+    bf, f32 = torch.bfloat16, torch.float32
+    w1 = _param(w1, x, bf, (c, cm), what)
+    w2 = _param(w2, x, bf, (3, 3, cm, cm), what)
+    w3 = _param(w3, x, bf, (cm, c), what)
+    b1 = _param(b1, x, f32, (cm,), what)
+    b2 = _param(b2, x, f32, (cm,), what)
+    b3 = _param(b3, x, f32, (c,), what)
+    y = torch.empty_like(x)
+    _check_tc_aligned(what, x, w1, w2, w3, y)
+    _kernels.check(launch_bottleneck_tc(x, (w1, b1, w2, b2, w3, b3), y,
+                                        plan), what)
+    return y
+
+
+def launch_bottleneck_tc(x, folded, y, plan: TcPlan) -> int:
+    """Launch K3's bf16 kernel with `plan` on prepared tensors (bf16
+    weights, fp32 biases, all contiguous on x's card); returns the CUDA
+    error code."""
+    b, h, w, c = x.shape
+    return _kernels.load("conv_tc").simpb_bottleneck_tc(
+        *map(_kernels.ptr, (x, *folded, y)), b, h, w, c, folded[0].shape[1],
+        plan.th, plan.tw, plan.mt, plan.bk, *plan.wm, plan.smem,
+        ctypes.c_void_p(_kernels.stream_ptr(x)))
+
+
+def launch_conv3x3_tc(x, kernel, bias, y, plan: TcPlan) -> int:
+    """Launch K4's bf16 kernel with `plan` on prepared tensors; returns
+    the CUDA error code."""
+    b, h, w, c = x.shape
+    return _kernels.load("conv_tc").simpb_conv3x3_tc(
+        *map(_kernels.ptr, (x, kernel, bias, y)), b, h, w, c, y.shape[-1],
+        plan.th, plan.tw, plan.mt, plan.bk, *plan.wm, plan.smem,
+        ctypes.c_void_p(_kernels.stream_ptr(x)))
+
+
 def bottleneck_fused_infer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     """One stride-1 bottleneck with identity residual, [B, H, W, C] ->
-    [B, H, W, C]; compute in x.dtype with fp32 accumulation."""
+    [B, H, W, C]; compute in x.dtype with fp32 accumulation. On the card
+    bf16 runs on the tensor cores (csrc/conv_tc.cu), fp32 on the CUDA
+    cores (csrc/conv_fused.cu)."""
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded)
-    y = _bottleneck_cuda(x, folded, None, 1, "bottleneck_fused_infer")
+    what = "bottleneck_fused_infer"
+    if x.dtype == torch.bfloat16:
+        _check_act(x, what)
+        y = _bottleneck_tc(x, folded, what)
+    else:
+        y = _bottleneck_cuda(x, folded, None, 1, what)
     bottleneck_fused_infer.launches += 1
     return y
 
@@ -250,27 +479,34 @@ def bottleneck_down_fused_infer(
 def conv3x3_bias_fused(
     x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
-    """Same-padding 3x3 conv + bias; kernel [3, 3, C, Co], bias [Co]."""
+    """Same-padding 3x3 conv + bias; kernel [3, 3, C, Co], bias [Co]. On
+    the card bf16 runs on the tensor cores (csrc/conv_tc.cu), fp32 on the
+    CUDA cores (csrc/conv_fused.cu)."""
     if x.device.type == "cpu":
         return conv3x3_bias_plain(x, kernel, bias)
     what = "conv3x3_bias_fused"
     _check_act(x, what)
     b, h, w, c = x.shape
     co = kernel.shape[-1]
-    if c % KC:
+    if x.dtype == torch.bfloat16:
+        plan = plan_conv3x3_tc(b, h, w, c, co)
+    elif c % KC:
         raise ValueError(f"{what}: C must be a multiple of {KC}, got {c}")
     kernel = _param(kernel, x, x.dtype, (3, 3, c, co), what)
     bias = _param(bias, x, torch.float32, (co,), what)
-    th, tw = min(8, h), min(8, w)
-    while th > 1 and _smem_bytes((th + 2) * (tw + 2), 0, c,
-                                 x.element_size()) > _kernels.MAX_SMEM:
-        th, tw = max(1, th // 2), max(1, tw // 2)
     y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
-    lib = _kernels.load("conv_fused")
-    code = lib.simpb_conv3x3_bias(
-        *map(_kernels.ptr, (x, kernel, bias, y)), b, h, w, c, co, th, tw,
-        _kernels.DTYPE_CODE[x.dtype], ctypes.c_void_p(_kernels.stream_ptr(x)),
-    )
+    if x.dtype == torch.bfloat16:
+        _check_tc_aligned(what, x, kernel, y)
+        code = launch_conv3x3_tc(x, kernel, bias, y, plan)
+    else:
+        th, tw = min(8, h), min(8, w)
+        while th > 1 and _smem_bytes((th + 2) * (tw + 2), 0, c,
+                                     x.element_size()) > _kernels.MAX_SMEM:
+            th, tw = max(1, th // 2), max(1, tw // 2)
+        code = _kernels.load("conv_fused").simpb_conv3x3_bias(
+            *map(_kernels.ptr, (x, kernel, bias, y)), b, h, w, c, co, th,
+            tw, _kernels.DTYPE_CODE[x.dtype],
+            ctypes.c_void_p(_kernels.stream_ptr(x)))
     _kernels.check(code, what)
     conv3x3_bias_fused.launches += 1
     return y
