@@ -12,12 +12,13 @@ Phases, each printing one JSON line:
              nvcc each, all started together.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
-             version at every full-width shape of the main path, fp32
-             and bf16 (bf16 K3 and K4 are the tensor-core kernels of
-             conv_tc.cu, fp32 the CUDA-core ones of conv_fused.cu), with
-             its time (CUDA events, warm), the plain version's, the cuDNN
-             call computing the same function where one exists (timed
-             only), for K3 the unfused cuDNN chain of three convs with
+             version at every full-width shape of the main path and at
+             the tiny config's smallest maps, fp32 and bf16 (bf16 K2-K4
+             are the tensor-core kernels of conv_tc.cu, fp32 the
+             CUDA-core ones of conv_fused.cu), with its time (CUDA
+             events, warm), the plain version's, the cuDNN call
+             computing the same function where one exists (timed only),
+             for K2 and K3 the unfused cuDNN chain of their convs with
              bias, ReLU and the residual add (`cudnn_chain_ms`, timed
              only), and the least time the card could take (bytes over
              3.35 TB/s or operations over the peak rate of the type,
@@ -86,7 +87,7 @@ SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame
 SOURCES = ("conv_fused", "conv_tc", "mosaic_probe", "sampling")
 # the source of each trunk kernel on the main path (bf16)
-TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_fused",
+TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_tc",
                 "bottleneck": "conv_tc", "conv3x3_bias": "conv_tc"}
 # bf16 trunk check: per FPN level, the kernels' relative L2 error
 # against the fp32 plain trunk may be at most TRUNK_RATIO times the plain
@@ -186,8 +187,13 @@ def kernel_cases():
         cases.append(("conv3x3_bias", 1, dict(x=(6, h, w, 256), c=256,
                                               co=256)))
         cin = co
-    # no call a frame: the last two stages of simpb_tiny (64x32 input),
-    # maps smaller than one tile
+    # no call a frame: the stage heads and the last two stages of
+    # simpb_tiny (64x32 input), maps smaller than one tile
+    cin, hin, win = 64, 8, 16
+    for cm, co, _, _, s, _ in STAGES:
+        cases.append(("bottleneck_down", 0, dict(
+            x=(6, hin, win, cin), c=cin, cm=cm, co=co, stride=s)))
+        cin, hin, win = co, hin // s, win // s
     cases += [("bottleneck", 0, dict(x=(6, 2, 4, 1024), c=1024, cm=256,
                                      co=1024, stride=1)),
               ("bottleneck", 0, dict(x=(6, 1, 2, 2048), c=2048, cm=512,
@@ -264,26 +270,33 @@ def library_call(case, args):
 
 
 def cudnn_chain(case, args):
-    """K3's function as the unfused cuDNN chain (three bf16 convs with
-    bias, ReLU, the residual add), timed as a yardstick only; None for
+    """K3's or K2's function as the unfused cuDNN chain, timed as a
+    yardstick only: bf16 convs with bias (reduce, 3x3 at the stride,
+    expansion; K2's strided 1x1 skip), ReLU, the residual add. None for
     the other kernels."""
     import torch
     import torch.nn.functional as F
 
-    if case[0] != "bottleneck":
+    if case[0] not in ("bottleneck", "bottleneck_down"):
         return None
-    x, (w1, b1, w2, b2, w3, b3) = args
+    x, (w1, b1, w2, b2, w3, b3) = args[:2]
     cl = torch.channels_last
+    as_1x1 = lambda w: w.t()[:, :, None, None].contiguous(memory_format=cl)
     xc = x.permute(0, 3, 1, 2)
-    w1c = w1.t()[:, :, None, None].contiguous(memory_format=cl)
+    w1c, w3c = as_1x1(w1), as_1x1(w3)
     w2c = w2.permute(3, 2, 0, 1).contiguous(memory_format=cl)
-    w3c = w3.t()[:, :, None, None].contiguous(memory_format=cl)
     b1c, b2c, b3c = (t.to(x.dtype) for t in (b1, b2, b3))
+    if case[0] == "bottleneck":
+        s, skip = 1, lambda: xc
+    else:
+        (wd, bd), s = args[2:]
+        wdc, bdc = as_1x1(wd), bd.to(x.dtype)
+        skip = lambda: F.conv2d(xc, wdc, bdc, stride=s)
 
     def chain():
         y = torch.relu(F.conv2d(xc, w1c, b1c))
-        y = torch.relu(F.conv2d(y, w2c, b2c, padding=1))
-        return torch.relu(F.conv2d(y, w3c, b3c) + xc)
+        y = torch.relu(F.conv2d(y, w2c, b2c, stride=s, padding=1))
+        return torch.relu(F.conv2d(y, w3c, b3c) + skip())
     return chain
 
 

@@ -1,6 +1,8 @@
-// Fused ResNet-trunk inference kernels for Hopper (sm_90a), fp32 and bf16
-// storage with fp32 accumulation. NHWC activations, HWIO / [in, out]
-// weights with BatchNorm already folded in (ops/conv_fused.py folds).
+// Fused ResNet-trunk inference kernels for Hopper (sm_90a) on the CUDA
+// cores: K1-K4 in fp32 and K1 in bf16, with fp32 accumulation (bf16 K2-K4
+// run on the tensor cores, csrc/conv_tc.cu). NHWC activations, HWIO /
+// [in, out] weights with BatchNorm already folded in (ops/conv_fused.py
+// folds).
 //
 // Replaces the four Pallas kernels of simpb_tpu/ops/conv_fused.py:
 //   maxpool_3x3_s2_kernel   <- maxpool_3x3_s2_fused        (_maxpool_kernel)
@@ -19,8 +21,8 @@
 //
 // The TPU kernels' H-tiling with halo BlockSpecs, `_destride` and the
 // parity planes worked around the TPU compiler; none of that is needed
-// here: strided addresses cost nothing, so stride 2 is plain index
-// arithmetic. This is the first, simple version: every product is an
+// on the CUDA cores, which read one value at a time: stride 2 is plain
+// index arithmetic. This is the first, simple version: every product is an
 // fp32 FMA on the CUDA cores over 64-row register tiles fed from shared
 // memory (no tensor cores, TMA or pipelining yet).
 //
@@ -388,7 +390,9 @@ int launch_maxpool(const void* x, void* y, int B, int H, int W, int C,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Return: cudaGetLastError() code.
+// dtype: 0 = float32, 1 = bfloat16 (K1 only: the bottleneck and 3x3
+// entries return cudaErrorInvalidValue for it). Return:
+// cudaGetLastError() code.
 extern "C" {
 
 int simpb_maxpool_3x3_s2(const void* x, void* y, int B, int H, int W, int C,
@@ -404,34 +408,25 @@ int simpb_bottleneck(const void* x, const void* w1, const void* b1,
                      const void* b3, const void* wd, const void* bd, void* y,
                      int B, int H, int W, int C, int Cm, int Co, int stride,
                      int th, int tw, int dtype, void* stream) {
+  if (dtype) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float *fb1 = (const float*)b1, *fb2 = (const float*)b2,
               *fb3 = (const float*)b3, *fbd = (const float*)bd;
-  if (wd) {
-    return dtype ? launch_bottleneck<__nv_bfloat16, true>(
-                       x, w1, fb1, w2, fb2, w3, fb3, wd, fbd, y, B, H, W, C,
-                       Cm, Co, stride, th, tw, st)
-                 : launch_bottleneck<float, true>(
-                       x, w1, fb1, w2, fb2, w3, fb3, wd, fbd, y, B, H, W, C,
-                       Cm, Co, stride, th, tw, st);
-  }
-  return dtype ? launch_bottleneck<__nv_bfloat16, false>(
-                     x, w1, fb1, w2, fb2, w3, fb3, nullptr, nullptr, y, B, H,
-                     W, C, Cm, Co, 1, th, tw, st)
-               : launch_bottleneck<float, false>(
-                     x, w1, fb1, w2, fb2, w3, fb3, nullptr, nullptr, y, B, H,
-                     W, C, Cm, Co, 1, th, tw, st);
+  if (wd)
+    return launch_bottleneck<float, true>(x, w1, fb1, w2, fb2, w3, fb3, wd,
+                                          fbd, y, B, H, W, C, Cm, Co, stride,
+                                          th, tw, st);
+  return launch_bottleneck<float, false>(x, w1, fb1, w2, fb2, w3, fb3,
+                                         nullptr, nullptr, y, B, H, W, C, Cm,
+                                         Co, 1, th, tw, st);
 }
 
 int simpb_conv3x3_bias(const void* x, const void* w, const void* bias,
                        void* y, int B, int H, int W, int C, int Co, int th,
                        int tw, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* fb = (const float*)bias;
-  return dtype ? launch_conv3x3<__nv_bfloat16>(x, w, fb, y, B, H, W, C, Co,
-                                               th, tw, st)
-               : launch_conv3x3<float>(x, w, fb, y, B, H, W, C, Co, th, tw,
-                                       st);
+  if (dtype) return (int)cudaErrorInvalidValue;
+  return launch_conv3x3<float>(x, w, (const float*)bias, y, B, H, W, C, Co,
+                               th, tw, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,15 @@
-// Tensor-core kernels for the bf16 trunk on Hopper (sm_90a): K3
+// Tensor-core kernels for the bf16 trunk on Hopper (sm_90a): K2
+// (stage-head bottleneck with the strided 1x1 downsample skip), K3
 // (bottleneck with identity residual) and K4 (3x3 conv + bias). NHWC
 // activations, HWIO / [in, out] bf16 weights with BatchNorm folded, fp32
 // biases, fp32 accumulation.
 //
-// Replace, for bf16, PR 1's CUDA-core kernels of csrc/conv_fused.cu,
-// which replace the Pallas kernels of simpb_tpu/ops/conv_fused.py:
-//   bottleneck_tc_kernel <- bottleneck_fused_infer (_kernel)
-//   conv3x3_tc_kernel    <- conv3x3_bias_fused     (_conv3x3_kernel)
-// The fp32 instantiations and K2 stay on conv_fused.cu.
+// Replace, for bf16, the CUDA-core kernels of csrc/conv_fused.cu, which
+// replace the Pallas kernels of simpb_tpu/ops/conv_fused.py:
+//   bottleneck_down_tc_kernel <- bottleneck_down_fused_infer (_kernel_down)
+//   bottleneck_tc_kernel      <- bottleneck_fused_infer      (_kernel)
+//   conv3x3_tc_kernel         <- conv3x3_bias_fused          (_conv3x3_kernel)
+// The fp32 kernels stay on conv_fused.cu.
 //
 // What bounds them: both are products, bound by operations at the
 // trunk's shapes (PERF.md). Every product runs on the tensor cores
@@ -37,7 +39,8 @@
 // core-matrix (swizzled) layout, on 64-row warpgroup tiles (ROADMAP B.6).
 //
 // Rounding is the plain versions' (ops/conv_fused.py): y1 = bf16(relu(.)),
-// y2 = bf16(relu(.)), out = bf16(relu(bf16(y3) + x)); K4 bf16(acc + b).
+// y2 = bf16(relu(.)); K3 out = bf16(relu(bf16(y3) + x)); K2 out =
+// bf16(relu(y3 + skip)), the add in fp32; K4 bf16(acc + b).
 //
 // C interface (ctypes): every pointer and the stream are void*; the
 // caller (ops/conv_fused.py's planner) passes the tile plan and the
@@ -112,10 +115,12 @@ __host__ __device__ inline Pass make_pass(int wm) {
 __host__ __device__ inline int stage_elems(Pass p, bool stream_a, int bk) {
   return (stream_a ? p.bm * (bk + PAD) : 0) + bk * (p.bn + PAD);
 }
-// bf16 elements of a bottleneck's ring stage: the largest of its three
-__host__ __device__ inline int ring_stage(Pass a, Pass b, Pass c, int bk) {
+// bf16 elements of a bottleneck's ring stage: the largest of its passes
+// (K2's last pass layout also streams the skip's A from x)
+__host__ __device__ inline int ring_stage(Pass a, Pass b, Pass c, int bk,
+                                          bool c_streams = false) {
   const int sa = stage_elems(a, true, bk), sb = stage_elems(b, false, bk),
-            sc = stage_elems(c, false, bk);
+            sc = stage_elems(c, c_streams, bk);
   return sa > sb ? (sa > sc ? sa : sc) : (sb > sc ? sb : sc);
 }
 
@@ -404,6 +409,143 @@ __global__ void __launch_bounds__(NT) bottleneck_tc_kernel(
     }
 }
 
+// ---------------------------------------------------------------- K2
+// y1's shared-memory rows: region pixel (ry, rx) of a tile's input region
+// -> its row. Stride 1: one (th + 2) x (tw + 2) plane, K3's layout.
+// Stride 2: four parity planes (ry % 2, rx % 2), each pw = tw + 1 rows
+// wide and th + 1 (even ry) or th (odd ry) high, pixel (ry, rx) at
+// (ry / 2, rx / 2) of its plane. Why: the 8 rows of one ldmatrix are 8
+// neighbouring output pixels. In one plane, a stride-2 tap puts them 2
+// region pixels apart, 4 Cm + 32 bytes, which is 32 mod 128 for Cm a
+// multiple of 64: 4 of the 8 16-byte bank groups, a 2-way conflict on
+// every A load of the 3x3. In the parity planes tap (dy, dx) of output
+// (oy, ox) reads plane (dy % 2, dx % 2) at (oy + dy / 2, ox + dx / 2):
+// neighbouring outputs read neighbouring rows, 2 Cm + 16 bytes apart, 8
+// bank groups. (The Pallas kernel built the same planes for the TPU
+// compiler's sake, _fill_parity_planes.) In both layouts
+//   row(s oy + dy, s ox + dx) = oy pw + ox + row(dy, dx),
+// so a tap's offset adds to a pixel's, as tc_pass wants.
+struct Y1Rows {
+  int s, pw, h0;  // stride, plane width, height of the even-row planes
+  __host__ __device__ Y1Rows(int s_, int th, int tw)
+      : s(s_), pw(s_ == 1 ? tw + 2 : tw + 1), h0(s_ == 1 ? th + 2 : th + 1) {}
+  __host__ __device__ int count() const {
+    return s == 1 ? h0 * pw : 2 * (2 * h0 - 1) * pw;
+  }
+  __device__ int operator()(int ry, int rx) const {
+    if (s == 1) return ry * pw + rx;
+    const int py = ry & 1, px = rx & 1;
+    return (2 * h0 * py + px * (h0 - py) + (ry >> 1)) * pw + (rx >> 1);
+  }
+};
+
+// One block = one th x tw output tile of one image, all channels, the
+// four products in one launch with the intermediates in shared memory:
+//   (a) y1 = relu(x . W1 + b1) over the tile's input region plus a
+//       one-pixel halo, ((th - 1) s + 3) x ((tw - 1) s + 3) pixels, zero
+//       outside the image; A streamed from x; stored in Y1Rows' layout;
+//   (b) y2 = relu(conv3x3/s(y1) + b2); A = y1 at tap-shifted rows;
+//   (c) y2 . W3 and (d) x[s oy, s ox] . Wd into one fp32 accumulator,
+//       (c)'s A resident (y2), (d)'s streamed from x at strided rows;
+//   out = bf16(relu(acc + b3 + bd)): y3 is not rounded before the skip
+//   add (the Pallas kernel's rounding points).
+// wma, wmb, wmc: the warp layouts of (a), (b), and (c) and (d).
+template <int MT, int BK>
+__global__ void __launch_bounds__(NT) bottleneck_down_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const bf16* __restrict__ w3,
+    const float* __restrict__ b3, const bf16* __restrict__ wd,
+    const float* __restrict__ bd, bf16* __restrict__ y, int H, int W, int C,
+    int Cm, int Co, int s, int th, int tw, int wma, int wmb, int wmc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int OH = H / s, OW = W / s, ntw = (OW + tw - 1) / tw;
+  const int oy0 = (blockIdx.x / ntw) * th, ox0 = (blockIdx.x % ntw) * tw;
+  const int b = blockIdx.y;
+  const int Rw = (tw - 1) * s + 3, Rp = ((th - 1) * s + 3) * Rw;
+  const int P = th * tw, Cs = Cm + PAD;
+  const Y1Rows yrow(s, th, tw);
+  bf16* y1 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* y2 = y1 + (long long)yrow.count() * Cs;
+  bf16* ring = y2 + (long long)P * Cs;
+  const Pass pa = make_pass<MT>(wma), pb = make_pass<MT>(wmb),
+             pc = make_pass<MT>(wmc);
+  const int st = ring_stage(pa, pb, pc, BK, true);
+  const bf16* xb = x + (long long)b * H * W * C;
+  bf16* yb = y + (long long)b * OH * OW * Co;
+
+  // region pixel r -> offset of its input row, or -1 outside the image
+  auto region_off = [&](int r) -> long long {
+    const int iy = oy0 * s - 1 + r / Rw, ix = ox0 * s - 1 + r % Rw;
+    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return -1;
+    return ((long long)iy * W + ix) * C;
+  };
+  // output pixel p -> offset of its skip input row x[s oy, s ox], or -1
+  auto skip_off = [&](int p) -> long long {
+    const int oy = oy0 + p / tw, ox = ox0 + p % tw;
+    if (oy >= OH || ox >= OW) return -1;
+    return ((long long)oy * s * W + (long long)ox * s) * C;
+  };
+  auto lin = [](int kc) -> long long { return (long long)kc * BK; };
+  float acc[MT][8][4];
+
+  // (a) 1x1 reduce over the input region
+  for (int m0 = 0; m0 < Rp; m0 += pa.bm)
+    for (int n0 = 0; n0 < Cm; n0 += pa.bn) {
+      zero(acc);
+      tc_pass<MT, BK, true>(acc, pa, m0, Rp, n0, C / BK, w1, Cm, ring, st, xb,
+                        nullptr, region_off, lin);
+      tc_store(acc, pa, m0, Rp, n0, [&](int r, int n, float v0, float v1) {
+        const bool in = region_off(r) >= 0;
+        store2(y1 + (long long)yrow(r / Rw, r % Rw) * Cs + n,
+               in ? fmaxf(v0 + b1[n], 0.f) : 0.f,
+               in ? fmaxf(v1 + b1[n + 1], 0.f) : 0.f);
+      });
+    }
+  __syncthreads();
+
+  // (b) 3x3 / stride s conv of y1, K = 9 Cm in tap-major order
+  {
+    const int kpt = Cm / BK;
+    auto row = [&](int p) -> long long {
+      return ((long long)(p / tw) * yrow.pw + p % tw) * Cs;
+    };
+    auto koff = [&](int kc) -> long long {
+      const int tap = kc / kpt;
+      return (long long)yrow(tap / 3, tap % 3) * Cs + (kc - tap * kpt) * BK;
+    };
+    for (int m0 = 0; m0 < P; m0 += pb.bm)
+      for (int n0 = 0; n0 < Cm; n0 += pb.bn) {
+        zero(acc);
+        tc_pass<MT, BK, false>(acc, pb, m0, P, n0, 9 * kpt, w2, Cm, ring, st,
+                           nullptr, y1, row, koff);
+        tc_store(acc, pb, m0, P, n0, [&](int p, int n, float v0, float v1) {
+          store2(y2 + p * Cs + n, fmaxf(v0 + b2[n], 0.f),
+                 fmaxf(v1 + b2[n + 1], 0.f));
+        });
+      }
+  }
+  __syncthreads();
+
+  // (c) 1x1 expansion and (d) strided 1x1 skip, one accumulator
+  for (int m0 = 0; m0 < P; m0 += pc.bm)
+    for (int n0 = 0; n0 < Co; n0 += pc.bn) {
+      zero(acc);
+      tc_pass<MT, BK, false>(
+          acc, pc, m0, P, n0, Cm / BK, w3, Co, ring, st, nullptr, y2,
+          [&](int p) -> long long { return (long long)p * Cs; }, lin);
+      tc_pass<MT, BK, true>(acc, pc, m0, P, n0, C / BK, wd, Co, ring, st, xb,
+                        nullptr, skip_off, lin);
+      tc_store(acc, pc, m0, P, n0, [&](int p, int n, float v0, float v1) {
+        const int oy = oy0 + p / tw, ox = ox0 + p % tw;
+        if (oy >= OH || ox >= OW) return;
+        store2(yb + ((long long)oy * OW + ox) * Co + n,
+               fmaxf(v0 + b3[n] + bd[n], 0.f),
+               fmaxf(v1 + b3[n + 1] + bd[n + 1], 0.f));
+      });
+    }
+}
+
 template <int MT, int BK>
 int launch_conv3x3(const void* x, const void* w, const void* bias, void* y,
                    int B, int H, int W, int C, int Co, int th, int tw,
@@ -455,19 +597,52 @@ int launch_bottleneck(const void* x, const void* w1, const void* b1,
   return (int)cudaGetLastError();
 }
 
+template <int MT, int BK>
+int launch_bottleneck_down(const void* x, const void* w1, const void* b1,
+                           const void* w2, const void* b2, const void* w3,
+                           const void* b3, const void* wd, const void* bd,
+                           void* y, int B, int H, int W, int C, int Cm,
+                           int Co, int s, int th, int tw, int wma, int wmb,
+                           int wmc, int smem, cudaStream_t stream) {
+  if ((s != 1 && s != 2) || H % s || W % s) return (int)cudaErrorInvalidValue;
+  const Pass pa = make_pass<MT>(wma), pb = make_pass<MT>(wmb),
+             pc = make_pass<MT>(wmc);
+  const long long need =
+      2LL * ((long long)(Y1Rows(s, th, tw).count() + th * tw) * (Cm + PAD) +
+             STAGES * ring_stage(pa, pb, pc, BK, true));
+  if (need > smem || Cm % pa.bn || Cm % pb.bn || Co % pc.bn || C % BK ||
+      Cm % BK)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(bottleneck_down_tc_kernel<MT, BK>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  dim3 grid(((H / s + th - 1) / th) * ((W / s + tw - 1) / tw), B);
+  bottleneck_down_tc_kernel<MT, BK><<<grid, NT, smem, stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)wd,
+      (const float*)bd, (bf16*)y, H, W, C, Cm, Co, s, th, tw, wma, wmb, wmc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One instance for each (mt, bk) pair the planner may pick.
-#define TC_DISPATCH(LAUNCH, ...)                                    \
+// One instance for each (mt, bk) pair the planner may pick. K2 has no
+// mt 1: ptxas holds that instance to 128 registers, and it spills.
+#define TC_DISPATCH_MT24(LAUNCH, ...)                               \
   switch (mt * 100 + bk) {                                          \
-    case 132: return LAUNCH<1, 32>(__VA_ARGS__);                    \
-    case 164: return LAUNCH<1, 64>(__VA_ARGS__);                    \
     case 232: return LAUNCH<2, 32>(__VA_ARGS__);                    \
     case 264: return LAUNCH<2, 64>(__VA_ARGS__);                    \
     case 432: return LAUNCH<4, 32>(__VA_ARGS__);                    \
     case 464: return LAUNCH<4, 64>(__VA_ARGS__);                    \
   }                                                                 \
   return (int)cudaErrorInvalidValue;
+#define TC_DISPATCH(LAUNCH, ...)                                    \
+  if (mt == 1 && bk == 32) return LAUNCH<1, 32>(__VA_ARGS__);       \
+  if (mt == 1 && bk == 64) return LAUNCH<1, 64>(__VA_ARGS__);       \
+  TC_DISPATCH_MT24(LAUNCH, __VA_ARGS__)
 
 // Return: cudaGetLastError() code of the launch.
 extern "C" {
@@ -488,6 +663,19 @@ int simpb_bottleneck_tc(const void* x, const void* w1, const void* b1,
   cudaStream_t st = (cudaStream_t)stream;
   TC_DISPATCH(launch_bottleneck, x, w1, b1, w2, b2, w3, b3, y, B, H, W, C,
               Cm, th, tw, wma, wmb, wmc, smem, st)
+}
+
+int simpb_bottleneck_down_tc(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* w3,
+                             const void* b3, const void* wd, const void* bd,
+                             void* y, int B, int H, int W, int C, int Cm,
+                             int Co, int stride, int th, int tw, int mt,
+                             int bk, int wma, int wmb, int wmc, int smem,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  TC_DISPATCH_MT24(launch_bottleneck_down, x, w1, b1, w2, b2, w3, b3, wd,
+                   bd, y, B, H, W, C, Cm, Co, stride, th, tw, wma, wmb, wmc,
+                   smem, st)
 }
 
 }  // extern "C"

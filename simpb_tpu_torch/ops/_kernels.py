@@ -51,6 +51,9 @@ SIGNATURES = {
         # x, w1, b1, w2, b2, w3, b3, y; B, H, W, C, Cm, th, tw, mt, bk,
         # wm a/b/c, smem; stream
         "simpb_bottleneck_tc": ((P,) * 8 + (I,) * 13 + (P,), I),
+        # x, w1, b1, w2, b2, w3, b3, wd, bd, y; B, H, W, C, Cm, Co,
+        # stride, th, tw, mt, bk, wm a/b/c, smem; stream
+        "simpb_bottleneck_down_tc": ((P,) * 10 + (I,) * 15 + (P,), I),
     },
     "mosaic_probe": {
         "simpb_probe_lane": PROBE_SIG,

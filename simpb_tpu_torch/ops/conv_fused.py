@@ -2,12 +2,12 @@
 PyTorch versions.
 
 Port of `simpb_tpu/ops/conv_fused.py`. Four ops, each a hand-written
-CUDA kernel for Hopper in `csrc/conv_fused.cu`; in bf16, K3 and K4 run
-on the tensor cores instead, `csrc/conv_tc.cu`, with their tiles chosen
-by the planner below (`plan_bottleneck_tc`, `plan_conv3x3_tc`). The
-kernel is picked by dtype alone; a bf16 shape the planner refuses
-raises `ValueError`. See the sources' notes on what bounds each kernel
-and how its design answers it:
+CUDA kernel for Hopper in `csrc/conv_fused.cu`; in bf16, K2, K3 and K4
+run on the tensor cores instead, `csrc/conv_tc.cu`, with their tiles
+chosen by the planner below (`plan_bottleneck_down_tc`,
+`plan_bottleneck_tc`, `plan_conv3x3_tc`). The kernel is picked by dtype
+alone; a bf16 shape the planner refuses raises `ValueError`. See the
+sources' notes on what bounds each kernel and how its design answers it:
 
 * `maxpool_3x3_s2_fused` — 3x3/s2/p1 max-pool, -inf padding (K1);
 * `bottleneck_down_fused_infer` — stage-head bottleneck with the strided
@@ -147,20 +147,20 @@ def _param(t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype,
     return t.to(device=like.device, dtype=dtype).contiguous()
 
 
-def _smem_bytes(region_px: int, tile_px: int, channels: int,
-                itemsize: int) -> int:
-    """Dynamic shared memory of a launch, laid out as the CUDA kernels lay
-    it out: one KC x MAX_COLS fp32 weight chunk, then region_px + tile_px
-    pixels of `channels` values in the storage type (a bottleneck's y1
-    over its halo region and its y2 tile; the 3x3 conv's input halo)."""
-    return KC * MAX_COLS * 4 + (region_px + tile_px) * channels * itemsize
+def _smem_bytes(region_px: int, tile_px: int, channels: int) -> int:
+    """Dynamic shared memory of an fp32 launch of csrc/conv_fused.cu,
+    laid out as its kernels lay it out: one KC x MAX_COLS weight chunk,
+    then region_px + tile_px pixels of `channels` values (a bottleneck's
+    y1 over its halo region and its y2 tile; the 3x3 conv's input
+    halo)."""
+    return (KC * MAX_COLS + (region_px + tile_px) * channels) * 4
 
 
-def _bottleneck_tile(h: int, w: int, cm: int, stride: int, itemsize: int):
-    """Output tile of a fused bottleneck: 8x8 up to 128 mid channels,
-    4x4 above, halved while the shared memory does not fit."""
+def _bottleneck_tile(h: int, w: int, cm: int, stride: int):
+    """Output tile of a fused fp32 bottleneck: 8x8 up to 128 mid
+    channels, 4x4 above, halved while the shared memory does not fit."""
     def smem(t):
-        return _smem_bytes(((t - 1) * stride + 3) ** 2, t * t, cm, itemsize)
+        return _smem_bytes(((t - 1) * stride + 3) ** 2, t * t, cm)
 
     t = 8 if cm <= 128 else 4
     while t > 1 and smem(t) > _kernels.MAX_SMEM:
@@ -182,18 +182,20 @@ TC_WARPS, TC_STAGES, TC_PAD = 8, 3, 8
 TC_BK = (32, 64)  # chunk depths (conv_tc.cu instances)
 TC_CHANNELS = 64  # every channel count must be a multiple of it
 TC_MT = (1, 2, 4)  # 16-row sub-tiles a warp may own (conv_tc.cu instances)
+TC_MT_DOWN = (2, 4)  # K2's: at mt 1 ptxas holds it to 128 registers (spills)
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SM_SMEM = 228 * 1024  # shared memory of one SM; a block reserves 1 KB more
 # Planning model, not a measurement: an SM reads shared memory at 128 B
 # a clock (about 1.7 GHz). Three rates are fitted so that the model's
 # picks come closest to the fastest of tools/conv_tc_sweep.py's timings
-# of every plan on the H100 (PERF.md): an SM sustains 35 % of its share
-# of the bf16 peak with mma.sync, a weight chunk costs a block 0.2 us of
-# barrier and pipeline latency, and the card serves 2 TB/s from L2.
+# of every plan of K2, K3 and K4 on the H100 (PERF.md): an SM sustains
+# 35 % of its share of the bf16 peak with mma.sync, a weight chunk costs
+# a block 0.6 us of barrier and pipeline latency, and the card serves
+# 2 TB/s from L2.
 # Blocks an SM holds by registers, from nvcc's -Xptxas -v report (about
 # 64-128 registers for mt 1 and 2, 240 for mt 4, at 256 threads).
 _SM_FLOPS, _SM_SMEM_BYTES = 989e12 / SMS * 0.35, 2.2e11
-_CHUNK_S, _L2_BYTES = 2e-7, 2e12
+_CHUNK_S, _L2_BYTES = 6e-7, 2e12
 _REG_BLOCKS = {1: 2, 2: 2, 4: 1}
 _TILE_H, _TILE_W = (1, 2, 4, 8, 16), (8, 16)
 
@@ -202,8 +204,9 @@ class TcPlan(NamedTuple):
     """Tile and grid of one tensor-core launch: output tile th x tw;
     mt 16-row sub-tiles per warp; bk, the depth of a weight chunk; wm,
     the warp layout of each product (K4: one; K3: the reduce, the 3x3
-    and the expansion); the blocks of the grid and the dynamic shared
-    memory (bytes) of each."""
+    and the expansion; K2: the same three, the skip sharing the
+    expansion's); the blocks of the grid and the dynamic shared memory
+    (bytes) of each."""
     th: int
     tw: int
     mt: int
@@ -299,30 +302,65 @@ def conv3x3_tc_plans(b: int, h: int, w: int, c: int, co: int):
     return out
 
 
-def bottleneck_tc_plans(b: int, h: int, w: int, c: int, cm: int):
-    """Every plan of K3's bf16 kernel that fits, as (estimate, plan)."""
-    _check_tc_channels("bottleneck_fused_infer", C=c, Cm=cm)
+def _y1_rows(th: int, tw: int, stride: int) -> int:
+    """Shared-memory rows of a bottleneck's y1 (conv_tc.cu's Y1Rows): the
+    (th + 2) x (tw + 2) region at stride 1; at stride 2 four parity
+    planes tw + 1 rows wide over the (2 th + 1)-row region."""
+    if stride == 1:
+        return (th + 2) * (tw + 2)
+    return 2 * (2 * th + 1) * (tw + 1)
+
+
+def _bottleneck_plans(b, h, w, c, cm, co, stride, down):
+    """Every plan of a bf16 bottleneck kernel (K2 with `down`, else K3)
+    for an NHWC [b, h, w, c] input that fits, as (estimate, plan): one
+    block per (output tile, image), all channels."""
+    oh, ow = h // stride, w // stride
     out = []
     for th in _TILE_H:
         for tw in _TILE_W:
-            p, rp = th * tw, (th + 2) * (tw + 2)
-            for mt, bk in itertools.product(TC_MT, TC_BK):
+            p = th * tw
+            rp = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
+            for mt, bk in itertools.product(TC_MT_DOWN if down else TC_MT,
+                                            TC_BK):
                 wm = (_pick_wm(mt, bk, rp, cm), _pick_wm(mt, bk, p, cm),
-                      _pick_wm(mt, bk, p, c))
+                      _pick_wm(mt, bk, p, co))
                 stage = max(_stage_elems(mt, wm[0], True, bk),
                             _stage_elems(mt, wm[1], False, bk),
-                            _stage_elems(mt, wm[2], False, bk))
-                smem = 2 * ((rp + p) * (cm + TC_PAD) + TC_STAGES * stage)
+                            _stage_elems(mt, wm[2], down, bk))
+                smem = 2 * ((_y1_rows(th, tw, stride) + p) * (cm + TC_PAD)
+                            + TC_STAGES * stage)
                 if smem > _kernels.MAX_SMEM:
                     continue
-                blocks = -(-h // th) * -(-w // tw) * b
-                est = _estimate(blocks, (
-                    _product_cost(mt, wm[0], bk, rp, cm, c, True),
-                    _product_cost(mt, wm[1], bk, p, cm, 9 * cm, False),
-                    _product_cost(mt, wm[2], bk, p, c, cm, False)), mt, smem)
+                blocks = -(-oh // th) * -(-ow // tw) * b
+                costs = [_product_cost(mt, wm[0], bk, rp, cm, c, True),
+                         _product_cost(mt, wm[1], bk, p, cm, 9 * cm, False),
+                         _product_cost(mt, wm[2], bk, p, co, cm, False)]
+                if down:  # the strided skip, streamed with the weights
+                    costs.append(_product_cost(mt, wm[2], bk, p, co, c, True))
+                est = _estimate(blocks, costs, mt, smem)
                 out.append((est + (smem,),
                             TcPlan(th, tw, mt, bk, wm, blocks, smem)))
     return out
+
+
+def bottleneck_tc_plans(b: int, h: int, w: int, c: int, cm: int):
+    """Every plan of K3's bf16 kernel that fits, as (estimate, plan)."""
+    _check_tc_channels("bottleneck_fused_infer", C=c, Cm=cm)
+    return _bottleneck_plans(b, h, w, c, cm, c, 1, False)
+
+
+def bottleneck_down_tc_plans(b: int, h: int, w: int, c: int, cm: int,
+                             co: int, stride: int):
+    """Every plan of K2's bf16 kernel that fits, as (estimate, plan), for
+    an NHWC [b, h, w, c] input and a [b, h / stride, w / stride, co]
+    output."""
+    what = "bottleneck_down_fused_infer"
+    _check_tc_channels(what, C=c, Cm=cm, Co=co)
+    if stride not in (1, 2) or h % stride or w % stride:
+        raise ValueError(f"{what}: stride {stride} needs H and W divisible "
+                         f"by it, got {h}x{w}")
+    return _bottleneck_plans(b, h, w, c, cm, co, stride, True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,6 +380,19 @@ def plan_bottleneck_tc(b: int, h: int, w: int, c: int, cm: int) -> TcPlan:
     plans = bottleneck_tc_plans(b, h, w, c, cm)
     if not plans:
         raise ValueError(f"bottleneck_fused_infer: no bf16 tile fits "
+                         f"Cm={cm}")
+    return min(plans)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bottleneck_down_tc(b: int, h: int, w: int, c: int, cm: int,
+                            co: int, stride: int) -> TcPlan:
+    """Tiles of K2's bf16 kernel for an NHWC [b, h, w, c] input with cm
+    mid and co output channels at `stride`: one block per (output tile,
+    image), all channels."""
+    plans = bottleneck_down_tc_plans(b, h, w, c, cm, co, stride)
+    if not plans:
+        raise ValueError(f"bottleneck_down_fused_infer: no bf16 tile fits "
                          f"Cm={cm}")
     return min(plans)[1]
 
@@ -366,9 +417,8 @@ def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bottleneck_cuda(x, folded, folded_down, stride, what):
-    _check_act(x, what)
+    """K2 or K3 in fp32 on the CUDA cores (csrc/conv_fused.cu)."""
     b, h, w, c = x.shape
-    cdt = x.dtype
     w1, b1, w2, b2, w3, b3 = folded
     cm, co = w1.shape[1], w3.shape[1]
     if stride not in (1, 2) or h % stride or w % stride:
@@ -378,48 +428,61 @@ def _bottleneck_cuda(x, folded, folded_down, stride, what):
         raise ValueError(f"{what}: channel counts must be multiples of "
                          f"{KC}, got {c}/{cm}/{co}")
     f32 = torch.float32
-    w1 = _param(w1, x, cdt, (c, cm), what)
-    w2 = _param(w2, x, cdt, (3, 3, cm, cm), what)
-    w3 = _param(w3, x, cdt, (cm, co), what)
+    w1 = _param(w1, x, f32, (c, cm), what)
+    w2 = _param(w2, x, f32, (3, 3, cm, cm), what)
+    w3 = _param(w3, x, f32, (cm, co), what)
     b1 = _param(b1, x, f32, (cm,), what)
     b2 = _param(b2, x, f32, (cm,), what)
     b3 = _param(b3, x, f32, (co,), what)
     wd = bd = None
     if folded_down is not None:
-        wd = _param(folded_down[0], x, cdt, (c, co), what)
+        wd = _param(folded_down[0], x, f32, (c, co), what)
         bd = _param(folded_down[1], x, f32, (co,), what)
     elif co != c or stride != 1:
         raise ValueError(f"{what}: identity residual needs C == Co, stride 1")
     oh, ow = h // stride, w // stride
-    th, tw = _bottleneck_tile(oh, ow, cm, stride, x.element_size())
-    y = torch.empty((b, oh, ow, co), dtype=cdt, device=x.device)
+    th, tw = _bottleneck_tile(oh, ow, cm, stride)
+    y = torch.empty((b, oh, ow, co), dtype=x.dtype, device=x.device)
     lib = _kernels.load("conv_fused")
     code = lib.simpb_bottleneck(
         *map(_kernels.ptr, (x, w1, b1, w2, b2, w3, b3, wd, bd, y)),
         b, h, w, c, cm, co, stride, th, tw,
-        _kernels.DTYPE_CODE[cdt], ctypes.c_void_p(_kernels.stream_ptr(x)),
+        _kernels.DTYPE_CODE[x.dtype], ctypes.c_void_p(_kernels.stream_ptr(x)),
     )
     _kernels.check(code, what)
     return y
 
 
-def _bottleneck_tc(x, folded, what):
-    """K3 in bf16 on the tensor cores (csrc/conv_tc.cu)."""
+def _bottleneck_tc(x, folded, folded_down, stride, what):
+    """K2 (with `folded_down`) or K3 in bf16 on the tensor cores
+    (csrc/conv_tc.cu)."""
     b, h, w, c = x.shape
     w1, b1, w2, b2, w3, b3 = folded
-    cm = w1.shape[1]
-    plan = plan_bottleneck_tc(b, h, w, c, cm)
+    cm, co = w1.shape[1], w3.shape[1]
+    if folded_down is None:
+        plan = plan_bottleneck_tc(b, h, w, c, cm)
+        co = c
+    else:
+        plan = plan_bottleneck_down_tc(b, h, w, c, cm, co, stride)
     bf, f32 = torch.bfloat16, torch.float32
-    w1 = _param(w1, x, bf, (c, cm), what)
-    w2 = _param(w2, x, bf, (3, 3, cm, cm), what)
-    w3 = _param(w3, x, bf, (cm, c), what)
-    b1 = _param(b1, x, f32, (cm,), what)
-    b2 = _param(b2, x, f32, (cm,), what)
-    b3 = _param(b3, x, f32, (c,), what)
-    y = torch.empty_like(x)
-    _check_tc_aligned(what, x, w1, w2, w3, y)
-    _kernels.check(launch_bottleneck_tc(x, (w1, b1, w2, b2, w3, b3), y,
-                                        plan), what)
+    folded = (_param(w1, x, bf, (c, cm), what),
+              _param(b1, x, f32, (cm,), what),
+              _param(w2, x, bf, (3, 3, cm, cm), what),
+              _param(b2, x, f32, (cm,), what),
+              _param(w3, x, bf, (cm, co), what),
+              _param(b3, x, f32, (co,), what))
+    y = torch.empty((b, h // stride, w // stride, co), dtype=bf,
+                    device=x.device)
+    if folded_down is None:
+        _check_tc_aligned(what, x, folded[0], folded[2], folded[4], y)
+        code = launch_bottleneck_tc(x, folded, y, plan)
+    else:
+        down = (_param(folded_down[0], x, bf, (c, co), what),
+                _param(folded_down[1], x, f32, (co,), what))
+        _check_tc_aligned(what, x, folded[0], folded[2], folded[4], down[0],
+                          y)
+        code = launch_bottleneck_down_tc(x, folded, down, y, stride, plan)
+    _kernels.check(code, what)
     return y
 
 
@@ -432,6 +495,18 @@ def launch_bottleneck_tc(x, folded, y, plan: TcPlan) -> int:
         *map(_kernels.ptr, (x, *folded, y)), b, h, w, c, folded[0].shape[1],
         plan.th, plan.tw, plan.mt, plan.bk, *plan.wm, plan.smem,
         ctypes.c_void_p(_kernels.stream_ptr(x)))
+
+
+def launch_bottleneck_down_tc(x, folded, folded_down, y, stride: int,
+                              plan: TcPlan) -> int:
+    """Launch K2's bf16 kernel with `plan` on prepared tensors (bf16
+    weights, fp32 biases, all contiguous on x's card); returns the CUDA
+    error code."""
+    b, h, w, c = x.shape
+    return _kernels.load("conv_tc").simpb_bottleneck_down_tc(
+        *map(_kernels.ptr, (x, *folded, *folded_down, y)), b, h, w, c,
+        folded[0].shape[1], y.shape[-1], stride, plan.th, plan.tw, plan.mt,
+        plan.bk, *plan.wm, plan.smem, ctypes.c_void_p(_kernels.stream_ptr(x)))
 
 
 def launch_conv3x3_tc(x, kernel, bias, y, plan: TcPlan) -> int:
@@ -452,9 +527,9 @@ def bottleneck_fused_infer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded)
     what = "bottleneck_fused_infer"
+    _check_act(x, what)
     if x.dtype == torch.bfloat16:
-        _check_act(x, what)
-        y = _bottleneck_tc(x, folded, what)
+        y = _bottleneck_tc(x, folded, None, 1, what)
     else:
         y = _bottleneck_cuda(x, folded, None, 1, what)
     bottleneck_fused_infer.launches += 1
@@ -467,11 +542,18 @@ def bottleneck_down_fused_infer(
     folded_down: Tuple[torch.Tensor, torch.Tensor],
     stride: int,
 ) -> torch.Tensor:
-    """One stage-head bottleneck (strided 1x1 downsample skip)."""
+    """One stage-head bottleneck (strided 1x1 downsample skip), [B, H, W,
+    C] -> [B, H / stride, W / stride, Co]. On the card bf16 runs on the
+    tensor cores (csrc/conv_tc.cu), fp32 on the CUDA cores
+    (csrc/conv_fused.cu)."""
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded, folded_down, stride)
-    y = _bottleneck_cuda(x, folded, folded_down, stride,
-                         "bottleneck_down_fused_infer")
+    what = "bottleneck_down_fused_infer"
+    _check_act(x, what)
+    if x.dtype == torch.bfloat16:
+        y = _bottleneck_tc(x, folded, folded_down, stride, what)
+    else:
+        y = _bottleneck_cuda(x, folded, folded_down, stride, what)
     bottleneck_down_fused_infer.launches += 1
     return y
 
@@ -500,8 +582,8 @@ def conv3x3_bias_fused(
         code = launch_conv3x3_tc(x, kernel, bias, y, plan)
     else:
         th, tw = min(8, h), min(8, w)
-        while th > 1 and _smem_bytes((th + 2) * (tw + 2), 0, c,
-                                     x.element_size()) > _kernels.MAX_SMEM:
+        while th > 1 and _smem_bytes((th + 2) * (tw + 2), 0,
+                                     c) > _kernels.MAX_SMEM:
             th, tw = max(1, th // 2), max(1, tw // 2)
         code = _kernels.load("conv_fused").simpb_conv3x3_bias(
             *map(_kernels.ptr, (x, kernel, bias, y)), b, h, w, c, co, th,

@@ -1,10 +1,11 @@
-"""Time every launch plan of the bf16 tensor-core kernels (K3, K4 of
-csrc/conv_tc.cu) at the main path's shapes on the card.
+"""Time every launch plan of the bf16 tensor-core kernels (K2, K3, K4
+of csrc/conv_tc.cu) at the main path's shapes on the card.
 
     python -m simpb_tpu_torch.tools.conv_tc_sweep [--out FILE]
 
-For each shape, every plan the planner considers (`bottleneck_tc_plans`,
-`conv3x3_tc_plans` in ops/conv_fused.py) is launched on the same seeded
+For each shape, every plan the planner considers
+(`bottleneck_down_tc_plans`, `bottleneck_tc_plans`, `conv3x3_tc_plans`
+in ops/conv_fused.py) is launched on the same seeded
 inputs, checked against the plain version (3e-2 of max(|plain|, 1), the
 bf16 tolerance of chip_smoke.py) and timed with CUDA events over 20
 back-to-back launches after 3 warm ones. Prints, per shape, the
@@ -23,7 +24,10 @@ import torch
 from ..ops import _kernels
 from ..ops import conv_fused as cf
 
-# ResNet-50 at 704x256, 6 cameras: (H, W, C, Cm) of each stage's K3
+# ResNet-50 at 704x256, 6 cameras: (H, W, C, Cm, Co, stride) of each
+# stage head's K2 (H, W of its input), (H, W, C, Cm) of each stage's K3
+K2_SHAPES = ((64, 176, 64, 64, 256, 1), (64, 176, 256, 128, 512, 2),
+             (32, 88, 512, 256, 1024, 2), (16, 44, 1024, 512, 2048, 2))
 K3_SHAPES = ((64, 176, 256, 64), (32, 88, 512, 128), (16, 44, 1024, 256),
              (8, 22, 2048, 512))
 K4_SHAPES = ((64, 176), (32, 88), (16, 44), (8, 22))
@@ -42,6 +46,33 @@ def _time(fn, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _rows_k2(gen):
+    bf = torch.bfloat16
+    for h, w, c, cm, co, s in K2_SHAPES:
+        rnd = lambda *sh, k=1.0: torch.randn(*sh, generator=gen,
+                                             device="cuda") * k
+        x = rnd(6, h, w, c).to(bf)
+        folded = (rnd(c, cm, k=c ** -0.5).to(bf), rnd(cm) * 0.1,
+                  rnd(3, 3, cm, cm, k=(9 * cm) ** -0.5).to(bf),
+                  rnd(cm) * 0.1, rnd(cm, co, k=cm ** -0.5).to(bf),
+                  rnd(co) * 0.1)
+        down = (rnd(c, co, k=c ** -0.5).to(bf), rnd(co) * 0.1)
+        ref = cf.bottleneck_plain(x, folded, down, s).float()
+        scale = max(ref.abs().max().item(), 1.0)
+        pick = cf.plan_bottleneck_down_tc(6, h, w, c, cm, co, s)
+        y = torch.empty((6, h // s, w // s, co), dtype=bf, device="cuda")
+        for est, plan in cf.bottleneck_down_tc_plans(6, h, w, c, cm, co, s):
+            run = lambda: _kernels.check(cf.launch_bottleneck_down_tc(
+                x, folded, down, y, s, plan), "sweep")
+            y.zero_()
+            run()
+            err = (y.float() - ref).abs().max().item()
+            yield dict(kernel="bottleneck_down", shape=[6, h, w, c], cm=cm,
+                       co=co, stride=s, plan=plan._asdict(),
+                       estimate_s=est[0], picked=plan == pick,
+                       ms=_time(run), max_abs_err=err, ok=err <= TOL * scale)
 
 
 def _rows_k3(gen):
@@ -103,7 +134,7 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = list(_rows_k3(gen)) + list(_rows_k4(gen))
+    rows = list(_rows_k2(gen)) + list(_rows_k3(gen)) + list(_rows_k4(gen))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("".join(json.dumps(dict(r, card=card)) + "\n"

@@ -1,4 +1,4 @@
-"""The launch planner of the bf16 tensor-core kernels (K3, K4 in
+"""The launch planner of the bf16 tensor-core kernels (K2, K3, K4 in
 csrc/conv_tc.cu): every shape the repo's configs run gets a plan that
 fits shared memory, meets the kernels' alignment rules and launches the
 blocks PERF.md lists; bf16 shapes outside the rules raise ValueError.
@@ -22,18 +22,26 @@ INPUTS = (("r50_704x256", 704, 256, 6), ("r101_1408x512", 1408, 512, 6),
 
 
 def _shapes():
-    """(config, B, H, W, C, Cm) of every K3 call and (config, B, H, W, 256)
+    """(config, B, H, W, C, Cm, Co, stride) of every K2 call (each stage
+    head, on the previous stage's map: stride 1 for the first, 2 after),
+    (config, B, H, W, C, Cm) of every K3 call and (config, B, H, W, 256)
     of every K4 call (the FPN's outputs are 256 wide)."""
-    k3, k4 = [], []
+    k2, k3, k4 = [], [], []
     for name, w, h, cams in INPUTS:
+        cin, prev = 64, 4
         for cm, c, s in STAGES:
+            k2.append((name, cams, -(-h // prev), -(-w // prev), cin, cm, c,
+                       s // prev))
             k3.append((name, cams, -(-h // s), -(-w // s), c, cm))
             k4.append((name, cams, -(-h // s), -(-w // s), 256))
-    return k3, k4
+            cin, prev = c, s
+    return k2, k3, k4
 
 
-K3_SHAPES, K4_SHAPES = _shapes()
-# blocks per launch at the main path's shapes (PERF.md section 6, PR 3)
+K2_SHAPES, K3_SHAPES, K4_SHAPES = _shapes()
+# blocks per launch at the main path's shapes (PERF.md section 6): K2 by
+# mid channels, K3 and K4 by map height
+MAIN_K2_BLOCKS = {64: 264, 128: 264, 256: 144, 512: 72}
 MAIN_K3_BLOCKS = {64: 264, 32: 132, 16: 72, 8: 36}
 MAIN_K4_BLOCKS = {64: 528, 32: 132, 16: 72, 8: 72}
 
@@ -42,6 +50,24 @@ def _check_pass(mt, wm, n):
     bm, bn = cf.tc_pass_shape(mt, wm)
     assert wm in (1, 2, 4, 8) and bm == 16 * mt * wm
     assert bn * wm == 64 * cf.TC_WARPS and n % bn == 0
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES,
+                         ids=lambda s: f"{s[0]}-{s[5]}-s{s[7]}")
+def test_bottleneck_down_plan(shape):
+    name, b, h, w, c, cm, co, stride = shape
+    plan = cf.plan_bottleneck_down_tc(b, h, w, c, cm, co, stride)
+    assert plan.smem <= _kernels.MAX_SMEM
+    assert plan.mt in cf.TC_MT_DOWN and plan.bk in cf.TC_BK
+    assert len(plan.wm) == 3 and plan.tw % 8 == 0
+    # the reduce and the 3x3 are Cm wide, the expansion and skip Co
+    for wm, n in zip(plan.wm, (cm, cm, co)):
+        _check_pass(plan.mt, wm, n)
+    assert c % plan.bk == 0 and cm % plan.bk == 0
+    oh, ow = h // stride, w // stride
+    assert plan.blocks == -(-oh // plan.th) * -(-ow // plan.tw) * b
+    if name == "r50_704x256":
+        assert plan.blocks == MAIN_K2_BLOCKS[cm]
 
 
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=lambda s: f"{s[0]}-{s[4]}")
@@ -80,6 +106,21 @@ def test_conv3x3_plan(shape):
 def test_bottleneck_plan_refuses_unaligned_channels(c, cm):
     with pytest.raises(ValueError, match="multiple of 64"):
         cf.plan_bottleneck_tc(6, 8, 22, c, cm)
+
+
+@pytest.mark.parametrize("c,cm,co", [(96, 64, 256), (256, 48, 512),
+                                     (512, 256, 1000)])
+def test_bottleneck_down_plan_refuses_unaligned_channels(c, cm, co):
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cf.plan_bottleneck_down_tc(6, 16, 44, c, cm, co, 2)
+
+
+@pytest.mark.parametrize("h,w,stride", [(15, 44, 2), (16, 43, 2),
+                                        (16, 44, 3)])
+def test_bottleneck_down_plan_refuses_odd_maps_and_other_strides(h, w,
+                                                                 stride):
+    with pytest.raises(ValueError, match="divisible by it"):
+        cf.plan_bottleneck_down_tc(6, h, w, 1024, 512, 2048, stride)
 
 
 @pytest.mark.parametrize("c,co", [(200, 256), (256, 100)])
