@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
              versions; TF32 off for the whole run.
 2. build   — compiles the four sources simpb_tpu_torch/csrc/{conv_fused,
              conv_tc,mosaic_probe,sampling}.cu with nvcc for sm_90a, one
-             nvcc each, all started together.
+             nvcc each, all started together; prints each kernel
+             instance's registers and spills (-Xptxas -v) and fails if a
+             sampling instance spills.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
              version at every full-width shape of the main path and at
@@ -38,13 +40,21 @@ Phases, each printing one JSON line:
              alone and the peak device memory. The arguments of every
              sampling call of the last stream frame are recorded.
 6. sampling — the DFA and windowed-MSDA kernels against their plain
-             versions: (a) on the recorded calls of that stream frame, in
-             the main path's dtypes; (b) on synthetic cases in fp32 and
-             bf16 (more in-range DFA slots than the capacity, locations at
-             and beyond the borders; MSDA samples spread past the window,
-             queries with every sample dropped, tied level masses, window
-             mids on rounding ties). Timed beside the plain version, with
-             the bound from the rows the call gathers.
+             versions, each call launched twice (the two outputs must be
+             bit-identical): (a) on the recorded calls of that stream
+             frame, in the main path's dtypes; (b) on synthetic cases in
+             fp32 and bf16 (more in-range DFA slots than the capacity,
+             locations at and beyond the borders, anchors with no live
+             entry and with all 312 live; MSDA samples spread past the
+             window, queries with every sample dropped, tied level
+             masses, window mids on rounding ties, windows flush with a
+             level's border and at 0, an odd query count, the tiny
+             config's widths: C 64, 4 heads).
+             Timed through the wrapper back to back (`ms`), on the
+             device alone (`device_ms`: the calls queued behind a spin
+             kernel, so the host's time drops out) and
+             beside the plain version, with the bound from the rows the
+             call gathers.
 7. parity  — the same slice in fp32 once through the kernels and once
              through their plain versions (trunk and sampling); head
              outputs compared.
@@ -61,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -113,7 +124,6 @@ def ptxas_summary(log: str):
     """One line per kernel instance of an `nvcc -Xptxas -v` report:
     its name with the template's integer arguments, registers, stack
     and spills."""
-    import re
 
     def demangle(sym):
         # the length-prefixed source name ending in _kernel, then the
@@ -169,6 +179,40 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of `fn`, without the host's: the events
+    bracket `iters` calls queued behind `torch.cuda._sleep`, long enough
+    that the host has enqueued them all before the first starts (checked:
+    the start event must still be pending when the host is done; else
+    the spin doubles). `cuda_ms` times the same calls back to back, so
+    where a call's host time exceeds its device time it measures the
+    host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(host_s, 1e-3) * 4e9)  # ~2x the host time at <= 2 GHz
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise AssertionError("device_ms: the spin never covered the enqueueing")
 
 
 def kernel_cases():
@@ -621,7 +665,9 @@ def dfa_work(sampling, args, kwargs):
 def msda_work(sampling, args):
     """(bytes, operations) an MSDA-sel call must move and do at least:
     the distinct value rows of its windows, the locations and weights, the
-    outputs; 2 operations per (query, level, head, pixel, channel)."""
+    outputs; 2 operations per (query, level, head, pixel, channel). The
+    bf16 route does each product as three exact bf16 products, so its
+    operations count three times at the bf16 peak (phase_sampling)."""
     value, ss, loc, attw, heads, ph, pw, k = args
     b, total, c = value.shape
     rows = sampling.msda_sel_windows(total, ss, loc, attw, ph, pw, k)[0]
@@ -648,6 +694,9 @@ def synthetic_sampling(torch, dtype, gen, dev="cuda"):
     edges = torch.tensor([0.0, 1.0, -0.1, 1.1, 2 ** -9, 1 - 2 ** -8, 0.5,
                           0.3], device=dev)
     border = edges[(rnd(1, a, p, cams, 2) * len(edges)).long()].to(dtype)
+    # anchors 0-99 with every point out of range: no live entry
+    dead = border.clone()
+    dead[:, :100] = -0.5
     cases = [
         ("dfa_capacity_bites", "deformable_aggregation",
          (col, ss, dense, wts), dict(gather_capacity=2048)),
@@ -655,6 +704,14 @@ def synthetic_sampling(torch, dtype, gen, dev="cuda"):
          (col, ss, border, wts), dict(gather_capacity=2048)),
         ("dfa_border_no_capacity", "deformable_aggregation",
          (col, ss, border, wts), dict(gather_capacity=None)),
+        ("dfa_dead_anchors", "deformable_aggregation",
+         (col, ss, dead, wts), dict(gather_capacity=2048)),
+        ("dfa_dead_anchors_no_capacity", "deformable_aggregation",
+         (col, ss, dead, wts), dict(gather_capacity=None)),
+        # every point in range, no capacity: all 6 x 13 x 4 = 312 entries
+        # of every anchor live
+        ("dfa_all_live", "deformable_aggregation",
+         (col, ss, dense, wts), dict(gather_capacity=None)),
     ]
     # MSDA-sel: 6 camera rows x 208 queries, 8 heads x 4 points, 4 levels
     bq, q, heads, pts_ = 6, 208, 8, 4
@@ -672,18 +729,50 @@ def synthetic_sampling(torch, dtype, gen, dev="cuda"):
     cases.append(("msda_sel_synthetic", "msda_patch_sel",
                   (value, ss, loc.contiguous(), attw.contiguous(), heads, 8,
                    8, 2), {}))
+    # windows flush with each level's border: samples spanning pixels
+    # [size - 8, size - 1] (queries 0-69: base size - 8, unclamped) or
+    # [0, 7] (70-139: base 0), and beyond the right and bottom border
+    # (140-207: clamped to size - 8)
+    size = torch.tensor([[w, h] for h, w in ss.shapes], device=dev,
+                        dtype=torch.float32)[:, None]  # [L, 1, 2]
+    span = rnd(bq, q, 4, n, 2) * 7
+    span[..., 0, :], span[..., 1, :] = 0.0, 7.0  # the span's two ends
+    pix = torch.cat([size - 8 + span[:, :70], span[:, 70:140],
+                     size - 1 + 0.999 * rnd(bq, q - 140, 4, n, 2)], 1)
+    flush = (pix + 0.5) / size
+    cases.append(("msda_sel_flush", "msda_patch_sel",
+                  (value, ss, flush.contiguous(), attw.contiguous(), heads,
+                   8, 8, 2), {}))
+    # 207 queries a row: an odd count of blocks
+    cases.append(("msda_sel_ragged", "msda_patch_sel",
+                  (value, ss, loc[:, :207].contiguous(),
+                   attw[:, :207].contiguous(), heads, 8, 8, 2), {}))
+    # the tiny config's head widths (C 64, 4 heads x 4 points) at these
+    # levels: the bf16 kernel's one-group-a-warp instance, whose A rows
+    # past the heads stay zero and whose warps 4-7 have no channels
+    heads_t, q_t = 4, 96
+    n_t = heads_t * pts_
+    loc_t = rnd(bq, q_t, 1, 1, 2) + 0.1 * torch.randn(
+        bq, q_t, 4, n_t, 2, generator=gen, device=dev)
+    loc_t[:, 40:60] = -0.5  # every sample dropped
+    attw_t = rnd(bq, q_t, 4, n_t)
+    attw_t = attw_t / attw_t.sum((2, 3), keepdim=True)
+    cases.append(("msda_sel_tiny_widths", "msda_patch_sel",
+                  (value[..., :64].contiguous(), ss, loc_t.contiguous(),
+                   attw_t.contiguous(), heads_t, 8, 8, 2), {}))
     return cases
 
 
 def phase_sampling(torch, calls, slice_launches):
     """DFA and MSDA-sel kernels against their plain versions on the
-    recorded main-path calls and the synthetic cases. Returns {name:
-    summary} for the kernels line (ms, plain and bound summed over one
-    frame's recorded calls)."""
+    recorded main-path calls and the synthetic cases; each call launched
+    twice must give bit-identical outputs. Returns {name:
+    summary} for the kernels line (ms, device_ms, plain and bound summed
+    over one frame's recorded calls)."""
     from simpb_tpu_torch.ops import sampling
 
     kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS}
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+    summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
                        bound={"bytes": 0.0, "operations": 0.0})
                for n in kernels}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -700,10 +789,14 @@ def phase_sampling(torch, calls, slice_launches):
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
+        frame = label.startswith("frame_call")
+        again = wrapper(*args, **kwargs)  # must give the same bits
+        again = again if isinstance(again, tuple) else (again,)
+        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
         dname = str(args[0].dtype).split(".")[-1]
         tol = SAMPLING_TOL[dname if name == "deformable_aggregation"
                            else "float32"]
-        errs, ok = [], launched == 1
+        errs, ok = [], launched == 1 and same
         for g_, r_ in zip(got, ref):
             if g_.shape != r_.shape or g_.dtype != r_.dtype:
                 raise AssertionError(f"{label}: {g_.shape}/{g_.dtype} vs "
@@ -713,28 +806,36 @@ def phase_sampling(torch, calls, slice_launches):
             errs.append(err)
             ok = ok and err <= tol * scale
         ms = cuda_ms(lambda: wrapper(*args, **kwargs))
+        dev_ms = device_ms(lambda: wrapper(*args, **kwargs))
         plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
         if name == "deformable_aggregation":
             byts, ops = dfa_work(sampling, args, kwargs)
         else:
             byts, ops = msda_work(sampling, args)
-        peak = PEAK_OPS[dname if name == "deformable_aggregation"
-                        else "float32"]
-        b_ms, o_ms = byts / PEAK_BYTES * 1e3, ops / peak * 1e3
+        if name == "deformable_aggregation":
+            o_ms = ops / PEAK_OPS[dname] * 1e3
+        elif dname == "bfloat16":  # three bf16 products a weight
+            o_ms = 3 * ops / PEAK_OPS["bfloat16"] * 1e3
+        else:
+            o_ms = ops / PEAK_OPS["float32"] * 1e3
+        b_ms = byts / PEAK_BYTES * 1e3
         bound_by = "bytes" if b_ms >= o_ms else "operations"
         emit(dict(phase="sampling", case=label, name=name, dtype=dname,
                   max_abs_err=errs, tol_share=tol, ok=ok, launches=launched,
-                  ms=ms, plain_ms=plain_ms, library_ms=None,
+                  deterministic=same, ms=ms, device_ms=dev_ms,
+                  plain_ms=plain_ms, library_ms=None,
                   bound_ms=max(b_ms, o_ms), bound_by=bound_by,
                   bytes=byts, operations=ops))
         if not ok:
             raise AssertionError(f"{label}: max abs err {errs} above "
-                                 f"{tol} of max(|plain|, 1), or "
-                                 f"{launched} launches")
+                                 f"{tol} of max(|plain|, 1), "
+                                 f"{launched} launches, or a second launch "
+                                 "gave other bits")
         s = summary[name]
         s["max_abs_err"] = max([s["max_abs_err"]] + errs)
-        if label.startswith("frame_call"):  # one stream frame's calls
+        if frame:  # one stream frame's calls
             s["ms"] += ms
+            s["device_ms"] += dev_ms
             s["plain_ms"] += plain_ms
             s["bound"][bound_by] += max(b_ms, o_ms)
     out = {}
@@ -744,7 +845,8 @@ def phase_sampling(torch, calls, slice_launches):
             source="simpb_tpu_torch/csrc/sampling.cu",
             replaces=kernels[name][2], launches=slice_launches[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"],
-            plain_ms=s["plain_ms"], bound_ms=sum(s["bound"].values()),
+            device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+            bound_ms=sum(s["bound"].values()),
             bound_by=max(s["bound"], key=s["bound"].get), library_ms=None)
     return out
 
@@ -851,6 +953,10 @@ def main() -> int:
               libraries=[str(p.relative_to(_kernels.PKG_DIR.parent))
                          for p in libs],
               ptxas=ptxas))
+    spills = [ln for ln in ptxas["sampling"]
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        raise AssertionError(f"sampling kernels spill: {spills}")
 
     summary, wrappers = phase_kernels(torch, conv_fused)
     probes = phase_probes(torch)

@@ -5,28 +5,29 @@
 //   dfa_rank_kernel + dfa_kernel <- simpb_tpu/ops/sampling.py::
 //       deformable_aggregation (capacity compaction :417-436, plain
 //       sample_core :569-608; no sel_levels, no level_capacity)
-//   msda_sel_kernel              <- simpb_tpu/ops/sampling.py::
+//   msda_sel_tc_kernel (bf16), msda_sel_kernel (fp32)
+//                                <- simpb_tpu/ops/sampling.py::
 //       _msda_patch_sel (:892-1007, window placement _window_base :168)
 // and compute what their plain PyTorch versions in ops/sampling.py compute.
 //
-// What bounds them on an H100: bytes. DFA reads a few rows of C values per
-// sample and does about ten operations per value read; the windowed MSDA
-// reads an 8x8 window of C values per (query, level) and does 2 x heads
-// operations per value, far below the ~20 fp32 operations per byte where
-// the CUDA cores would become the limit. The design reads every gathered
-// row once per block, with the channel index on the threads so that a
-// warp reads contiguous bytes of a row, and keeps all per-sample and
-// per-window intermediates in shared memory and registers: only the
-// output touches device memory.
-//
-// DFA: `dfa_rank_kernel` (one block per camera row) ranks the in-range
-// slots of each camera in slot order a * P + p with a block scan and marks
-// those ranked below the capacity M -- the set the plain version's stable
-// top-k keeps. `dfa_kernel` runs one block per (batch, anchor): its
-// threads first place every (camera, point, level) sample of the anchor in
-// shared memory, then each thread sums its channel over them. The sum is
-// in-block and in a fixed order, so results are deterministic (no
-// atomics; the plain version's index_add_ is atomic on the card).
+// DFA: bound by bytes (four feature rows per live sample, ten operations
+// per value read). `dfa_rank_kernel` (one block per camera row) finds
+// the capacity's threshold: the slot, in slot order a * P + p, of each
+// camera's M-th in-range slot (a slot counts iff it is in range and
+// comes before it, the set the plain version's stable top-k keeps). Its
+// threads load the slots' flags with neighbouring threads on neighbouring
+// slots, all loads issued before use, then rank contiguous runs of them
+// with one block scan. `dfa_kernel` runs one block per (batch, anchor).
+// Its threads first place the anchor's (camera, point, level) entries, a
+// contiguous run of two a thread with every load issued before use, and
+// compact the live ones, in entry order, into shared memory (one block
+// scan). Then a team of C / 8 threads takes one entry at a time, a thread
+// 8 channels as one 16-byte load (two for fp32), so that a warp
+// instruction reads a whole 512-byte feature row; the teams take
+// interleaved entries of the list, two at a time with all eight corner
+// loads issued before the first is used. The teams' partial sums add in
+// shared memory in team order: results are deterministic (no atomics; the
+// plain version's index_add_ is atomic on the card).
 //
 // Rounding points. The plain version runs in the storage type: for bf16,
 // the pixel position, the corner weights, each corner product, each pair
@@ -34,20 +35,42 @@
 // kernel that kept positions in fp32 would compute another function
 // (near x = 88 at a 176-wide level bf16 steps by 0.5 px), so every
 // rounding is written out with __float2bfloat16_rn, and products and sums
-// use __fmul_rn / __fadd_rn so that nvcc fuses nothing into an FMA. In
-// fp32 the same explicit operations make every sample bit-identical to the
-// plain version's; only the order of the fp32 sums differs.
+// use __fmul_rn / __fadd_rn so that nvcc fuses nothing into an FMA. A
+// product of two bf16 values is exact in fp32, so bf16 products run two
+// channels an instruction (__hmul2, one rounding); sums still round
+// through fp32, as torch's bf16 add does. In fp32 the same explicit
+// operations make every sample bit-identical to the plain version's; only
+// the order of the fp32 sums differs.
 //
-// MSDA-sel: one block per (camera row, query): the attention mass of each
-// level, the top-k levels (lower index first among ties, as topk_stable),
-// each window's midrange base (rintf: round half to even, as torch.round),
-// the taper-clamped samples, the per-head window weights [k, heads, ph*pw]
-// in shared memory, then each thread contracts the window pixels of its
-// channel with them. Everything fp32, as the plain version.
+// MSDA-sel: per (camera row, query) the attention mass of each level,
+// the top-k levels (lower index first among ties, as topk_stable), each
+// window's midrange base (rintf: round half to even, as torch.round), the
+// taper-clamped samples and the per-head window weights W [heads, k x
+// ph x pw] (fp32), then out[h, c] = sum_px W[h, px] * V[px, c] over the
+// k windows. bf16 values: `msda_sel_tc_kernel`, bound by its per-query
+// latency chain (the prologue) and the windows' bytes once the
+// contraction is on the tensor cores (mma.sync.m16n8k16, fp32 sums).
+// Each fp32 weight is split into three bf16 parts, W = hi + mid + lo
+// (exact for any normal W: 3 x 8 significand bits), and each part times a
+// bf16 value is exact in fp32, so the kernel computes the plain version's
+// fp32 products exactly; only the order of the fp32 sums differs (a
+// two-part split would leave 2^-16 of sum |W| |v|). The 3 x heads rows of
+// parts are A, the window pixels B, staged in shared memory by cp.async,
+// 16 bytes a copy, with each pixel row's 16-byte chunks swizzled so that
+// the 8 rows of an ldmatrix fall on 8 bank groups. The level masses sum
+// in the plain order (a different order can flip a near-tied top-2);
+// min and max of the window bases are exact in any order and reduce with
+// shuffles. A block takes one query, three blocks an SM, so that the
+// blocks hide each other's prologue latencies. fp32 values keep the CUDA-core
+// `msda_sel_kernel`, one block per (query, camera row), each thread
+// contracting its channel.
 //
-// C interface (ctypes): pointers and the stream are void*; shapes come in
-// a host int array, strides in a host int64 array; each function returns
-// cudaGetLastError() after its launches.
+// C interface (ctypes): pointers and the stream are void*; shapes and the
+// launch plan (threads, shared memory) come in a host
+// int array from the planners in ops/sampling.py, strides in a host int64
+// array; each function returns cudaGetLastError() after its launches, or
+// cudaErrorInvalidValue for a plan whose shared memory is short of what
+// the kernel lays out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +82,11 @@ namespace {
 typedef __nv_bfloat16 bf16;
 constexpr int MAX_LEVELS = 8;
 constexpr int MAX_HEADS = 16;
+constexpr int MAX_GROUPS = 8;  // DFA weight groups
+constexpr int DFA_RUN = 2;     // most entries a DFA thread places at once
 constexpr int RANK_NT = 1024;  // threads of a rank block (32 warps)
+constexpr int RANK_RUN = 16;   // most slots a rank thread loads at once
+constexpr int MSDA_NT = 256;   // threads of an MSDA-sel tensor-core block
 
 struct Levels {
   int n;
@@ -81,6 +108,43 @@ __device__ __forceinline__ bool in_range(float x, float y) {
   return x > 0.f && x < 1.f && y > 0.f && y < 1.f;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---------------------------------------------------------------- DFA
 // pts [bs, A, P, cams, 2] and wts [bs, A, P, cams, L, G] by element
 // strides; col [bs, cams, T, C] contiguous.
@@ -89,165 +153,356 @@ struct DfaArgs {
   long long sp[5], sw[6];
 };
 
-// counted[bc, a * P + p] = 1 iff the slot is in range and fewer than M
-// in-range slots of camera row bc come before it.
-template <typename T>
-__global__ void __launch_bounds__(RANK_NT)
-dfa_rank_kernel(const T* __restrict__ pts, DfaArgs g,
-                uint8_t* __restrict__ counted) {
-  __shared__ int warp_sum[RANK_NT / 32];
-  __shared__ int base;
-  const int bc = blockIdx.x, batch = bc / g.cams, cam = bc % g.cams;
-  const int S = g.A * g.P, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) base = 0;
+// Inclusive block scan of one int a thread (blockDim.x a multiple of 32,
+// at most 1024); `tot` gets the block's total.
+__device__ __forceinline__ int block_scan(int v, int* warp_sum, int& tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) warp_sum[warp] = v;
   __syncthreads();
-  for (int s0 = 0; s0 < S; s0 += RANK_NT) {
-    const int s = s0 + threadIdx.x;
-    int flag = 0;
-    if (s < S) {
-      const T* q = pts + batch * g.sp[0] + (s / g.P) * g.sp[1] +
-                   (s % g.P) * g.sp[2] + cam * g.sp[3];
-      flag = in_range(ld(q), ld(q + g.sp[4]));
-    }
-    int v = flag;  // inclusive scan within the warp
+  if (warp == 0) {
+    int t = lane < nw ? warp_sum[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
+      const int u = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t += u;
     }
-    if (lane == 31) warp_sum[warp] = v;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals
-      int t = warp_sum[lane];
+    warp_sum[lane] = t;
+  }
+  __syncthreads();
+  tot = warp_sum[nw - 1];
+  return v + (warp ? warp_sum[warp - 1] : 0);
+}
+
+// thr[bc] = 1 + the slot index of camera row bc's M-th in-range slot in
+// slot order a * P + p (S when it has fewer than M): a slot counts iff it
+// is in range and its index is below thr, the set the plain version's
+// stable top-k keeps. A thread takes a contiguous run of up to RANK_RUN
+// slots (one pass when S <= 16384).
+template <typename T>
+__global__ void __launch_bounds__(RANK_NT)
+dfa_rank_kernel(const T* __restrict__ pts, DfaArgs g, int* __restrict__ thr) {
+  __shared__ int warp_sum[32];
+  __shared__ uint8_t flag[RANK_NT * RANK_RUN];
+  const int bc = blockIdx.x, batch = bc / g.cams, cam = bc % g.cams;
+  const int S = g.A * g.P, tid = threadIdx.x;
+  const T* pb = pts + batch * g.sp[0] + cam * g.sp[3];
+  int base = 0;
+  for (int s0 = 0; s0 < S; s0 += RANK_NT * RANK_RUN) {
+    const int len = min(S - s0, RANK_NT * RANK_RUN);
+    const int run = (len + RANK_NT - 1) / RANK_NT;
+    // the slots' in-range flags, loaded with neighbouring threads on
+    // neighbouring slots, every load before any use
+    float x[RANK_RUN], y[RANK_RUN];
+    int an = (s0 + tid) / g.P, pt = (s0 + tid) % g.P;  // slot s0 + tid
+    const int da = RANK_NT / g.P, dp = RANK_NT % g.P;   // a step of NT
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, t, o);
-        if (lane >= o) t += u;
+    for (int k = 0; k < RANK_RUN; ++k) {
+      const int i = k * RANK_NT + tid;
+      x[k] = y[k] = -1.f;
+      if (i < len) {
+        const T* q = pb + an * g.sp[1] + pt * g.sp[2];
+        x[k] = ld(q);
+        y[k] = ld(q + g.sp[4]);
       }
-      warp_sum[lane] = t;
+      an += da;
+      pt += dp;
+      if (pt >= g.P) {
+        pt -= g.P;
+        ++an;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RANK_RUN; ++k) {
+      const int i = k * RANK_NT + tid;
+      if (i < len) flag[i] = in_range(x[k], y[k]);
     }
     __syncthreads();
-    const int rank = base + (warp ? warp_sum[warp - 1] : 0) + v - flag;
-    if (s < S) counted[(long long)bc * S + s] = flag && rank < g.M;
-    __syncthreads();
-    if (threadIdx.x == 0) base += warp_sum[RANK_NT / 32 - 1];
-    __syncthreads();
+    // a thread ranks a contiguous run of them: one block scan
+    const int first = tid * run;
+    unsigned flags = 0;
+#pragma unroll
+    for (int i = 0; i < RANK_RUN; ++i)
+      if (i < run && first + i < len) flags |= (unsigned)flag[first + i] << i;
+    int tot;
+    int rank = base + block_scan(__popc(flags), warp_sum, tot) -
+               __popc(flags);
+#pragma unroll
+    for (int i = 0; i < RANK_RUN; ++i)
+      if ((flags >> i) & 1u) {
+        if (rank == g.M - 1) thr[bc] = s0 + first + i + 1;
+        ++rank;
+      }
+    base += tot;
+    __syncthreads();  // flag and warp_sum are rewritten by the next pass
+  }
+  if (tid == 0 && (g.M == 0 || base < g.M)) thr[bc] = g.M == 0 ? 0 : S;
+}
+
+// A thread's 8 channels of one feature row: one 16-byte load for bf16,
+// two for fp32.
+template <typename T>
+struct Row8 {
+  uint4 u[sizeof(T) / 2];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int k = 0; k < (int)(sizeof(T) / 2); ++k) u[k] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int k = 0; k < (int)(sizeof(T) / 2); ++k)
+      u[k] = *reinterpret_cast<const uint4*>(p + k * (16 / sizeof(T)));
+  }
+  // channel i (a constant after unrolling): bf16 widens by a shift
+  __device__ __forceinline__ float operator[](int i) const {
+    const uint4& q = u[sizeof(T) == 2 ? 0 : i / 4];
+    const int k = sizeof(T) == 2 ? i / 2 : i % 4;
+    const uint32_t w = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+    if constexpr (sizeof(T) == 2)
+      return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+    else
+      return __uint_as_float(w);
+  }
+};
+
+// One live entry's 8 channels: the two-corner rows, the sample, its group
+// weight, each rounding as the plain version's; adds to acc in fp32.
+template <typename T>
+__device__ __forceinline__ void dfa_accumulate(
+    float (&acc)[8], const float4 w, float gw, const Row8<T>& v00,
+    const Row8<T>& v01, const Row8<T>& v10, const Row8<T>& v11) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float vx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v00[i])),
+                                     R<T>(__fmul_rn(w.y, v01[i]))));
+    const float vx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v10[i])),
+                                     R<T>(__fmul_rn(w.y, v11[i]))));
+    const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0)),
+                                     R<T>(__fmul_rn(w.w, vx1))));
+    acc[i] = __fadd_rn(acc[i], R<T>(__fmul_rn(smp, gw)));
   }
 }
 
-// One block per (anchor, batch); out [bs, A, C] fp32. Shared memory per
-// sample e = (cam * P + p) * L + l: corner weights wx0 wx1 wy0 wy1, the
-// G group weights, four corner rows (pixel index within the camera's
-// column) and a live flag.
-template <typename T>
-__global__ void dfa_kernel(const T* __restrict__ col, const T* __restrict__ pts,
-                           const T* __restrict__ wts,
-                           const uint8_t* __restrict__ counted, DfaArgs g,
-                           Levels lv, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int a = blockIdx.x, batch = blockIdx.y;
-  const int L = lv.n, E = g.cams * g.P * L, S = g.A * g.P;
-  float* cw = smem;                  // [E][4]
-  float* gw = cw + 4 * E;            // [E][G]
-  int* rows = (int*)(gw + E * g.G);  // [E][4]
-  int* live = rows + 4 * E;          // [E]
+// bf16, two channels an instruction: a product of two bf16 values is
+// exact in fp32, so __hmul2's one rounding is R(__fmul_rn(a, b)); a sum
+// rounds through fp32 as torch's bf16 add does (a native bf16 add would
+// round once, not twice).
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ __nv_bfloat162 add2_rn(__nv_bfloat162 a,
+                                                  __nv_bfloat162 b) {
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return __floats2bfloat162_rn(__fadd_rn(fa.x, fb.x), __fadd_rn(fa.y, fb.y));
+}
+template <>
+__device__ __forceinline__ void dfa_accumulate<bf16>(
+    float (&acc)[8], const float4 w, float gw, const Row8<bf16>& v00,
+    const Row8<bf16>& v01, const Row8<bf16>& v10, const Row8<bf16>& v11) {
+  const __nv_bfloat162 wx0 = __float2bfloat162_rn(w.x),
+                       wx1 = __float2bfloat162_rn(w.y),
+                       wy0 = __float2bfloat162_rn(w.z),
+                       wy1 = __float2bfloat162_rn(w.w),
+                       g2 = __float2bfloat162_rn(gw);
+  const uint32_t a00[4] = {v00.u[0].x, v00.u[0].y, v00.u[0].z, v00.u[0].w};
+  const uint32_t a01[4] = {v01.u[0].x, v01.u[0].y, v01.u[0].z, v01.u[0].w};
+  const uint32_t a10[4] = {v10.u[0].x, v10.u[0].y, v10.u[0].z, v10.u[0].w};
+  const uint32_t a11[4] = {v11.u[0].x, v11.u[0].y, v11.u[0].z, v11.u[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 vx0 =
+        add2_rn(__hmul2(wx0, bf2(a00[i])), __hmul2(wx1, bf2(a01[i])));
+    const __nv_bfloat162 vx1 =
+        add2_rn(__hmul2(wx0, bf2(a10[i])), __hmul2(wx1, bf2(a11[i])));
+    const __nv_bfloat162 smp = add2_rn(__hmul2(wy0, vx0), __hmul2(wy1, vx1));
+    const float2 t = __bfloat1622float2(__hmul2(smp, g2));
+    acc[2 * i] = __fadd_rn(acc[2 * i], t.x);
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], t.y);
+  }
+}
 
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int l = e % L, p = e / L % g.P, cam = e / L / g.P;
-    const T* q = pts + batch * g.sp[0] + a * g.sp[1] + p * g.sp[2] +
-                 cam * g.sp[3];
-    const float locx = ld(q), locy = ld(q + g.sp[4]);
-    const int on = counted
-        ? counted[(long long)(batch * g.cams + cam) * S + a * g.P + p]
-        : in_range(locx, locy);
-    live[e] = on;
-    if (!on) continue;
-    const int h = lv.h[l], w = lv.w[l];
-    // x = loc * w - 0.5, each step rounded to T (_corner_weights)
-    const float x = R<T>(__fsub_rn(R<T>(__fmul_rn(locx, (float)w)), 0.5f));
-    const float y = R<T>(__fsub_rn(R<T>(__fmul_rn(locy, (float)h)), 0.5f));
-    const float x0f = floorf(x), y0f = floorf(y);
-    const float fx = R<T>(__fsub_rn(x, x0f)), fy = R<T>(__fsub_rn(y, y0f));
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    cw[4 * e + 0] = (x0 >= 0 && x0 < w) ? R<T>(__fsub_rn(1.f, fx)) : 0.f;
-    cw[4 * e + 1] = (x0 + 1 >= 0 && x0 + 1 < w) ? fx : 0.f;
-    cw[4 * e + 2] = (y0 >= 0 && y0 < h) ? R<T>(__fsub_rn(1.f, fy)) : 0.f;
-    cw[4 * e + 3] = (y0 + 1 >= 0 && y0 + 1 < h) ? fy : 0.f;
-    const int xc0 = min(max(x0, 0), w - 1), xc1 = min(max(x0 + 1, 0), w - 1);
-    const int r0 = lv.start[l] + min(max(y0, 0), h - 1) * w;
-    const int r1 = lv.start[l] + min(max(y0 + 1, 0), h - 1) * w;
-    rows[4 * e + 0] = r0 + xc0;
-    rows[4 * e + 1] = r0 + xc1;
-    rows[4 * e + 2] = r1 + xc0;
-    rows[4 * e + 3] = r1 + xc1;
-    const T* wq = wts + batch * g.sw[0] + a * g.sw[1] + p * g.sw[2] +
-                  cam * g.sw[3] + l * g.sw[4];
-    for (int k = 0; k < g.G; ++k) gw[e * g.G + k] = ld(wq + k * g.sw[5]);
+// Loads the four corner rows of live entry i (a corner of zero weight
+// adds a zero product: its row is not read).
+template <typename T>
+__device__ __forceinline__ void dfa_corners(const T* cb, const float4 w,
+                                            const int4 r, int C,
+                                            Row8<T> (&v)[4]) {
+  const int rr[4] = {r.x, r.y, r.z, r.w};
+  const bool need[4] = {w.z != 0.f && w.x != 0.f, w.z != 0.f && w.y != 0.f,
+                        w.w != 0.f && w.x != 0.f, w.w != 0.f && w.y != 0.f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k].zero();
+    if (need[k]) v[k].load(cb + (long long)rr[k] * C);
+  }
+}
+
+// One block per (anchor, batch); out [bs, A, C] fp32. Shared memory: the
+// teams' partial sums [teams][C], then per live entry (compacted in entry
+// order e = (cam * P + p) * L + l) its corner weights wx0 wx1 wy0 wy1, its
+// four corner rows (row of the batch's [cams * T, C] column) and its G
+// group weights.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dfa_kernel(const T* __restrict__ col, const T* __restrict__ pts,
+           const T* __restrict__ wts, const int* __restrict__ thr,
+           DfaArgs g, Levels lv, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int warp_sum[32];
+  const int a = blockIdx.x, batch = blockIdx.y, tid = threadIdx.x;
+  const int L = lv.n, E = g.cams * g.P * L, G = g.G;
+  const int CH = g.C / 8, teams = blockDim.x / CH;
+  float* red = reinterpret_cast<float*>(smem_raw);  // [teams][C]
+  float4* cw = reinterpret_cast<float4*>(red + teams * g.C);  // [E]
+  int4* rows = reinterpret_cast<int4*>(cw + E);               // [E]
+  float* gw = reinterpret_cast<float*>(rows + E);             // [E][G]
+
+  // 1. place every entry: a thread takes a contiguous run of up to
+  // DFA_RUN entries with all their loads issued before use; one block
+  // scan compacts the live ones in entry order
+  int nlive = 0;
+  for (int r0 = 0; r0 < E; r0 += blockDim.x * DFA_RUN) {
+    const int run = min(DFA_RUN, (E - r0 + blockDim.x - 1) / blockDim.x);
+    const int e0 = r0 + tid * run;
+    float lx[DFA_RUN], ly[DFA_RUN], gv[DFA_RUN][MAX_GROUPS];
+    int lim[DFA_RUN], lvl[DFA_RUN], cams[DFA_RUN];
+    int l = e0 % L, p = e0 / L % g.P, cam = e0 / L / g.P;  // entry e0
+#pragma unroll
+    for (int u = 0; u < DFA_RUN; ++u) {
+      const int e = e0 + u;
+      lx[u] = -1.f;
+      ly[u] = -1.f;
+      lim[u] = 0;
+      if (u) {  // the next entry: level, then point, then camera (no
+                // division)
+        if (++l == L) {
+          l = 0;
+          if (++p == g.P) {
+            p = 0;
+            ++cam;
+          }
+        }
+      }
+      lvl[u] = l;
+      cams[u] = cam;
+      if (u < run && e < E) {
+        const T* q = pts + batch * g.sp[0] + a * g.sp[1] + p * g.sp[2] +
+                     cam * g.sp[3];
+        const T* wq = wts + batch * g.sw[0] + a * g.sw[1] + p * g.sw[2] +
+                      cam * g.sw[3] + l * g.sw[4];
+        lx[u] = ld(q);
+        ly[u] = ld(q + g.sp[4]);
+        lim[u] = thr ? thr[batch * g.cams + cam] - a * g.P - p : 1;
+#pragma unroll
+        for (int k = 0; k < MAX_GROUPS; ++k)
+          if (k < G) gv[u][k] = ld(wq + k * g.sw[5]);
+      }
+    }
+    unsigned live = 0;
+#pragma unroll
+    for (int u = 0; u < DFA_RUN; ++u)
+      live |= (unsigned)(in_range(lx[u], ly[u]) && lim[u] > 0) << u;
+    int tot;
+    int pos = nlive + block_scan(__popc(live), warp_sum, tot) - __popc(live);
+#pragma unroll
+    for (int u = 0; u < DFA_RUN; ++u) {
+      if (!((live >> u) & 1u)) continue;
+      const int h = lv.h[lvl[u]], w = lv.w[lvl[u]];
+      // x = loc * w - 0.5, each step rounded to T (_corner_weights)
+      const float x =
+          R<T>(__fsub_rn(R<T>(__fmul_rn(lx[u], (float)w)), 0.5f));
+      const float y =
+          R<T>(__fsub_rn(R<T>(__fmul_rn(ly[u], (float)h)), 0.5f));
+      const float x0f = floorf(x), y0f = floorf(y);
+      const float fx = R<T>(__fsub_rn(x, x0f)), fy = R<T>(__fsub_rn(y, y0f));
+      const int x0 = (int)x0f, y0 = (int)y0f;
+      cw[pos] = make_float4(
+          (x0 >= 0 && x0 < w) ? R<T>(__fsub_rn(1.f, fx)) : 0.f,
+          (x0 + 1 >= 0 && x0 + 1 < w) ? fx : 0.f,
+          (y0 >= 0 && y0 < h) ? R<T>(__fsub_rn(1.f, fy)) : 0.f,
+          (y0 + 1 >= 0 && y0 + 1 < h) ? fy : 0.f);
+      const int xc0 = min(max(x0, 0), w - 1), xc1 = min(max(x0 + 1, 0), w - 1);
+      const int base = cams[u] * g.T + lv.start[lvl[u]];
+      const int ra = base + min(max(y0, 0), h - 1) * w;
+      const int rb = base + min(max(y0 + 1, 0), h - 1) * w;
+      rows[pos] = make_int4(ra + xc0, ra + xc1, rb + xc0, rb + xc1);
+#pragma unroll
+      for (int k = 0; k < MAX_GROUPS; ++k)
+        if (k < G) gw[pos * G + k] = gv[u][k];
+      ++pos;
+    }
+    nlive += tot;
+    __syncthreads();  // warp_sum is rewritten by the next round
+  }
+
+  // 2. each team sums interleaved entries, two at a time
+  const int team = tid / CH, ci = tid % CH;
+  const int grp = (8 * ci) / (g.C / G);
+  const T* cb = col + (long long)batch * g.cams * g.T * g.C + ci * 8;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  if (team < teams) {
+    for (int i = team; i < nlive; i += 2 * teams) {
+      const int j = i + teams;
+      const bool two = j < nlive;
+      const float4 wa = cw[i];
+      const float4 wb = two ? cw[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      Row8<T> va[4], vb[4];
+      dfa_corners(cb, wa, rows[i], g.C, va);
+      dfa_corners(cb, wb, two ? rows[j] : rows[i], g.C, vb);
+      dfa_accumulate(acc, wa, gw[i * G + grp], va[0], va[1], va[2], va[3]);
+      if (two)
+        dfa_accumulate(acc, wb, gw[j * G + grp], vb[0], vb[1], vb[2], vb[3]);
+    }
+    float4* rt = reinterpret_cast<float4*>(red + team * g.C + ci * 8);
+    rt[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    rt[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
   __syncthreads();
 
-  const int gd = g.C / g.G;
-  for (int c = threadIdx.x; c < g.C; c += blockDim.x) {
-    const int grp = c / gd;
-    float acc = 0.f;
-    for (int e = 0; e < E; ++e) {
-      if (!live[e]) continue;
-      const int cam = e / L / g.P;
-      const T* base =
-          col + (long long)(batch * g.cams + cam) * g.T * g.C + c;
-      const float wx0 = cw[4 * e], wx1 = cw[4 * e + 1];
-      const float wy0 = cw[4 * e + 2], wy1 = cw[4 * e + 3];
-      // a corner of zero weight adds a zero product: skip its read
-      float vx0 = 0.f, vx1 = 0.f;
-      if (wy0 != 0.f) {
-        const float p0 = wx0 != 0.f
-            ? R<T>(__fmul_rn(wx0, ld(base + (long long)rows[4 * e] * g.C)))
-            : 0.f;
-        const float p1 = wx1 != 0.f
-            ? R<T>(__fmul_rn(wx1, ld(base + (long long)rows[4 * e + 1] * g.C)))
-            : 0.f;
-        vx0 = R<T>(__fadd_rn(p0, p1));
-      }
-      if (wy1 != 0.f) {
-        const float p0 = wx0 != 0.f
-            ? R<T>(__fmul_rn(wx0, ld(base + (long long)rows[4 * e + 2] * g.C)))
-            : 0.f;
-        const float p1 = wx1 != 0.f
-            ? R<T>(__fmul_rn(wx1, ld(base + (long long)rows[4 * e + 3] * g.C)))
-            : 0.f;
-        vx1 = R<T>(__fadd_rn(p0, p1));
-      }
-      const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(wy0, vx0)),
-                                       R<T>(__fmul_rn(wy1, vx1))));
-      acc = __fadd_rn(acc, R<T>(__fmul_rn(smp, gw[e * g.G + grp])));
-    }
-    out[((long long)batch * g.A + a) * g.C + c] = acc;
+  // 3. the teams' partial sums, in team order
+  for (int c = tid; c < g.C; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < teams; ++t) s = __fadd_rn(s, red[t * g.C + c]);
+    out[((long long)batch * g.A + a) * g.C + c] = s;
   }
 }
 
-int dfa_smem_bytes(const DfaArgs& g, int L) {
-  const int E = g.cams * g.P * L;
-  return E * (4 + g.G) * (int)sizeof(float) + E * 5 * (int)sizeof(int);
+int dfa_smem_bytes(const DfaArgs& g, int L, int threads) {
+  const int E = g.cams * g.P * L, teams = threads / (g.C / 8);
+  return 4 * (teams * g.C + 8 * E + E * g.G);
 }
 
 template <typename T>
-int launch_dfa(const void* col, const void* pts, const void* wts,
-               uint8_t* counted, float* out, const DfaArgs& g,
-               const Levels& lv, cudaStream_t st) {
+int launch_dfa(const void* col, const void* pts, const void* wts, int* thr,
+               float* out, const DfaArgs& g, const Levels& lv, int threads,
+               int smem, cudaStream_t st) {
+  if (g.C % 8 || (g.C / g.G) % 8 || g.G > MAX_GROUPS || threads % 32 ||
+      threads > 256 || threads < g.C / 8 ||
+      dfa_smem_bytes(g, lv.n, threads) > smem)
+    return (int)cudaErrorInvalidValue;
   const bool rank = g.M >= 0 && g.M < g.A * g.P;
   if (rank) {
     dfa_rank_kernel<T><<<g.bs * g.cams, RANK_NT, 0, st>>>((const T*)pts, g,
-                                                           counted);
+                                                           thr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int smem = dfa_smem_bytes(g, lv.n);
-  cudaFuncSetAttribute(dfa_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int nt = g.C < 256 ? ((g.C + 31) / 32) * 32 : 256;
-  dfa_kernel<T><<<dim3(g.A, g.bs), nt, smem, st>>>(
-      (const T*)col, (const T*)pts, (const T*)wts, rank ? counted : nullptr,
-      g, lv, out);
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(dfa_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  dfa_kernel<T><<<dim3(g.A, g.bs), threads, smem, st>>>(
+      (const T*)col, (const T*)pts, (const T*)wts, rank ? thr : nullptr, g,
+      lv, out);
   return (int)cudaGetLastError();
 }
 
@@ -261,11 +516,11 @@ __device__ __forceinline__ float pix(float loc, int size) {
   return __fsub_rn(__fmul_rn(loc, (float)size), 0.5f);
 }
 
-// value [B, T, C]; loc [B, Q, L, n, 2] and attw [B, Q, L, n] fp32 with the
-// n = heads * points samples head-major; sampled [B, Q, heads, C] and
-// wsum [B, Q, heads] fp32. One block per (query, camera row).
-template <typename T>
-__global__ void msda_sel_kernel(const T* __restrict__ value,
+// fp32 values: value [B, T, C]; loc [B, Q, L, n, 2] and attw [B, Q, L, n]
+// fp32 with the n = heads * points samples head-major; sampled [B, Q,
+// heads, C] and wsum [B, Q, heads] fp32. One block per (query, camera
+// row), a thread per channel.
+__global__ void msda_sel_kernel(const float* __restrict__ value,
                                 const float* __restrict__ loc,
                                 const float* __restrict__ attw, MsdaArgs g,
                                 Levels lv, float* __restrict__ sampled,
@@ -382,11 +637,11 @@ __global__ void msda_sel_kernel(const T* __restrict__ value,
     for (int hh = 0; hh < MAX_HEADS; ++hh) acc[hh] = 0.f;
     for (int j = 0; j < K; ++j) {
       const int l = lsel[j], w = lv.w[l];
-      const T* vb = value + ((long long)b * g.T + lv.start[l] +
-                             (long long)bys[j] * w + bxs[j]) * g.C + c;
+      const float* vb = value + ((long long)b * g.T + lv.start[l] +
+                                 (long long)bys[j] * w + bxs[j]) * g.C + c;
       const float* Wj = W + j * g.heads * win;
       for (int e = 0; e < win; ++e) {
-        const float v = ld(vb + ((long long)(e / g.pw) * w + e % g.pw) * g.C);
+        const float v = vb[((long long)(e / g.pw) * w + e % g.pw) * g.C];
 #pragma unroll
         for (int hh = 0; hh < MAX_HEADS; ++hh)
           if (hh < g.heads) acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);
@@ -398,17 +653,317 @@ __global__ void msda_sel_kernel(const T* __restrict__ value,
   }
 }
 
-template <typename T>
-int launch_msda_sel(const void* value, const float* loc, const float* attw,
-                    float* sampled, float* wsum, const MsdaArgs& g,
-                    const Levels& lv, cudaStream_t st) {
-  const int smem = (g.K * g.heads * g.ph * g.pw + 5 * g.K * g.n) *
-                   (int)sizeof(float);
-  cudaFuncSetAttribute(msda_sel_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int nt = g.C < 256 ? ((g.C + 31) / 32) * 32 : 256;
-  msda_sel_kernel<T><<<dim3(g.Q, g.B), nt, smem, st>>>(
-      (const T*)value, loc, attw, g, lv, sampled, wsum);
+// The bf16 tensor-core kernel's fixed head shape: 8x8 windows at the top
+// 2 levels, 4 points a head, at most 8 heads (every configuration of the
+// repo); channels, levels and queries are the launch's.
+constexpr int SEL_K = 2, WIN_H = 8, WIN_W = 8, PTS = 4, TC_HEADS = 8;
+constexpr int WIN = WIN_H * WIN_W, KW = SEL_K * WIN;  // K of the product
+constexpr int AL = KW + 8;  // bf16 a row of the weight parts A
+
+// Shared memory of one MSDA-sel tensor-core block (offsets in bytes): the
+// windows' pixel rows V [KW][C] bf16, whose 16-byte chunks are swizzled by
+// the row (chunk c of row r at c ^ (r % 8), so the 8 rows of an ldmatrix
+// fall on 8 bank groups); the weight parts A [25][AL] bf16: 8 rows a part,
+// then a zero row; the query's loc [L][n][2], attw [L][n] and its levels
+// and window bases [SEL_K].
+struct MsdaSmem {
+  static constexpr int a_rows = 3 * TC_HEADS + 1;
+  int a, loc, attw, lsel, bx, by, total;
+  __host__ __device__ MsdaSmem(const MsdaArgs& g, int L) {
+    a = KW * g.C * 2;
+    loc = a + a_rows * AL * 2;
+    attw = loc + L * g.n * 2 * 4;
+    lsel = attw + L * g.n * 4;
+    bx = lsel + SEL_K * 4;
+    by = bx + SEL_K * 4;
+    total = by + SEL_K * 4;
+  }
+};
+
+// bf16 values: the same function with the contraction on the tensor
+// cores. Block bq takes query bq of the B * Q: the prologue (level masses,
+// top-2, window bases; the window copies start; the weights W, split into
+// their three bf16 parts; wsum) and the product out[h, c] = sum_k W[h, k]
+// V[k, c] over the KW window pixels. A is two m16 tiles: part p of head h
+// sits in row 8 p + h, row (p % 2) * 8 + h of tile p / 2, and the second
+// tile's last 8 rows read the zero row; so the thread holding row h of a
+// tile's accumulator holds all three parts of its head. GPW: 16-channel
+// groups a warp takes (C <= GPW * 128).
+template <int GPW>
+__global__ void __launch_bounds__(MSDA_NT, 3)
+msda_sel_tc_kernel(const bf16* __restrict__ value,
+                   const float* __restrict__ loc,
+                   const float* __restrict__ attw, MsdaArgs g, Levels lv,
+                   float* __restrict__ sampled, float* __restrict__ wsum) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = lv.n, H = g.heads, n = H * PTS, C = g.C, cch = C / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bq = blockIdx.x, b = bq / g.Q;
+  const MsdaSmem sm(g, L);
+  bf16* sv = reinterpret_cast<bf16*>(smem_raw);
+  bf16* A = reinterpret_cast<bf16*>(smem_raw + sm.a);
+  float* sl = reinterpret_cast<float*>(smem_raw + sm.loc);
+  float* sa = reinterpret_cast<float*>(smem_raw + sm.attw);
+  int* lsel = reinterpret_cast<int*>(smem_raw + sm.lsel);
+  int* bxs = reinterpret_cast<int*>(smem_raw + sm.bx);
+  int* bys = reinterpret_cast<int*>(smem_raw + sm.by);
+  // rows of A that no head fills stay zero (heads past H, the zero row)
+  for (int i = tid; i < MsdaSmem::a_rows * AL / 8; i += MSDA_NT)
+    reinterpret_cast<uint4*>(A)[i] = make_uint4(0, 0, 0, 0);
+
+  const float* lq = loc + (long long)bq * L * n * 2;
+  const float* aq = attw + (long long)bq * L * n;
+  for (int i = tid; i < L * n * 2; i += MSDA_NT) sl[i] = lq[i];
+  for (int i = tid; i < L * n; i += MSDA_NT) sa[i] = aq[i];
+  __syncthreads();
+  if (warp < SEL_K) {  // warp j: the j-th level by mass, its window base
+    float m = 0.f;  // lane l < L: level l's mass, summed in plain order
+    if (lane < L) {
+#pragma unroll 8
+      for (int i = 0; i < n; ++i) m = __fadd_rn(m, sa[lane * n + i]);
+    }
+    unsigned taken = 0;
+    int l = 0;
+    for (int jj = 0; jj <= warp; ++jj) {
+      int best = -1;
+      float bm = 0.f;
+      for (int ll = 0; ll < L; ++ll) {  // strict >: the lower index wins
+        const float ml = __shfl_sync(0xffffffffu, m, ll);
+        if (!((taken >> ll) & 1u) && (best < 0 || ml > bm)) {
+          best = ll;
+          bm = ml;
+        }
+      }
+      taken |= 1u << best;
+      l = best;
+    }
+    const int h = lv.h[l], w = lv.w[l];
+    float mnx = 1e9f, mxx = -1e9f, mny = 1e9f, mxy = -1e9f;
+    for (int i = lane; i < n; i += 32) {
+      const float px = pix(sl[(l * n + i) * 2], w);
+      const float py = pix(sl[(l * n + i) * 2 + 1], h);
+      if (px > -1.f && px < (float)w && py > -1.f && py < (float)h) {
+        mnx = fminf(mnx, px); mxx = fmaxf(mxx, px);
+        mny = fminf(mny, py); mxy = fmaxf(mxy, py);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {  // min and max: exact in any order
+      mnx = fminf(mnx, __shfl_xor_sync(0xffffffffu, mnx, o));
+      mxx = fmaxf(mxx, __shfl_xor_sync(0xffffffffu, mxx, o));
+      mny = fminf(mny, __shfl_xor_sync(0xffffffffu, mny, o));
+      mxy = fmaxf(mxy, __shfl_xor_sync(0xffffffffu, mxy, o));
+    }
+    if (lane == 0) {
+      const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
+      const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
+      const int bx = (int)rintf(__fsub_rn(midx, (WIN_W - 1) / 2.0f));
+      const int by = (int)rintf(__fsub_rn(midy, (WIN_H - 1) / 2.0f));
+      lsel[warp] = l;
+      bxs[warp] = min(max(bx, 0), w - WIN_W);
+      bys[warp] = min(max(by, 0), h - WIN_H);
+    }
+  }
+  __syncthreads();
+  // the windows into shared memory: a window row (8 pixels) is 8 C
+  // contiguous values; a thread copies its 16-byte chunk i of each
+  const bf16* vb = value + (long long)b * g.T * C;
+  for (int i = tid; i < WIN_W * cch; i += MSDA_NT) {
+    const int ex = i / cch, c = i - ex * cch;
+#pragma unroll
+    for (int j = 0; j < SEL_K; ++j) {
+      const int l = lsel[j], w = lv.w[l];
+      const bf16* src = vb + ((long long)lv.start[l] +
+                              (long long)bys[j] * w + bxs[j]) * C + i * 8;
+#pragma unroll
+      for (int ey = 0; ey < WIN_H; ++ey) {
+        const int r = (j * WIN_H + ey) * WIN_W + ex;
+        cp_async16(sv + r * C + ((c ^ (r & 7)) << 3),
+                   src + (long long)ey * w * C);
+      }
+    }
+  }
+  cp_commit();
+  // the weights: warp w takes the (level j, head h) rows jh = w, w + 8,
+  // ...; lanes p < 4 taper-clamp the row's points into [base - 1 +
+  // 1e-4, base + 8 - 1e-4], then every lane weighs pixels lane and
+  // lane + 32 of the window (separable bilinear one-hots, a corner
+  // outside the window adds nothing, times the attention, summed over
+  // the points) and writes their three bf16 parts into A's rows
+  // 8 part + h
+  const int eya = lane >> 3, eyb = eya + 4, ex = lane & 7;
+  for (int jh = warp; jh < SEL_K * H; jh += MSDA_NT / 32) {
+    const int j = jh / H, hh = jh - j * H;
+    float fxp = 0.f, fyp = 0.f, ap = 0.f;
+    int ixp = 0, iyp = 0;
+    if (lane < PTS) {
+      const int l = lsel[j], h = lv.h[l], w = lv.w[l], i = hh * PTS + lane;
+      const float px = pix(sl[(l * n + i) * 2], w);
+      const float py = pix(sl[(l * n + i) * 2 + 1], h);
+      const bool keep =
+          px > -1.f && px < (float)w && py > -1.f && py < (float)h;
+      const int bx = bxs[j], by = bys[j];
+      const float ax =
+          fmaxf(fminf(px, __fsub_rn((float)(bx + WIN_W), 1e-4f)),
+                __fadd_rn((float)(bx - 1), 1e-4f));
+      const float ay =
+          fmaxf(fminf(py, __fsub_rn((float)(by + WIN_H), 1e-4f)),
+                __fadd_rn((float)(by - 1), 1e-4f));
+      const float x0 = floorf(ax), y0 = floorf(ay);
+      fxp = __fsub_rn(ax, x0);
+      fyp = __fsub_rn(ay, y0);
+      ixp = (int)x0 - bx;
+      iyp = (int)y0 - by;
+      ap = __fmul_rn(sa[l * n + i], keep ? 1.f : 0.f);
+    }
+    float acca = 0.f, accb = 0.f;
+#pragma unroll
+    for (int p = 0; p < PTS; ++p) {
+      const float fy = __shfl_sync(0xffffffffu, fyp, p);
+      const float fx = __shfl_sync(0xffffffffu, fxp, p);
+      const float a = __shfl_sync(0xffffffffu, ap, p);
+      const int yi = __shfl_sync(0xffffffffu, iyp, p);
+      const int xi = __shfl_sync(0xffffffffu, ixp, p);
+      const float wx = ex == xi ? __fsub_rn(1.f, fx) : (ex == xi + 1 ? fx : 0.f);
+      const float wya = eya == yi ? __fsub_rn(1.f, fy)
+                                  : (eya == yi + 1 ? fy : 0.f);
+      const float wyb = eyb == yi ? __fsub_rn(1.f, fy)
+                                  : (eyb == yi + 1 ? fy : 0.f);
+      acca = __fadd_rn(acca, __fmul_rn(__fmul_rn(wya, wx), a));
+      accb = __fadd_rn(accb, __fmul_rn(__fmul_rn(wyb, wx), a));
+    }
+    bf16* row = A + hh * AL + j * WIN + lane;
+    const float accs[2] = {acca, accb};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const bf16 hi = __float2bfloat16_rn(accs[t]);
+      const float r = __fsub_rn(accs[t], __bfloat162float(hi));
+      const bf16 mid = __float2bfloat16_rn(r);
+      row[32 * t] = hi;
+      row[32 * t + 8 * AL] = mid;
+      row[32 * t + 16 * AL] =
+          __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+    }
+  }
+  __syncthreads();
+  if (tid < H) {  // wsum: each head's total window weight, plain order
+    const bf16* a = A + tid * AL;
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < KW; k += 8) {  // 8 a load; hi + mid + lo is W
+      const uint4 h4 = *reinterpret_cast<const uint4*>(a + k);
+      const uint4 m4 = *reinterpret_cast<const uint4*>(a + k + 8 * AL);
+      const uint4 l4 = *reinterpret_cast<const uint4*>(a + k + 16 * AL);
+      const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w},
+                     mw[4] = {m4.x, m4.y, m4.z, m4.w},
+                     lw[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 hf = __bfloat1622float2(bf2(hw[i])),
+                     mf = __bfloat1622float2(bf2(mw[i])),
+                     lf = __bfloat1622float2(bf2(lw[i]));
+        t += __fadd_rn(__fadd_rn(hf.x, mf.x), lf.x);
+        t += __fadd_rn(__fadd_rn(hf.y, mf.y), lf.y);
+      }
+    }
+    wsum[(long long)bq * H + tid] = t;
+  }
+  cp_wait_all();
+  __syncthreads();
+
+  // the product on the tensor cores
+  const int gid = lane >> 2, tig = lane & 3;
+  // this lane's ldmatrix row of each A tile: part 2 m + (lane & 15) / 8
+  int arow[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int p = 2 * m + ((lane & 15) >> 3);
+    arow[m] = (p < 3 ? 8 * p + (lane & 7) : MsdaSmem::a_rows - 1) * AL +
+              (lane >> 4) * 8;
+  }
+  float acc[GPW][2][2][4];
+#pragma unroll
+  for (int gi = 0; gi < GPW; ++gi)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gi][m][nn][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KW / 16; ++ks) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) ldsm_x4(af[m], A + arow[m] + ks * 16);
+    const int r = ks * 16 + (lane & 15);
+#pragma unroll
+    for (int gi = 0; gi < GPW; ++gi) {
+      const int grp = warp + 8 * gi;
+      if (grp * 16 >= C) continue;
+      uint32_t bfr[4];
+      ldsm_x4_t(bfr, sv + r * C + (((2 * grp + (lane >> 4)) ^ (r & 7)) << 3));
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(acc[gi][m][0], af[m], bfr[0], bfr[1]);
+        mma_bf16(acc[gi][m][1], af[m], bfr[2], bfr[3]);
+      }
+    }
+  }
+  // epilogue: out[h, c] = hi + mid + lo
+#pragma unroll
+  for (int gi = 0; gi < GPW; ++gi) {
+    const int grp = warp + 8 * gi;
+    if (grp * 16 >= C || gid >= H) continue;
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {  // tile 0: hi, mid; tile 1: lo
+      const float* h0 = acc[gi][0][nn];
+      const float* h1 = acc[gi][1][nn];
+      const int c = grp * 16 + nn * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(sampled + ((long long)bq * H + gid) * C + c) =
+          make_float2(__fadd_rn(__fadd_rn(h0[0], h0[2]), h1[0]),
+                      __fadd_rn(__fadd_rn(h0[1], h0[3]), h1[1]));
+    }
+  }
+}
+
+int launch_msda_sel_fp32(const float* value, const float* loc,
+                         const float* attw, float* sampled, float* wsum,
+                         const MsdaArgs& g, const Levels& lv, int threads,
+                         int smem, cudaStream_t st) {
+  const int need = (g.K * g.heads * g.ph * g.pw + 5 * g.K * g.n) * 4;
+  if (need > smem || g.heads > MAX_HEADS) return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(msda_sel_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  msda_sel_kernel<<<dim3(g.Q, g.B), threads, smem, st>>>(
+      value, loc, attw, g, lv, sampled, wsum);
+  return (int)cudaGetLastError();
+}
+
+template <int GPW>
+int launch_msda_sel_tc(const void* value, const float* loc, const float* attw,
+                       float* sampled, float* wsum, const MsdaArgs& g,
+                       const Levels& lv, int threads, int smem,
+                       cudaStream_t st) {
+  if (threads != MSDA_NT || MsdaSmem(g, lv.n).total > smem ||
+      g.K != SEL_K || g.ph != WIN_H || g.pw != WIN_W ||
+      g.n != g.heads * PTS || g.C % 64 || g.C > GPW * 128 ||
+      g.heads > TC_HEADS)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    smem_set = smem;
+  }
+  msda_sel_tc_kernel<GPW><<<g.B * g.Q, MSDA_NT, smem, st>>>(
+      (const bf16*)value, loc, attw, g, lv, sampled, wsum);
   return (int)cudaGetLastError();
 }
 
@@ -426,30 +981,35 @@ Levels read_levels(int L, const int* d) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (col / value; DFA's points and weights
-// share it). The wrappers in ops/sampling.py check every shape and limit.
+// share it). The planners and wrappers in ops/sampling.py check every
+// shape and limit.
 extern "C" {
 
-// dims: bs, cams, A, P, L, G, C, T, M (-1: no capacity), then the L
-// level heights, widths and start rows. strides: points (5), weights (6).
-// counted: uint8 [bs * cams, A * P] scratch, used when 0 <= M < A * P.
+// dims: bs, cams, A, P, L, G, C, T, M (-1: no capacity), threads, smem,
+// then the L level heights, widths and start rows. strides: points (5),
+// weights (6). thr: int32 [bs * cams] scratch (the rank pass's count
+// thresholds), used when 0 <= M < A * P.
 int simpb_dfa(const void* col, const void* pts, const void* wts,
-              void* counted, void* out, const int* dims,
+              void* thr, void* out, const int* dims,
               const long long* strides, int dtype, void* stream) {
   DfaArgs g;
   g.bs = dims[0]; g.cams = dims[1]; g.A = dims[2]; g.P = dims[3];
   g.G = dims[5]; g.C = dims[6]; g.T = dims[7]; g.M = dims[8];
+  const int threads = dims[9], smem = dims[10];
   for (int i = 0; i < 5; ++i) g.sp[i] = strides[i];
   for (int i = 0; i < 6; ++i) g.sw[i] = strides[5 + i];
-  const Levels lv = read_levels(dims[4], dims + 9);
+  const Levels lv = read_levels(dims[4], dims + 11);
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype ? launch_dfa<bf16>(col, pts, wts, (uint8_t*)counted,
-                                  (float*)out, g, lv, st)
-               : launch_dfa<float>(col, pts, wts, (uint8_t*)counted,
-                                   (float*)out, g, lv, st);
+  return dtype ? launch_dfa<bf16>(col, pts, wts, (int*)thr, (float*)out, g,
+                                  lv, threads, smem, st)
+               : launch_dfa<float>(col, pts, wts, (int*)thr, (float*)out, g,
+                                   lv, threads, smem, st);
 }
 
-// dims: B, Q, L, n, heads, C, T, K, ph, pw, then the L level heights,
-// widths and start rows.
+// dims: B, Q, L, n, heads, C, T, K, ph, pw, threads, smem, then the L
+// level heights, widths and start rows. bf16: the tensor-core kernel, one
+// block per query (GPW channel groups a warp by C, at most 256 channels);
+// fp32: one block per (query, camera row).
 int simpb_msda_sel(const void* value, const void* loc, const void* attw,
                    void* sampled, void* wsum, const int* dims, int dtype,
                    void* stream) {
@@ -457,14 +1017,20 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
   g.B = dims[0]; g.Q = dims[1]; g.n = dims[3]; g.heads = dims[4];
   g.C = dims[5]; g.T = dims[6]; g.K = dims[7]; g.ph = dims[8];
   g.pw = dims[9];
-  const Levels lv = read_levels(dims[2], dims + 10);
+  const int threads = dims[10], smem = dims[11];
+  const Levels lv = read_levels(dims[2], dims + 12);
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype ? launch_msda_sel<bf16>(value, (const float*)loc,
-                                       (const float*)attw, (float*)sampled,
-                                       (float*)wsum, g, lv, st)
-               : launch_msda_sel<float>(value, (const float*)loc,
-                                        (const float*)attw, (float*)sampled,
-                                        (float*)wsum, g, lv, st);
+  const float* l = (const float*)loc;
+  const float* a = (const float*)attw;
+  float* sp = (float*)sampled;
+  float* ws = (float*)wsum;
+  if (!dtype)
+    return launch_msda_sel_fp32((const float*)value, l, a, sp, ws, g, lv,
+                                threads, smem, st);
+  return g.C <= 128 ? launch_msda_sel_tc<1>(value, l, a, sp, ws, g, lv,
+                                            threads, smem, st)
+                    : launch_msda_sel_tc<2>(value, l, a, sp, ws, g, lv,
+                                            threads, smem, st);
 }
 
 }  // extern "C"

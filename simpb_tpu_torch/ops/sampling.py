@@ -28,11 +28,19 @@ for tensors on the CPU, and for CUDA tensors launches the kernel or
 raises. Each wrapper counts its launches (`launch_counts()`); the count
 lives in this module, so it holds even while a caller has rebound a
 wrapper's name to record or reroute its calls.
+
+The launch of each comes from a cached planner, `plan_dfa` and
+`plan_msda_sel`: grid, threads, shared memory and the host int array
+the C entry reads, built once per shape; a shape the kernels do not take
+raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
+fp32 on the CUDA cores (the wrapper picks by dtype alone); DFA is one
+kernel for both dtypes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,7 +48,14 @@ from . import _kernels
 from .format import SpatialShapes
 
 MAX_LEVELS = 8  # level table of the CUDA kernels
-MAX_HEADS = 16  # per-thread head accumulators of the MSDA kernel
+MAX_HEADS = 16  # heads of the fp32 MSDA-sel kernel's per-thread sums
+MAX_GROUPS = 8  # DFA weight groups
+DFA_THREADS = 256  # most threads of a DFA block
+MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
+# the bf16 MSDA-sel kernel's head shape (csrc/sampling.cu): top-2 levels,
+# 8x8 windows, 4 points a head (and at most 8 heads), as in every
+# configuration of the repo
+MSDA_TC_SHAPE = (2, 8, 8, 4)
 _LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0}
 
 
@@ -218,6 +233,12 @@ def _check_devices(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: tensors on {dev} and {t.device}")
 
 
+def _check_aligned(what: str, t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned on the "
+                         "card")
+
+
 def _check_storage(what: str, t: torch.Tensor, name: str) -> None:
     if t.dtype not in _kernels.DTYPE_CODE:
         raise TypeError(f"{what}: {name} dtype {t.dtype} not supported "
@@ -226,17 +247,81 @@ def _check_storage(what: str, t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _level_dims(what: str, spatial_shapes: SpatialShapes, total_hw: int):
-    """Level heights, widths and start rows as the kernels read them."""
+def _check_levels(what: str, spatial_shapes: SpatialShapes,
+                  total_hw: int) -> None:
     if spatial_shapes.num_levels > MAX_LEVELS:
         raise ValueError(f"{what}: at most {MAX_LEVELS} levels, got "
                          f"{spatial_shapes.num_levels}")
     if spatial_shapes.total != total_hw:
         raise ValueError(f"{what}: spatial shapes cover "
                          f"{spatial_shapes.total} rows, features {total_hw}")
-    return ([h for h, _ in spatial_shapes.shapes]
-            + [w for _, w in spatial_shapes.shapes]
-            + list(spatial_shapes.start_indices))
+
+
+class SamplingPlan(NamedTuple):
+    """One launch of a sampling kernel: the blocks (x, y), the threads and
+    dynamic shared memory (bytes) of a block, the int32 scratch the launch
+    needs (DFA's rank pass: one count threshold a camera row), and the
+    host int array the C entry reads (shapes, plan, level table), built
+    once per shape."""
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+    scratch: int
+    dims: ctypes.Array
+
+
+def _level_table(shapes) -> list:
+    """Level heights, widths and start rows as the kernels read them."""
+    starts = [0]
+    for h, w in shapes[:-1]:
+        starts.append(starts[-1] + h * w)
+    return [h for h, _ in shapes] + [w for _, w in shapes] + starts
+
+
+@functools.lru_cache(maxsize=None)
+def plan_dfa(bs: int, cams: int, num_anchor: int, num_pts: int,
+             num_groups: int, c: int, gather_capacity: Optional[int],
+             shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """DFA's launch for a [bs, cams, ΣHW, c] column over the levels
+    `shapes`: one block per (anchor, batch) of DFA_THREADS // (c / 8)
+    teams of c / 8 threads (a thread takes 8 channels of a feature row);
+    the rank pass and its scratch when the capacity bites."""
+    what = "deformable_aggregation"
+    num_levels = len(shapes)
+    if num_levels > MAX_LEVELS:
+        raise ValueError(f"{what}: at most {MAX_LEVELS} levels, got "
+                         f"{num_levels}")
+    if num_groups > MAX_GROUPS or c % num_groups or (c // num_groups) % 8:
+        raise ValueError(f"{what}: at most {MAX_GROUPS} groups, and channels "
+                         f"per group C/G = {c}/{num_groups} a multiple of 8 "
+                         "on the card")
+    ch = c // 8
+    teams = DFA_THREADS // ch
+    while teams and (teams * ch) % 32:
+        teams -= 1
+    if not teams:
+        raise ValueError(f"{what}: C = {c} channels do not fit a block of "
+                         f"{DFA_THREADS} threads")
+    threads = teams * ch
+    entries = cams * num_pts * num_levels
+    smem = 4 * (teams * c + 8 * entries + entries * num_groups)
+    if smem > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {entries} samples per anchor do not fit "
+                         "in shared memory")
+    slots = num_anchor * num_pts
+    cap = -1 if gather_capacity is None or gather_capacity >= slots \
+        else gather_capacity
+    total = sum(h * w for h, w in shapes)
+    dims = [bs, cams, num_anchor, num_pts, num_levels, num_groups, c, total,
+            cap, threads, smem] + _level_table(shapes)
+    return SamplingPlan((num_anchor, bs), threads, smem,
+                        bs * cams if cap >= 0 else 0,
+                        _kernels.int_array(dims))
+
+
+@functools.lru_cache(maxsize=None)
+def _stride_array(strides: Tuple[int, ...]):
+    return _kernels.int_array(strides, ctypes.c_longlong)
 
 
 def deformable_aggregation(
@@ -250,7 +335,8 @@ def deformable_aggregation(
     [bs, A, C] float32 (see `deformable_aggregation_plain`).
 
     Points and weights share the features' dtype (float32 or bfloat16)
-    and may have any strides; the features must be contiguous."""
+    and may have any strides; the features must be contiguous (on the
+    card 16-byte aligned, with C/G a multiple of 8)."""
     what = "deformable_aggregation"
     _check_devices(what, col_feats, points_2d, weights)
     _check_storage(what, col_feats, "col_feats")
@@ -268,33 +354,22 @@ def deformable_aggregation(
         raise ValueError(f"{what}: shapes {tuple(col_feats.shape)}, "
                          f"{tuple(points_2d.shape)}, {tuple(weights.shape)} "
                          "do not fit together")
-    levels = _level_dims(what, spatial_shapes, total_hw)
+    _check_levels(what, spatial_shapes, total_hw)
     if col_feats.device.type == "cpu":
         return deformable_aggregation_plain(
             col_feats, spatial_shapes, points_2d, weights, gather_capacity)
-    entries = cams * num_pts * num_levels
-    if entries * (4 + num_groups) * 4 + entries * 5 * 4 > _kernels.MAX_SMEM:
-        raise ValueError(f"{what}: {entries} samples per anchor do not fit "
-                         "in shared memory")
-    s = num_anchor * num_pts
-    cap = -1 if gather_capacity is None or gather_capacity >= s \
-        else gather_capacity
+    plan = plan_dfa(bs, cams, num_anchor, num_pts, num_groups, c,
+                    gather_capacity, spatial_shapes.shapes)
+    _check_aligned(what, col_feats, "col_feats")
     dev = col_feats.device
-    counted = (torch.empty((bs * cams, s), dtype=torch.uint8, device=dev)
-               if cap >= 0 else None)
+    scratch = (torch.empty(plan.scratch, dtype=torch.int32, device=dev)
+               if plan.scratch else None)
     out = torch.empty((bs, num_anchor, c), dtype=torch.float32, device=dev)
-    dims = [bs, cams, num_anchor, num_pts, num_levels, num_groups, c,
-            total_hw, cap] + levels
-    strides = list(points_2d.stride()) + list(weights.stride())
-    lib = _kernels.load("sampling")
-    code = lib.simpb_dfa(
-        *map(_kernels.ptr, (col_feats, points_2d, weights, counted, out)),
-        _kernels.int_array(dims),
-        _kernels.int_array(strides, ctypes.c_longlong),
+    _kernels.check(_kernels.load("sampling").simpb_dfa(
+        *map(_kernels.ptr, (col_feats, points_2d, weights, scratch, out)),
+        plan.dims, _stride_array(points_2d.stride() + weights.stride()),
         _kernels.DTYPE_CODE[col_feats.dtype],
-        ctypes.c_void_p(_kernels.stream_ptr(col_feats)),
-    )
-    _kernels.check(code, what)
+        ctypes.c_void_p(_kernels.stream_ptr(col_feats))), what)
     _LAUNCHES["deformable_aggregation"] += 1
     return out
 
@@ -511,6 +586,59 @@ def _msda_patch_sel_plain(
     return weighted, wpix.sum(-1).sum(2)
 
 
+def _msda_tc_smem(num_levels: int, n: int, c: int) -> int:
+    """Shared memory of an MSDA-sel tensor-core block (csrc/sampling.cu
+    `MsdaSmem`): the windows' 128 pixel rows (C bf16), the weights' three
+    bf16 parts (8 rows each, and a zero row, of 136), then the query's
+    locations, weights, levels and window bases."""
+    kw = MSDA_TC_SHAPE[0] * MSDA_TC_SHAPE[1] * MSDA_TC_SHAPE[2]
+    return (kw * c * 2 + 25 * (kw + 8) * 2
+            + 4 * (3 * num_levels * n + 3 * MSDA_TC_SHAPE[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda_sel(num_rows: int, num_queries: int, n: int, heads: int,
+                  c: int, k: int, ph: int, pw: int, dtype: torch.dtype,
+                  shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """MSDA-sel's launch for [num_rows, ΣHW, c] values over the levels
+    `shapes`, num_queries queries a row with n samples (heads x points)
+    a level, the top `k` levels and a ph x pw window: fp32 one block per
+    (query, camera row); bf16 (tensor cores) one block per query, three
+    an SM at the main shapes. Raises ValueError on a shape the kernels do
+    not take."""
+    what = "_msda_patch_sel"
+    num_levels = len(shapes)
+    win = ph * pw
+    if (num_levels > MAX_LEVELS or heads > MAX_HEADS or n % heads
+            or not 0 < k <= num_levels or pw % 2):
+        raise ValueError(f"{what}: {heads} heads (at most {MAX_HEADS}) of "
+                         f"{n} samples, {k} of {num_levels} levels (at most "
+                         f"{MAX_LEVELS}) and a {ph}x{pw} window (even "
+                         "width) do not fit together")
+    if dtype == torch.float32:
+        grid = (num_queries, num_rows)
+        threads = min(256, -(-c // 32) * 32)
+        smem = (k * heads * win + 5 * k * n) * 4
+    else:
+        if (c % 64 or c > 256 or heads > 8
+                or (k, ph, pw, n // heads) != MSDA_TC_SHAPE):
+            raise ValueError(f"{what}: the bf16 kernel takes C a multiple of "
+                             "64 up to 256, at most 8 heads and (levels, "
+                             f"window, points a head) = {MSDA_TC_SHAPE}, got "
+                             f"C = {c}, {heads} heads, "
+                             f"{(k, ph, pw, n // heads)}")
+        grid = (num_rows * num_queries, 1)
+        threads = MSDA_THREADS
+        smem = _msda_tc_smem(num_levels, n, c)
+    if smem > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block do "
+                         "not fit")
+    dims = [num_rows, num_queries, num_levels, n, heads, c,
+            sum(h * w for h, w in shapes), k, ph, pw, threads, smem]
+    return SamplingPlan(grid, threads, smem, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
 def _msda_patch_sel(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -524,7 +652,9 @@ def _msda_patch_sel(
     """Windowed MSDA at each query's top-`sel_levels` levels (see
     `_msda_patch_sel_plain`) -> (sampled [B, Q, heads, C], wsum
     [B, Q, heads]), float32. Value float32 or bfloat16, locations and
-    weights float32, all contiguous; every level must hold the window."""
+    weights float32, all contiguous; every level must hold the window.
+    On the card bf16 values run on the tensor cores, fp32 on the CUDA
+    cores."""
     what = "_msda_patch_sel"
     _check_devices(what, value, loc, attw)
     _check_storage(what, value, "value")
@@ -549,26 +679,20 @@ def _msda_patch_sel(
         raise ValueError(f"{what}: a {patch_h}x{patch_w} window (even "
                          f"width) must fit every level of "
                          f"{spatial_shapes.shapes}")
-    levels = _level_dims(what, spatial_shapes, total_hw)
+    _check_levels(what, spatial_shapes, total_hw)
     if value.device.type == "cpu":
         return _msda_patch_sel_plain(value, spatial_shapes, loc, attw, heads,
                                      patch_h, patch_w, sel_levels)
-    k = sel_levels
-    if (k * heads * patch_h * patch_w + 5 * k * n) * 4 > _kernels.MAX_SMEM:
-        raise ValueError(f"{what}: the window weights do not fit in shared "
-                         "memory")
+    plan = plan_msda_sel(b, q, n, heads, c, sel_levels, patch_h, patch_w,
+                         value.dtype, spatial_shapes.shapes)
+    _check_aligned(what, value, "value")
     dev = value.device
     sampled = torch.empty((b, q, heads, c), dtype=torch.float32, device=dev)
     wsum = torch.empty((b, q, heads), dtype=torch.float32, device=dev)
-    dims = [b, q, num_levels, n, heads, c, total_hw, k, patch_h,
-            patch_w] + levels
-    lib = _kernels.load("sampling")
-    code = lib.simpb_msda_sel(
-        *map(_kernels.ptr, (value, loc, attw, sampled, wsum)),
-        _kernels.int_array(dims), _kernels.DTYPE_CODE[value.dtype],
-        ctypes.c_void_p(_kernels.stream_ptr(value)),
-    )
-    _kernels.check(code, what)
+    _kernels.check(_kernels.load("sampling").simpb_msda_sel(
+        *map(_kernels.ptr, (value, loc, attw, sampled, wsum)), plan.dims,
+        _kernels.DTYPE_CODE[value.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(value))), what)
     _LAUNCHES["msda_patch_sel"] += 1
     return sampled, wsum
 
