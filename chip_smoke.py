@@ -11,14 +11,18 @@ Phases, each printing one JSON line:
              conv_tc,mosaic_probe,sampling}.cu with nvcc for sm_90a, one
              nvcc each, all started together; prints each kernel
              instance's registers and spills (-Xptxas -v) and fails if a
-             sampling instance spills.
+             sampling or max-pool instance spills.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
-             version at every full-width shape of the main path and at
-             the tiny config's smallest maps, fp32 and bf16 (bf16 K2-K4
-             are the tensor-core kernels of conv_tc.cu, fp32 the
-             CUDA-core ones of conv_fused.cu), with its time (CUDA
-             events, warm), the plain version's, the cuDNN call
+             version at every full-width shape of the main path, at the
+             tiny config's smallest maps and, for K1, at odd H and W and
+             at channels that take no 16-byte packs, fp32 and bf16 (bf16
+             K2-K4 are the tensor-core kernels of conv_tc.cu, fp32 the
+             CUDA-core ones of conv_fused.cu; K1 must equal its plain
+             version bit for bit); each call launched twice (the outputs
+             must be bit-identical), with its time (CUDA events, warm:
+             `ms` through the wrapper back to back, `device_ms` queued
+             behind a spin kernel), the plain version's, the cuDNN call
              computing the same function where one exists (timed only),
              for K2 and K3 the unfused cuDNN chain of their convs with
              bias, ReLU and the residual add (`cudnn_chain_ms`, timed
@@ -31,14 +35,18 @@ Phases, each printing one JSON line:
              probe kernel against its plain version (bf16 through fp32 is
              a copy: exactly equal), timed beside its plain version and
              the one strided-copy call computing the same function.
-5. slice   — the main path: `simpb_r50_704x256_fast` with the fused trunk
-             at full width (ResNet-50, 704x256, 6 cameras, 900 anchors,
-             600 temporal instances), trunk bf16, head fp32, seeded
-             random weights; one cold frame and FRAMES (8) stream frames.
-             Launch counts must be K1 1, K2 4, K3 12, K4 4, DFA 3 and
-             MSDA-sel 3 per frame. Prints each frame's ms, the trunk's ms
-             alone and the peak device memory. The arguments of every
-             sampling call of the last stream frame are recorded.
+5. slice   — the main path: `simpb_r50_704x256_fast` as bench.py serves
+             it (trunk and head bf16) with the fused trunk at full width
+             (ResNet-50, 704x256, 6 cameras, 900 anchors, 600 temporal
+             instances), seeded random weights; one cold frame and
+             FRAMES (8) stream frames, the launch counts set to 0 just
+             before and read just after; before it the same with the
+             head in fp32, FP32_HEAD_FRAMES (3) stream frames. Launch
+             counts must be K1 1, K2 4, K3 12, K4 4, DFA 3 and MSDA-sel 3
+             per frame. Prints each frame's ms, their median and range, the
+             trunk's ms alone and the peak device memory. The arguments
+             of every sampling call of the main path's last stream frame
+             are recorded.
 6. sampling — the DFA and windowed-MSDA kernels against their plain
              versions, each call launched twice (the two outputs must be
              bit-identical): (a) on the recorded calls of that stream
@@ -55,12 +63,15 @@ Phases, each printing one JSON line:
              kernel, so the host's time drops out) and
              beside the plain version, with the bound from the rows the
              call gathers.
-7. parity  — the same slice in fp32 once through the kernels and once
-             through their plain versions (trunk and sampling); head
-             outputs compared.
+7. parity  — one cold frame of the slice through the kernels and through
+             their plain versions (trunk and sampling): in fp32 the head
+             outputs compared directly; with trunk and head in bf16 both
+             routes held against the fp32 plain route.
 8. trunk   — ResNet-50 + FPN at the main path's input in bf16, once
              through the kernels and once through their plain versions,
-             each held against the fp32 plain trunk per FPN level.
+             each held against the fp32 plain trunk per FPN level; the
+             stem timed as it runs and, as a yardstick, as the bf16 conv
+             it replaced.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -72,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -95,7 +107,19 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
 # that and stays far below the ~0.37 that fp32 position arithmetic gives.
 # MSDA computes in fp32 whatever the value dtype.
 SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
-FRAMES = 8  # stream frames after the cold frame
+FRAMES = 8  # stream frames after the cold frame (bf16 head)
+FP32_HEAD_FRAMES = 3  # the same with the head in fp32
+# launches a frame on the main path
+WANT_LAUNCHES = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 12,
+                 "conv3x3_bias": 4, "deformable_aggregation": 3,
+                 "msda_patch_sel": 3}
+# whole-slice bf16 parity (trunk and head in bf16, one cold frame): both
+# bf16 routes round at the same points, so each is as far from the fp32
+# route as the other, up to roundings flipped by the fp32 sums' order,
+# which compound through the trunk and six decoder layers: the kernels'
+# relative L2 error may be 1.5 times the plain route's, plus a floor of
+# one bf16 ulp (2^-8)
+BF16_SLICE_RATIO, BF16_SLICE_FLOOR = 1.5, 4e-3
 SOURCES = ("conv_fused", "conv_tc", "mosaic_probe", "sampling")
 # the source of each trunk kernel on the main path (bf16)
 TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_tc",
@@ -136,7 +160,8 @@ def ptxas_summary(log: str):
                         == "_kernel":
                     tail = rest[int(digits):].split("EEv")[0]
                     args = (["bf16"] if "bfloat16" in tail else
-                            ["f32"] if tail.startswith("If") else []) \
+                            ["f32"] if tail.startswith("If")
+                            or "PackIf" in tail else []) \
                         + re.findall(r"L[ib](\d+)E", tail)
                     return rest[:int(digits)] + (
                         f"<{','.join(args)}>" if args else "")
@@ -154,6 +179,17 @@ def ptxas_summary(log: str):
                 if out and out[-1].startswith(name) else \
                 [*out, f"{name}: {ln.split(':', 1)[1].strip()}"]
     return out
+
+
+def free_cuda(torch) -> None:
+    """Return the memory of deleted models to the card: a model's
+    load-state-dict hook is a bound method, a cycle that only the
+    cyclic collector frees, and an unfreed model sits in the next
+    phase's peak memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -217,10 +253,12 @@ def device_ms(fn, iters: int = 10) -> float:
 
 def kernel_cases():
     """(name, calls per frame, shapes) for every distinct full-width
-    call of the main path, an odd-sized max-pool and the tiny config's
-    smallest maps (no call a frame)."""
+    call of the main path, an odd-sized max-pool, one whose channels
+    take no 16-byte packs, and the tiny config's smallest maps (no call
+    a frame)."""
     cases = [("maxpool_3x3_s2", 1, dict(x=(6, 128, 352, 64))),
-             ("maxpool_3x3_s2", 0, dict(x=(6, 127, 351, 64)))]
+             ("maxpool_3x3_s2", 0, dict(x=(6, 127, 351, 64))),
+             ("maxpool_3x3_s2", 0, dict(x=(2, 33, 47, 30)))]
     cin = 64
     for cm, co, h, w, s, n in STAGES:
         hin, win = h * s, w * s
@@ -349,8 +387,8 @@ def phase_kernels(torch, conv_fused):
     wrappers = {n: (w, p, tpu) for n, w, p, tpu in conv_fused.KERNELS}
     # per kernel, over a frame's calls at bf16 (the main path's type);
     # `bound` sums each call's bound by what bounds that call
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                       cudnn_chain_ms=0.0,
+    summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                       library_ms=0.0, cudnn_chain_ms=0.0,
                        bound={"bytes": 0.0, "operations": 0.0})
                for n in wrappers}
     for case in kernel_cases():
@@ -360,6 +398,7 @@ def phase_kernels(torch, conv_fused):
             dname = str(dtype).split(".")[-1]
             args = make_inputs(case, dtype, gen)
             got = wrapper(*args)
+            again = wrapper(*args)  # must give the same bits
             ref = plain(*args)
             torch.cuda.synchronize()
             if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -367,8 +406,14 @@ def phase_kernels(torch, conv_fused):
                                      f"{ref.shape}/{ref.dtype}")
             err = (got.float() - ref.float()).abs().max().item()
             scale = max(ref.float().abs().max().item(), 1.0)
-            ok = err <= TOL[dname] * scale
+            same = torch.equal(got, again)
+            exact = torch.equal(got, ref)
+            # a max is exact in any type: the max-pool must equal its
+            # plain version bit for bit
+            ok = same and (exact if name == "maxpool_3x3_s2"
+                           else err <= TOL[dname] * scale)
             ms = cuda_ms(lambda: wrapper(*args))
+            dev_ms = device_ms(lambda: wrapper(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
             lib = library_call(case, args)
             lib_ms = cuda_ms(lib) if lib is not None else None
@@ -381,16 +426,21 @@ def phase_kernels(torch, conv_fused):
             emit(dict(phase="kernel", name=name, dtype=dname,
                       shape=list(a["x"]), per_frame=count,
                       max_abs_err=err, tol=TOL[dname] * scale, ok=ok,
-                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      exact=exact, deterministic=same,
+                      ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                      library_ms=lib_ms,
                       cudnn_chain_ms=chain_ms,
                       bound_ms=max(b_ms, o_ms), bound_by=bound_by))
             if not ok:
                 raise AssertionError(f"{name} {dname} {a['x']}: max abs err "
-                                     f"{err} > {TOL[dname] * scale}")
+                                     f"{err} (tol {TOL[dname] * scale}, "
+                                     f"exact {exact}), or a second launch "
+                                     "gave other bits")
             s = summary[name]
             s["max_abs_err"] = max(s["max_abs_err"], err)
             if dtype == torch.bfloat16:  # the main path's type
                 s["ms"] += count * ms
+                s["device_ms"] += count * dev_ms
                 s["plain_ms"] += count * plain_ms
                 s["bound"][bound_by] += count * max(b_ms, o_ms)
                 s["library_ms"] = (None if lib_ms is None or
@@ -398,7 +448,7 @@ def phase_kernels(torch, conv_fused):
                                    s["library_ms"] + count * lib_ms)
                 s["cudnn_chain_ms"] = (None if chain_ms is None else
                                        s["cudnn_chain_ms"] + count * chain_ms)
-            del args, got, ref
+            del args, got, again, ref
     return summary, wrappers
 
 
@@ -511,27 +561,36 @@ def check_stream(torch, decs):
     return carried
 
 
-def phase_slice(torch, frames):
+def flagship(head_dtype, compute_dtype="bfloat16"):
+    """`simpb_r50_704x256_fast` as bench.py builds it (compute and head
+    dtype bf16), with the fused trunk; other dtypes on request."""
     import dataclasses
 
     from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
+
+    return dataclasses.replace(simpb_r50_704x256_fast(),
+                               backbone_fused_infer=True,
+                               compute_dtype=compute_dtype,
+                               head_dtype=head_dtype)
+
+
+def phase_slice(torch, head_dtype, frames, calls=None):
+    """Stream the flagship with the head in `head_dtype` (trunk bf16):
+    cold frame + `frames` stream frames, the launch counts set to 0
+    just before and read just after. With `calls`, the last frame's
+    sampling calls are recorded there. Returns the counts."""
     from simpb_tpu_torch.training.evaluate import build_model
 
-    cfg = dataclasses.replace(simpb_r50_704x256_fast(),
-                              backbone_fused_infer=True,
-                              compute_dtype="bfloat16")
+    cfg = flagship(head_dtype)
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
-    calls = []
     reset_launch_counts()
     decs, times, counts = run_stream(torch, model, cfg, frames, calls)
     launches = launch_counts()
-    want = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 12,
-            "conv3x3_bias": 4, "deformable_aggregation": 3,
-            "msda_patch_sel": 3}
     for f, c in enumerate(counts):
-        if c != want:
-            raise AssertionError(f"frame {f}: launches {c}, want {want}")
+        if c != WANT_LAUNCHES:
+            raise AssertionError(f"{head_dtype} head, frame {f}: launches "
+                                 f"{c}, want {WANT_LAUNCHES}")
     carried = check_stream(torch, decs)
     peak = torch.cuda.max_memory_allocated()
     # the trunk alone (stem, kernels, FPN; CUDA events): the rest of a
@@ -540,19 +599,22 @@ def phase_slice(torch, frames):
     img = torch.randn(1, 6, h, w, 3, device="cuda")
     with torch.inference_mode():
         trunk_ms = cuda_ms(lambda: model.extract_feat(img), iters=5)
+    stream_ms = sorted(times[1:])
     d = decs[-1]
     emit(dict(phase="slice", config="simpb_r50_704x256_fast",
-              backbone_fused_infer=True, trunk="bfloat16", head="float32",
-              frames=len(decs), frame_ms=times, trunk_ms=trunk_ms,
-              max_memory_allocated=peak,
+              backbone_fused_infer=True, trunk="bfloat16", head=head_dtype,
+              frames=len(decs), frame_ms=times,
+              stream_ms_median=statistics.median(stream_ms),
+              stream_ms_range=[stream_ms[0], stream_ms[-1]],
+              trunk_ms=trunk_ms, max_memory_allocated=peak,
               launches=launches, launches_per_frame=counts[-1],
               ids_carried_last_frame=carried,
               valid_last_frame=int(d["valid"].sum().item()),
               top_score_last_frame=float(d["scores_3d"][0, 0].item()),
-              sampling_calls_recorded=[c[0] for c in calls]))
+              sampling_calls_recorded=[c[0] for c in calls or ()]))
     del model
-    torch.cuda.empty_cache()
-    return launches, calls
+    free_cuda(torch)
+    return launches
 
 
 @contextlib.contextmanager
@@ -852,31 +914,57 @@ def phase_sampling(torch, calls, slice_launches):
 
 
 def phase_parity(torch):
-    import dataclasses
-
-    from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
+    """The slice through the kernels and through their plain versions
+    (trunk and sampling), one cold frame at full width. fp32: the two
+    routes' last-layer outputs within SLICE_ATOL / SLICE_RTOL. bf16 head
+    and trunk (the main path): both routes against the fp32 plain route,
+    each last-layer output's relative L2 error through the kernels at
+    most BF16_SLICE_RATIO times the plain bf16 route's plus
+    BF16_SLICE_FLOOR."""
     from simpb_tpu_torch.training.evaluate import build_model
 
-    cfg = dataclasses.replace(simpb_r50_704x256_fast(),
-                              backbone_fused_infer=True,
-                              compute_dtype="float32")
-    model = build_model(cfg, device="cuda", seed=0)
-    outs = {}
-    for route in ("kernels", "plain"):
-        ctx = plain_route() if route == "plain" else contextlib.nullcontext()
-        with ctx, torch.inference_mode():
-            imgs, proj, _, _ = stream_inputs(torch, cfg, 0)
-            outs[route] = model(imgs[0], proj)
+    keys = ("prediction", "classification", "quality")
+
+    def run(cfg):
+        """(kernels' outputs, plain versions' outputs)."""
+        model = build_model(cfg, device="cuda", seed=0)
+        imgs, proj, _, _ = stream_inputs(torch, cfg, 0)
+        outs = []
+        for ctx in (contextlib.nullcontext(), plain_route()):
+            with ctx, torch.inference_mode():
+                out = model(imgs[0], proj)
+            outs.append({k: out[k][-1].float() for k in keys})
+        del model
+        free_cuda(torch)
+        return outs
+
+    k32, p32 = run(flagship("float32", "float32"))
     errs = {}
-    for key in ("prediction", "classification", "quality"):
-        k_t, p_t = outs["kernels"][key][-1], outs["plain"][key][-1]
-        diff = (k_t - p_t).abs()
+    for key in keys:
+        diff = (k32[key] - p32[key]).abs()
         errs[key] = diff.max().item()
-        bound = SLICE_ATOL + SLICE_RTOL * p_t.abs()
-        if not (diff <= bound).all():
+        if not (diff <= SLICE_ATOL + SLICE_RTOL * p32[key].abs()).all():
             raise AssertionError(f"parity {key}: max abs err {errs[key]}")
     emit(dict(phase="parity", config="simpb_r50_704x256_fast", dtype="fp32",
               tf32=False, atol=SLICE_ATOL, rtol=SLICE_RTOL, max_abs_err=errs))
+
+    k16, p16 = run(flagship("bfloat16"))
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    out = {}
+    for key in keys:
+        ek, ep = rel(k16[key], p32[key]), rel(p16[key], p32[key])
+        out[key] = dict(kernels=ek, plain_bf16=ep,
+                        max_abs_kernels_vs_plain=(k16[key] - p16[key])
+                        .abs().max().item(),
+                        ok=bool(torch.isfinite(k16[key]).all()) and
+                        ek <= BF16_SLICE_RATIO * ep + BF16_SLICE_FLOOR)
+    emit(dict(phase="parity", config="simpb_r50_704x256_fast",
+              dtype="bf16 trunk and head", reference="fp32 plain route",
+              ratio=BF16_SLICE_RATIO, floor=BF16_SLICE_FLOOR,
+              rel_l2_vs_fp32_plain=out))
+    bad = {k: v for k, v in out.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"bf16 slice parity failed: {bad}")
 
 
 def phase_trunk(torch):
@@ -907,6 +995,21 @@ def phase_trunk(torch):
         ref = trunk(torch.float32)
         plain = trunk(torch.bfloat16)
     kern = trunk(torch.bfloat16)
+    # the stem as the trunk runs it (fp32 sum of the bf16-rounded image
+    # and kernel into the BN) and, timed only, the bf16 conv it replaced
+    net = model.img_backbone
+    stem_w, stem_f, stem_b, _ = net.folded(x.device, torch.bfloat16)
+    w16 = stem_w.bfloat16()
+    xc = x.bfloat16().permute(0, 3, 1, 2)
+
+    def bf16_conv_stem():
+        y = torch.nn.functional.conv2d(xc, w16, stride=2, padding=3)
+        return torch.relu((y.permute(0, 2, 3, 1).float() * stem_f + stem_b)
+                          .bfloat16())
+
+    with torch.inference_mode():
+        stem_ms = cuda_ms(lambda: net.stem(x, torch.bfloat16))
+        bf16_stem_ms = cuda_ms(bf16_conv_stem)
     rel = lambda a, r: ((a - r).norm() / r.norm()).item()
     levels = []
     for lvl, (k, p, r) in enumerate(zip(kern, plain, ref)):
@@ -917,12 +1020,13 @@ def phase_trunk(torch):
                            plain_bf16=ep, ok=ok))
     emit(dict(phase="trunk", config="simpb_r50_704x256_fast",
               dtype="bfloat16", ratio=TRUNK_RATIO, floor=TRUNK_FLOOR,
-              rel_l2_vs_fp32_plain=levels))
+              rel_l2_vs_fp32_plain=levels, stem_ms=stem_ms,
+              bf16_conv_stem_ms=bf16_stem_ms))
     bad = [lv for lv in levels if not lv["ok"]]
     if bad:
         raise AssertionError(f"bf16 trunk check failed: {bad}")
     del model
-    torch.cuda.empty_cache()
+    free_cuda(torch)
 
 
 def main() -> int:
@@ -953,14 +1057,19 @@ def main() -> int:
               libraries=[str(p.relative_to(_kernels.PKG_DIR.parent))
                          for p in libs],
               ptxas=ptxas))
-    spills = [ln for ln in ptxas["sampling"]
-              if re.search(r"[1-9]\d* bytes spill", ln)]
+    spills = [ln for ln in ptxas["sampling"] + [
+        ln for ln in ptxas["conv_fused"] if ln.startswith("maxpool")]
+        if re.search(r"[1-9]\d* bytes spill", ln)]
     if spills:
-        raise AssertionError(f"sampling kernels spill: {spills}")
+        raise AssertionError(f"sampling or max-pool kernels spill: {spills}")
 
     summary, wrappers = phase_kernels(torch, conv_fused)
     probes = phase_probes(torch)
-    launches, calls = phase_slice(torch, FRAMES)
+    phase_slice(torch, "float32", FP32_HEAD_FRAMES)
+    # the main path: the flagship as bench.py serves it, bf16 head (run
+    # second, so that the recorded calls sit in neither run's peak)
+    calls = []
+    launches = phase_slice(torch, "bfloat16", FRAMES, calls)
     sampling = phase_sampling(torch, calls, launches)
     del calls
     phase_parity(torch)
@@ -973,7 +1082,7 @@ def main() -> int:
             source=f"simpb_tpu_torch/csrc/{TRUNK_SOURCE[name]}.cu",
             replaces=wrappers[name][2], launches=launches[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"],
-            plain_ms=s["plain_ms"],
+            device_ms=s["device_ms"], plain_ms=s["plain_ms"],
             bound_ms=sum(s["bound"].values()),
             bound_by=max(s["bound"], key=s["bound"].get),
             library_ms=s["library_ms"],

@@ -139,33 +139,122 @@ __device__ __forceinline__ void zero(float (&acc)[4][4]) {
 
 // ---------------------------------------------------------------- K1
 // 3x3 / stride 2 / pad 1 max-pool, -inf padding; the output is
-// ceil(H/2) x ceil(W/2), as F.max_pool2d gives for any H and W. One
-// thread per output element, channels fastest, so a warp's loads are
-// contiguous.
-template <typename T>
-__global__ void __launch_bounds__(NT) maxpool_3x3_s2_kernel(
-    const T* __restrict__ x, T* __restrict__ y, int B, int H, int W, int C) {
+// ceil(H/2) x ceil(W/2), as F.max_pool2d gives for any H and W.
+//
+// Bound: bytes (one read of the input, one write of the output; a max
+// is no arithmetic worth counting). What holds a simple kernel back is
+// not the bytes but the instructions between them: one thread per
+// output element issues nine 2-byte loads (each input pixel read up to
+// four times) and 64-bit index divisions. Here:
+//  * a thread owns one pack of channels, 16 bytes when C allows it (8
+//    bf16 or 4 fp32; else one value), of two neighbouring output
+//    columns: per input row it loads the five columns 4p-1 .. 4p+3 that
+//    the two windows cover, so the shared column 4p+1 is loaded once;
+//  * it walks MP_ROWS output rows of one image; the row maxima of input
+//    row 2oy+1 carry over as those of row 2(oy+1)-1, so each input row
+//    is loaded once per strip (neighbouring strips share one row);
+//  * offsets within an image are 32-bit; the image's base is set once;
+//  * max is exact in any type (bf16 pairs through __hmax2_nan), and NaN
+//    propagates as in F.max_pool2d, so the kernel equals its plain
+//    version bit for bit.
+constexpr int MP_THREADS = 64;  // threads per block
+constexpr int MP_ROWS = 4;      // output rows a thread walks
+
+// N channels of type T, moved as one access
+template <typename T, int N> struct Pack;
+template <> struct alignas(16) Pack<__nv_bfloat16, 8> {
+  __nv_bfloat162 h[4];
+};
+template <> struct Pack<__nv_bfloat16, 1> { __nv_bfloat16 h; };
+template <> struct alignas(16) Pack<float, 4> { float f[4]; };
+template <> struct Pack<float, 1> { float f; };
+
+// max that propagates NaN: F.max_pool2d takes a value when it is larger
+// or NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ Pack<__nv_bfloat16, 8> pmax(
+    const Pack<__nv_bfloat16, 8>& a, const Pack<__nv_bfloat16, 8>& b) {
+  Pack<__nv_bfloat16, 8> r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.h[i] = __hmax2_nan(a.h[i], b.h[i]);
+  return r;
+}
+__device__ __forceinline__ Pack<__nv_bfloat16, 1> pmax(
+    const Pack<__nv_bfloat16, 1>& a, const Pack<__nv_bfloat16, 1>& b) {
+  return {__hmax_nan(a.h, b.h)};
+}
+__device__ __forceinline__ Pack<float, 4> pmax(const Pack<float, 4>& a,
+                                               const Pack<float, 4>& b) {
+  Pack<float, 4> r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.f[i] = max_nan(a.f[i], b.f[i]);
+  return r;
+}
+__device__ __forceinline__ Pack<float, 1> pmax(const Pack<float, 1>& a,
+                                               const Pack<float, 1>& b) {
+  return {max_nan(a.f, b.f)};
+}
+
+template <typename P> __device__ __forceinline__ P neg_inf();
+template <> __device__ __forceinline__ Pack<__nv_bfloat16, 8> neg_inf() {
+  const __nv_bfloat162 v =
+      __bfloat162bfloat162(__ushort_as_bfloat16((unsigned short)0xFF80));
+  return {{v, v, v, v}};
+}
+template <> __device__ __forceinline__ Pack<__nv_bfloat16, 1> neg_inf() {
+  return {__ushort_as_bfloat16((unsigned short)0xFF80)};
+}
+template <> __device__ __forceinline__ Pack<float, 4> neg_inf() {
+  return {{-INFINITY, -INFINITY, -INFINITY, -INFINITY}};
+}
+template <> __device__ __forceinline__ Pack<float, 1> neg_inf() {
+  return {-INFINITY};
+}
+
+// x [B, H, W, CV] and y [B, OH, OW, CV] in packs. Grid: (column pairs x
+// packs / MP_THREADS, row strips, B). Requires H * W * CV < 2^31.
+template <typename P>
+__global__ void __launch_bounds__(MP_THREADS) maxpool_3x3_s2_kernel(
+    const P* __restrict__ x, P* __restrict__ y, int H, int W, int CV) {
   const int OH = (H + 1) / 2, OW = (W + 1) / 2;
-  const long long total = (long long)B * OH * OW * C;
-  const long long idx = (long long)blockIdx.x * NT + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % C);
-  long long t = idx / C;
-  const int ox = (int)(t % OW);
-  t /= OW;
-  const int oy = (int)(t % OH);
-  const int b = (int)(t / OH);
-  float m = -INFINITY;
-  for (int dy = 0; dy < 3; ++dy) {
-    const int iy = 2 * oy - 1 + dy;
-    if (iy < 0 || iy >= H) continue;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int ix = 2 * ox - 1 + dx;
-      if (ix < 0 || ix >= W) continue;
-      m = fmaxf(m, to_f(x[(((long long)b * H + iy) * W + ix) * C + c]));
-    }
+  const int item = blockIdx.x * MP_THREADS + threadIdx.x;
+  if (item >= (OW + 1) / 2 * CV) return;
+  const int v = item % CV, p = item / CV;  // pack, output column pair
+  const P* __restrict__ xb = x + (size_t)blockIdx.z * H * W * CV + v;
+  P* __restrict__ yb = y + (size_t)blockIdx.z * OH * OW * CV + v;
+  const int ix0 = 4 * p - 1;  // the five input columns ix0 .. ix0 + 4
+  bool col_in[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) col_in[j] = ix0 + j >= 0 && ix0 + j < W;
+  // each output's max over its three columns of input row iy
+  auto row_max = [&](int iy, P& m0, P& m1) {
+    P c[5];
+    const bool row_in = iy >= 0 && iy < H;
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      c[j] = row_in && col_in[j] ? xb[(iy * W + ix0 + j) * CV]
+                                 : neg_inf<P>();
+    m0 = pmax(pmax(c[0], c[1]), c[2]);
+    m1 = pmax(pmax(c[2], c[3]), c[4]);
+  };
+  const int oy0 = blockIdx.y * MP_ROWS;
+  P a0, a1;  // row maxima of input row 2oy-1
+  row_max(2 * oy0 - 1, a0, a1);
+#pragma unroll
+  for (int r = 0; r < MP_ROWS; ++r) {
+    const int oy = oy0 + r;
+    if (oy >= OH) break;
+    P b0, b1, c0, c1;
+    row_max(2 * oy, b0, b1);
+    row_max(2 * oy + 1, c0, c1);
+    P* yr = yb + (oy * OW + 2 * p) * CV;
+    yr[0] = pmax(pmax(a0, b0), c0);
+    if (2 * p + 1 < OW) yr[CV] = pmax(pmax(a1, b1), c1);
+    a0 = c0;
+    a1 = c1;
   }
-  y[idx] = from_f<T>(m);
 }
 
 // ---------------------------------------------------------------- K2/K3
@@ -378,14 +467,30 @@ int launch_conv3x3(const void* x, const void* w, const float* bias, void* y,
   return (int)cudaGetLastError();
 }
 
+template <typename P>
+int launch_maxpool_packs(const void* x, void* y, int B, int H, int W,
+                         int CV, cudaStream_t stream) {
+  const int OH = (H + 1) / 2, OW = (W + 1) / 2;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || CV < 1 ||
+      (long long)H * W * CV >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int items = (OW + 1) / 2 * CV;
+  const dim3 grid((items + MP_THREADS - 1) / MP_THREADS,
+                  (OH + MP_ROWS - 1) / MP_ROWS, B);
+  maxpool_3x3_s2_kernel<P><<<grid, MP_THREADS, 0, stream>>>(
+      (const P*)x, (P*)y, H, W, CV);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte packs when C and both addresses allow them, else one value a
+// pack
 template <typename T>
 int launch_maxpool(const void* x, void* y, int B, int H, int W, int C,
                    cudaStream_t stream) {
-  const long long total = (long long)B * ((H + 1) / 2) * ((W + 1) / 2) * C;
-  const unsigned blocks = (unsigned)((total + NT - 1) / NT);
-  maxpool_3x3_s2_kernel<T><<<blocks, NT, 0, stream>>>(
-      (const T*)x, (T*)y, B, H, W, C);
-  return (int)cudaGetLastError();
+  constexpr int N = 16 / sizeof(T);
+  if (C % N == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0)
+    return launch_maxpool_packs<Pack<T, N>>(x, y, B, H, W, C / N, stream);
+  return launch_maxpool_packs<Pack<T, 1>>(x, y, B, H, W, C, stream);
 }
 
 }  // namespace

@@ -6,7 +6,12 @@ parameters under the JAX tree's names (`img_backbone.layer1_0.conv1`,
 `img_neck.fpn_0`, ...) as `nn.Conv2d` / `nn.BatchNorm2d`; inference
 always runs the fused path:
 
-* the 7x7/s2 stem is `F.conv2d`, its folded BN and ReLU plain torch;
+* the 7x7/s2 stem is `F.conv2d`, its folded BN and ReLU plain torch.
+  In bf16 the conv's operands are rounded to bf16 but its sum stays in
+  fp32 (TF32 off) and goes into the folded BN unrounded; only the BN's
+  result rounds to bf16, then the ReLU. That is what JAX computes: the
+  JAX source rounds the conv to bf16 first, but XLA's excess precision
+  (on by default) drops that rounding;
 * the stem max-pool, all 16 bottlenecks and the four FPN 3x3 convs go
   through the CUDA kernels of `ops/conv_fused.py` (their plain versions
   on the CPU);
@@ -19,6 +24,7 @@ the training path.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence
 
 import torch
@@ -35,6 +41,17 @@ RESNET_STAGE_BLOCKS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+
+
+@contextlib.contextmanager
+def _ieee_fp32_conv():
+    """cuDNN's fp32 convolutions in full fp32 (no TF32) inside."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 class Bottleneck(nn.Module):
@@ -105,6 +122,7 @@ class ResNet(_FoldCache):
 
         def build():
             stem_f, stem_b = fold_bn(self.bn1)
+            stem_w = self.conv1.weight.to(dtype).float()
             blocks = []
             for name in self.block_names:
                 blk = getattr(self, name)
@@ -116,17 +134,25 @@ class ResNet(_FoldCache):
                     wd, bd = fold_downsample_params(blk)
                     down = (wd.to(dtype), bd)
                 blocks.append((blk.stride, folded, down))
-            return self.conv1.weight.to(dtype), stem_f, stem_b, blocks
+            return stem_w, stem_f, stem_b, blocks
 
         return self._cached(device, dtype, build)
 
+    def stem(self, x: torch.Tensor, dtype=torch.float32):
+        """x: [N, H, W, 3] -> the stem's [N, H/2, W/2, 64] map in `dtype`,
+        before the max-pool: the conv of the image and the kernel, both
+        rounded to `dtype`, summed in fp32, then the folded BN, the
+        rounding to `dtype` and the ReLU."""
+        stem_w, stem_f, stem_b, _ = self.folded(x.device, dtype)
+        with _ieee_fp32_conv():
+            y = F.conv2d(x.to(dtype).float().permute(0, 3, 1, 2), stem_w,
+                         stride=2, padding=3).permute(0, 2, 3, 1)
+        return torch.relu((y * stem_f + stem_b).to(dtype)).contiguous()
+
     def forward(self, x: torch.Tensor, dtype=torch.float32):
         """x: [N, H, W, 3] -> four NHWC maps (strides 4, 8, 16, 32)."""
-        stem_w, stem_f, stem_b, blocks = self.folded(x.device, dtype)
-        x = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), stem_w, stride=2,
-                     padding=3).permute(0, 2, 3, 1)
-        x = torch.relu((x.float() * stem_f + stem_b).to(dtype)).contiguous()
-        x = maxpool_3x3_s2_fused(x)
+        blocks = self.folded(x.device, dtype)[3]
+        x = maxpool_3x3_s2_fused(self.stem(x, dtype))
         outs = []
         idx = 0
         for num_blocks in RESNET_STAGE_BLOCKS[self.depth]:

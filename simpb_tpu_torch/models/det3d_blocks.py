@@ -1,5 +1,8 @@
 """3D anchor encoder / refinement / keypoint modules
-(port of `simpb_tpu/models/det3d_blocks.py`)."""
+(port of `simpb_tpu/models/det3d_blocks.py`), computing in `dtype`.
+
+Anchors stay float32: a bf16 refinement delta plus a float32 anchor
+promotes to float32 in both frameworks."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -9,21 +12,23 @@ import torch.nn as nn
 
 from ..core import box3d
 from ..core.box3d import COS_YAW, H, L, SIN_YAW, VX, W, X, Y, Z
-from .layers import MLPStack, Scale
+from .layers import Dense, MLPStack, Scale
 
 
 class SparseBox3DEncoder(nn.Module):
     """Anchor state -> embedding: per-component MLP stacks (cat mode)."""
 
     def __init__(self, embed_dims: Sequence[int] = (128, 32, 32, 64),
-                 vel_dims: int = 3, out_loops: int = 4):
+                 vel_dims: int = 3, out_loops: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vel_dims = vel_dims
-        self.pos_fc = MLPStack(3, embed_dims[0], 1, out_loops)
-        self.size_fc = MLPStack(3, embed_dims[1], 1, out_loops)
-        self.yaw_fc = MLPStack(2, embed_dims[2], 1, out_loops)
+        self.pos_fc = MLPStack(3, embed_dims[0], 1, out_loops, dtype)
+        self.size_fc = MLPStack(3, embed_dims[1], 1, out_loops, dtype)
+        self.yaw_fc = MLPStack(2, embed_dims[2], 1, out_loops, dtype)
         if vel_dims > 0:
-            self.vel_fc = MLPStack(vel_dims, embed_dims[3], 1, out_loops)
+            self.vel_fc = MLPStack(vel_dims, embed_dims[3], 1, out_loops,
+                                   dtype)
 
     def forward(self, anchor: torch.Tensor) -> torch.Tensor:
         feats = [
@@ -39,25 +44,27 @@ class SparseBox3DEncoder(nn.Module):
 class SparseBox3DRefinementModule(nn.Module):
     """Per-layer 3D refinement: state deltas (+ cls and quality branches
     where the layer reports them). Velocity is translation / dt plus the
-    anchor velocity."""
+    anchor velocity; dt is cast to the deltas' dtype first, as in JAX."""
 
     def __init__(self, embed_dims: int = 256, output_dim: int = 11,
                  num_cls: int = 10, refine_yaw: bool = True,
-                 with_cls: bool = True, with_quality_estimation: bool = True):
+                 with_cls: bool = True, with_quality_estimation: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.output_dim = output_dim
         self.refine_yaw = refine_yaw
-        self.layers = MLPStack(embed_dims, embed_dims, 2, 2)
-        self.out_fc = nn.Linear(embed_dims, output_dim)
+        self.layers = MLPStack(embed_dims, embed_dims, 2, 2, dtype)
+        self.out_fc = Dense(embed_dims, output_dim, dtype=dtype)
         self.scale = Scale(output_dim)
         self.with_cls = with_cls
         self.with_quality = with_cls and with_quality_estimation
         if with_cls:
-            self.cls_layers = MLPStack(embed_dims, embed_dims, 1, 2)
-            self.cls_fc = nn.Linear(embed_dims, num_cls)
+            self.cls_layers = MLPStack(embed_dims, embed_dims, 1, 2, dtype)
+            self.cls_fc = Dense(embed_dims, num_cls, dtype=dtype)
         if self.with_quality:
-            self.quality_layers = MLPStack(embed_dims, embed_dims, 1, 2)
-            self.quality_fc = nn.Linear(embed_dims, 2)
+            self.quality_layers = MLPStack(embed_dims, embed_dims, 1, 2,
+                                           dtype)
+            self.quality_fc = Dense(embed_dims, 2, dtype=dtype)
 
     def forward(self, instance_feature, anchor, anchor_embed,
                 time_interval, return_cls: bool = True):
@@ -89,11 +96,13 @@ class SparseBox3DKeyPointsGenerator(nn.Module):
         (0, -0.45, 0), (0, 0, 0.45), (0, 0, -0.45),
     )
 
-    def __init__(self, embed_dims: int = 256, num_learnable_pts: int = 6):
+    def __init__(self, embed_dims: int = 256, num_learnable_pts: int = 6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_learnable_pts = num_learnable_pts
         if num_learnable_pts > 0:
-            self.learnable_fc = nn.Linear(embed_dims, num_learnable_pts * 3)
+            self.learnable_fc = Dense(embed_dims, num_learnable_pts * 3,
+                                      dtype=dtype)
 
     @property
     def num_pts(self) -> int:

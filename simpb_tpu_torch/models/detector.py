@@ -5,8 +5,10 @@ The six cameras fold into the batch for the trunk, which always runs
 the fused inference path (`models/backbone.py`): in the JAX package
 `backbone_fused_infer` picks between two trunks that compute the same
 function; the port has only this one until the training path brings
-the module trunk. The feature column stays in the trunk's compute
-dtype; the head runs in float32.
+the module trunk. The trunk computes in `compute_dtype` and the feature
+column stays in it; the head computes in `head_dtype` (`bench.py`
+serves both in bfloat16). Not ported yet: `stem_s2d` and FPNs with
+other than 4 levels.
 """
 from __future__ import annotations
 
@@ -27,8 +29,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class SimPB(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.head_dtype != "float32":
-            raise NotImplementedError("the port's head runs in float32")
         if cfg.stem_s2d:
             raise NotImplementedError("stem_s2d is not ported yet")
         if cfg.head.num_levels != 4:
@@ -37,7 +37,7 @@ class SimPB(nn.Module):
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.img_backbone = ResNet(cfg.backbone_depth)
         self.img_neck = FPN((256, 512, 1024, 2048), cfg.head.embed_dims)
-        self.head = SimPBHead(cfg.head)
+        self.head = SimPBHead(cfg.head, DTYPES[cfg.head_dtype])
 
     def extract_feat(self, img: torch.Tensor):
         """img [bs, cams, H, W, 3] -> (col_feats [bs, cams, ΣHW, C],

@@ -4,6 +4,9 @@
 Keypoints from the anchor, per-(camera, level, point, group) softmax
 fusion weights with a camera embedding from the projection matrices,
 projection into every camera, then `ops/sampling.deformable_aggregation`.
+In `dtype`: the weights and their softmax, the camera embedding and
+`output_proj`; the points and weights are cast to the features' dtype
+for the kernel, which returns float32, as in JAX.
 """
 from __future__ import annotations
 
@@ -16,14 +19,15 @@ from ..core import box3d
 from ..ops.format import SpatialShapes
 from ..ops.sampling import deformable_aggregation
 from .det3d_blocks import SparseBox3DKeyPointsGenerator
-from .layers import MLPStack
+from .layers import Dense, MLPStack
 
 
 class DeformableFeatureAggregation(nn.Module):
     def __init__(self, embed_dims: int = 256, num_groups: int = 8,
                  num_levels: int = 4, num_cams: int = 6,
                  num_learnable_pts: int = 6,
-                 gather_capacity: Optional[int] = 4096):
+                 gather_capacity: Optional[int] = 4096,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_groups = num_groups
@@ -31,13 +35,13 @@ class DeformableFeatureAggregation(nn.Module):
         self.num_cams = num_cams
         self.gather_capacity = gather_capacity
         self.kps_generator = SparseBox3DKeyPointsGenerator(
-            embed_dims, num_learnable_pts
+            embed_dims, num_learnable_pts, dtype
         )
         num_pts = self.kps_generator.num_pts
-        self.camera_encoder = MLPStack(12, embed_dims, 1, 2)
-        self.weights_fc = nn.Linear(embed_dims,
-                                    num_groups * num_levels * num_pts)
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.camera_encoder = MLPStack(12, embed_dims, 1, 2, dtype)
+        self.weights_fc = Dense(embed_dims, num_groups * num_levels * num_pts,
+                                dtype=dtype)
+        self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype)
 
     def forward(self, instance_feature, anchor, anchor_embed,
                 col_feats: torch.Tensor, spatial_shapes: SpatialShapes,
@@ -65,5 +69,5 @@ class DeformableFeatureAggregation(nn.Module):
             col_feats, spatial_shapes, points_2d.to(col_feats.dtype),
             w.to(col_feats.dtype), gather_capacity=self.gather_capacity,
         )
-        output = self.output_proj(features.to(self.output_proj.weight.dtype))
+        output = self.output_proj(features)
         return torch.cat([output, instance_feature], dim=-1)

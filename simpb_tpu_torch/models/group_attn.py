@@ -9,6 +9,11 @@
   RAW feature column and applying the value projection to the sampled
   rows afterwards, with the `(wsum - 1) * bias` border correction
   (the order the JAX serving head computes in).
+
+Both compute in `dtype`. In bf16 the offsets and attention weights come
+out of bf16 layers; the locations are float32 (float32 reference points
+plus bf16 offsets), and the weights are cast to float32 before the
+sampling op, which JAX's op does inside itself: exact.
 """
 from __future__ import annotations
 
@@ -20,15 +25,15 @@ import torch.nn as nn
 
 from ..ops.format import SpatialShapes
 from ..ops.sampling import msda_patch, topk_stable
-from .layers import MultiheadAttention
+from .layers import Dense, MultiheadAttention
 
 
 class QueryGroupSelfAttention(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int = 8,
-                 num_cams: int = 6):
+                 num_cams: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_cams = num_cams
-        self.attn = MultiheadAttention(embed_dims, num_heads)
+        self.attn = MultiheadAttention(embed_dims, num_heads, dtype)
 
     def forward(self, query, value, valid, identity=None):
         """query/value [bs, cams*K, E], valid [bs, cams*K] bool."""
@@ -66,7 +71,8 @@ class QueryGroupMSDA(nn.Module):
                  num_levels: int = 4, num_points: int = 4,
                  num_cams: int = 6, gather_capacity: Optional[int] = None,
                  sel_levels: Optional[int] = None,
-                 patch_hw: Tuple[int, int] = (8, 8)):
+                 patch_hw: Tuple[int, int] = (8, 8),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
@@ -76,14 +82,14 @@ class QueryGroupMSDA(nn.Module):
         self.gather_capacity = gather_capacity
         self.sel_levels = sel_levels
         self.patch_hw = tuple(patch_hw)
-        self.value_proj = nn.Linear(embed_dims, embed_dims)
-        self.sampling_offsets = nn.Linear(
-            embed_dims, num_heads * num_levels * num_points * 2
+        self.value_proj = Dense(embed_dims, embed_dims, dtype=dtype)
+        self.sampling_offsets = Dense(
+            embed_dims, num_heads * num_levels * num_points * 2, dtype=dtype
         )
-        self.attention_weights = nn.Linear(
-            embed_dims, num_heads * num_levels * num_points
+        self.attention_weights = Dense(
+            embed_dims, num_heads * num_levels * num_points, dtype=dtype
         )
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype)
         with torch.no_grad():
             self.sampling_offsets.weight.zero_()
             self.sampling_offsets.bias.copy_(torch.from_numpy(
@@ -95,15 +101,17 @@ class QueryGroupMSDA(nn.Module):
     def _project(self, sampled, wsum):
         """Per-head value projection of raw samples plus the weight-mass
         bias correction: channel d of head h(d) becomes
-        (Σ w_h x) . W[:, d] + wsum_h * b[d]."""
+        (Σ w_h x) . W[:, d] + wsum_h * b[d], with b as the projection
+        adds it (rounded to the compute dtype)."""
         heads, e = self.num_heads, self.embed_dims
         head_mask = torch.repeat_interleave(
             torch.eye(heads, device=sampled.device), e // heads, dim=1
         )
-        proj = self.value_proj(sampled.to(self.value_proj.weight.dtype))
+        proj = self.value_proj(sampled)
         out = torch.einsum("bmhc,hc->bmc", proj.float(), head_mask)
         corr = torch.einsum("bmh,hc->bmc", wsum - 1.0, head_mask)
-        return out + corr * self.value_proj.bias.float()
+        bias = self.value_proj.bias.to(self.value_proj.dtype).float()
+        return out + corr * bias
 
     def forward(self, query, query_pos, reference_points, ref_depth,
                 value: torch.Tensor, spatial_shapes: SpatialShapes):
@@ -136,7 +144,7 @@ class QueryGroupMSDA(nn.Module):
         loc = torch.where(ref_depth[:, :, None, None, None, :] > 0, loc,
                           torch.zeros_like(loc))
         loc = loc.reshape(b2, k, heads, levels, points, 2)
-        w = attn.reshape(b2, k, heads, levels, points)
+        w = attn.reshape(b2, k, heads, levels, points).float()
 
         def sample(loc_, w_):
             sampled, wsum = msda_patch(

@@ -8,6 +8,10 @@ refine3d / ffn / norm). Each op's module is registered as
 query and positional embedding and shares the fc_before / fc_after
 projections. Denoising and the 2D feature encoder (`encoder2d`, off in
 every released configuration) are not part of the serving path.
+
+The head computes in `dtype` (float32, or bfloat16 as `head_dtype`
+sets it); its parameters, the anchors and the carried temporal state
+stay float32, as in the JAX head.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from .det3d_blocks import SparseBox3DEncoder, SparseBox3DRefinementModule
 from .dfa import DeformableFeatureAggregation
 from .group_attn import QueryGroupMSDA, QueryGroupSelfAttention
 from .instance_bank import InstanceBank, TemporalState
-from .layers import LN_EPS, AsymmetricFFN, ResidualAttention
+from .layers import AsymmetricFFN, Dense, LayerNorm, ResidualAttention
 
 
 def _check_serving_config(c: HeadConfig) -> None:
@@ -48,7 +52,7 @@ def _check_serving_config(c: HeadConfig) -> None:
 
 
 class SimPBHead(nn.Module):
-    def __init__(self, cfg: HeadConfig):
+    def __init__(self, cfg: HeadConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_serving_config(cfg)
         self.cfg = c = cfg
@@ -65,28 +69,29 @@ class SimPBHead(nn.Module):
         self.instance_feature = nn.Parameter(
             torch.zeros(c.num_anchor, e), requires_grad=False
         )
-        self.anchor_encoder = SparseBox3DEncoder((e // 2, e // 8, e // 8,
-                                                  e // 4))
-        self.anchor_encoder2d = SparseBox2DEncoder(e)
-        self.fc_before = nn.Linear(e, 2 * e, bias=False)
-        self.fc_after = nn.Linear(2 * e, e, bias=False)
-        self.fc_before2d = nn.Linear(e, 2 * e, bias=False)
-        self.fc_after2d = nn.Linear(2 * e, e, bias=False)
+        self.anchor_encoder = SparseBox3DEncoder(
+            (e // 2, e // 8, e // 8, e // 4), dtype=dtype)
+        self.anchor_encoder2d = SparseBox2DEncoder(e, dtype)
+        dense = lambda i, o: Dense(i, o, bias=False, dtype=dtype)
+        self.fc_before = dense(e, 2 * e)
+        self.fc_after = dense(2 * e, e)
+        self.fc_before2d = dense(e, 2 * e)
+        self.fc_after2d = dense(2 * e, e)
 
         order = c.operation_order
         self.op_names: List[Optional[str]] = []
         num_refine3d = 0
         for i, op in enumerate(order):
             if op == "ffn":
-                mod = AsymmetricFFN(e, 2 * e, 4 * e)
+                mod = AsymmetricFFN(e, 2 * e, 4 * e, dtype)
             elif op == "norm":
-                mod = nn.LayerNorm(e, eps=LN_EPS)
+                mod = LayerNorm(e, dtype)
             elif op in ("gnn", "temp_gnn"):
-                mod = ResidualAttention(2 * e, c.num_groups)
+                mod = ResidualAttention(2 * e, c.num_groups, dtype)
             elif op == "deformable":
                 mod = DeformableFeatureAggregation(
                     e, c.num_groups, c.num_levels, c.num_cams,
-                    c.num_learnable_pts, c.dfa_gather_capacity,
+                    c.num_learnable_pts, c.dfa_gather_capacity, dtype,
                 )
             elif op == "refine3d":
                 # intermediate layers report no cls/quality at inference
@@ -96,22 +101,25 @@ class SimPBHead(nn.Module):
                 mod = SparseBox3DRefinementModule(
                     e, num_cls=c.num_classes, with_cls=with_cls,
                     with_quality_estimation=c.with_quality_estimation,
+                    dtype=dtype,
                 )
             elif op == "refine2d":
-                mod = SparseBox2DRefinementModule(e, num_cls=c.num_classes)
+                mod = SparseBox2DRefinementModule(e, num_cls=c.num_classes,
+                                                  dtype=dtype)
             elif op == "qg_self_attn":
-                mod = QueryGroupSelfAttention(2 * e, c.num_groups, c.num_cams)
+                mod = QueryGroupSelfAttention(2 * e, c.num_groups, c.num_cams,
+                                              dtype)
             elif op == "qg_cross_attn":
                 mod = QueryGroupMSDA(
                     e, c.num_groups, c.num_levels, 4, c.num_cams,
                     gather_capacity=c.msda_gather_capacity,
                     sel_levels=c.msda_sel_levels or None,
-                    patch_hw=c.msda_patch_hw,
+                    patch_hw=c.msda_patch_hw, dtype=dtype,
                 )
             elif op == "aggregation":
-                self.add_module(f"op{i}_reweight", ReWeight(e))
+                self.add_module(f"op{i}_reweight", ReWeight(e, dtype))
                 op = "aggregation_attn"
-                mod = ResidualAttention(2 * e, c.num_groups)
+                mod = ResidualAttention(2 * e, c.num_groups, dtype)
             elif op == "allocation":
                 self.op_names.append(None)
                 continue

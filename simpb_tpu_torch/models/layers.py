@@ -3,6 +3,14 @@
 Parameter names follow the JAX tree (`fc0`, `ln0`, `q_proj`, ...);
 `utils/convert.py` maps a JAX Dense kernel [in, out] to a Linear weight
 [out, in]. LayerNorm eps is 1e-5 everywhere.
+
+Compute dtype, as flax's `dtype=`: parameters stay float32; `Dense`
+casts its input and parameters to the module's dtype, `LayerNorm`
+takes its statistics in float32 and returns the dtype, attention's
+softmax runs in the dtype of its logits. Elsewhere the dtypes follow
+type promotion, which in PyTorch matches JAX's except for a 0-dim
+float32 tensor beside a bf16 one (JAX promotes to float32, PyTorch
+keeps bf16); the head's modules hold no such pair.
 """
 from __future__ import annotations
 
@@ -10,28 +18,58 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 LN_EPS = 1e-5
 
 
+class Dense(nn.Linear):
+    """`nn.Linear` computing in `dtype` (flax `nn.Dense(dtype=...)`): the
+    input, weight and bias are cast to it, and the product is rounded to
+    it before the bias is added, as flax adds the bias after its
+    product (one fused `addmm` rounds once, an ulp off now and then in
+    bf16)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` returning `dtype` (flax `nn.LayerNorm(dtype=...)`):
+    statistics and normalisation in float32, then one cast."""
+
+    def __init__(self, dims: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dims, eps=LN_EPS)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x.float()).to(self.dtype)
+
+
 class MLPStack(nn.Module):
     """`linear_relu_ln(embed, in_loops, out_loops)`: out_loops x
-    [in_loops x (Linear, ReLU), LayerNorm]."""
+    [in_loops x (Linear, ReLU), LayerNorm], in `dtype`."""
 
     def __init__(self, in_dims: int, embed_dims: int, in_loops: int = 1,
-                 out_loops: int = 2):
+                 out_loops: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.order = []
         idx = 0
         d = in_dims
         for _ in range(out_loops):
             for _ in range(in_loops):
-                self.add_module(f"fc{idx}", nn.Linear(d, embed_dims))
+                self.add_module(f"fc{idx}", Dense(d, embed_dims,
+                                                  dtype=dtype))
                 self.order.append(f"fc{idx}")
                 d = embed_dims
                 idx += 1
-            self.add_module(f"ln{idx - 1}", nn.LayerNorm(embed_dims,
-                                                         eps=LN_EPS))
+            self.add_module(f"ln{idx - 1}", LayerNorm(embed_dims, dtype))
             self.order.append(f"ln{idx - 1}")
 
     def forward(self, x):
@@ -66,17 +104,21 @@ def masked_softmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 class MultiheadAttention(nn.Module):
     """Torch-semantics multi-head attention with separate q/k/v/out
-    projections; `attn_mask` is bool (True = blocked) or additive,
-    [L, S] or [bs, L, S]. Fully masked rows give zeros."""
+    projections, in `dtype`; `attn_mask` is bool (True = blocked) or
+    additive, [L, S] or [bs, L, S]. Fully masked rows give zeros."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(embed_dims, embed_dims)
-        self.k_proj = nn.Linear(embed_dims, embed_dims)
-        self.v_proj = nn.Linear(embed_dims, embed_dims)
-        self.out_proj = nn.Linear(embed_dims, embed_dims)
+        # JAX divides by sqrt(head dim) taken in the compute dtype
+        self.scale = float(torch.tensor(float(embed_dims // num_heads),
+                                        dtype=dtype, device="cpu").sqrt())
+        self.q_proj = Dense(embed_dims, embed_dims, dtype=dtype)
+        self.k_proj = Dense(embed_dims, embed_dims, dtype=dtype)
+        self.v_proj = Dense(embed_dims, embed_dims, dtype=dtype)
+        self.out_proj = Dense(embed_dims, embed_dims, dtype=dtype)
 
     def forward(self, query, key=None, value=None, attn_mask=None):
         if key is None:
@@ -90,7 +132,7 @@ class MultiheadAttention(nn.Module):
         q = self.q_proj(query).reshape(bs, L, h, hd).transpose(1, 2)
         k = self.k_proj(key).reshape(bs, S, h, hd).transpose(1, 2)
         v = self.v_proj(value).reshape(bs, S, h, hd).transpose(1, 2)
-        logits = torch.einsum("bhld,bhsd->bhls", q, k) / math.sqrt(hd)
+        logits = torch.einsum("bhld,bhsd->bhls", q, k) / self.scale
         if attn_mask is not None:
             if attn_mask.dtype == torch.bool:
                 bias = torch.zeros(attn_mask.shape, dtype=q.dtype,
@@ -112,9 +154,10 @@ class ResidualAttention(nn.Module):
     """`identity + attn(q + pos, k + pos, v)` (mmcv MultiheadAttention
     wrapper; dropouts are inference no-ops)."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn = MultiheadAttention(embed_dims, num_heads)
+        self.attn = MultiheadAttention(embed_dims, num_heads, dtype)
 
     def forward(self, query, key=None, value=None, query_pos=None,
                 key_pos=None, attn_mask=None, identity=None):
@@ -138,14 +181,15 @@ class AsymmetricFFN(nn.Module):
     pre-LayerNorm, fc1 -> ReLU -> fc2, plus a projected identity."""
 
     def __init__(self, embed_dims: int = 256, in_channels: int = 512,
-                 feedforward_channels: int = 1024):
+                 feedforward_channels: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pre_norm = nn.LayerNorm(in_channels, eps=LN_EPS)
-        self.fc1 = nn.Linear(in_channels, feedforward_channels)
-        self.fc2 = nn.Linear(feedforward_channels, embed_dims)
+        self.pre_norm = LayerNorm(in_channels, dtype)
+        self.fc1 = Dense(in_channels, feedforward_channels, dtype=dtype)
+        self.fc2 = Dense(feedforward_channels, embed_dims, dtype=dtype)
         self.has_identity_fc = in_channels != embed_dims
         if self.has_identity_fc:
-            self.identity_fc = nn.Linear(in_channels, embed_dims)
+            self.identity_fc = Dense(in_channels, embed_dims, dtype=dtype)
 
     def forward(self, x):
         x = self.pre_norm(x)

@@ -404,6 +404,10 @@ def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
         return maxpool_3x3_s2_plain(x)
     _check_act(x, "maxpool_3x3_s2_fused")
     b, h, w, c = x.shape
+    if not (0 < b <= 65535 and 0 < h * w * c < 2**31):
+        raise ValueError("maxpool_3x3_s2_fused: the kernel takes 1 to "
+                         "65535 maps of fewer than 2^31 values each, got "
+                         f"{tuple(x.shape)}")
     y = torch.empty((b, (h + 1) // 2, (w + 1) // 2, c), dtype=x.dtype,
                     device=x.device)
     lib = _kernels.load("conv_fused")
