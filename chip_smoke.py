@@ -72,6 +72,28 @@ Phases, each printing one JSON line:
              each held against the fp32 plain trunk per FPN level; the
              stem timed as it runs and, as a yardstick, as the bf16 conv
              it replaced.
+9. eval    — the evaluation path as `python -m simpb_tpu_torch.tools.test
+             --config r50-fast --head-bf16 --tracking` runs it, on a
+             synthetic nuScenes-format infos pkl (EVAL_FRAMES frames of
+             six 1600x900 cameras in two scenes split by a 10 s gap, a
+             rig that puts the objects in view): `streaming_eval` with
+             both scorers, the launch counts set to 0 just before and
+             read just after. Only the image decode is replaced: a
+             dataset subclass serves seeded uint8 frames from memory (the
+             card's machine has no Pillow), and everything after it runs:
+             geometry, the native preprocess, projections, annotations,
+             the stream steps and decode, boxes to the global frame, the
+             scorers. Checks the native path was taken, 1/4/12/4/3/3
+             launches every frame, the scene ids split at the gap, JAX's
+             metric keys, and each frame's decode bit for bit against a
+             `make_stream_steps` rerun over the same samples; prints the
+             median host ms of `get_sample`, the median frame ms (step,
+             decode and the one `.cpu()`) and the metrics (near zero with
+             random weights: the phase shows that the path runs).
+10. bench  — `simpb_tpu_torch.bench`'s served config through
+             `run_benchmark` with a window of BENCH_WINDOW frames, the
+             launch counts set to 0 just before and read just after;
+             prints the bench's JSON line; fps > 0 and a peak are set.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -109,6 +131,8 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
 SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame (bf16 head)
 FP32_HEAD_FRAMES = 3  # the same with the head in fp32
+EVAL_FRAMES = 12  # two scenes of six frames
+BENCH_WINDOW = 32  # frames a window (one warm, one timed)
 # launches a frame on the main path
 WANT_LAUNCHES = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 12,
                  "conv3x3_bias": 4, "deformable_aggregation": 3,
@@ -487,29 +511,36 @@ def reset_launch_counts():
 
 
 @contextlib.contextmanager
+def rebound(*sites):
+    """Bind each (module, name) of `sites` (module, name, make) to
+    make(the function bound there) for the duration; restore after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    try:
+        for (mod, name, make), (_, _, fn) in zip(sites, saved):
+            setattr(mod, name, make(fn))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def recording(calls):
     """Append (name, args, kwargs) of every sampling-wrapper call to
     `calls`, then run the wrapper itself."""
     from simpb_tpu_torch.models import dfa
     from simpb_tpu_torch.ops import sampling
 
-    sites = ((dfa, "deformable_aggregation", "deformable_aggregation"),
-             (sampling, "_msda_patch_sel", "msda_patch_sel"))
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    def recorder(name):
+        def make(fn):
+            def call(*args, **kwargs):
+                calls.append((name, args, kwargs))
+                return fn(*args, **kwargs)
+            return call
+        return make
 
-    def recorder(name, fn):
-        def call(*args, **kwargs):
-            calls.append((name, args, kwargs))
-            return fn(*args, **kwargs)
-        return call
-
-    try:
-        for (mod, attr, name), (_, _, fn) in zip(sites, saved):
-            setattr(mod, attr, recorder(name, fn))
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    return rebound(
+        (dfa, "deformable_aggregation", recorder("deformable_aggregation")),
+        (sampling, "_msda_patch_sel", recorder("msda_patch_sel")))
 
 
 def run_stream(torch, model, cfg, frames, calls=None):
@@ -617,7 +648,6 @@ def phase_slice(torch, head_dtype, frames, calls=None):
     return launches
 
 
-@contextlib.contextmanager
 def plain_route():
     """Route the trunk and the sampling ops through the kernels' plain
     versions (the parity reference); the wrappers themselves never do
@@ -633,14 +663,7 @@ def plain_route():
         (dfa, "deformable_aggregation", sampling.deformable_aggregation_plain),
         (sampling, "_msda_patch_sel", sampling._msda_patch_sel_plain),
     )
-    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in sites]
-    try:
-        for mod, n, fn in sites:
-            setattr(mod, n, fn)
-        yield
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
+    return rebound(*((mod, n, lambda _, fn=fn: fn) for mod, n, fn in sites))
 
 
 def strided_view(label, x):
@@ -1029,6 +1052,213 @@ def phase_trunk(torch):
     free_cuda(torch)
 
 
+def eval_metric_keys():
+    """The keys of `streaming_eval(tracking=True)`'s metrics, in the JAX
+    package's order: (detection keys, tracking keys always present, the
+    per-class tracking keys that may follow)."""
+    from simpb_tpu_torch.configs.base import CLASS_NAMES
+    from simpb_tpu_torch.data.tracking_eval import TRACKING_CLASSES
+
+    det = (["mAP", "mATE", "mASE", "mAOE", "mAVE", "mAAE", "NDS"]
+           + [f"AP_{c}" for c in CLASS_NAMES])
+    trk = ["AMOTA", "AMOTP", "MOTA", "MOTP", "RECALL", "IDS", "FRAG", "FP",
+           "FN", "TP", "MT", "ML"]
+    per_class = [f"{m}_{c}" for c in TRACKING_CLASSES
+                 for m in ("AMOTA", "AMOTP")]
+    return det, trk, per_class
+
+
+def phase_eval(torch, device="cuda"):
+    """`streaming_eval` over a synthetic val set at the release source
+    size, the flagship as bench.py serves it; see the module docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from simpb_tpu_torch.data import native_preprocess
+    from simpb_tpu_torch.data.dataset import NuScenesDataset
+    from simpb_tpu_torch.data.postprocess import format_nuscenes_submission
+    from simpb_tpu_torch.tools.test import eval_aug_conf
+    from simpb_tpu_torch.training import evaluate
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    src_h, src_w = 900, 1600
+    cfg = flagship("bfloat16")
+    model = evaluate.build_model(cfg, device=device, seed=0)
+    rng = np.random.default_rng(0)
+    host_ms, frames, native = [], [], []
+    seen = {}
+
+    class MemoryImages(NuScenesDataset):
+        """Serves decoded frames from memory; times `get_sample`."""
+
+        def load_images(self, paths, dtype=np.float32, scale_hint=None):
+            return [images[p].astype(dtype, copy=False) for p in paths]
+
+        def get_sample(self, idx):
+            t0 = time.perf_counter()
+            sample = super().get_sample(idx)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return sample
+
+    def timed_steps(make):
+        def steps(model, cfg):
+            def timed(fn):
+                def step(*args):
+                    frames.append(dict(t0=time.perf_counter(),
+                                       before=launch_counts()))
+                    return fn(*args)
+                return step
+            return tuple(timed(fn) for fn in make(model, cfg))
+        return steps
+
+    def on_host(fn):
+        def to_host(dec):
+            out = fn(dec)
+            frames[-1].update(ms=(time.perf_counter() - frames[-1]["t0"])
+                              * 1e3, after=launch_counts(), dec=out)
+            return out
+        return to_host
+
+    def counted(fn):
+        def pre(*args, **kwargs):
+            native.append(1)
+            return fn(*args, **kwargs)
+        return pre
+
+    def scoring(fn):
+        def score(preds, gts, scene_ids, tracking):
+            seen["scene_ids"] = list(scene_ids)
+            return fn(preds, gts, scene_ids, tracking)
+        return score
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = write_synthetic_infos(tmp, n_frames=EVAL_FRAMES,
+                                    gap_at=(EVAL_FRAMES // 2,),
+                                    src_hw=(src_h, src_w))
+        dataset = MemoryImages(
+            pkl, test_mode=True, sequences_split_num=1,
+            data_aug_conf=eval_aug_conf(cfg, src_h, src_w))
+    images = {c["data_path"]: rng.integers(0, 256, (src_h, src_w, 3),
+                                           dtype=np.uint8)
+              for info in dataset.data_infos for c in info["cams"].values()}
+    reset_launch_counts()
+    with rebound((evaluate, "make_stream_steps", timed_steps),
+                 (evaluate, "_decode_to_host", on_host),
+                 (evaluate, "_score", scoring),
+                 (native_preprocess, "preprocess_image", counted)):
+        metrics, preds, tokens = evaluate.streaming_eval(
+            model, cfg, dataset, tracking=True)
+    launches = launch_counts()
+    eval_host_ms = host_ms[:]
+
+    # the same samples through make_stream_steps again: every frame's
+    # decode must come back bit for bit
+    cold, stream = evaluate.make_stream_steps(model, cfg)
+    state = prev = None
+    identical = []
+    for idx, frame in enumerate(frames):
+        s = dataset.get_sample(idx)
+        img = torch.from_numpy(s["img"][None]).to(device)
+        proj = torch.from_numpy(s["projection_mat"][None]).to(device)
+        if state is None:
+            dec, state = cold(img, proj)
+        else:
+            dt = torch.tensor([s["timestamp"] - prev["timestamp"]],
+                              dtype=torch.float32, device=device)
+            t2c = torch.from_numpy((np.linalg.inv(s["lidar2global"])
+                                    @ prev["lidar2global"])[None]
+                                   .astype(np.float32)).to(device)
+            dec, state = stream(img, proj, state, dt, t2c)
+        prev = s
+        again = evaluate._decode_to_host(dec)
+        identical.append(sorted(again) == sorted(frame["dec"]) and all(
+            again[k].dtype == frame["dec"][k].dtype
+            and again[k].tobytes() == frame["dec"][k].tobytes()
+            for k in again))
+
+    per_frame = [{k: f["after"][k] - f["before"][k] for k in f["after"]
+                  if f["after"][k] - f["before"][k]} for f in frames]
+    det, trk, per_class = eval_metric_keys()
+    keys = list(metrics)
+    keys_ok = (keys[:len(det) + len(trk)] == det + trk
+               and set(keys[len(det) + len(trk):]) <= set(per_class))
+    want_scenes = [0] * (EVAL_FRAMES // 2) + [1] * (EVAL_FRAMES // 2)
+    sub = format_nuscenes_submission(
+        [{"boxes_3d": p["boxes"], "scores_3d": p["scores"],
+          "labels_3d": p["labels"], "instance_ids": p["track_ids"]}
+         for p in preds], tokens, tracking=True)
+    finite = all(np.isfinite(p["boxes"]).all() and np.isfinite(
+        p["scores"]).all() for p in preds)
+    frame_ms = [f["ms"] for f in frames]
+    emit(dict(phase="eval", config="simpb_r50_704x256_fast",
+              trunk="bfloat16", head="bfloat16", frames=len(frames),
+              source_hw=[src_h, src_w], cameras=6,
+              native_preprocess=native_preprocess.available(),
+              native_calls=len(native),
+              get_sample_host_ms_median=statistics.median(eval_host_ms),
+              get_sample_host_ms_range=[min(eval_host_ms),
+                                        max(eval_host_ms)],
+              frame_ms_median=statistics.median(frame_ms),
+              frame_ms_range=[min(frame_ms), max(frame_ms)],
+              frame_ms=frame_ms, scene_ids=seen.get("scene_ids"),
+              launches=launches, launches_per_frame=per_frame[-1],
+              decode_bit_identical_rerun=identical,
+              predictions=sum(len(p["labels"]) for p in preds),
+              submission_boxes=sum(map(len, sub["results"].values())),
+              metrics={k: None if math.isnan(v) else v
+                       for k, v in metrics.items()}))
+    json.dumps(sub)
+    problems = []
+    if not native_preprocess.available() or \
+            len(native) != 6 * EVAL_FRAMES:
+        problems.append(f"native preprocess calls {len(native)}")
+    if len(frames) != EVAL_FRAMES or tokens != [
+            f"tok{i}" for i in range(EVAL_FRAMES)]:
+        problems.append(f"{len(frames)} frames, tokens {tokens}")
+    bad = [f for f, c in enumerate(per_frame) if c != WANT_LAUNCHES]
+    if bad:
+        problems.append(f"launches {per_frame[bad[0]]} in frame {bad[0]}, "
+                        f"want {WANT_LAUNCHES}")
+    if seen.get("scene_ids") != want_scenes:
+        problems.append(f"scene ids {seen.get('scene_ids')}")
+    if not keys_ok:
+        problems.append(f"metric keys {keys}")
+    if not all(identical):
+        problems.append(f"decode differs on rerun: {identical}")
+    if not finite:
+        problems.append("non-finite predictions")
+    if problems:
+        raise AssertionError(f"eval phase: {problems}")
+    del model
+    free_cuda(torch)
+
+
+def phase_bench(torch):
+    """The port's bench with a short window; prints its JSON line."""
+    from simpb_tpu_torch import bench
+    from simpb_tpu_torch.utils.benchmark import run_benchmark
+
+    cfg = bench.config()
+    reset_launch_counts()
+    fps, stats = run_benchmark(cfg, window=BENCH_WINDOW, batch_size=1,
+                               return_stats=True)
+    launches = launch_counts()
+    free_cuda(torch)
+    emit(bench.result(fps, stats))
+    want = {k: 2 * BENCH_WINDOW * n for k, n in WANT_LAUNCHES.items()}
+    got = {k: n for k, n in launches.items() if n}
+    emit(dict(phase="bench", config="simpb_r50_704x256_fast",
+              trunk=cfg.compute_dtype, head=cfg.head_dtype,
+              window=BENCH_WINDOW, fps=fps,
+              peak_hbm_bytes=stats["peak_hbm_bytes"], launches=got))
+    if not fps > 0 or not stats["peak_hbm_bytes"]:
+        raise AssertionError(f"bench: fps {fps}, stats {stats}")
+    if got != want:
+        raise AssertionError(f"bench: launches {got}, want {want}")
+
+
 def main() -> int:
     import torch
 
@@ -1074,6 +1304,8 @@ def main() -> int:
     del calls
     phase_parity(torch)
     phase_trunk(torch)
+    phase_eval(torch)
+    phase_bench(torch)
 
     kernels = []
     for name, s in summary.items():

@@ -20,19 +20,27 @@ import torch.nn as nn
 from ..configs.base import ModelConfig
 from ..ops.format import pack_feature_maps
 from .backbone import FPN, ResNet
-from .head import SimPBHead
+from .head import SimPBHead, check_head_config
 from .instance_bank import TemporalState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def check_serving_config(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a setting the port does not serve
+    yet; `SimPB` calls it before it builds anything."""
+    if cfg.stem_s2d:
+        raise NotImplementedError("stem_s2d is not ported yet")
+    if cfg.head.num_levels != 4:
+        raise NotImplementedError("FPNs with other than 4 levels are not "
+                                  "ported yet")
+    check_head_config(cfg.head)
+
+
 class SimPB(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.stem_s2d:
-            raise NotImplementedError("stem_s2d is not ported yet")
-        if cfg.head.num_levels != 4:
-            raise NotImplementedError("only the 4-level FPN is ported")
+        check_serving_config(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.img_backbone = ResNet(cfg.backbone_depth)

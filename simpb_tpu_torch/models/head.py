@@ -32,7 +32,7 @@ from .instance_bank import InstanceBank, TemporalState
 from .layers import AsymmetricFFN, Dense, LayerNorm, ResidualAttention
 
 
-def _check_serving_config(c: HeadConfig) -> None:
+def check_head_config(c: HeadConfig) -> None:
     """The knobs of the serving path this port covers so far."""
     unsupported = {
         "decouple_attn": not c.decouple_attn,
@@ -54,7 +54,7 @@ def _check_serving_config(c: HeadConfig) -> None:
 class SimPBHead(nn.Module):
     def __init__(self, cfg: HeadConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_serving_config(cfg)
+        check_head_config(cfg)
         self.cfg = c = cfg
         e = c.embed_dims
         self.bank = InstanceBank(

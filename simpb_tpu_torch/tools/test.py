@@ -1,0 +1,209 @@
+"""Evaluation CLI: streaming inference over the val set + nuScenes metrics
+(port of the repository's `tools/test.py`).
+
+Shards the val set at sequence boundaries, streams each frame through
+the cold / stream step on the card, decodes, and scores with the native
+mAP/NDS (`data/nuscenes_eval.py`) and, with `--tracking`, AMOTA
+(`data/tracking_eval.py`) scorers.
+
+Usage:
+  python -m simpb_tpu_torch.tools.test \\
+      --ann-file data/nuscenes/simpb_nuscenes_infos_val.pkl \\
+      --config r50-fast --head-bf16 --torch-checkpoint simpb_r50.pth \\
+      [--out results.json] [--tracking] [--device cpu]
+
+The trunk is always the fused inference trunk (`models/detector.py`), so
+`--fused-trunk` changes nothing. The port's head serves the windowed
+MSDA only: `--config tiny` is the tiny config with `msda_patch_mode`
+(the JAX CLI's `--config tiny --msda-patch`), and a config the head or
+detector refuses exits with their "not ported yet" message. Not ported
+(exit non-zero, naming the flag): `--checkpoint` (orbax needs JAX),
+`--cam-shards` > 1, `--show-dir`, `--multihost` and `--gather-dir`.
+"""
+import argparse
+import dataclasses
+import json
+import math
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--ann-file", required=True)
+    p.add_argument("--data-root", default="")
+    p.add_argument("--config", default="r50",
+                   choices=["r50", "r50-fast", "r50-guarded",
+                            "r50-fast-guarded", "r50-hybrid", "r101",
+                            "r101-fast", "tiny"])
+    p.add_argument("--src-h", type=int, default=900)
+    p.add_argument("--src-w", type=int, default=1600)
+    p.add_argument("--checkpoint", default=None,
+                   help="orbax checkpoint of the JAX package: not ported")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help="reference (mmdet-named) torch .pth")
+    p.add_argument("--out", default=None, help="submission json path")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--tracking", action="store_true")
+    p.add_argument("--show-dir", default=None, help="not ported")
+    p.add_argument("--show-threshold", type=float, default=0.3)
+    p.add_argument("--cam-shards", type=int, default=1,
+                   help="camera-axis sharding: only 1 is ported")
+    p.add_argument("--msda-patch", action="store_true",
+                   help="windowed (patch-mode) 2D cross-attn sampling")
+    p.add_argument("--fused-trunk", action="store_true",
+                   help="the fused inference trunk (the port's only one)")
+    p.add_argument("--draft-decode", action="store_true",
+                   help="DCT-domain scaled JPEG decode (libjpeg n/8); "
+                        "slightly different downscale filter chain, so "
+                        "checkpoint-parity evals leave it off")
+    p.add_argument("--head-bf16", action="store_true",
+                   help="run the decoder head in bfloat16 like bench.py "
+                        "(default keeps the head fp32, the reference's "
+                        "fp32-head policy for checkpoint-parity evals)")
+    p.add_argument("--gather-dir", default=None, help="not ported")
+    p.add_argument("--multihost", action="store_true", help="not ported")
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+    return p.parse_args(argv)
+
+
+def refused_flags(args):
+    """The flags given that the port does not serve yet."""
+    refused = []
+    if args.checkpoint:
+        refused.append("--checkpoint (orbax needs JAX; use "
+                       "--torch-checkpoint)")
+    if args.cam_shards > 1:
+        refused.append("--cam-shards > 1")
+    if args.show_dir:
+        refused.append("--show-dir")
+    if args.multihost:
+        refused.append("--multihost")
+    if args.gather_dir:
+        refused.append("--gather-dir")
+    return refused
+
+
+def build_config(args):
+    from ..configs.base import (
+        simpb_r101_1408x512,
+        simpb_r101_1408x512_fast,
+        simpb_r50_704x256,
+        simpb_r50_704x256_fast,
+        simpb_r50_704x256_fast_guarded,
+        simpb_r50_704x256_guarded,
+        simpb_r50_704x256_hybrid,
+        simpb_tiny,
+    )
+
+    def tiny():
+        cfg = simpb_tiny()
+        return dataclasses.replace(cfg, head=dataclasses.replace(
+            cfg.head, msda_patch_mode=True))
+
+    cfg = {"r50": simpb_r50_704x256, "r50-fast": simpb_r50_704x256_fast,
+           "r50-guarded": simpb_r50_704x256_guarded,
+           "r50-fast-guarded": simpb_r50_704x256_fast_guarded,
+           "r50-hybrid": simpb_r50_704x256_hybrid,
+           "r101": simpb_r101_1408x512,
+           "r101-fast": simpb_r101_1408x512_fast,
+           "tiny": tiny}[args.config]()
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                              backbone_fused_infer=True)
+    if args.head_bf16:
+        cfg = dataclasses.replace(cfg, head_dtype="bfloat16")
+    if args.msda_patch:
+        cfg = dataclasses.replace(
+            cfg, head=dataclasses.replace(cfg.head, msda_patch_mode=True)
+        )
+    return cfg
+
+
+def eval_aug_conf(cfg, src_h: int, src_w: int):
+    """The test-mode augmentation config of the CLI: resize to cover the
+    network input, crop the bottom rows."""
+    fw, fh = cfg.input_size
+    return {
+        "resize_lim": (0.40, 0.47),
+        "final_dim": (fh, fw),
+        "bot_pct_lim": (0.0, 0.0),
+        "rot_lim": (0, 0),
+        "H": src_h,
+        "W": src_w,
+        "rand_flip": False,
+        "rot3d_range": [0, 0],
+    }
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.cam_shards < 1:
+        raise SystemExit(f"--cam-shards must be >= 1, got {args.cam_shards}")
+    refused = refused_flags(args)
+    if refused:
+        raise SystemExit(f"not ported: {', '.join(refused)} (ROADMAP.md)")
+    cfg = build_config(args)
+
+    from ..data.dataset import NuScenesDataset
+    from ..data.postprocess import format_nuscenes_submission
+    from ..models.detector import check_serving_config
+    from ..training.evaluate import build_model, streaming_eval
+
+    try:
+        check_serving_config(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"--config {args.config}: {e}")
+    dataset = NuScenesDataset(
+        args.ann_file, data_root=args.data_root, test_mode=True,
+        data_aug_conf=eval_aug_conf(cfg, args.src_h, args.src_w),
+        sequences_split_num=1, draft_decode=args.draft_decode,
+    )
+    model = build_model(cfg, device=args.device, seed=0)
+    if args.torch_checkpoint:
+        from ..utils.torch_convert import load_torch_checkpoint
+
+        model.load_state_dict(
+            load_torch_checkpoint(args.torch_checkpoint, cfg, model),
+            strict=True,
+        )
+
+    metrics, preds, tokens = streaming_eval(
+        model, cfg, dataset, max_frames=args.max_frames, progress=True,
+        tracking=args.tracking,
+    )
+    # NaN marks classes absent from the eval split; emit null so the
+    # output stays strict JSON
+    print(json.dumps(
+        {k: (None if math.isnan(v) else round(v, 4))
+         for k, v in metrics.items()},
+        indent=1,
+    ))
+
+    if args.out:
+        sub = format_nuscenes_submission(
+            [
+                {
+                    "boxes_3d": p["boxes"],
+                    "scores_3d": p["scores"],
+                    "labels_3d": p["labels"],
+                    **(
+                        {"instance_ids": p["track_ids"]}
+                        if "track_ids" in p
+                        else {}
+                    ),
+                }
+                for p in preds
+            ],
+            tokens,
+            tracking=args.tracking,
+        )
+        with open(args.out, "w") as f:
+            json.dump(sub, f)
+        print(f"wrote {args.out}")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

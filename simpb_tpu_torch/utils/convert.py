@@ -16,6 +16,8 @@ JAX leaves with no counterpart are refused, except the two kinds the
 serving model does not hold: the training-only depth branch, and the
 cls / quality branches of intermediate refine3d layers (present in a
 tree initialised for training, unused at inference).
+`to_jax_variables` goes the other way, from a model's values to the
+JAX tree (`utils/torch_convert.py` merges a checkpoint over it).
 """
 from __future__ import annotations
 
@@ -42,30 +44,35 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+_IDENT = (lambda a: a, lambda a: a)
+_TRANSPOSE = (lambda a: a.T, lambda a: a.T)
+# [kh, kw, in, out] <-> [out, in, kh, kw]
+_CONV = (lambda a: a.transpose(3, 2, 0, 1), lambda a: a.transpose(2, 3, 1, 0))
+
+
 def _sources(mod: nn.Module, prefix: str):
-    """(torch name, JAX path, layout fn) of one module's own tensors."""
+    """(torch name, JAX path, (layout fn, its inverse)) of one module's
+    own tensors."""
     parts = prefix.split(".") if prefix else []
     dot = prefix + "." if prefix else ""
     path = lambda kind, leaf: "/".join([kind, *parts, leaf])
-    ident = lambda a: a
     if isinstance(mod, nn.Linear):
-        yield dot + "weight", path("params", "kernel"), lambda a: a.T
+        yield dot + "weight", path("params", "kernel"), _TRANSPOSE
         if mod.bias is not None:
-            yield dot + "bias", path("params", "bias"), ident
+            yield dot + "bias", path("params", "bias"), _IDENT
     elif isinstance(mod, nn.Conv2d):
-        yield (dot + "weight", path("params", "kernel"),
-               lambda a: a.transpose(3, 2, 0, 1))
+        yield dot + "weight", path("params", "kernel"), _CONV
         if mod.bias is not None:
-            yield dot + "bias", path("params", "bias"), ident
+            yield dot + "bias", path("params", "bias"), _IDENT
     elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
-        yield dot + "weight", path("params", "scale"), ident
-        yield dot + "bias", path("params", "bias"), ident
+        yield dot + "weight", path("params", "scale"), _IDENT
+        yield dot + "bias", path("params", "bias"), _IDENT
         if isinstance(mod, nn.BatchNorm2d):
-            yield dot + "running_mean", path("batch_stats", "mean"), ident
-            yield dot + "running_var", path("batch_stats", "var"), ident
+            yield dot + "running_mean", path("batch_stats", "mean"), _IDENT
+            yield dot + "running_var", path("batch_stats", "var"), _IDENT
     else:
         for name, _ in mod.named_parameters(recurse=False):
-            yield dot + name, path("params", name), ident
+            yield dot + name, path("params", name), _IDENT
 
 
 def state_from_jax(model: nn.Module, variables: Mapping,
@@ -80,7 +87,7 @@ def state_from_jax(model: nn.Module, variables: Mapping,
         k: tuple(v.shape) for k, v in model.state_dict().items()
     }
     for prefix, mod in model.named_modules():
-        for tname, jpath, layout in _sources(mod, prefix):
+        for tname, jpath, (layout, _) in _sources(mod, prefix):
             if jpath not in leaves:
                 raise KeyError(f"{tname}: JAX leaf {jpath} is missing")
             arr = np.ascontiguousarray(layout(leaves[jpath]), np.float32)
@@ -112,3 +119,19 @@ def from_jax_variables(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
     with torch.device("meta"):
         model = SimPB(cfg)
     return state_from_jax(model, variables)
+
+
+def to_jax_variables(model: nn.Module) -> Dict:
+    """The JAX-layout tree `{"params", "batch_stats"}` of `model`'s
+    values as numpy float32: the inverse of `state_from_jax`."""
+    state = model.state_dict()
+    tree: Dict = {}
+    for prefix, mod in model.named_modules():
+        for tname, jpath, (_, inverse) in _sources(mod, prefix):
+            *parents, leaf = jpath.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.ascontiguousarray(
+                inverse(state[tname].detach().float().cpu().numpy()))
+    return tree

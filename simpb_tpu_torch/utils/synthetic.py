@@ -141,3 +141,118 @@ def randomize_(model, seed: int = 0):
             if name.endswith("anchor") and p.dim() == 2 and p.shape[1] == 11:
                 put(p, synthetic_anchors(p.shape[0], seed))
     return model
+
+
+# typical (w, l, h) in metres of each class of `write_synthetic_infos`
+_CLASS_DIMS = {
+    "car": (1.9, 4.6, 1.7), "truck": (2.5, 6.9, 2.8), "bus": (2.9, 11.0, 3.5),
+    "pedestrian": (0.7, 0.7, 1.8), "bicycle": (0.6, 1.7, 1.3),
+    "motorcycle": (0.8, 2.1, 1.5), "trailer": (2.9, 12.0, 3.9),
+    "barrier": (2.5, 0.5, 1.0), "traffic_cone": (0.4, 0.4, 1.1),
+    "construction_vehicle": (2.8, 6.4, 3.2),
+}
+
+
+def write_synthetic_infos(
+    directory: str,
+    n_frames: int = 12,
+    gap_at=(6,),
+    src_hw: tuple[int, int] = (900, 1600),
+    num_objects: int = 12,
+    seed: int = 0,
+    write_images: bool = False,
+) -> str:
+    """Write a nuScenes-format infos pkl (the layout the offline converter
+    writes and `data/dataset.py` reads) and return its path.
+
+    Six cameras in the rig of `synthetic_rig` (yaw-distributed, 1266 px
+    focal length at 1600 px width, scaled to `src_hw`), so the objects
+    around the car are in view. Frames are 0.5 s apart; a gap of 10 s
+    before each frame index in `gap_at` starts a new scene (the
+    `sequence_eval_shards` rule), with new objects. Each scene's objects
+    (cycling through the classes, 5-40 m from the car, persistent
+    instance ids) move at constant velocity in the global frame while
+    the car drives forward and turns slowly; their boxes are stored in
+    the lidar frame. With `write_images`, each camera image is a seeded
+    random PNG under `directory/imgs` (needs Pillow); otherwise the
+    paths are named but not written."""
+    import os
+    import pickle
+
+    from ..configs.base import CLASS_NAMES
+
+    src_h, src_w = src_hw
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(directory, "imgs")
+    if write_images:
+        from PIL import Image
+
+        os.makedirs(img_dir, exist_ok=True)
+    scale = src_w / 1600.0
+    k = np.array([[1266.0 * scale, 0, src_w / 2], [0, 1266.0 * scale,
+                                                   src_h / 2], [0, 0, 1]])
+    cams = []
+    for yaw_deg, right_off, fwd_off in _CAM_LAYOUT:
+        yaw = np.deg2rad(yaw_deg)
+        f = np.array([-np.sin(yaw), np.cos(yaw), 0.0])
+        r = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        rot = np.stack([r, np.array([0.0, 0.0, -1.0]), f])  # lidar -> cam
+        center = r * right_off + f * fwd_off + np.array([0.0, 0.0, 1.5])
+        cams.append((rot.T, center))
+
+    infos, scene = [], -1
+    for i in range(n_frames):
+        if i == 0 or i in gap_at:
+            scene += 1
+            names = [CLASS_NAMES[j % len(CLASS_NAMES)]
+                     for j in range(num_objects)]
+            dist = rng.uniform(5.0, 40.0, num_objects)
+            theta = rng.uniform(-np.pi, np.pi, num_objects)
+            pos0 = np.stack([dist * np.cos(theta), dist * np.sin(theta),
+                             np.full(num_objects, -1.0)], -1)
+            vel = rng.uniform(-2.0, 2.0, (num_objects, 2))
+            yaw0 = rng.uniform(-np.pi, np.pi, num_objects)
+            dims = np.array([_CLASS_DIMS[n] for n in names])
+            t0, ego0 = i, np.array([40.0 * scene, 0.0, 0.0])
+        t = 0.5 * (i - t0)
+        ego_yaw = 0.02 * (i - t0)
+        ego_t = ego0 + np.array([0.0, 4.0 * t, 0.0])
+        c, s = np.cos(ego_yaw), np.sin(ego_yaw)
+        ego_r = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        pos = ego0 + pos0 + np.concatenate([vel * t, np.zeros((num_objects,
+                                                               1))], -1)
+        boxes = np.zeros((num_objects, 7))
+        boxes[:, :3] = (pos - ego_t) @ ego_r  # global -> lidar (= ego)
+        boxes[:, 3:6] = dims
+        boxes[:, 6] = yaw0 - ego_yaw
+        cam_infos = {}
+        for cam_no, (s2l_rot, center) in enumerate(cams):
+            path = os.path.join(img_dir, f"img_{i}_{cam_no}.png")
+            if write_images:
+                Image.fromarray(rng.integers(0, 256, (src_h, src_w, 3),
+                                             dtype=np.uint8)).save(path)
+            cam_infos[f"CAM{cam_no}"] = dict(
+                data_path=path, sensor2lidar_rotation=s2l_rot,
+                sensor2lidar_translation=center, cam_intrinsic=k)
+        infos.append(dict(
+            token=f"tok{i}",
+            cams=cam_infos,
+            timestamp=(1.5e9 + 0.5 * i + 10.0 * scene) * 1e6,
+            lidar_path=None,
+            sweeps=[] if i == t0 else [1],
+            lidar2ego_rotation=[1.0, 0.0, 0.0, 0.0],
+            lidar2ego_translation=[0.0, 0.0, 0.0],
+            ego2global_rotation=[np.cos(ego_yaw / 2), 0.0, 0.0,
+                                 np.sin(ego_yaw / 2)],
+            ego2global_translation=ego_t.tolist(),
+            gt_boxes=boxes,
+            gt_names=np.array(names),
+            gt_velocity=vel @ ego_r[:2, :2],
+            num_lidar_pts=np.full(num_objects, 5),
+            valid_flag=np.ones(num_objects, bool),
+            instance_inds=np.arange(num_objects) + 1000 * scene,
+        ))
+    path = os.path.join(directory, "infos.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"infos": infos, "metadata": {"version": "synthetic"}}, f)
+    return path

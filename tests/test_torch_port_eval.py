@@ -1,0 +1,349 @@
+"""The port's evaluation and measurement entry points against the JAX
+package, on the CPU at small sizes.
+
+Held equal to their JAX counterparts on the same numpy-seeded inputs:
+the test-mode data pipeline over a fake nuScenes-format infos pkl with
+small PNG images (`img`, `projection_mat`, `timestamp`, `lidar2global`,
+`ego2global` bit for bit, on the native C++ path and on the PIL path),
+`get_annotations`, `sequence_eval_shards`, `boxes_lidar_to_global`,
+`format_nuscenes_submission`, and the two scorers (the same keys, values
+within 1e-12). Then the CLIs: `simpb_tpu_torch.tools.test` over the fake
+set on the CPU, `run_benchmark` on the CPU, `simpb_tpu_torch.bench`'s
+line, and every setting the port refuses as "not ported". No JAX model
+is compiled here; the whole-path parity of `streaming_eval` lives in
+tests/test_torch_port_slice.py, which reuses its compiled steps.
+"""
+import dataclasses
+import importlib.util
+import io
+import json
+import math
+import os
+import subprocess
+import sys
+from contextlib import redirect_stdout
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from simpb_tpu.data import nuscenes_eval as jax_det
+from simpb_tpu.data import postprocess as jax_post
+from simpb_tpu.data import sampler as jax_sampler
+from simpb_tpu.data import tracking_eval as jax_trk
+from simpb_tpu.data.dataset import NuScenesDataset as JaxDataset
+from simpb_tpu_torch.configs.base import CLASS_NAMES, simpb_tiny
+from simpb_tpu_torch.data import native_preprocess, nuscenes_eval
+from simpb_tpu_torch.data import postprocess, sampler, tracking_eval
+from simpb_tpu_torch.data.dataset import NuScenesDataset
+from simpb_tpu_torch.tools import test as test_cli
+from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_H, SRC_W = 60, 100
+N_FRAMES = 6
+
+
+def _tiny():
+    """simpb_tiny as the port's CLI serves it (windowed MSDA)."""
+    cfg = simpb_tiny()
+    return dataclasses.replace(cfg, head=dataclasses.replace(
+        cfg.head, msda_patch_mode=True))
+
+
+@pytest.fixture(scope="module")
+def fake_set(tmp_path_factory):
+    torch.set_num_threads(1)
+    d = tmp_path_factory.mktemp("fake_nuscenes")
+    pkl = write_synthetic_infos(str(d), n_frames=N_FRAMES, gap_at=(3,),
+                                src_hw=(SRC_H, SRC_W), num_objects=8,
+                                write_images=True)
+    return pkl, test_cli.eval_aug_conf(_tiny(), SRC_H, SRC_W)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "pil"])
+def test_get_sample_matches_jax(fake_set, native):
+    pkl, aug = fake_set
+    kw = dict(test_mode=True, data_aug_conf=aug, sequences_split_num=1,
+              use_native=native)
+    jds, tds = JaxDataset(pkl, **kw), NuScenesDataset(pkl, **kw)
+    assert native_preprocess.available()
+    for idx in range(N_FRAMES):
+        j = jds.get_sample(idx, with_points=False)
+        t = tds.get_sample(idx)
+        for key in ("img", "projection_mat", "lidar2global", "ego2global",
+                    "focal"):
+            assert t[key].dtype == j[key].dtype, key
+            np.testing.assert_array_equal(t[key], j[key], err_msg=key)
+        assert t["timestamp"] == j["timestamp"]
+        assert t["img"].shape == (6, 32, 64, 3)
+        assert t["aug_config"] == j["aug_config"]
+
+
+def test_annotations_and_flags_match_jax(fake_set):
+    pkl, aug = fake_set
+    kw = dict(test_mode=True, data_aug_conf=aug)
+    jds, tds = JaxDataset(pkl, **kw), NuScenesDataset(pkl, **kw)
+    for split in (1, 2):
+        np.testing.assert_array_equal(tds._sequence_flags(split),
+                                      jds._sequence_flags(split))
+    for idx in range(N_FRAMES):
+        j, t = jds.get_annotations(idx), tds.get_annotations(idx)
+        assert sorted(t) == sorted(j)
+        for key in t:
+            assert t[key].dtype == j[key].dtype, key
+            np.testing.assert_array_equal(t[key], j[key], err_msg=key)
+
+
+def test_native_preprocess_refuses_other_shapes(fake_set):
+    """A grey or RGBA image would be read past its end by the C pass."""
+    aug = NuScenesDataset(fake_set[0], data_aug_conf=fake_set[1]) \
+        .get_augmentation()
+    for shape in ((SRC_H, SRC_W), (SRC_H, SRC_W, 4)):
+        with pytest.raises(ValueError, match="expected an"):
+            native_preprocess.preprocess_image(np.zeros(shape, np.uint8),
+                                               aug)
+
+
+def test_training_side_not_ported(fake_set):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        NuScenesDataset(fake_set[0], test_mode=False)
+
+
+@pytest.mark.parametrize("world_size", [1, 2, 3])
+def test_sequence_eval_shards_match_jax(world_size):
+    rng = np.random.default_rng(world_size)
+    steps = np.where(rng.uniform(size=40) < 0.15, 9.0, 0.5)  # scene gaps
+    ts = 1.5e9 + np.cumsum(steps)
+    ds = SimpleNamespace(data_infos=[{"timestamp": t * 1e6} for t in ts])
+    got = sampler.sequence_eval_shards(ds, world_size)
+    assert got == jax_sampler.sequence_eval_shards(ds, world_size)
+    assert sorted(i for s in got for i in s) == list(range(40))
+
+
+def _decoded(rng, n):
+    boxes = rng.normal(size=(n, 10)).astype(np.float32) * 10
+    return dict(boxes_3d=boxes,
+                scores_3d=rng.uniform(size=n).astype(np.float32),
+                labels_3d=rng.integers(0, len(CLASS_NAMES), n),
+                instance_ids=rng.integers(0, 50, n),
+                valid=rng.uniform(size=n) < 0.8)
+
+
+def test_postprocess_matches_jax():
+    rng = np.random.default_rng(3)
+    l2g = np.eye(4)
+    c, s = np.cos(0.7), np.sin(0.7)
+    l2g[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+    l2g[:3, 3] = [100.0, -50.0, 1.0]
+    boxes = rng.normal(size=(20, 10)).astype(np.float32)
+    got = postprocess.boxes_lidar_to_global(boxes, l2g)
+    want = jax_post.boxes_lidar_to_global(boxes, l2g)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    results = [_decoded(rng, 15) for _ in range(3)]
+    tokens = ["a", "b", "c"]
+    for tracking in (False, True):
+        got = postprocess.format_nuscenes_submission(results, tokens,
+                                                     tracking=tracking)
+        assert got == jax_post.format_nuscenes_submission(
+            results, tokens, tracking=tracking)
+        json.dumps(got)
+
+
+def _scored_frames(seed=0, frames=8, scenes=2):
+    """Per frame: GT boxes with persistent ids, and predictions that are
+    perturbed copies (0-3 m off, so matches depend on the threshold)
+    plus false positives, with random scores."""
+    rng = np.random.default_rng(seed)
+    preds, gts, scene_ids = [], [], []
+    for f in range(frames):
+        sid = f * scenes // frames
+        n = 10
+        labels = np.arange(n) % len(CLASS_NAMES)
+        boxes = np.zeros((n, 10), np.float32)
+        boxes[:, :2] = rng.uniform(-30, 30, (n, 2))
+        boxes[:, 3:6] = rng.uniform(0.5, 4, (n, 3))
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, n)
+        boxes[:, 7:9] = rng.normal(size=(n, 2))
+        ids = np.arange(n) + 100 * sid
+        keep = rng.uniform(size=n) < 0.8
+        pb = boxes[keep].copy()
+        pb[:, :2] += rng.normal(size=(keep.sum(), 2)) * 1.5
+        pb[:, 3:6] *= rng.uniform(0.8, 1.2, (keep.sum(), 3))
+        pb[:, 6:9] += rng.normal(size=(keep.sum(), 3)) * 0.3
+        fp = np.zeros((4, 10), np.float32)
+        fp[:, :2] = rng.uniform(-30, 30, (4, 2))
+        fp[:, 3:6] = 1.0
+        pboxes = np.concatenate([pb, fp]).astype(np.float32)
+        plabels = np.concatenate([labels[keep], rng.integers(0, 10, 4)])
+        pids = np.concatenate([ids[keep], 900 + np.arange(4)])
+        ego = rng.uniform(-2, 2, 2).astype(np.float32)
+        preds.append(dict(boxes=pboxes, labels=plabels, track_ids=pids,
+                          scores=rng.uniform(size=len(pboxes))
+                          .astype(np.float32), ego_xy=ego))
+        gts.append(dict(boxes=boxes, labels=labels, track_ids=ids,
+                        ego_xy=ego))
+        scene_ids.append(sid)
+    return preds, gts, scene_ids
+
+
+def _same_metrics(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        if math.isnan(want[k]):
+            assert math.isnan(got[k]), k
+        else:
+            assert abs(got[k] - want[k]) <= 1e-12, (k, got[k], want[k])
+
+
+def test_scorers_match_jax():
+    preds, gts, scene_ids = _scored_frames()
+    got = nuscenes_eval.evaluate_detections(preds, gts)
+    want = jax_det.evaluate_detections(preds, gts)
+    _same_metrics(got, want)
+    assert 0.0 < want["mAP"] < 1.0
+    got = tracking_eval.evaluate_tracking(preds, gts, scene_ids)
+    want = jax_trk.evaluate_tracking(preds, gts, scene_ids)
+    _same_metrics(got, want)
+    assert 0.0 < want["AMOTA"] < 1.0
+
+
+NOT_PORTED_ARGS = [
+    ["--checkpoint", "ckpt"], ["--cam-shards", "2"], ["--show-dir", "vis"],
+    ["--multihost"], ["--gather-dir", "gather"], ["--config", "r50"],
+    ["--config", "r50-guarded"], ["--config", "r50-fast-guarded"],
+    ["--config", "r50-hybrid"], ["--config", "r101-fast"],
+]
+
+
+@pytest.mark.parametrize("extra", NOT_PORTED_ARGS,
+                         ids=[" ".join(a) for a in NOT_PORTED_ARGS])
+def test_test_cli_refuses(fake_set, extra):
+    argv = ["--ann-file", fake_set[0], "--device", "cpu"] + extra
+    with pytest.raises(SystemExit) as exc:
+        test_cli.main(argv)
+    assert "not ported" in str(exc.value.code)
+
+
+def test_test_cli_runs_on_cpu(fake_set, tmp_path, capsys):
+    out = tmp_path / "sub.json"
+    metrics = test_cli.main([
+        "--ann-file", fake_set[0], "--config", "tiny", "--device", "cpu",
+        "--src-h", str(SRC_H), "--src-w", str(SRC_W), "--tracking",
+        "--out", str(out)])
+    printed = capsys.readouterr().out
+    assert f"wrote {out}" in printed
+    assert {"mAP", "NDS", "AMOTA", "AMOTP"} <= set(metrics)
+    sub = json.loads(out.read_text())
+    assert sorted(sub["results"]) == [f"tok{i}" for i in range(N_FRAMES)]
+    for annos in sub["results"].values():
+        for a in annos:
+            assert {"tracking_id", "tracking_name", "tracking_score"} <= set(a)
+
+
+def test_streaming_eval_refuses():
+    from simpb_tpu_torch.training import evaluate
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        evaluate.streaming_eval(None, None, None, cam_shards=2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        evaluate.streaming_eval(None, None, None, show_dir="vis")
+    for fn in (evaluate.multidevice_streaming_eval,
+               evaluate.distributed_streaming_eval):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            fn()
+
+
+@pytest.fixture(scope="module")
+def cpu_bench():
+    """`run_benchmark` of the tiny config on the CPU, window 2."""
+    from simpb_tpu_torch.utils.benchmark import run_benchmark
+
+    torch.set_num_threads(1)
+    return run_benchmark(_tiny(), window=2, return_stats=True, device="cpu")
+
+
+def test_run_benchmark_on_cpu(cpu_bench):
+    fps, stats = cpu_bench
+    assert fps > 0 and stats == {"peak_hbm_bytes": None}
+
+
+def _jax_bench_keys():
+    """The keys of the repository's bench.py line, from its own main with
+    its measurement replaced by a constant (nothing is compiled)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench", os.path.join(REPO, "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.run_benchmark = lambda cfg, **kw: (60.0, {"peak_hbm_bytes": 2 ** 30})
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        mod.main()
+    return list(json.loads(buf.getvalue()))
+
+
+def test_bench_line_has_jax_keys(monkeypatch, cpu_bench):
+    """bench.main, with `run_benchmark` replaced by the tiny CPU run (the
+    bench itself has no device switch, like bench.py)."""
+    from simpb_tpu_torch import bench
+
+    served = []
+
+    def cpu_run(cfg, window, batch_size, return_stats):
+        served.append((cfg, window, batch_size, return_stats))
+        return cpu_bench
+
+    monkeypatch.setattr(bench, "run_benchmark", cpu_run)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        bench.main()
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert list(line) == _jax_bench_keys()
+    assert line["metric"] == "6cam_frames_per_sec_per_chip"
+    assert line["value"] > 0 and line["peak_hbm_gib"] is None
+    cfg, window, batch_size, return_stats = served[0]
+    assert (window, batch_size, return_stats) == (128, 1, True)
+    assert (cfg.compute_dtype, cfg.head_dtype) == ("bfloat16", "bfloat16")
+    assert cfg.head.msda_patch_mode and cfg.input_size == (704, 256)
+
+
+def test_bench_switches(monkeypatch):
+    from simpb_tpu_torch import bench
+
+    monkeypatch.setenv("SIMPB_DFA_CAP", "1024")
+    monkeypatch.setenv("SIMPB_MSDA_CAP", "192")
+    monkeypatch.setenv("SIMPB_FUSED_TRUNK", "1")
+    cfg = bench.config()
+    assert cfg.head.dfa_gather_capacity == 1024
+    assert cfg.head.msda_gather_capacity == 192
+
+
+BENCH_REFUSED = [("SIMPB_GUARDED", "1"), ("SIMPB_FAST_GUARDED", "1"),
+                 ("SIMPB_HYBRID", "1"), ("SIMPB_EXACT", "1"),
+                 ("SIMPB_CLAMP_CAP", "64"), ("SIMPB_FUSED_TRUNK", "0")]
+
+
+@pytest.mark.parametrize("name,value", BENCH_REFUSED,
+                         ids=[n for n, _ in BENCH_REFUSED])
+def test_bench_refuses(monkeypatch, name, value):
+    from simpb_tpu_torch import bench
+
+    monkeypatch.setenv(name, value)
+    with pytest.raises(SystemExit) as exc:
+        bench.config()
+    assert "not ported" in str(exc.value.code) and name in str(exc.value.code)
+
+
+def test_bench_module_refuses_in_a_process():
+    """`python -m simpb_tpu_torch.bench` exits non-zero on a switch the
+    port lacks, before it builds anything."""
+    env = dict(os.environ, PYTHONPATH=REPO, SIMPB_EXACT="1")
+    out = subprocess.run([sys.executable, "-m", "simpb_tpu_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "not ported" in out.stderr and out.stdout == ""

@@ -14,6 +14,7 @@ port loads them with strict=True. Tolerance: atol 5e-4 / rtol 1e-3,
 the bound of tests/test_torch_composite.py for the assembled head
 (fp32 reassociation through six decoder layers and the trunk).
 """
+import collections
 import dataclasses
 import os
 import subprocess
@@ -90,6 +91,12 @@ def _temp2cur(theta, tx, ty):
     return t[None]
 
 
+# the fixture's configs, outputs, JAX variables, compiled JAX steps
+# (cold, stream) and the port's model
+SliceRun = collections.namedtuple(
+    "SliceRun", "jcfg tcfg jouts touts variables jax_steps tmodel")
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     torch.set_num_threads(1)
@@ -132,7 +139,8 @@ def slice_run():
             jo = stream(*args)
         else:
             args = (variables, jnp.asarray(imgs[f]), jnp.asarray(proj))
-            jo = cold.lower(*args).compile(opts)(*args)
+            cold = cold.lower(*args).compile(opts)
+            jo = cold(*args)
         jo = jax.tree_util.tree_map(np.asarray, jo)
         # both packages take the SAME incoming state each frame, so a
         # near-tie in the bank's top-k can not make later frames diverge
@@ -151,7 +159,8 @@ def slice_run():
         jouts.append(jo)
         touts.append(to)
         jstate = jo["temporal_state"]
-    return jcfg, jouts, touts, variables
+    return SliceRun(jcfg, tcfg, jouts, touts, variables, (cold, stream),
+                    tmodel)
 
 
 def _close(t, j, msg):
@@ -161,7 +170,7 @@ def _close(t, j, msg):
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
 def test_head_outputs_match(slice_run, frame):
-    _, jouts, touts, _ = slice_run
+    jouts, touts = slice_run.jouts, slice_run.touts
     jo, to = jouts[frame], touts[frame]
     for key in ("prediction", "classification", "quality", "prediction2d",
                 "classification2d", "prediction_alpha2d"):
@@ -179,7 +188,7 @@ def test_head_outputs_match(slice_run, frame):
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
 def test_decode_and_instance_ids_match(slice_run, frame):
-    cfg, jouts, touts, _ = slice_run
+    cfg, jouts, touts = slice_run.jcfg, slice_run.jouts, slice_run.touts
     jo, to = jouts[frame], touts[frame]
     np.testing.assert_array_equal(to["instance_id"].numpy(),
                                   np.asarray(jo["instance_id"]))
@@ -216,7 +225,7 @@ def test_from_jax_variables_strict(slice_run):
     converter drops those, and refuses any other stray leaf."""
     import copy
 
-    variables = slice_run[3]
+    variables = slice_run.variables
     tcfg = _fast(simpb_tiny(), fused=True)
     train_tree = copy.deepcopy(variables)
     k = np.ones((1, 1, 64, 1), np.float32)
@@ -245,19 +254,22 @@ def test_from_jax_variables_strict(slice_run):
 
 
 def test_port_imports_no_jax():
-    """The port (every module `walk_packages` finds, the probe tool
-    among them) and chip_smoke.py import neither JAX nor the JAX
-    package."""
+    """The port (every module `walk_packages` finds, the probe tool and
+    the two CLIs among them) and chip_smoke.py import neither JAX nor
+    the JAX package, and none imports PIL at module level (the card's
+    machine has no Pillow)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import simpb_tpu_torch
         for m in pkgutil.walk_packages(simpb_tpu_torch.__path__,
                                        "simpb_tpu_torch."):
             importlib.import_module(m.name)
-        assert "simpb_tpu_torch.tools.mosaic_probe" in sys.modules
+        for name in ("tools.mosaic_probe", "tools.test", "bench"):
+            assert "simpb_tpu_torch." + name in sys.modules, name
         import chip_smoke
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "simpb_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "simpb_tpu",
+                                      "PIL")]
         assert not bad, bad
         print("ok")
     """)
@@ -278,3 +290,119 @@ def test_entry_point_without_device_raises(monkeypatch):
         build_model(_fast(simpb_tiny(), fused=True))
     model = build_model(_fast(simpb_tiny(), fused=True), device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_streaming_eval_matches_jax(slice_run, tmp_path, monkeypatch):
+    """The whole evaluation path: the JAX `streaming_eval` and the port's
+    over one fake nuScenes-format set (PNG images, two scenes, four
+    frames, the fixture's 64x32 input), scoring detection and tracking.
+    The JAX side runs the fixture's compiled steps, through
+    `_jitted_steps` pointed at them, so nothing compiles again. Each
+    frame's decode: valid mask, labels and instance ids equal, boxes
+    and scores within the slice tolerance; then the global-frame
+    predictions, and every metric within 1e-3."""
+    import simpb_tpu.training.evaluate as jeval
+    from simpb_tpu.data.dataset import NuScenesDataset as JaxDataset
+    from simpb_tpu_torch.data.dataset import NuScenesDataset
+    from simpb_tpu_torch.tools.test import eval_aug_conf
+    from simpb_tpu_torch.training import evaluate as teval
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    run = slice_run
+    cold_c, stream_c = run.jax_steps
+    kw = dict(num_output=run.jcfg.head.num_output,
+              score_threshold=run.jcfg.head.score_threshold)
+    jdecs, tdecs = [], []
+
+    def decoded(out):
+        dec = jax_decode(out["classification"][-1], out["prediction"][-1],
+                         instance_id=out["instance_id"],
+                         quality=out["quality"][-1], **kw)
+        jdecs.append({k: np.asarray(v)[0] for k, v in dec.items()})
+        return dec, out["temporal_state"]
+
+    def steps(model, cfg, cam_mesh=None):
+        return (lambda v, img, p: decoded(cold_c(v, img, p)),
+                lambda v, img, p, s, dt, t2c: decoded(
+                    stream_c(v, img, p, s, dt, t2c)))
+
+    to_host = teval._decode_to_host
+
+    def recorded(dec):
+        tdecs.append(to_host(dec))
+        return tdecs[-1]
+
+    monkeypatch.setattr(jeval, "_jitted_steps", steps)
+    monkeypatch.setattr(teval, "_decode_to_host", recorded)
+    pkl = write_synthetic_infos(str(tmp_path), n_frames=4, gap_at=(2,),
+                                src_hw=(60, 100), num_objects=8,
+                                write_images=True)
+    dkw = dict(test_mode=True, sequences_split_num=1,
+               data_aug_conf=eval_aug_conf(run.tcfg, 60, 100))
+    jm, jp, jt = jeval.streaming_eval(None, run.jcfg, run.variables,
+                                      JaxDataset(pkl, **dkw), tracking=True)
+    tm, tp, tt = teval.streaming_eval(run.tmodel, run.tcfg,
+                                      NuScenesDataset(pkl, **dkw),
+                                      tracking=True)
+    assert tt == jt == [f"tok{i}" for i in range(4)]
+    assert len(jdecs) == len(tdecs) == 4
+    for f, (j, t) in enumerate(zip(jdecs, tdecs)):
+        for key in ("valid", "labels_3d", "instance_ids", "anchor_idx"):
+            np.testing.assert_array_equal(t[key], j[key],
+                                          err_msg=f"frame {f} {key}")
+        for key in ("boxes_3d", "scores_3d"):
+            np.testing.assert_allclose(t[key], j[key], atol=ATOL, rtol=RTOL,
+                                       err_msg=f"frame {f} {key}")
+    for f, (j, t) in enumerate(zip(jp, tp)):
+        assert sorted(t) == sorted(j)
+        for key in ("labels", "track_ids", "ego_xy"):
+            np.testing.assert_array_equal(t[key], j[key])
+        for key in ("boxes", "scores"):
+            np.testing.assert_allclose(t[key], j[key], atol=ATOL, rtol=RTOL,
+                                       err_msg=f"frame {f} {key}")
+    assert list(tm) == list(jm)
+    assert {"mAP", "NDS", "AMOTA", "AMOTP"} <= set(tm)
+    np.testing.assert_allclose([tm[k] for k in tm], [jm[k] for k in jm],
+                               atol=1e-3, rtol=0)
+
+
+def test_load_torch_checkpoint_matches_from_jax(slice_run, tmp_path):
+    """A reference-named `.pth` made from the fixture's JAX variables by
+    the JAX package's `flax_to_torch` loads through the port's
+    `load_torch_checkpoint` into exactly the tensors that
+    `from_jax_variables` gives for the same variables, every key; keys
+    the file lacks keep the model's own values, and another layout is
+    refused."""
+    from simpb_tpu.utils.torch_convert import flax_to_torch
+    from simpb_tpu_torch.utils.torch_convert import load_torch_checkpoint
+
+    run = slice_run
+    sd = flax_to_torch(run.variables["params"], run.variables["batch_stats"],
+                       run.jcfg)
+    pth = tmp_path / "ref.pth"
+    torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
+                               for k, v in sd.items()}}, pth)
+    want = from_jax_variables(run.variables, run.tcfg)
+    base = SimPB(run.tcfg)
+    got = load_torch_checkpoint(str(pth), run.tcfg, base)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+    # a file without the head keeps the model's own head values
+    own = base.state_dict()
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()
+                if not k.startswith("head.")}, pth)
+    got = load_torch_checkpoint(str(pth), run.tcfg, base)
+    for k in want:
+        src = own if k.startswith("head.") else want
+        assert torch.equal(got[k], src[k]), k
+
+    conv = "img_backbone.layer1.0.conv2.weight"
+    torch.save({conv: torch.from_numpy(np.array(sd[conv])).permute(
+        2, 3, 1, 0).contiguous()}, pth)  # the JAX layout, not torch's
+    with pytest.raises(ValueError, match="shape mismatch"):
+        load_torch_checkpoint(str(pth), run.tcfg, base)
+    torch.save({"fc.weight": torch.ones(3, 3)}, pth)
+    with pytest.raises(ValueError, match="no SimPB parameters"):
+        load_torch_checkpoint(str(pth), run.tcfg, base)
