@@ -7,11 +7,12 @@ Phases, each printing one JSON line:
 
 1. env     — the card (nvidia-smi name and power limit), torch and CUDA
              versions; TF32 off for the whole run.
-2. build   — compiles the four sources simpb_tpu_torch/csrc/{conv_fused,
-             conv_tc,mosaic_probe,sampling}.cu with nvcc for sm_90a, one
-             nvcc each, all started together; prints each kernel
-             instance's registers and spills (-Xptxas -v) and fails if a
-             sampling or max-pool instance spills.
+2. build   — compiles the five sources simpb_tpu_torch/csrc/{assignment,
+             conv_fused,conv_tc,mosaic_probe,sampling}.cu with nvcc for
+             sm_90a, one nvcc each, all started together; prints each
+             kernel instance's registers and spills (-Xptxas -v) and
+             fails if an assignment, sampling or max-pool instance
+             spills.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
              version at every full-width shape of the main path, at the
@@ -94,6 +95,32 @@ Phases, each printing one JSON line:
              `run_benchmark` with a window of BENCH_WINDOW frames, the
              launch counts set to 0 just before and read just after;
              prints the bench's JSON line; fps > 0 and a peak are set.
+11. train  — the training step of `simpb_r50_704x256_fast` as
+             tools/train.py trains it (trunk bf16 with remat, head fp32,
+             grid mask and dropout on, `TrainConfig()`), at full width
+             and bs TRAIN_BS (4) x 6 cameras, seeded random weights and a
+             synthetic batch (`utils/synthetic.py::synthetic_train_batch`:
+             24 objects in view a sample, GT padded to 128 3D and 64 2D
+             boxes, sparse depth maps): one warm step, then TRAIN_STEPS
+             (4) steps carrying the temporal and DN state, the launch
+             counts set to 0 just before and read just after. Checks a
+             finite loss and the complete key set every step, launches a
+             step (K1-K4 none; DFA and MSDA-sel forward and backward 3
+             each; the assignment 10: six refine3d layers, three refine2d
+             layers and the DN anchors), parameters moved and the frozen
+             instance feature not; prints step ms (host clock ending in
+             `synchronize`), forward / backward / optimizer ms (CUDA
+             events) and the peak memory. The last step's kernel calls
+             are recorded.
+12. train kernels — kernels B (DFA backward) and C (MSDA-sel backward)
+             against their plain versions (fp32 sums of the forward's
+             rounded quantities) on the recorded calls and on phase 6's
+             synthetic cases with a random output gradient, each
+             launched twice (whether the atomic sums repeat bit for bit
+             is reported, not required); kernel A (the assignment) on
+             every recorded call against its plain version on the CPU
+             (exact `col4row`) and scipy's optimal cost (1e-5 relative),
+             launched twice (bit-identical), with scipy's host time.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -144,7 +171,7 @@ WANT_LAUNCHES = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 12,
 # relative L2 error may be 1.5 times the plain route's, plus a floor of
 # one bf16 ulp (2^-8)
 BF16_SLICE_RATIO, BF16_SLICE_FLOOR = 1.5, 4e-3
-SOURCES = ("conv_fused", "conv_tc", "mosaic_probe", "sampling")
+SOURCES = ("assignment", "conv_fused", "conv_tc", "mosaic_probe", "sampling")
 # the source of each trunk kernel on the main path (bf16)
 TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_tc",
                 "bottleneck": "conv_tc", "conv3x3_bias": "conv_tc"}
@@ -497,16 +524,18 @@ def stream_inputs(torch, cfg, frames, seed=0):
 def launch_counts():
     from simpb_tpu_torch.ops import conv_fused, sampling
     from simpb_tpu_torch.tools import mosaic_probe
+    from simpb_tpu_torch.training import matching
 
     return {**conv_fused.launch_counts(), **sampling.launch_counts(),
-            **mosaic_probe.launch_counts()}
+            **mosaic_probe.launch_counts(), **matching.launch_counts()}
 
 
 def reset_launch_counts():
     from simpb_tpu_torch.ops import conv_fused, sampling
     from simpb_tpu_torch.tools import mosaic_probe
+    from simpb_tpu_torch.training import matching
 
-    for mod in (conv_fused, sampling, mosaic_probe):
+    for mod in (conv_fused, sampling, mosaic_probe, matching):
         mod.reset_launch_counts()
 
 
@@ -1259,6 +1288,407 @@ def phase_bench(torch):
         raise AssertionError(f"bench: launches {got}, want {want}")
 
 
+TRAIN_STEPS = 4  # timed training steps after one warm step
+TRAIN_BS = 4  # TrainConfig.batch_size, the reference's per-GPU batch
+# kernels B and C against their plain versions (fp32 sums of the same
+# rounded forward quantities, rounded once), element by element:
+# |got - plain| <= rel * |plain| + frac * max |plain|. The fp32 atomicAdd
+# sums run in another order than the plain version's (frac, in both
+# types); a bf16 gradient then rounds the two sums once each, so they may
+# land one bf16 step apart, at most 2^-7 of the value (rel)
+GRAD_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+
+
+def grad_check(got, ref):
+    """Each gradient of `got` against the plain version's `ref` at
+    GRAD_TOL: (ok, one record a gradient with its largest error, the
+    plain gradient's largest and median nonzero magnitudes, and its
+    worst share of the bound)."""
+    ok, recs = True, []
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{g.shape}/{g.dtype} vs {r.shape}/"
+                                 f"{r.dtype}")
+        rel, frac = GRAD_TOL[str(g.dtype).split(".")[-1]]
+        err = (g.float() - r.float()).abs()
+        mag = r.float().abs()
+        top = mag.max().item()
+        nz = mag[mag > 0]
+        bound = rel * mag + frac * max(top, 1e-30)
+        worst = (err / bound).max().item()
+        recs.append(dict(max_abs_err=err.max().item(), max_abs_plain=top,
+                         median_nonzero_plain=(nz.median().item()
+                                               if nz.numel() else 0.0),
+                         worst_share_of_bound=worst))
+        ok = ok and worst <= 1.0
+    return ok, recs
+
+
+def train_config():
+    """`simpb_r50_704x256_fast` as tools/train.py trains it: trunk bf16
+    (--bf16), head fp32, backbone remat, grid mask and dropout on."""
+    import dataclasses
+
+    from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
+
+    return dataclasses.replace(simpb_r50_704x256_fast(),
+                               compute_dtype="bfloat16",
+                               head_dtype="float32")
+
+
+def want_train_launches(cfg):
+    """Launches a training step: no trunk kernel; DFA and MSDA-sel
+    forward and backward once per op; one assignment per refine3d layer
+    (3D targets), per refine2d layer (2D targets) and for the DN
+    anchors."""
+    order = cfg.head.operation_order
+    n3d, n2d = order.count("refine3d"), order.count("refine2d")
+    return {"deformable_aggregation": order.count("deformable"),
+            "deformable_aggregation_backward": order.count("deformable"),
+            "msda_patch_sel": order.count("qg_cross_attn"),
+            "msda_patch_sel_backward": order.count("qg_cross_attn"),
+            "assignment": n3d + n2d + 1}
+
+
+def train_loss_keys(cfg):
+    order = cfg.head.operation_order
+    keys = {"loss", "loss_dense_depth"}
+    for i in range(order.count("refine3d")):
+        keys |= {f"loss_{k}3d_{i}" for k in ("cls", "box", "cns", "yns")}
+        keys |= {f"loss_{k}3d_dn_{i}" for k in ("cls", "box")}
+    for i in range(order.count("refine2d")):
+        for dn in ("", "dn_"):
+            keys |= {f"loss_{k}2d_{dn}{i}"
+                     for k in ("cls", "iou", "box", "alpha")}
+    return keys
+
+
+def train_recording(calls):
+    """Append (name, args, kwargs) of every call of the step's kernel
+    wrappers (both sampling forwards and backwards, the assignment of the
+    3D and 2D targets) to `calls`, then run the wrapper."""
+    from simpb_tpu_torch.models import dfa
+    from simpb_tpu_torch.ops import sampling
+    from simpb_tpu_torch.training import targets2d, targets3d
+
+    def recorder(name):
+        def make(fn):
+            def call(*args, **kwargs):
+                calls.append((name, args, kwargs))
+                return fn(*args, **kwargs)
+            return call
+        return make
+
+    return rebound(
+        (dfa, "deformable_aggregation", recorder("deformable_aggregation")),
+        (sampling, "_msda_patch_sel", recorder("msda_patch_sel")),
+        (sampling, "deformable_aggregation_backward",
+         recorder("deformable_aggregation_backward")),
+        (sampling, "msda_patch_sel_backward",
+         recorder("msda_patch_sel_backward")),
+        (targets3d, "batched_assignment", recorder("assignment")),
+        (targets2d, "batched_assignment", recorder("assignment")))
+
+
+def phase_train(torch):
+    """The training step of the flagship at full width: bs 4 x 6
+    cameras, one warm step, then TRAIN_STEPS steps carrying the temporal
+    and DN state, the launch counts set to 0 just before and read just
+    after. Returns (launches, recorded calls of the last step)."""
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.training.train_step import (
+        build_train_model, build_train_step, create_train_state,
+        init_temporal,
+    )
+    from simpb_tpu_torch.utils.synthetic import (
+        batch_to_torch, synthetic_train_batch,
+    )
+
+    cfg = train_config()
+    tc = TrainConfig()
+    model = build_train_model(cfg, device="cuda", seed=0)
+    state = create_train_state(model, tc)
+    step = build_train_step(model, tc)
+    batch = batch_to_torch(synthetic_train_batch(cfg, TRAIN_BS, seed=0),
+                           "cuda")
+    temporal, dn_state = init_temporal(cfg, TRAIN_BS, device="cuda")
+    watch = ("head.anchor", "img_backbone.conv1.weight",
+             "img_backbone.layer4_2.conv3.weight",
+             "head.fc_before.weight")
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in watch}
+    frozen = params["head.instance_feature"].detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, temporal, dn_state, m = step(state, batch, temporal, dn_state, 0)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    want = want_train_launches(cfg)
+    keys = train_loss_keys(cfg)
+    calls, times, parts, losses, counts = [], [], [], [], []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        last = i == TRAIN_STEPS - 1
+        marks = []
+        before_c = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (train_recording(calls) if last else contextlib.nullcontext()):
+            state, temporal, dn_state, m = step(state, batch, temporal,
+                                                dn_state, 0, marks=marks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        after_c = launch_counts()
+        counts.append({k: after_c[k] - before_c[k] for k in after_c
+                       if after_c[k] - before_c[k]})
+        ev = dict(marks)
+        parts.append({k: ev[a].elapsed_time(ev[k]) for a, k in (
+            ("start", "forward"), ("forward", "backward"),
+            ("backward", "optimizer"))})
+        loss = float(m["loss"])
+        losses.append(loss)
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise AssertionError(f"step {i}: a non-finite loss")
+        if set(m) != keys:
+            raise AssertionError(f"step {i}: loss keys differ: missing "
+                                 f"{sorted(keys - set(m))[:6]}, extra "
+                                 f"{sorted(set(m) - keys)[:6]}")
+        if dn_state is None:
+            raise AssertionError(f"step {i}: no DN state carried")
+        if counts[-1] != want:
+            raise AssertionError(f"step {i}: launches {counts[-1]}, want "
+                                 f"{want}")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moved = {n: float((params[n].detach() - before[n]).abs().max())
+             for n in watch}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"parameters did not move: {moved}")
+    if not torch.equal(params["head.instance_feature"], frozen):
+        raise AssertionError("the frozen instance feature moved")
+    srt = sorted(times)
+    med = lambda k: statistics.median(p[k] for p in parts)
+    emit(dict(phase="train", config="simpb_r50_704x256_fast",
+              trunk="bfloat16", head="float32", batch_size=TRAIN_BS,
+              backbone_remat=cfg.backbone_remat,
+              grid_mask=cfg.use_grid_mask, drop_out=cfg.head.drop_out,
+              steps=TRAIN_STEPS, warm_step_ms=warm_ms, step_ms=times,
+              step_ms_median=statistics.median(times),
+              step_ms_range=[srt[0], srt[-1]],
+              forward_ms_median=med("forward"),
+              backward_ms_median=med("backward"),
+              optimizer_ms_median=med("optimizer"), parts_ms=parts,
+              max_memory_allocated=peak, loss=losses,
+              loss_keys=len(keys), launches=launches,
+              launches_per_step=counts[-1], params_moved=moved,
+              calls_recorded=len(calls)))
+    del model, state, batch, temporal, dn_state, m
+    free_cuda(torch)
+    return launches, calls
+
+
+def lsa_work(args):
+    """(bytes, operations) an assignment call must move and do at least:
+    its cost matrices read once and the columns written; a search from
+    each row reads that row at least (a compare and an add a column)."""
+    cost = args[0]
+    b, r, c = cost.shape
+    return b * r * c * 4 + b * r * 4, 2 * b * r * c
+
+
+def dfa_bwd_work(sampling, args, kwargs):
+    """(bytes, operations) of kernel B at least: the forward's reads
+    (`dfa_work`) and grad_out, the three dense gradients written once
+    (the features' in their dtype); about 30 operations per (counted
+    slot, level, channel)."""
+    col, ss, pts, wts, gout = args[:5]
+    byts, ops = dfa_work(sampling, (col, ss, pts, wts),
+                         dict(gather_capacity=args[5]))
+    byts += gout.numel() * 4 + col.numel() * col.element_size() + \
+        (pts.numel() + wts.numel()) * pts.element_size()
+    return byts, ops * 30 // 11
+
+
+def msda_bwd_work(sampling, args):
+    """(bytes, operations) of kernel C at least: the forward's reads, the
+    sampled and wsum gradients, the dense value gradient written once and
+    the location and weight gradients; 4 operations per (query, level,
+    head, pixel, channel): a pixel's gradient dot and its value
+    gradient."""
+    value, ss, loc, attw, heads, ph, pw, k = args[:8]
+    byts, ops = msda_work(sampling, args[:8])
+    gs = args[8]
+    byts += gs.numel() * 4 + value.numel() * value.element_size() + \
+        (loc.numel() + attw.numel()) * 4
+    return byts, 2 * ops
+
+
+def grad_cases(torch, sampling, calls, gen):
+    """(label, name, args) of the gradient checks: kernel B and C's
+    recorded calls of the last step, then synthetic full-width cases in
+    fp32 and bf16 (phase 6's inputs with a random output gradient)."""
+    cases = [(f"step_call_{i}", name, args + tuple(
+        kwargs.get(k) for k in ("gather_capacity", "thresholds")
+        if name == "deformable_aggregation_backward" and k in kwargs))
+        for i, (name, args, kwargs) in enumerate(calls)
+        if name.endswith("_backward")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, name, args, kwargs in synthetic_sampling(torch, dtype,
+                                                            gen):
+            if name == "deformable_aggregation":
+                col, ss, pts, wts = args
+                cap = kwargs.get("gather_capacity")
+                out, thr = sampling._dfa_launch(col, ss, pts, wts, cap)
+                gout = torch.randn(out.shape, generator=gen, device="cuda")
+                cases.append((label, "deformable_aggregation_backward",
+                              (col, ss, pts, wts, gout, cap, thr)))
+            else:
+                value, ss, loc, attw, heads, ph, pw, k = args
+                b, q = loc.shape[:2]
+                gs = torch.randn(b, q, heads, value.shape[-1], generator=gen,
+                                 device="cuda")
+                gw = torch.randn(b, q, heads, generator=gen, device="cuda")
+                cases.append((label, "msda_patch_sel_backward",
+                              args + (gs, gw)))
+    return cases
+
+
+def phase_train_kernels(torch, calls, train_launches):
+    """Kernels A, B and C against their plain versions: B and C on the
+    last step's recorded backward calls and on synthetic cases, each
+    launched twice (whether the atomic sums came out bit-identical is
+    reported); A on every problem of each recorded call against its plain
+    version (exact col4row; the plain version runs on the CPU) and
+    against scipy's optimal cost. Returns the kernels-line entries."""
+    import numpy as np
+    import scipy.optimize
+
+    from simpb_tpu_torch.ops import sampling
+    from simpb_tpu_torch.training import matching
+
+    bwd = {n: (w, p, tpu) for n, w, p, tpu in sampling.BACKWARD_KERNELS}
+    summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                       bound={"bytes": 0.0, "operations": 0.0},
+                       bit_identical=True)
+               for n in list(bwd) + ["assignment"]}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, name, args in grad_cases(torch, sampling, calls, gen):
+        wrapper, plain, _ = bwd[name]
+        dname = str(args[0].dtype).split(".")[-1]
+        before = sampling.launch_counts()[name]
+        got = wrapper(*args)
+        launched = sampling.launch_counts()[name] - before
+        again = wrapper(*args)
+        plain_args = args[:6] if name.startswith("deformable") else args
+        ref = plain(*plain_args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+        close, recs = grad_check(got, ref)
+        ok = close and launched == 1
+        errs = [r_["max_abs_err"] for r_ in recs]
+        frame = label.startswith("step_call")
+        ms = cuda_ms(lambda: wrapper(*args), iters=3)
+        dev_ms = device_ms(lambda: wrapper(*args), iters=3)
+        plain_ms = cuda_ms(lambda: plain(*plain_args), iters=2)
+        if name.startswith("deformable"):
+            byts, ops = dfa_bwd_work(sampling, args, {})
+            o_ms = ops / PEAK_OPS["float32"] * 1e3
+        else:
+            byts, ops = msda_bwd_work(sampling, args)
+            o_ms = ops / PEAK_OPS["float32"] * 1e3
+        b_ms = byts / PEAK_BYTES * 1e3
+        bound_by = "bytes" if b_ms >= o_ms else "operations"
+        emit(dict(phase="train_grad", case=label, name=name, dtype=dname,
+                  grads=recs, tol=GRAD_TOL, ok=ok, launches=launched,
+                  bit_identical=same, ms=ms, device_ms=dev_ms,
+                  plain_ms=plain_ms, library_ms=None,
+                  bound_ms=max(b_ms, o_ms), bound_by=bound_by, bytes=byts,
+                  operations=ops))
+        if not ok:
+            raise AssertionError(f"{label}: gradients {recs} beyond "
+                                 f"{GRAD_TOL}, or {launched} launches")
+        s = summary[name]
+        s["max_abs_err"] = max([s["max_abs_err"]] + errs)
+        s["bit_identical"] = s["bit_identical"] and same
+        if frame:
+            s["ms"] += ms
+            s["device_ms"] += dev_ms
+            s["plain_ms"] += plain_ms
+            s["bound"][bound_by] += max(b_ms, o_ms)
+        del got, again, ref
+    s = summary["assignment"]
+    scipy_ms = 0.0
+    for i, (name, args, kwargs) in enumerate(c for c in calls
+                                             if c[0] == "assignment"):
+        cost, valid = args[:2]
+        pad = args[2] if len(args) > 2 else 1e6
+        before = matching.launch_counts()["assignment"]
+        got = matching.batched_assignment(cost, valid, pad)
+        launched = matching.launch_counts()["assignment"] - before
+        again = matching.batched_assignment(cost, valid, pad)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        t0 = time.perf_counter()
+        ref = matching.batched_assignment_plain(cost.cpu(), valid.cpu(), pad)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        exact = torch.equal(got.cpu(), ref)
+        safe = matching._masked_cost(cost, valid, pad).cpu().double().numpy()
+        col = got.cpu().numpy()
+        gaps = []
+        t0 = time.perf_counter()
+        for b in range(safe.shape[0]):
+            r, c = scipy.optimize.linear_sum_assignment(safe[b])
+            best = safe[b][r, c].sum()
+            mine = safe[b][np.arange(safe.shape[1]), col[b]].sum()
+            gaps.append(abs(mine - best) / max(abs(best), 1e-30))
+        scipy_ms += (time.perf_counter() - t0) * 1e3
+        distinct = all(len(set(x.tolist())) == len(x) for x in col)
+        ms = cuda_ms(lambda: matching.batched_assignment(cost, valid, pad),
+                     iters=3)
+        dev_ms = device_ms(lambda: matching.batched_assignment(cost, valid,
+                                                               pad), iters=3)
+        byts, ops = lsa_work(args)
+        b_ms = byts / PEAK_BYTES * 1e3
+        o_ms = ops / PEAK_OPS["float32"] * 1e3
+        bound_by = "bytes" if b_ms >= o_ms else "operations"
+        gap = float(max(gaps))
+        ok = bool(launched == 1 and same and exact and distinct
+                  and gap <= 1e-5)
+        emit(dict(phase="train_assignment", case=f"step_call_{i}",
+                  shape=list(cost.shape), valid_rows=int(valid.sum()),
+                  launches=launched, deterministic=same,
+                  exact=exact, scipy_rel_gap=gap, ok=ok,
+                  ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                  library_ms=None, bound_ms=max(b_ms, o_ms),
+                  bound_by=bound_by))
+        if not ok:
+            raise AssertionError(f"assignment call {i}: launches "
+                                 f"{launched}, repeat equal {same}, exact "
+                                 f"{exact}, distinct {distinct}, scipy gap "
+                                 f"{gap}")
+        s["ms"] += ms
+        s["device_ms"] += dev_ms
+        s["plain_ms"] += plain_ms
+        s["bound"][bound_by] += max(b_ms, o_ms)
+    emit(dict(phase="train_assignment", scipy_host_ms_step=scipy_ms))
+    out = {}
+    sources = {"assignment": "simpb_tpu_torch/csrc/assignment.cu"}
+    replaces = {n: v[2] for n, v in bwd.items()}
+    replaces["assignment"] = matching.KERNELS[0][3]
+    for name, s in summary.items():
+        out[name] = dict(
+            name=name, route="cuda",
+            source=sources.get(name, "simpb_tpu_torch/csrc/sampling.cu"),
+            replaces=replaces[name], launches=train_launches[name],
+            max_abs_err=s["max_abs_err"], ms=s["ms"],
+            device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+            bound_ms=sum(s["bound"].values()),
+            bound_by=max(s["bound"], key=s["bound"].get), library_ms=None,
+            **({"scipy_host_ms": scipy_ms} if name == "assignment" else
+               {"bit_identical": s["bit_identical"]}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1287,7 +1717,7 @@ def main() -> int:
               libraries=[str(p.relative_to(_kernels.PKG_DIR.parent))
                          for p in libs],
               ptxas=ptxas))
-    spills = [ln for ln in ptxas["sampling"] + [
+    spills = [ln for ln in ptxas["sampling"] + ptxas["assignment"] + [
         ln for ln in ptxas["conv_fused"] if ln.startswith("maxpool")]
         if re.search(r"[1-9]\d* bytes spill", ln)]
     if spills:
@@ -1306,6 +1736,9 @@ def main() -> int:
     phase_trunk(torch)
     phase_eval(torch)
     phase_bench(torch)
+    train_launches, train_calls = phase_train(torch)
+    train = phase_train_kernels(torch, train_calls, train_launches)
+    del train_calls
 
     kernels = []
     for name, s in summary.items():
@@ -1321,9 +1754,10 @@ def main() -> int:
             **({"cudnn_chain_ms": s["cudnn_chain_ms"]}
                if s["cudnn_chain_ms"] is not None else {}),
         ))
-    kernels += list(sampling.values()) + list(probes.values())
-    if len(kernels) != 13:
-        raise AssertionError(f"{len(kernels)} kernels, want 13")
+    kernels += (list(sampling.values()) + list(train.values())
+                + list(probes.values()))
+    if len(kernels) != 16:
+        raise AssertionError(f"{len(kernels)} kernels, want 16")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -967,6 +967,427 @@ int launch_msda_sel_tc(const void* value, const float* loc, const float* attw,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- DFA backward
+// Kernel B: the gradients of dfa_kernel's output g [bs, A, C] (fp32) to
+// the feature column (fp32 sums, scattered with atomicAdd onto the four
+// corner rows of each live entry), to the points (through the corner
+// weights: d x / d loc = the level's width, d y / d loc its height) and
+// to the weights (a group's channels of g dotted with the sample). One
+// block per (anchor, batch), as the forward. Its threads place the
+// anchor's entries again and compact the live ones (in range, and kept
+// by the forward's capacity thresholds `thr`, which the forward's rank
+// pass wrote and the autograd Function saved: no rank pass here). A team
+// of C / 8 threads takes one live entry at a time, a thread 8 channels;
+// the teams step through the list in lockstep so that their shuffles
+// (the group sums of the weight gradient over C / G / 8 threads, the
+// point gradient over the team) see whole warps. A weight gradient
+// belongs to one (entry, group) and a point gradient to one (camera,
+// point): both are written without atomics, the point's levels summed in
+// level order. The sample that the weight gradient dots with is rounded
+// as the forward rounds it; the rest sums in fp32.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
+               const T* __restrict__ wts, const int* __restrict__ thr,
+               const float* __restrict__ gout, DfaArgs g, Levels lv,
+               float* __restrict__ gcol, float* __restrict__ gpts,
+               float* __restrict__ gwts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int warp_sum[32];
+  const int a = blockIdx.x, batch = blockIdx.y, tid = threadIdx.x;
+  const int L = lv.n, E = g.cams * g.P * L, G = g.G;
+  const int CH = g.C / 8, teams = blockDim.x / CH, gsz = CH / G;
+  float4* cw = reinterpret_cast<float4*>(smem_raw);  // [E] corner weights
+  int4* rows = reinterpret_cast<int4*>(cw + E);      // [E] corner rows
+  float2* gl = reinterpret_cast<float2*>(rows + E);  // [E] by entry
+  float2* dl = gl + E;                               // [E] level w, h
+  int* eid = reinterpret_cast<int*>(dl + E);         // [E] entry index
+  int* msk = eid + E;                                // [E] corner masks
+  float* gw = reinterpret_cast<float*>(msk + E);     // [E][G]
+
+  for (int e = tid; e < E; e += blockDim.x) gl[e] = make_float2(0.f, 0.f);
+  // 1. place every entry, compact the live ones in entry order
+  int nlive = 0;
+  for (int r0 = 0; r0 < E; r0 += blockDim.x) {
+    const int e = r0 + tid;
+    const int l = e % L, p = e / L % g.P, cam = e / L / g.P;
+    float lx = -1.f, ly = -1.f, gv[MAX_GROUPS];
+    int lim = 0;
+    if (e < E) {
+      const T* q = pts + batch * g.sp[0] + a * g.sp[1] + p * g.sp[2] +
+                   cam * g.sp[3];
+      const T* wq = wts + batch * g.sw[0] + a * g.sw[1] + p * g.sw[2] +
+                    cam * g.sw[3] + l * g.sw[4];
+      lx = ld(q);
+      ly = ld(q + g.sp[4]);
+      lim = thr ? thr[batch * g.cams + cam] - a * g.P - p : 1;
+#pragma unroll
+      for (int k = 0; k < MAX_GROUPS; ++k)
+        if (k < G) gv[k] = ld(wq + k * g.sw[5]);
+    }
+    const int live = in_range(lx, ly) && lim > 0;
+    int tot;
+    const int pos = nlive + block_scan(live, warp_sum, tot) - live;
+    if (live) {
+      const int h = lv.h[l], w = lv.w[l];
+      const float x = R<T>(__fsub_rn(R<T>(__fmul_rn(lx, (float)w)), 0.5f));
+      const float y = R<T>(__fsub_rn(R<T>(__fmul_rn(ly, (float)h)), 0.5f));
+      const float x0f = floorf(x), y0f = floorf(y);
+      const float fx = R<T>(__fsub_rn(x, x0f)), fy = R<T>(__fsub_rn(y, y0f));
+      const int x0 = (int)x0f, y0 = (int)y0f;
+      const bool mx0 = x0 >= 0 && x0 < w, mx1 = x0 + 1 >= 0 && x0 + 1 < w;
+      const bool my0 = y0 >= 0 && y0 < h, my1 = y0 + 1 >= 0 && y0 + 1 < h;
+      cw[pos] = make_float4(mx0 ? R<T>(__fsub_rn(1.f, fx)) : 0.f,
+                            mx1 ? fx : 0.f,
+                            my0 ? R<T>(__fsub_rn(1.f, fy)) : 0.f,
+                            my1 ? fy : 0.f);
+      const int xc0 = min(max(x0, 0), w - 1), xc1 = min(max(x0 + 1, 0), w - 1);
+      const int base = cam * g.T + lv.start[l];
+      const int ra = base + min(max(y0, 0), h - 1) * w;
+      const int rb = base + min(max(y0 + 1, 0), h - 1) * w;
+      rows[pos] = make_int4(ra + xc0, ra + xc1, rb + xc0, rb + xc1);
+      dl[pos] = make_float2((float)w, (float)h);
+      eid[pos] = e;
+      msk[pos] = (int)mx0 | (int)mx1 << 1 | (int)my0 << 2 | (int)my1 << 3;
+#pragma unroll
+      for (int k = 0; k < MAX_GROUPS; ++k)
+        if (k < G) gw[pos * G + k] = gv[k];
+    }
+    nlive += tot;
+    __syncthreads();
+  }
+
+  // 2. the teams step through the live entries in lockstep
+  const int team = tid / CH, ci = tid % CH;
+  const int grp = ci / gsz;
+  const T* cb = col + (long long)batch * g.cams * g.T * g.C + ci * 8;
+  float* gb = gcol + (long long)batch * g.cams * g.T * g.C + ci * 8;
+  float go[8];
+  {
+    const float* gq = gout + ((long long)batch * g.A + a) * g.C + ci * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) go[i] = gq[i];
+  }
+  for (int base = 0; base < nlive; base += teams) {
+    const int i = base + team;
+    const bool ok = i < nlive;
+    float wdot = 0.f, glx = 0.f, gly = 0.f;
+    if (ok) {
+      const float4 w = cw[i];
+      const int4 r = rows[i];
+      const int m = msk[i];
+      const bool need[4] = {(m & 5) == 5, (m & 6) == 6, (m & 9) == 9,
+                            (m & 10) == 10};
+      const int rr[4] = {r.x, r.y, r.z, r.w};
+      Row8<T> v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[k].zero();
+        if (need[k]) v[k].load(cb + (long long)rr[k] * g.C);
+      }
+      const float gwv = gw[i * G + grp];
+      const float fmx0 = m & 1 ? 1.f : 0.f, fmx1 = m & 2 ? 1.f : 0.f;
+      const float fmy0 = m & 4 ? 1.f : 0.f, fmy1 = m & 8 ? 1.f : 0.f;
+      const float wk[4] = {w.z * w.x, w.z * w.y, w.w * w.x, w.w * w.y};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float v00 = v[0][c], v01 = v[1][c], v10 = v[2][c],
+                    v11 = v[3][c];
+        const float sx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v00)),
+                                         R<T>(__fmul_rn(w.y, v01))));
+        const float sx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v10)),
+                                         R<T>(__fmul_rn(w.y, v11))));
+        const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, sx0)),
+                                         R<T>(__fmul_rn(w.w, sx1))));
+        wdot += go[c] * smp;
+        const float gg = go[c] * gwv;
+        const float vx0 = w.x * v00 + w.y * v01, vx1 = w.x * v10 + w.y * v11;
+        glx += gg * (w.z * (fmx1 * v01 - fmx0 * v00) +
+                     w.w * (fmx1 * v11 - fmx0 * v10));
+        gly += gg * (fmy1 * vx1 - fmy0 * vx0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (wk[k] != 0.f && gg != 0.f)
+            atomicAdd(gb + (long long)rr[k] * g.C + c, gg * wk[k]);
+      }
+    }
+    for (int o = gsz >> 1; o; o >>= 1)
+      wdot += __shfl_xor_sync(0xffffffffu, wdot, o);
+    for (int o = CH >> 1; o; o >>= 1) {
+      glx += __shfl_xor_sync(0xffffffffu, glx, o);
+      gly += __shfl_xor_sync(0xffffffffu, gly, o);
+    }
+    if (ok) {
+      const int e = eid[i];
+      if (ci % gsz == 0) {
+        const int l = e % L, p = e / L % g.P, cam = e / L / g.P;
+        gwts[((((long long)(batch * g.A + a) * g.P + p) * g.cams + cam) * L +
+              l) * G + grp] = wdot;
+      }
+      if (ci == 0) gl[e] = make_float2(glx * dl[i].x, gly * dl[i].y);
+    }
+  }
+  __syncthreads();
+
+  // 3. each (camera, point): its levels' point gradients in level order
+  for (int pc = tid; pc < g.cams * g.P; pc += blockDim.x) {
+    const int cam = pc / g.P, p = pc % g.P;
+    float sx = 0.f, sy = 0.f;
+    for (int l = 0; l < L; ++l) {
+      sx += gl[pc * L + l].x;
+      sy += gl[pc * L + l].y;
+    }
+    float* o = gpts + (((long long)(batch * g.A + a) * g.P + p) * g.cams +
+                       cam) * 2;
+    o[0] = sx;
+    o[1] = sy;
+  }
+}
+
+int dfa_bwd_smem_bytes(const DfaArgs& g, int L) {
+  const int E = g.cams * g.P * L;
+  return E * (16 + 16 + 8 + 8 + 4 + 4 + 4 * g.G);
+}
+
+template <typename T>
+int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
+                   const int* thr, const float* gout, float* gcol,
+                   float* gpts, float* gwts, const DfaArgs& g,
+                   const Levels& lv, int threads, int smem,
+                   cudaStream_t st) {
+  const int CH = g.C / 8;
+  if (g.C % 8 || (g.C / g.G) % 8 || g.G > MAX_GROUPS || CH > 32 ||
+      (CH & (CH - 1)) || ((CH / g.G) & (CH / g.G - 1)) || threads % CH ||
+      threads % 32 || threads > 256 || dfa_bwd_smem_bytes(g, lv.n) > smem)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(dfa_bwd_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  dfa_bwd_kernel<T><<<dim3(g.A, g.bs), threads, smem, st>>>(
+      (const T*)col, (const T*)pts, (const T*)wts, thr, gout, g, lv, gcol,
+      gpts, gwts);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------- MSDA-sel backward
+// Kernel C: the gradients of MSDA-sel's (sampled [B, Q, heads, C], wsum
+// [B, Q, heads]) to the value (fp32 sums, scattered with atomicAdd onto
+// the window pixel rows), to the locations (through the taper-clamped
+// bilinear fractions; the window bases and the top-k level choice are
+// discrete; a sample exactly on a clamp bound passes half, as min and max
+// split a tie) and to the attention weights. It does not reuse the forward:
+// one block per (query, camera row) recomputes the levels, windows and
+// per-head window weights W from loc and attw (steps 1-5 of
+// msda_sel_kernel), so the autograd Function saves only its inputs. Then
+// a warp per window pixel: the pixel's gradient G[h, px] = g_sampled[h] .
+// V[px] + g_wsum[h] (lanes over channels, one shuffle sum a head) and
+// the value gradient sum_h W[h, px] g_sampled[h, c]; then a thread per
+// sample reads the four G of its corners.
+template <typename T>
+__global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
+                                    const float* __restrict__ loc,
+                                    const float* __restrict__ attw,
+                                    const float* __restrict__ gsamp,
+                                    const float* __restrict__ gwsum,
+                                    MsdaArgs g, Levels lv,
+                                    float* __restrict__ gvalue,
+                                    float* __restrict__ gloc,
+                                    float* __restrict__ gattw) {
+  extern __shared__ float smem[];
+  __shared__ float mass[MAX_LEVELS], gws[MAX_HEADS];
+  __shared__ int lsel[MAX_LEVELS], bxs[MAX_LEVELS], bys[MAX_LEVELS];
+  const int q = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int L = lv.n, n = g.n, K = g.K, win = g.ph * g.pw, H = g.heads;
+  const int np = n / H;
+  const long long bq = (long long)b * g.Q + q;
+  const float* lq = loc + bq * L * n * 2;
+  const float* aq = attw + bq * L * n;
+  float* W = smem;                 // [K][heads][win]
+  float* Gm = W + K * H * win;     // [K][heads][win] pixel gradients
+  float* gs = Gm + K * H * win;    // [heads][C]
+  float* fx = gs + H * g.C;        // [K][n]
+  float* fy = fx + K * n;          // [K][n]
+  float* ak = fy + K * n;          // [K][n] attention * keep
+  int* ix = (int*)(ak + K * n);    // [K][n]
+  int* iy = ix + K * n;            // [K][n]
+  int* fl = iy + K * n;            // [K][n] keep | clamp x | clamp y
+
+  // 1-3. levels and window bases, as msda_sel_kernel
+  if (tid < L) {
+    float m = 0.f;
+    for (int i = 0; i < n; ++i) m = __fadd_rn(m, aq[tid * n + i]);
+    mass[tid] = m;
+  }
+  if (tid < H) gws[tid] = gwsum[bq * H + tid];
+  for (int t = tid; t < H * g.C; t += blockDim.x)
+    gs[t] = gsamp[bq * H * g.C + t];
+  __syncthreads();
+  if (tid == 0) {
+    bool taken[MAX_LEVELS] = {};
+    for (int j = 0; j < K; ++j) {
+      int best = -1;
+      for (int l = 0; l < L; ++l)
+        if (!taken[l] && (best < 0 || mass[l] > mass[best])) best = l;
+      taken[best] = true;
+      lsel[j] = best;
+    }
+  }
+  __syncthreads();
+  if (tid < K) {
+    const int l = lsel[tid], h = lv.h[l], w = lv.w[l];
+    float mnx = 1e9f, mxx = -1e9f, mny = 1e9f, mxy = -1e9f;
+    for (int i = 0; i < n; ++i) {
+      const float px = pix(lq[(l * n + i) * 2], w);
+      const float py = pix(lq[(l * n + i) * 2 + 1], h);
+      if (px > -1.f && px < (float)w && py > -1.f && py < (float)h) {
+        mnx = fminf(mnx, px); mxx = fmaxf(mxx, px);
+        mny = fminf(mny, py); mxy = fmaxf(mxy, py);
+      }
+    }
+    const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
+    const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
+    const int bx = (int)rintf(__fsub_rn(midx, (g.pw - 1) / 2.0f));
+    const int by = (int)rintf(__fsub_rn(midy, (g.ph - 1) / 2.0f));
+    bxs[tid] = min(max(bx, 0), w - g.pw);
+    bys[tid] = min(max(by, 0), h - g.ph);
+  }
+  __syncthreads();
+  // 4. the taper-clamped samples; whether the clamp passed each axis
+  for (int e = tid; e < K * n; e += blockDim.x) {
+    const int j = e / n, i = e % n, l = lsel[j], h = lv.h[l], w = lv.w[l];
+    const float px = pix(lq[(l * n + i) * 2], w);
+    const float py = pix(lq[(l * n + i) * 2 + 1], h);
+    const bool keep = px > -1.f && px < (float)w && py > -1.f && py < (float)h;
+    const int bx = bxs[j], by = bys[j];
+    const float hx = __fsub_rn((float)(bx + g.pw), 1e-4f);
+    const float lx = __fadd_rn((float)(bx - 1), 1e-4f);
+    const float hy = __fsub_rn((float)(by + g.ph), 1e-4f);
+    const float ly = __fadd_rn((float)(by - 1), 1e-4f);
+    const float ax = fmaxf(fminf(px, hx), lx);
+    const float ay = fmaxf(fminf(py, hy), ly);
+    const float x0 = floorf(ax), y0 = floorf(ay);
+    fx[e] = __fsub_rn(ax, x0);
+    fy[e] = __fsub_rn(ay, y0);
+    ix[e] = (int)x0 - bx;
+    iy[e] = (int)y0 - by;
+    ak[e] = __fmul_rn(aq[l * n + i], keep ? 1.f : 0.f);
+    // the clamp's gradient, in halves: 2 strictly inside, 1 on a bound
+    // (min / max split a tie evenly, in torch and in JAX), 0 outside
+    const int cx = (px > lx && px < hx) ? 2 : (px == lx || px == hx);
+    const int cy = (py > ly && py < hy) ? 2 : (py == ly || py == hy);
+    fl[e] = (int)keep | cx << 1 | cy << 3;
+  }
+  __syncthreads();
+  // 5. per-head window weights, as msda_sel_kernel
+  for (int t = tid; t < K * H * win; t += blockDim.x) {
+    const int px = t % win, jh = t / win, hh = jh % H, j = jh / H;
+    const int ey = px / g.pw, ex = px % g.pw;
+    float acc = 0.f;
+    for (int p = 0; p < np; ++p) {
+      const int s = j * n + hh * np + p;
+      const float wy = ey == iy[s] ? __fsub_rn(1.f, fy[s])
+                                   : (ey == iy[s] + 1 ? fy[s] : 0.f);
+      const float wx = ex == ix[s] ? __fsub_rn(1.f, fx[s])
+                                   : (ex == ix[s] + 1 ? fx[s] : 0.f);
+      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy, wx), ak[s]));
+    }
+    W[t] = acc;
+  }
+  __syncthreads();
+
+  // 6. a warp per window pixel: G and the value gradient
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  for (int t = warp; t < K * win; t += nw) {
+    const int j = t / win, e = t % win, l = lsel[j], w = lv.w[l];
+    const long long row = (long long)b * g.T + lv.start[l] +
+                          (long long)(bys[j] + e / g.pw) * w + bxs[j] +
+                          e % g.pw;
+    const T* vr = value + row * g.C;
+    float* gr = gvalue + row * g.C;
+    float wcol[MAX_HEADS], acc[MAX_HEADS];
+    bool used = false;
+#pragma unroll
+    for (int hh = 0; hh < MAX_HEADS; ++hh) {
+      wcol[hh] = hh < H ? W[(j * H + hh) * win + e] : 0.f;
+      used |= wcol[hh] != 0.f;
+      acc[hh] = 0.f;
+    }
+    for (int c = lane; c < g.C; c += 32) {
+      const float v = ld(vr + c);
+      float gv = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < MAX_HEADS; ++hh)
+        if (hh < H) {
+          const float s = gs[hh * g.C + c];
+          acc[hh] += s * v;
+          gv += wcol[hh] * s;
+        }
+      if (used && gv != 0.f) atomicAdd(gr + c, gv);
+    }
+#pragma unroll
+    for (int hh = 0; hh < MAX_HEADS; ++hh) {
+      if (hh >= H) break;
+      float a = acc[hh];
+      for (int o = 16; o; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (lane == 0) Gm[(j * H + hh) * win + e] = a + gws[hh];
+    }
+  }
+  __syncthreads();
+
+  // 7. a thread per sample: its four corners' G
+  for (int s = tid; s < K * n; s += blockDim.x) {
+    const int j = s / n, i = s % n, hh = i / np, l = lsel[j];
+    const float* Gh = Gm + (j * H + hh) * win;
+    const int x0 = ix[s], y0 = iy[s];
+    auto at = [&](int y, int x) {
+      return (y >= 0 && y < g.ph && x >= 0 && x < g.pw) ? Gh[y * g.pw + x]
+                                                        : 0.f;
+    };
+    const float g00 = at(y0, x0), g01 = at(y0, x0 + 1);
+    const float g10 = at(y0 + 1, x0), g11 = at(y0 + 1, x0 + 1);
+    const float wx1 = fx[s], wx0 = 1.f - wx1, wy1 = fy[s], wy0 = 1.f - wy1;
+    const float a = ak[s];
+    const int f = fl[s];
+    const float ga = wy0 * (wx0 * g00 + wx1 * g01) +
+                     wy1 * (wx0 * g10 + wx1 * g11);
+    const float glx = 0.5f * (float)((f >> 1) & 3) * a *
+                      (wy0 * (g01 - g00) + wy1 * (g11 - g10));
+    const float gly = 0.5f * (float)((f >> 3) & 3) * a *
+                      (wx0 * (g10 - g00) + wx1 * (g11 - g01));
+    const long long o = (bq * L + l) * n + i;
+    gloc[o * 2] = glx * (float)lv.w[l];
+    gloc[o * 2 + 1] = gly * (float)lv.h[l];
+    gattw[o] = (f & 1) ? ga : 0.f;
+  }
+}
+
+int msda_bwd_smem_bytes(const MsdaArgs& g) {
+  return 4 * (2 * g.K * g.heads * g.ph * g.pw + g.heads * g.C + 6 * g.K * g.n);
+}
+
+template <typename T>
+int launch_msda_sel_bwd(const void* value, const float* loc,
+                        const float* attw, const float* gsamp,
+                        const float* gwsum, float* gvalue, float* gloc,
+                        float* gattw, const MsdaArgs& g, const Levels& lv,
+                        int threads, int smem, cudaStream_t st) {
+  if (msda_bwd_smem_bytes(g) > smem || g.heads > MAX_HEADS || threads % 32 ||
+      threads > 1024)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(msda_sel_bwd_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  msda_sel_bwd_kernel<T><<<dim3(g.Q, g.B), threads, smem, st>>>(
+      (const T*)value, loc, attw, gsamp, gwsum, g, lv, gvalue, gloc, gattw);
+  return (int)cudaGetLastError();
+}
+
 Levels read_levels(int L, const int* d) {
   Levels lv;
   lv.n = L;
@@ -1031,6 +1452,58 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
                                             threads, smem, st)
                     : launch_msda_sel_tc<2>(value, l, a, sp, ws, g, lv,
                                             threads, smem, st);
+}
+
+// The backward passes (kernels B and C). dims and strides as the
+// forwards'; thr: the forward's saved count thresholds (NULL without a
+// capacity); gout [bs, A, C] fp32; gcol fp32 [bs, cams, T, C], gpts
+// [bs, A, P, cams, 2] and gwts [bs, A, P, cams, L, G] fp32, zeroed by the
+// caller (gcol accumulates with atomicAdd; entries the forward dropped
+// stay 0).
+int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
+                  const void* thr, const void* gout, void* gcol, void* gpts,
+                  void* gwts, const int* dims, const long long* strides,
+                  int dtype, void* stream) {
+  DfaArgs g;
+  g.bs = dims[0]; g.cams = dims[1]; g.A = dims[2]; g.P = dims[3];
+  g.G = dims[5]; g.C = dims[6]; g.T = dims[7]; g.M = dims[8];
+  const int threads = dims[9], smem = dims[10];
+  for (int i = 0; i < 5; ++i) g.sp[i] = strides[i];
+  for (int i = 0; i < 6; ++i) g.sw[i] = strides[5 + i];
+  const Levels lv = read_levels(dims[4], dims + 11);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* t = (const int*)thr;
+  const float* go = (const float*)gout;
+  float *gc = (float*)gcol, *gp = (float*)gpts, *gw = (float*)gwts;
+  return dtype ? launch_dfa_bwd<bf16>(col, pts, wts, t, go, gc, gp, gw, g,
+                                      lv, threads, smem, st)
+               : launch_dfa_bwd<float>(col, pts, wts, t, go, gc, gp, gw, g,
+                                       lv, threads, smem, st);
+}
+
+// dims as simpb_msda_sel's; gsamp [B, Q, heads, C] and gwsum [B, Q,
+// heads] fp32; gvalue fp32 [B, T, C], gloc [B, Q, L, n, 2] and gattw
+// [B, Q, L, n] fp32, zeroed by the caller (gvalue accumulates with
+// atomicAdd; unselected levels stay 0).
+// One block per (query, camera row), `threads` threads.
+int simpb_msda_sel_bwd(const void* value, const void* loc, const void* attw,
+                       const void* gsamp, const void* gwsum, void* gvalue,
+                       void* gloc, void* gattw, const int* dims, int dtype,
+                       void* stream) {
+  MsdaArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.n = dims[3]; g.heads = dims[4];
+  g.C = dims[5]; g.T = dims[6]; g.K = dims[7]; g.ph = dims[8];
+  g.pw = dims[9];
+  const int threads = dims[10], smem = dims[11];
+  const Levels lv = read_levels(dims[2], dims + 12);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *l = (const float*)loc, *a = (const float*)attw;
+  const float *gs = (const float*)gsamp, *gw = (const float*)gwsum;
+  float *gv = (float*)gvalue, *gl = (float*)gloc, *ga = (float*)gattw;
+  return dtype ? launch_msda_sel_bwd<bf16>(value, l, a, gs, gw, gv, gl, ga, g,
+                                           lv, threads, smem, st)
+               : launch_msda_sel_bwd<float>(value, l, a, gs, gw, gv, gl, ga,
+                                            g, lv, threads, smem, st);
 }
 
 }  // extern "C"

@@ -1,14 +1,20 @@
 """Static-shape query allocation, 3D anchors -> per-camera 2D slots
-(port of the inference path of `simpb_tpu/models/allocation.py`).
+(port of `simpb_tpu/models/allocation.py`).
 
 Every camera owns K slots filled in anchor order with the anchors valid
 in it (center strictly inside the image, or any corner with positive
 depth inside); padded slots carry zero trans rows, anchors and
 reference depth. Query group g is the slice [g*K, (g+1)*K).
+
+Training adds two variants: with `rng` (a generator, or the uniforms of
+`corner_rank_draw`) corner-only anchors are ranked at random and at most
+`limit_corners` of them a camera stay valid; with `visibility` (the
+denoising slots) validity comes from the GT's camera visibility and
+center validity requires it too.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -28,12 +34,20 @@ class Allocation(NamedTuple):
     center_matrix: torch.Tensor  # [bs, Q, A] one-hot, center-valid only
 
 
+def corner_rank_draw(generator: torch.Generator, shape, device):
+    """Allocation's training draw: one uniform a (batch, camera, anchor)."""
+    return torch.rand(tuple(shape), generator=generator, device=device)
+
+
 def allocate_queries(
     anchor3d: torch.Tensor,  # [bs, A, 11]
     projection_mat: torch.Tensor,  # [bs, cams, 4, 4]
     image_wh: tuple,
     capacity: int,
+    limit_corners: int = 100,
     limit_anchor_size: tuple = (35.0, 35.0, 10.0),
+    rng: Optional[Union[torch.Generator, torch.Tensor]] = None,
+    visibility: Optional[torch.Tensor] = None,  # [bs, A, cams] bool
 ) -> Allocation:
     bs, num_anchor = anchor3d.shape[:2]
     num_cams = projection_mat.shape[1]
@@ -54,6 +68,8 @@ def allocate_queries(
         (center_xy[..., 0] > 0) & (center_xy[..., 0] < img_w)
         & (center_xy[..., 1] > 0) & (center_xy[..., 1] < img_h)
     )
+    if visibility is not None:
+        center_valid = center_valid & visibility.transpose(1, 2)
     corner_in = (
         (corner_xy[..., 0] > 0) & (corner_xy[..., 0] < img_w)
         & (corner_xy[..., 1] > 0) & (corner_xy[..., 1] < img_h)
@@ -68,7 +84,19 @@ def allocate_queries(
     y_max = corner_xy[..., 1].amax(-1).clamp(0, img_h)
     fallback = torch.stack([(x_min + x_max) / 2, (y_min + y_max) / 2], -1)
     ref_xy = torch.where(center_valid[..., None], center_xy, fallback)
-    valid = center_valid | corner_valid
+    if visibility is not None:
+        valid = visibility.transpose(1, 2)
+    elif rng is not None:
+        corner_only = corner_valid & ~center_valid
+        r = rng if isinstance(rng, torch.Tensor) else corner_rank_draw(
+            rng, corner_only.shape, anchor3d.device)
+        order = torch.argsort(
+            torch.where(corner_only, r, torch.full_like(r, -1.0)), dim=-1,
+            descending=True, stable=True)
+        rank = torch.argsort(order, dim=-1)
+        valid = center_valid | (corner_only & (rank < limit_corners))
+    else:
+        valid = center_valid | corner_valid
 
     # static top-K per camera: valid anchors in anchor order (tie-free)
     idx = torch.arange(num_anchor, dtype=torch.float32,

@@ -1,10 +1,12 @@
-"""ResNet trunk + FPN neck for inference (NHWC at the public functions).
+"""ResNet trunk + FPN neck (NHWC at the public functions).
 
-Port of the serving trunk of `simpb_tpu/models/backbone.py`
-(`fused_resnet_infer`, `fused_fpn_infer`). The modules hold the
-parameters under the JAX tree's names (`img_backbone.layer1_0.conv1`,
-`img_neck.fpn_0`, ...) as `nn.Conv2d` / `nn.BatchNorm2d`; inference
-always runs the fused path:
+Port of `simpb_tpu/models/backbone.py`. The modules hold the parameters
+under the JAX tree's names (`img_backbone.layer1_0.conv1`,
+`img_neck.fpn_0`, ...) as `nn.Conv2d` / `nn.BatchNorm2d`. Two trunks
+compute over them:
+
+Inference (`forward`) always runs the fused path (`fused_resnet_infer`,
+`fused_fpn_infer` in JAX):
 
 * the 7x7/s2 stem is `F.conv2d`, its folded BN and ReLU plain torch.
   In bf16 the conv's operands are rounded to bf16 but its sum stays in
@@ -16,20 +18,30 @@ always runs the fused path:
   through the CUDA kernels of `ops/conv_fused.py` (their plain versions
   on the CPU);
 * the FPN laterals (1x1 matmuls) and the nearest-upsample adds are plain
-  torch.
+  torch. BatchNorm is folded once per (device, dtype) and cached;
+  loading a state dict drops the cache.
 
-BatchNorm is folded once per (device, dtype) and cached; loading a state
-dict drops the cache. The module (unfused, trainable) trunk comes with
-the training path.
+Training (`forward_train`) runs the module trunk, as the JAX train path
+does (it never runs the fused kernels): plain convs in the compute
+dtype, BatchNorm on the batch statistics (`batch_norm_train`, flax's
+arithmetic: fp32 statistics, the biased variance E[x^2] - E[x]^2, and
+the running averages at momentum 0.9), `F.max_pool2d` for the stem pool
+(its backward routes a tied window's gradient to one element, as
+`nn.max_pool`'s does), each bottleneck optionally rematerialised with
+`torch.utils.checkpoint` (the statistics of the first forward update
+the running averages once; the recompute's are dropped, as `nn.remat`
+drops the recomputed mutation), and the module FPN. `DenseDepthNet`
+is the training-only depth head.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint as checkpoint
 
 from ..ops.conv_fused import (
     bottleneck_down_fused_infer, bottleneck_fused_infer, conv3x3_bias_fused,
@@ -54,6 +66,41 @@ def _ieee_fp32_conv():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+BN_MOMENTUM = 0.9
+BN_EPS = 1e-5
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
+    """flax `nn.BatchNorm(use_running_average=False)` on an NCHW map:
+    batch statistics in fp32 or wider (mean and the biased E[x^2] -
+    E[x]^2, floored at 0), `(x - mean) * (rsqrt(var + eps) * scale) +
+    bias` in that type, returned in `dtype` with the (mean, var) of the
+    batch (detached)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
+                                                                 None]
+    return y.to(dtype), (mean.detach(), var.detach())
+
+
+def update_running_stats(bn: nn.BatchNorm2d, stats) -> None:
+    """flax's running averages: m * ra + (1 - m) * batch statistic."""
+    mean, var = stats
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+
+
+def _conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    b = mod.bias.to(dtype) if mod.bias is not None else None
+    return F.conv2d(x.to(dtype), mod.weight.to(dtype), b, mod.stride,
+                    mod.padding)
+
+
 class Bottleneck(nn.Module):
     """Torch-style bottleneck parameters: 1x1 -> 3x3(stride) -> 1x1(4x)."""
 
@@ -73,6 +120,29 @@ class Bottleneck(nn.Module):
                 inplanes, planes * 4, 1, stride, bias=False
             )
             self.downsample_bn = nn.BatchNorm2d(planes * 4)
+
+    def forward_train(self, x: torch.Tensor, dtype):
+        """NCHW x -> (y, the batch statistics of bn1, bn2, bn3[,
+        downsample_bn])."""
+        stats = []
+
+        def bn(name, t):
+            y, st = batch_norm_train(t, getattr(self, name), dtype)
+            stats.append(st)
+            return y
+
+        out = torch.relu(bn("bn1", _conv(self.conv1, x, dtype)))
+        out = torch.relu(bn("bn2", _conv(self.conv2, out, dtype)))
+        out = bn("bn3", _conv(self.conv3, out, dtype))
+        identity = x
+        if self.has_downsample:
+            identity = bn("downsample_bn",
+                          _conv(self.downsample_conv, x, dtype))
+        return torch.relu(out + identity), tuple(stats)
+
+    def bn_names(self) -> Tuple[str, ...]:
+        return ("bn1", "bn2", "bn3") + (
+            ("downsample_bn",) if self.has_downsample else ())
 
 
 class _FoldCache(nn.Module):
@@ -167,6 +237,32 @@ class ResNet(_FoldCache):
         return outs
 
 
+    def forward_train(self, x: torch.Tensor, dtype=torch.float32,
+                      remat: bool = False) -> List[torch.Tensor]:
+        """Training trunk: x [N, H, W, 3] -> four NHWC maps in `dtype`,
+        the running statistics updated from this batch."""
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        y, st = batch_norm_train(_conv(self.conv1, x, dtype), self.bn1,
+                                 dtype)
+        update_running_stats(self.bn1, st)
+        x = F.max_pool2d(torch.relu(y), 3, 2, 1)
+        outs = []
+        idx = 0
+        for num_blocks in RESNET_STAGE_BLOCKS[self.depth]:
+            for _ in range(num_blocks):
+                blk = getattr(self, self.block_names[idx])
+                idx += 1
+                if remat and torch.is_grad_enabled():
+                    x, stats = checkpoint.checkpoint(
+                        blk.forward_train, x, dtype, use_reentrant=False)
+                else:
+                    x, stats = blk.forward_train(x, dtype)
+                for name, st in zip(blk.bn_names(), stats):
+                    update_running_stats(getattr(blk, name), st)
+            outs.append(x.permute(0, 2, 3, 1))
+        return outs
+
+
 def upsample2x_nearest(x: torch.Tensor, tgt_hw) -> torch.Tensor:
     """Nearest-neighbour upsample of an NHWC map to `tgt_hw`."""
     n, h, w, c = x.shape
@@ -220,3 +316,49 @@ class FPN(_FoldCache):
             conv3x3_bias_fused(lat.contiguous(), w, b)
             for lat, (w, b) in zip(laterals, out_w)
         ]
+
+    def forward_train(self, inputs: Sequence[torch.Tensor],
+                      dtype=torch.float32) -> List[torch.Tensor]:
+        """The module FPN on plain convs in `dtype` (NHWC in and out)."""
+        laterals = [
+            _conv(getattr(self, f"lateral_{i}"), x.permute(0, 3, 1, 2),
+                  dtype).permute(0, 2, 3, 1)
+            for i, x in enumerate(inputs)
+        ]
+        for i in range(len(laterals) - 1, 0, -1):
+            up = upsample2x_nearest(laterals[i], laterals[i - 1].shape[1:3])
+            laterals[i - 1] = laterals[i - 1] + up
+        return [
+            _conv(getattr(self, f"fpn_{i}"), lat.permute(0, 3, 1, 2),
+                  dtype).permute(0, 2, 3, 1)
+            for i, lat in enumerate(laterals)
+        ]
+
+
+class DenseDepthNet(nn.Module):
+    """Training-only per-level 1x1-conv depth head: `exp()` of an fp32
+    1x1 conv, scaled by focal / equal_focal."""
+
+    def __init__(self, num_depth_layers: int = 3, in_channels: int = 256,
+                 equal_focal: float = 100.0):
+        super().__init__()
+        self.num_depth_layers = num_depth_layers
+        self.equal_focal = equal_focal
+        for i in range(num_depth_layers):
+            self.add_module(f"depth_layer_{i}",
+                            nn.Conv2d(in_channels, 1, 1))
+
+    def forward(self, feature_maps: Sequence[torch.Tensor],
+                focal: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """feature_maps: per level [bs, cams, H, W, C]; focal [bs, cams]
+        -> per level [bs, cams, H, W] float32."""
+        depths = []
+        for i, feat in enumerate(feature_maps[: self.num_depth_layers]):
+            bs, cams, h, w, c = feat.shape
+            x = feat.float().reshape(bs * cams, h, w, c).permute(0, 3, 1, 2)
+            d = torch.exp(_conv(getattr(self, f"depth_layer_{i}"), x,
+                                torch.float32))[:, 0].reshape(bs, cams, h, w)
+            if focal is not None:
+                d = d * (focal[:, :, None, None] / self.equal_focal)
+            depths.append(d)
+        return depths

@@ -1,13 +1,17 @@
 """SimPB detector: trunk -> FPN -> packed features -> decoder head
-(port of the inference path of `simpb_tpu/models/detector.py`).
+(port of `simpb_tpu/models/detector.py`).
 
-The six cameras fold into the batch for the trunk, which always runs
-the fused inference path (`models/backbone.py`): in the JAX package
+The six cameras fold into the batch for the trunk. Serving
+(`train=False`, under `torch.no_grad`) always runs the fused inference
+trunk of `models/backbone.py` in `compute_dtype` (in the JAX package
 `backbone_fused_infer` picks between two trunks that compute the same
-function; the port has only this one until the training path brings
-the module trunk. The trunk computes in `compute_dtype` and the feature
-column stays in it; the head computes in `head_dtype` (`bench.py`
-serves both in bfloat16). Not ported yet: `stem_s2d` and FPNs with
+function). Training (`train=True`) runs the JAX training path: the grid
+mask on the folded images, the module trunk (rematerialised per
+bottleneck under `backbone_remat`) and module FPN, `depth_preds` from
+the `DenseDepthNet`, and the head's training program. The feature column
+stays in the trunk's dtype; the head computes in `head_dtype`. `rngs`
+holds the training generators under JAX's rng names: "aug" (grid mask),
+"dropout" and "sampling". Not ported yet: `stem_s2d` and FPNs with
 other than 4 levels.
 """
 from __future__ import annotations
@@ -19,9 +23,13 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from ..ops.format import pack_feature_maps
-from .backbone import FPN, ResNet
+from ..training.dn import DnState
+from ..training.targets3d import DnBundle
+from .backbone import FPN, DenseDepthNet, ResNet
+from .grid_mask import grid_mask
 from .head import SimPBHead, check_head_config
 from .instance_bank import TemporalState
+from .layers import dropout_generator
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,14 +46,20 @@ def check_serving_config(cfg: ModelConfig) -> None:
 
 
 class SimPB(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """`train=True` builds the training tree: the depth branch and every
+    refine3d's class and quality branches."""
+
+    def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
         check_serving_config(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.img_backbone = ResNet(cfg.backbone_depth)
         self.img_neck = FPN((256, 512, 1024, 2048), cfg.head.embed_dims)
-        self.head = SimPBHead(cfg.head, DTYPES[cfg.head_dtype])
+        self.head = SimPBHead(cfg.head, DTYPES[cfg.head_dtype], train)
+        if train:
+            self.depth_branch = DenseDepthNet(cfg.num_depth_layers,
+                                              cfg.head.embed_dims)
 
     def extract_feat(self, img: torch.Tensor):
         """img [bs, cams, H, W, 3] -> (col_feats [bs, cams, ΣHW, C],
@@ -57,7 +71,25 @@ class SimPB(nn.Module):
         feats = [f.reshape((bs, cams) + tuple(f.shape[1:])) for f in feats]
         return pack_feature_maps(feats)
 
-    @torch.no_grad()
+    def extract_feat_train(self, img: torch.Tensor, focal=None,
+                           aug: Optional[torch.Generator] = None):
+        """The training trunk: img [bs, cams, H, W, 3] -> (col_feats,
+        spatial_shapes, depth_preds)."""
+        bs, cams = img.shape[:2]
+        x = img.reshape((bs * cams,) + tuple(img.shape[2:]))
+        if self.cfg.use_grid_mask:
+            if aug is None:
+                raise ValueError("training with the grid mask needs an "
+                                 "'aug' generator")
+            x = grid_mask(aug, x)
+        feats = self.img_backbone.forward_train(x, self.compute_dtype,
+                                                self.cfg.backbone_remat)
+        feats = self.img_neck.forward_train(feats, self.compute_dtype)
+        feats = [f.reshape((bs, cams) + tuple(f.shape[1:])) for f in feats]
+        depths = self.depth_branch(feats, focal)
+        col_feats, spatial_shapes = pack_feature_maps(feats)
+        return col_feats, spatial_shapes, depths
+
     def forward(
         self,
         img: torch.Tensor,  # [bs, cams, H, W, 3]
@@ -65,10 +97,30 @@ class SimPB(nn.Module):
         temporal: Optional[TemporalState] = None,
         time_interval: Optional[torch.Tensor] = None,  # [bs]
         temp2cur: Optional[torch.Tensor] = None,  # [bs, 4, 4]
+        focal: Optional[torch.Tensor] = None,  # [bs, cams]
+        dn: Optional[DnBundle] = None,
+        dn_state: Optional[DnState] = None,
+        train: bool = False,
+        rngs: Optional[Dict[str, torch.Generator]] = None,
     ) -> Dict[str, Any]:
-        col_feats, spatial_shapes = self.extract_feat(img)
-        return self.head(
-            col_feats, spatial_shapes, projection_mat.float(),
-            self.cfg.input_size, temporal=temporal,
-            time_interval=time_interval, temp2cur=temp2cur,
-        )
+        if not train:
+            with torch.no_grad():
+                col_feats, spatial_shapes = self.extract_feat(img)
+                return self.head(
+                    col_feats, spatial_shapes, projection_mat.float(),
+                    self.cfg.input_size, temporal=temporal,
+                    time_interval=time_interval, temp2cur=temp2cur,
+                )
+        rngs = rngs or {}
+        col_feats, spatial_shapes, depths = self.extract_feat_train(
+            img, focal, rngs.get("aug"))
+        with dropout_generator(rngs.get("dropout")):
+            outs = self.head(
+                col_feats, spatial_shapes, projection_mat.float(),
+                self.cfg.input_size, temporal=temporal,
+                time_interval=time_interval, temp2cur=temp2cur, dn=dn,
+                dn_state=dn_state, train=True,
+                sampling=rngs.get("sampling"),
+            )
+        outs["depth_preds"] = depths
+        return outs

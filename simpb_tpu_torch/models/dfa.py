@@ -6,7 +6,9 @@ fusion weights with a camera embedding from the projection matrices,
 projection into every camera, then `ops/sampling.deformable_aggregation`.
 In `dtype`: the weights and their softmax, the camera embedding and
 `output_proj`; the points and weights are cast to the features' dtype
-for the kernel, which returns float32, as in JAX.
+for the kernel, which returns float32, as in JAX. In training,
+`attn_drop` drops whole (camera, point) pairs of the weights with the
+installed dropout generator (`point_keep_draw`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,13 @@ from ..core import box3d
 from ..ops.format import SpatialShapes
 from ..ops.sampling import deformable_aggregation
 from .det3d_blocks import SparseBox3DKeyPointsGenerator
-from .layers import Dense, MLPStack
+from .layers import Dense, MLPStack, current_dropout_generator
+
+
+def point_keep_draw(generator: torch.Generator, shape, device):
+    """DFA's dropout draw: one uniform a (batch, anchor, camera, point),
+    shaped [bs, A, cams, 1, P, 1]."""
+    return torch.rand(tuple(shape), generator=generator, device=device)
 
 
 class DeformableFeatureAggregation(nn.Module):
@@ -27,8 +35,10 @@ class DeformableFeatureAggregation(nn.Module):
                  num_levels: int = 4, num_cams: int = 6,
                  num_learnable_pts: int = 6,
                  gather_capacity: Optional[int] = 4096,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = attn_drop
         self.embed_dims = embed_dims
         self.num_groups = num_groups
         self.num_levels = num_levels
@@ -62,6 +72,13 @@ class DeformableFeatureAggregation(nn.Module):
             bs, num_anchor, self.num_cams, self.num_levels, num_pts,
             self.num_groups,
         )
+        gen = current_dropout_generator()
+        if self.attn_drop > 0 and gen is not None:
+            u = point_keep_draw(gen, (bs, num_anchor, self.num_cams, 1,
+                                      num_pts, 1), weights.device)
+            weights = torch.where(u > self.attn_drop, weights,
+                                  torch.zeros_like(weights)) / (
+                1 - self.attn_drop)
         points_2d = box3d.project_points(key_points, projection_mat, image_wh)
         points_2d = points_2d.permute(0, 2, 3, 1, 4)  # [bs, A, P, cams, 2]
         w = weights.permute(0, 1, 4, 2, 3, 5)  # [bs, A, P, cams, L, G]

@@ -8,7 +8,9 @@
   with top-k level selection and valid-slot compaction, sampling the
   RAW feature column and applying the value projection to the sampled
   rows afterwards, with the `(wsum - 1) * bias` border correction
-  (the order the JAX serving head computes in).
+  (the order the JAX serving head computes in). In training
+  (`project_first`) the value projection runs on the feature column
+  before sampling, as the JAX training head computes it.
 
 Both compute in `dtype`. In bf16 the offsets and attention weights come
 out of bf16 layers; the locations are float32 (float32 reference points
@@ -25,15 +27,18 @@ import torch.nn as nn
 
 from ..ops.format import SpatialShapes
 from ..ops.sampling import msda_patch, topk_stable
-from .layers import Dense, MultiheadAttention
+from .layers import Dense, MultiheadAttention, dropout
 
 
 class QueryGroupSelfAttention(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int = 8,
-                 num_cams: int = 6, dtype: torch.dtype = torch.float32):
+                 num_cams: int = 6, dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0, out_drop: float = 0.0):
         super().__init__()
         self.num_cams = num_cams
-        self.attn = MultiheadAttention(embed_dims, num_heads, dtype)
+        self.out_drop = out_drop
+        self.attn = MultiheadAttention(embed_dims, num_heads, dtype,
+                                       attn_drop)
 
     def forward(self, query, value, valid, identity=None):
         """query/value [bs, cams*K, E], valid [bs, cams*K] bool."""
@@ -44,7 +49,8 @@ class QueryGroupSelfAttention(nn.Module):
         key_mask = fold(valid)
         bias = torch.zeros(key_mask.shape, dtype=q.dtype, device=q.device)
         bias = bias.masked_fill(~key_mask, float("-inf"))[:, None, :]
-        out = self.attn(q, q, fold(value), attn_mask=bias)
+        out = dropout(self.attn(q, q, fold(value), attn_mask=bias),
+                      self.out_drop)
         base = query if identity is None else identity
         return base + out.reshape(bs, q_total, e)
 
@@ -72,8 +78,9 @@ class QueryGroupMSDA(nn.Module):
                  num_cams: int = 6, gather_capacity: Optional[int] = None,
                  sel_levels: Optional[int] = None,
                  patch_hw: Tuple[int, int] = (8, 8),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.num_levels = num_levels
@@ -114,10 +121,14 @@ class QueryGroupMSDA(nn.Module):
         return out + corr * bias
 
     def forward(self, query, query_pos, reference_points, ref_depth,
-                value: torch.Tensor, spatial_shapes: SpatialShapes):
+                value: torch.Tensor, spatial_shapes: SpatialShapes,
+                project_first: bool = False,
+                capacity_override: Optional[int] = None):
         """query/query_pos [bs, cams*K, C], reference_points [bs, cams*K,
         2], ref_depth [bs, cams*K, 1], value [bs, cams, ΣHW, C] (raw
-        features). Returns [bs, cams*K, 2C]."""
+        features). Returns [bs, cams*K, 2C]. `project_first` projects the
+        value column before sampling (the training order);
+        `capacity_override` replaces `gather_capacity`."""
         bs, q_total, _ = query.shape
         heads, levels, points = (self.num_heads, self.num_levels,
                                  self.num_points)
@@ -126,7 +137,11 @@ class QueryGroupMSDA(nn.Module):
         identity = query
         if query_pos is not None:
             query = query + query_pos
-        v = value.reshape(b2, -1, self.embed_dims)
+        if project_first:
+            v = self.value_proj(value).to(value.dtype).reshape(
+                b2, -1, self.embed_dims)
+        else:
+            v = value.reshape(b2, -1, self.embed_dims)
         offsets = self.sampling_offsets(query).reshape(
             bs, q_total, heads, levels, points, 2
         )
@@ -147,6 +162,11 @@ class QueryGroupMSDA(nn.Module):
         w = attn.reshape(b2, k, heads, levels, points).float()
 
         def sample(loc_, w_):
+            if project_first:
+                return msda_patch(
+                    v, spatial_shapes, loc_, w_, patch_h=self.patch_hw[0],
+                    patch_w=self.patch_hw[1], sel_levels=self.sel_levels,
+                )
             sampled, wsum = msda_patch(
                 v, spatial_shapes, loc_, w_, patch_h=self.patch_hw[0],
                 patch_w=self.patch_hw[1], sel_levels=self.sel_levels,
@@ -154,7 +174,8 @@ class QueryGroupMSDA(nn.Module):
             )
             return self._project(sampled, wsum)
 
-        cap = self.gather_capacity
+        cap = (capacity_override if capacity_override is not None
+               else self.gather_capacity)
         if cap is not None and cap < k:
             valid = (ref_depth[..., 0] > 0).reshape(b2, k)
             score = valid.float() * (2.0 * k) - torch.arange(
@@ -175,5 +196,6 @@ class QueryGroupMSDA(nn.Module):
             )
         else:
             out = sample(loc, w)
-        out = self.output_proj(out.reshape(bs, q_total, self.embed_dims))
+        out = dropout(self.output_proj(
+            out.reshape(bs, q_total, self.embed_dims)), self.drop)
         return torch.cat([out, identity], dim=-1)

@@ -97,17 +97,23 @@ class InstanceBank:
 
     def update(self, instance_feature, anchor, confidence_logits,
                temp_feature, temp_anchor, temp_mask):
-        """Merge the fresh top-(A-T) instances with the cached T."""
-        n = self.num_anchor - self.num_temp_instances
-        conf = confidence_logits.amax(dim=-1)
+        """Merge the fresh top-(A-T) instances with the cached T; a
+        trailing denoising block (training) is left untouched."""
+        a = self.num_anchor
+        dn_feature, dn_anchor = instance_feature[:, a:], anchor[:, a:]
+        instance_feature, anchor = instance_feature[:, :a], anchor[:, :a]
+        n = a - self.num_temp_instances
+        conf = confidence_logits[:, :a].amax(dim=-1)
         _, (sel_feature, sel_anchor) = topk_gather(
             conf, n, instance_feature, anchor
         )
         sel_feature = torch.cat([temp_feature, sel_feature], dim=1)
         sel_anchor = torch.cat([temp_anchor, sel_anchor], dim=1)
         m = temp_mask[:, None, None]
-        return (torch.where(m, sel_feature, instance_feature),
-                torch.where(m, sel_anchor, anchor))
+        return (torch.cat([torch.where(m, sel_feature, instance_feature),
+                           dn_feature], dim=1),
+                torch.cat([torch.where(m, sel_anchor, anchor), dn_anchor],
+                          dim=1))
 
     def cache(self, instance_feature, anchor, confidence_logits,
               state: Optional[TemporalState], temp_mask=None,

@@ -11,16 +11,57 @@ softmax runs in the dtype of its logits. Elsewhere the dtypes follow
 type promotion, which in PyTorch matches JAX's except for a 0-dim
 float32 tensor beside a bf16 one (JAX promotes to float32, PyTorch
 keeps bf16); the head's modules hold no such pair.
+
+Dropout (training only) draws from the generator that
+`dropout_generator` installs for the length of a training forward; with
+none installed, or a rate of 0, `dropout` is the identity (flax's
+`deterministic=True`). `dropout_keep` is its one draw.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 LN_EPS = 1e-5
+_DROPOUT_GEN: contextvars.ContextVar = contextvars.ContextVar(
+    "dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Dropout draws from `generator` inside (None: no dropout)."""
+    token = _DROPOUT_GEN.set(generator)
+    try:
+        yield
+    finally:
+        _DROPOUT_GEN.reset(token)
+
+
+def current_dropout_generator() -> Optional[torch.Generator]:
+    return _DROPOUT_GEN.get()
+
+
+def dropout_keep(generator: torch.Generator, shape, keep_prob: float,
+                 device) -> torch.Tensor:
+    """Bernoulli(keep_prob) keep mask (uniform < keep_prob, as
+    `jax.random.bernoulli`)."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout at `rate` with the installed generator."""
+    gen = _DROPOUT_GEN.get()
+    if rate <= 0.0 or gen is None:
+        return x
+    keep = dropout_keep(gen, x.shape, 1.0 - rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Dense(nn.Linear):
@@ -108,10 +149,12 @@ class MultiheadAttention(nn.Module):
     additive, [L, S] or [bs, L, S]. Fully masked rows give zeros."""
 
     def __init__(self, embed_dims: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
         # JAX divides by sqrt(head dim) taken in the compute dtype
         self.scale = float(torch.tensor(float(embed_dims // num_heads),
                                         dtype=dtype, device="cpu").sqrt())
@@ -145,19 +188,21 @@ class MultiheadAttention(nn.Module):
             elif bias.dim() == 3:
                 bias = bias[:, None]
             logits = logits + bias
-        probs = masked_softmax(logits, dim=-1)
+        probs = dropout(masked_softmax(logits, dim=-1), self.attn_drop)
         out = torch.einsum("bhls,bhsd->bhld", probs, v)
         return self.out_proj(out.transpose(1, 2).reshape(bs, L, e))
 
 
 class ResidualAttention(nn.Module):
-    """`identity + attn(q + pos, k + pos, v)` (mmcv MultiheadAttention
-    wrapper; dropouts are inference no-ops)."""
+    """`identity + dropout(attn(q + pos, k + pos, v))` (mmcv
+    MultiheadAttention wrapper: `drop` is both the attention-prob and the
+    output dropout)."""
 
     def __init__(self, embed_dims: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
         super().__init__()
-        self.attn = MultiheadAttention(embed_dims, num_heads, dtype)
+        self.out_drop = drop
+        self.attn = MultiheadAttention(embed_dims, num_heads, dtype, drop)
 
     def forward(self, query, key=None, value=None, query_pos=None,
                 key_pos=None, attn_mask=None, identity=None):
@@ -173,7 +218,8 @@ class ResidualAttention(nn.Module):
             key_pos = query_pos
         q = query + query_pos if query_pos is not None else query
         k = key + key_pos if key_pos is not None else key
-        return identity + self.attn(q, k, value, attn_mask=attn_mask)
+        return identity + dropout(self.attn(q, k, value, attn_mask=attn_mask),
+                                  self.out_drop)
 
 
 class AsymmetricFFN(nn.Module):
@@ -182,8 +228,9 @@ class AsymmetricFFN(nn.Module):
 
     def __init__(self, embed_dims: int = 256, in_channels: int = 512,
                  feedforward_channels: int = 1024,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ffn_drop: float = 0.0):
         super().__init__()
+        self.ffn_drop = ffn_drop
         self.pre_norm = LayerNorm(in_channels, dtype)
         self.fc1 = Dense(in_channels, feedforward_channels, dtype=dtype)
         self.fc2 = Dense(feedforward_channels, embed_dims, dtype=dtype)
@@ -193,7 +240,8 @@ class AsymmetricFFN(nn.Module):
 
     def forward(self, x):
         x = self.pre_norm(x)
-        out = self.fc2(torch.relu(self.fc1(x)))
+        out = dropout(torch.relu(self.fc1(x)), self.ffn_drop)
+        out = dropout(self.fc2(out), self.ffn_drop)
         identity = self.identity_fc(x) if self.has_identity_fc else x
         return identity + out
 

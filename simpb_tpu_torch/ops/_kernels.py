@@ -37,6 +37,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # C signatures: source name -> {function: (argtypes, restype)}
 PROBE_SIG = ((P, P, I, I, I, I, P), I)  # x, y, N, H, W, C, stream
 SIGNATURES = {
+    "assignment": {
+        # cost, col4row, B, R, C, stream
+        "simpb_lsa": ((P, P, I, I, I, P), I),
+    },
     "conv_fused": {
         "simpb_maxpool_3x3_s2": ((P, P, I, I, I, I, I, P), I),
         "simpb_bottleneck": (
@@ -69,6 +73,12 @@ SIGNATURES = {
         "simpb_dfa": ((P,) * 7 + (I, P), I),
         # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
         "simpb_msda_sel": ((P,) * 6 + (I, P), I),
+        # col, points, weights, thresholds, grad out, grad col, grad
+        # points, grad weights, dims, strides, dtype, stream
+        "simpb_dfa_bwd": ((P,) * 10 + (I, P), I),
+        # value, loc, attw, grad sampled, grad wsum, grad value, grad loc,
+        # grad attw, dims, dtype, stream
+        "simpb_msda_sel_bwd": ((P,) * 9 + (I, P), I),
     },
 }
 

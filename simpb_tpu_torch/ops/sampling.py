@@ -35,6 +35,16 @@ the C entry reads, built once per shape; a shape the kernels do not take
 raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
 fp32 on the CUDA cores (the wrapper picks by dtype alone); DFA is one
 kernel for both dtypes.
+
+Training: both wrappers are differentiable. On the CPU autograd runs
+through the plain versions. On the card each is a
+`torch.autograd.Function` whose backward is a kernel of its own
+(`deformable_aggregation_backward`, kernel B: DFA's Function saves the
+forward's capacity thresholds, so the backward keeps exactly the slots
+the forward kept; `msda_patch_sel_backward`, kernel C: the Function
+saves only its inputs and the kernel recomputes the windows). The
+feature gradients are fp32 `atomicAdd` sums rounded once to the
+features' dtype, so their order varies from launch to launch.
 """
 from __future__ import annotations
 
@@ -56,7 +66,9 @@ MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
 # 8x8 windows, 4 points a head (and at most 8 heads), as in every
 # configuration of the repo
 MSDA_TC_SHAPE = (2, 8, 8, 4)
-_LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0}
+_LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0,
+             "deformable_aggregation_backward": 0,
+             "msda_patch_sel_backward": 0}
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,7 +155,8 @@ def bilinear_sample(
 def dfa_slots(points_2d: torch.Tensor, weights: torch.Tensor,
               gather_capacity: Optional[int] = None):
     """The (camera row, slot) samples DFA gathers: (loc [b, m, 2], w_all
-    [b, m, L, G], sel_valid [b, m], anchor_idx [b, m]) with b = bs * cams.
+    [b, m, L, G], sel_valid [b, m], slot [b, m]) with b = bs * cams and
+    slot = a * P + p.
 
     With `gather_capacity` M < A*P, each camera keeps only its first M
     in-range (anchor, point) slots in slot order a * P + p (the score
@@ -164,10 +177,8 @@ def dfa_slots(points_2d: torch.Tensor, weights: torch.Tensor,
         & (loc[..., 1] > 0.0) & (loc[..., 1] < 1.0)
     )
     if gather_capacity is None or gather_capacity >= s:
-        anchor_idx = (torch.arange(s, device=dev) // num_pts)[None].expand(
-            b, s
-        )
-        return loc, w_all, in_range, anchor_idx
+        return loc, w_all, in_range, torch.arange(s, device=dev)[None].expand(
+            b, s)
     m = gather_capacity
     score = in_range.float() * (2.0 * s) - torch.arange(
         s, dtype=torch.float32, device=dev
@@ -177,7 +188,7 @@ def dfa_slots(points_2d: torch.Tensor, weights: torch.Tensor,
     w_all = torch.gather(
         w_all, 1, sel[..., None, None].expand(b, m, num_levels, num_groups)
     )
-    return loc, w_all, torch.gather(in_range, 1, sel), sel // num_pts
+    return loc, w_all, torch.gather(in_range, 1, sel), sel
 
 
 def deformable_aggregation_plain(
@@ -198,8 +209,9 @@ def deformable_aggregation_plain(
     group_dims = c // num_groups
     b = bs * cams
     dev = col_feats.device
-    loc, w_all, sel_valid, anchor_idx = dfa_slots(points_2d, weights,
-                                                  gather_capacity)
+    loc, w_all, sel_valid, slot = dfa_slots(points_2d, weights,
+                                            gather_capacity)
+    anchor_idx = slot // points_2d.shape[2]
     m = loc.shape[1]
 
     table = col_feats.reshape(b * total_hw, c)
@@ -324,19 +336,7 @@ def _stride_array(strides: Tuple[int, ...]):
     return _kernels.int_array(strides, ctypes.c_longlong)
 
 
-def deformable_aggregation(
-    col_feats: torch.Tensor,  # [bs, cams, ΣHW, C]
-    spatial_shapes: SpatialShapes,
-    points_2d: torch.Tensor,  # [bs, A, P, cams, 2]
-    weights: torch.Tensor,  # [bs, A, P, cams, L, G]
-    gather_capacity: Optional[int] = None,
-) -> torch.Tensor:
-    """Fused multi-camera multi-scale deformable aggregation ->
-    [bs, A, C] float32 (see `deformable_aggregation_plain`).
-
-    Points and weights share the features' dtype (float32 or bfloat16)
-    and may have any strides; the features must be contiguous (on the
-    card 16-byte aligned, with C/G a multiple of 8)."""
+def _check_dfa(col_feats, spatial_shapes, points_2d, weights):
     what = "deformable_aggregation"
     _check_devices(what, col_feats, points_2d, weights)
     _check_storage(what, col_feats, "col_feats")
@@ -355,23 +355,241 @@ def deformable_aggregation(
                          f"{tuple(points_2d.shape)}, {tuple(weights.shape)} "
                          "do not fit together")
     _check_levels(what, spatial_shapes, total_hw)
-    if col_feats.device.type == "cpu":
-        return deformable_aggregation_plain(
-            col_feats, spatial_shapes, points_2d, weights, gather_capacity)
-    plan = plan_dfa(bs, cams, num_anchor, num_pts, num_groups, c,
+
+
+def _dfa_plan(col_feats, spatial_shapes, points_2d, weights,
+              gather_capacity):
+    bs, cams, _, c = col_feats.shape
+    num_anchor, num_pts = points_2d.shape[1:3]
+    return plan_dfa(bs, cams, num_anchor, num_pts, weights.shape[-1], c,
                     gather_capacity, spatial_shapes.shapes)
+
+
+def _dfa_launch(col_feats, spatial_shapes, points_2d, weights,
+                gather_capacity):
+    """Kernel launch of the forward -> (out, the rank pass's count
+    thresholds or None)."""
+    what = "deformable_aggregation"
+    plan = _dfa_plan(col_feats, spatial_shapes, points_2d, weights,
+                     gather_capacity)
     _check_aligned(what, col_feats, "col_feats")
     dev = col_feats.device
+    bs, _, _, c = col_feats.shape
     scratch = (torch.empty(plan.scratch, dtype=torch.int32, device=dev)
                if plan.scratch else None)
-    out = torch.empty((bs, num_anchor, c), dtype=torch.float32, device=dev)
+    out = torch.empty((bs, points_2d.shape[1], c), dtype=torch.float32,
+                      device=dev)
     _kernels.check(_kernels.load("sampling").simpb_dfa(
         *map(_kernels.ptr, (col_feats, points_2d, weights, scratch, out)),
         plan.dims, _stride_array(points_2d.stride() + weights.stride()),
         _kernels.DTYPE_CODE[col_feats.dtype],
         ctypes.c_void_p(_kernels.stream_ptr(col_feats))), what)
     _LAUNCHES["deformable_aggregation"] += 1
-    return out
+    return out, scratch
+
+
+@functools.lru_cache(maxsize=None)
+def plan_dfa_backward(bs: int, cams: int, num_anchor: int, num_pts: int,
+                      num_groups: int, c: int, gather_capacity: Optional[int],
+                      shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """Kernel B's launch: one block per (anchor, batch) of teams of C / 8
+    threads (C / 8 a power of two up to 32, and so C / G / 8), the live
+    entries' corner data and weights in shared memory."""
+    what = "deformable_aggregation_backward"
+    fwd = plan_dfa(bs, cams, num_anchor, num_pts, num_groups, c,
+                   gather_capacity, shapes)
+    ch = c // 8
+    gsz = ch // num_groups
+    if ch > 32 or ch & (ch - 1) or gsz & (gsz - 1):
+        raise ValueError(f"{what}: C / 8 = {ch} and C / G / 8 = {gsz} must "
+                         "be powers of two, C / 8 at most 32")
+    threads = max(32, (DFA_THREADS // ch) * ch)
+    entries = cams * num_pts * len(shapes)
+    smem = entries * (56 + 4 * num_groups)
+    if smem > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {entries} samples per anchor do not fit "
+                         "in shared memory")
+    dims = list(fwd.dims)
+    dims[9], dims[10] = threads, smem
+    return SamplingPlan((num_anchor, bs), threads, smem, 0,
+                        _kernels.int_array(dims))
+
+
+def deformable_aggregation_backward(
+    col_feats: torch.Tensor, spatial_shapes: SpatialShapes,
+    points_2d: torch.Tensor, weights: torch.Tensor,
+    grad_out: torch.Tensor, gather_capacity: Optional[int] = None,
+    thresholds: Optional[torch.Tensor] = None,
+):
+    """Kernel B: the gradients (col_feats, points_2d, weights), each in
+    its input's dtype, of `deformable_aggregation` at grad_out [bs, A, C].
+    `thresholds` is the forward's saved capacity compaction (None when
+    the capacity does not bite). CUDA tensors only."""
+    what = "deformable_aggregation_backward"
+    _check_dfa(col_feats, spatial_shapes, points_2d, weights)
+    if col_feats.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors")
+    bs, cams, total_hw, c = col_feats.shape
+    num_anchor, num_pts = points_2d.shape[1:3]
+    plan = plan_dfa_backward(bs, cams, num_anchor, num_pts, weights.shape[-1],
+                             c, gather_capacity, spatial_shapes.shapes)
+    if (thresholds is None) != (plan.dims[8] < 0):
+        raise ValueError(f"{what}: the forward's thresholds are needed "
+                         "exactly when the capacity bites")
+    dev = col_feats.device
+    gout = grad_out.float().contiguous()
+    gcol = torch.zeros(col_feats.shape, dtype=torch.float32, device=dev)
+    gpts = torch.zeros(points_2d.shape, dtype=torch.float32, device=dev)
+    gwts = torch.zeros(weights.shape, dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.load("sampling").simpb_dfa_bwd(
+        *map(_kernels.ptr, (col_feats, points_2d, weights, thresholds, gout,
+                            gcol, gpts, gwts)),
+        plan.dims, _stride_array(points_2d.stride() + weights.stride()),
+        _kernels.DTYPE_CODE[col_feats.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(col_feats))), what)
+    _LAUNCHES["deformable_aggregation_backward"] += 1
+    return (gcol.to(col_feats.dtype), gpts.to(points_2d.dtype),
+            gwts.to(weights.dtype))
+
+
+def deformable_aggregation_backward_plain(
+    col_feats, spatial_shapes, points_2d, weights, grad_out,
+    gather_capacity=None,
+):
+    """Kernel B's plain version: the gradients (col_feats, points_2d,
+    weights) of `deformable_aggregation_plain` at grad_out [bs, A, C],
+    each an fp32 sum over the forward's rounded quantities (corner
+    weights, samples, in the storage type), rounded once to its input's
+    dtype. Slots the capacity drops and samples out of range get zero."""
+    bs, cams, total_hw, c = col_feats.shape
+    num_anchor, num_pts = points_2d.shape[1:3]
+    num_levels, num_groups = weights.shape[-2:]
+    gd = c // num_groups
+    b = bs * cams
+    dev = col_feats.device
+    dt = col_feats.dtype
+    loc, w_all, sel_valid, slot = dfa_slots(points_2d, weights,
+                                            gather_capacity)
+    anchor_idx = slot // num_pts
+    m = loc.shape[1]
+    table = col_feats.reshape(b * total_hw, c)
+    batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
+    go = grad_out.float().reshape(bs, 1, num_anchor, c).expand(
+        bs, cams, num_anchor, c).reshape(b, num_anchor, c)
+    go = torch.gather(go, 1, anchor_idx[..., None].expand(b, m, c))
+    go = go * sel_valid[..., None].float()  # [b, m, C] fp32
+    gcol = torch.zeros((b * total_hw, c), dtype=torch.float32, device=dev)
+    gloc = torch.zeros((b, m, 2), dtype=torch.float32, device=dev)
+    gw = torch.zeros((b, m, num_levels, num_groups), dtype=torch.float32,
+                     device=dev)
+    e = lambda t: t.float()[..., None]
+    for lvl in range(num_levels):
+        h_, w_ = spatial_shapes.shapes[lvl]
+        base = batch_base + spatial_shapes.start_indices[lvl]
+        sampled, wx0, wx1, wy0, wy1 = _sample_rows(table, base, h_, w_, loc,
+                                                   True)
+        _, _, _, _, x0, y0, y1 = _corner_weights(loc, h_, w_, dt, True)
+        mx0 = e((x0 >= 0) & (x0 < w_))
+        mx1 = e((x0 + 1 >= 0) & (x0 + 1 < w_))
+        my0 = e((y0 >= 0) & (y0 < h_))
+        my1 = e((y1 >= 0) & (y1 < h_))
+        r0 = base + y0.clamp(0, h_ - 1) * w_
+        r1 = base + y1.clamp(0, h_ - 1) * w_
+        xc0, xc1 = x0.clamp(0, w_ - 1), (x0 + 1).clamp(0, w_ - 1)
+        rows = (r0 + xc0, r0 + xc1, r1 + xc0, r1 + xc1)
+        v00, v01, v10, v11 = (_take_rows(table, r).float() for r in rows)
+        gw_l = w_all[:, :, lvl].float()  # [b, m, G]
+        gw[:, :, lvl] = (go * sampled.float()).reshape(
+            b, m, num_groups, gd).sum(-1)
+        gs = go * gw_l[..., None].expand(b, m, num_groups, gd).reshape(
+            b, m, c)
+        for r, wk in zip(rows, (e(wy0) * e(wx0), e(wy0) * e(wx1),
+                                e(wy1) * e(wx0), e(wy1) * e(wx1))):
+            gcol.index_add_(0, r.clamp(0, table.shape[0] - 1).reshape(-1),
+                            (gs * wk).reshape(-1, c))
+        vx0 = e(wx0) * v00 + e(wx1) * v01
+        vx1 = e(wx0) * v10 + e(wx1) * v11
+        dlx = e(wy0) * (mx1 * v01 - mx0 * v00) + e(wy1) * (mx1 * v11
+                                                          - mx0 * v10)
+        dly = my1 * vx1 - my0 * vx0
+        gloc[..., 0] += (gs * dlx).sum(-1) * w_
+        gloc[..., 1] += (gs * dly).sum(-1) * h_
+    # scatter the slots back onto (anchor, point)
+    gpts = torch.zeros((b, num_anchor * num_pts, 2), dtype=torch.float32,
+                       device=dev)
+    gpts.scatter_(1, slot[..., None].expand(b, m, 2), gloc)
+    gwts = torch.zeros((b, num_anchor * num_pts, num_levels, num_groups),
+                       dtype=torch.float32, device=dev)
+    gwts.scatter_(1, slot[..., None, None].expand(gw.shape), gw)
+    gpts = gpts.reshape(bs, cams, num_anchor, num_pts, 2).permute(
+        0, 2, 3, 1, 4)
+    gwts = gwts.reshape(bs, cams, num_anchor, num_pts, num_levels,
+                        num_groups).permute(0, 2, 3, 1, 4, 5)
+    return (gcol.reshape(col_feats.shape).to(dt), gpts.to(points_2d.dtype),
+            gwts.to(weights.dtype))
+
+
+class _DfaPlainFunction(torch.autograd.Function):
+    """The CPU path: the plain forward, and kernel B's plain version as
+    its backward."""
+
+    @staticmethod
+    def forward(ctx, col_feats, points_2d, weights, spatial_shapes,
+                gather_capacity):
+        ctx.save_for_backward(col_feats, points_2d, weights)
+        ctx.args = (spatial_shapes, gather_capacity)
+        return deformable_aggregation_plain(col_feats, spatial_shapes,
+                                            points_2d, weights,
+                                            gather_capacity)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        col_feats, points_2d, weights = ctx.saved_tensors
+        ss, cap = ctx.args
+        return deformable_aggregation_backward_plain(
+            col_feats, ss, points_2d, weights, grad_out, cap) + (None, None)
+
+
+class _DfaFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, col_feats, points_2d, weights, spatial_shapes,
+                gather_capacity):
+        out, thresholds = _dfa_launch(col_feats, spatial_shapes, points_2d,
+                                      weights, gather_capacity)
+        ctx.save_for_backward(col_feats, points_2d, weights, thresholds)
+        ctx.spatial_shapes = spatial_shapes
+        ctx.gather_capacity = gather_capacity
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        col_feats, points_2d, weights, thresholds = ctx.saved_tensors
+        grads = deformable_aggregation_backward(
+            col_feats, ctx.spatial_shapes, points_2d, weights, grad_out,
+            ctx.gather_capacity, thresholds)
+        return grads + (None, None)
+
+
+def deformable_aggregation(
+    col_feats: torch.Tensor,  # [bs, cams, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    points_2d: torch.Tensor,  # [bs, A, P, cams, 2]
+    weights: torch.Tensor,  # [bs, A, P, cams, L, G]
+    gather_capacity: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused multi-camera multi-scale deformable aggregation ->
+    [bs, A, C] float32 (see `deformable_aggregation_plain`),
+    differentiable in all three tensors.
+
+    Points and weights share the features' dtype (float32 or bfloat16)
+    and may have any strides; the features must be contiguous (on the
+    card 16-byte aligned, with C/G a multiple of 8)."""
+    _check_dfa(col_feats, spatial_shapes, points_2d, weights)
+    if col_feats.device.type == "cpu":
+        return _DfaPlainFunction.apply(col_feats, points_2d, weights,
+                                       spatial_shapes, gather_capacity)
+    return _DfaFunction.apply(col_feats, points_2d, weights, spatial_shapes,
+                              gather_capacity)
 
 
 def _window_base(px, py, keep, ph, pw, hlim, wlim):
@@ -577,7 +795,9 @@ def _msda_patch_sel_plain(
     ph, pw = patch_h, patch_w
     rows, px, py, keep, a_s, base_x, base_y = msda_sel_windows(
         total_hw, spatial_shapes, loc, attw, ph, pw, k)
-    patch = _take_rows(value.reshape(b * total_hw, c), rows).reshape(
+    # the table in fp32 (exact): the same samples, and a value gradient
+    # summed in fp32 and rounded once
+    patch = _take_rows(value.float().reshape(b * total_hw, c), rows).reshape(
         b, q, k, ph * pw, c
     )
     wpix = _window_weights(px, py, keep, a_s, base_x, base_y, ph, pw)
@@ -639,22 +859,8 @@ def plan_msda_sel(num_rows: int, num_queries: int, n: int, heads: int,
                         _kernels.int_array(dims + _level_table(shapes)))
 
 
-def _msda_patch_sel(
-    value: torch.Tensor,  # [B, ΣHW, C]
-    spatial_shapes: SpatialShapes,
-    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
-    attw: torch.Tensor,  # [B, Q, L, n]
-    heads: int,
-    patch_h: int,
-    patch_w: int,
-    sel_levels: int,
-):
-    """Windowed MSDA at each query's top-`sel_levels` levels (see
-    `_msda_patch_sel_plain`) -> (sampled [B, Q, heads, C], wsum
-    [B, Q, heads]), float32. Value float32 or bfloat16, locations and
-    weights float32, all contiguous; every level must hold the window.
-    On the card bf16 values run on the tensor cores, fp32 on the CUDA
-    cores."""
+def _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
+                    patch_w, sel_levels):
     what = "_msda_patch_sel"
     _check_devices(what, value, loc, attw)
     _check_storage(what, value, "value")
@@ -680,9 +886,13 @@ def _msda_patch_sel(
                          f"width) must fit every level of "
                          f"{spatial_shapes.shapes}")
     _check_levels(what, spatial_shapes, total_hw)
-    if value.device.type == "cpu":
-        return _msda_patch_sel_plain(value, spatial_shapes, loc, attw, heads,
-                                     patch_h, patch_w, sel_levels)
+
+
+def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
+                     patch_w, sel_levels):
+    what = "_msda_patch_sel"
+    b, _, c = value.shape
+    q, _, n = loc.shape[1:4]
     plan = plan_msda_sel(b, q, n, heads, c, sel_levels, patch_h, patch_w,
                          value.dtype, spatial_shapes.shapes)
     _check_aligned(what, value, "value")
@@ -697,6 +907,121 @@ def _msda_patch_sel(
     return sampled, wsum
 
 
+MSDA_BWD_THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda_sel_backward(num_rows: int, num_queries: int, n: int,
+                           heads: int, c: int, k: int, ph: int, pw: int,
+                           shapes: Tuple[Tuple[int, int], ...]
+                           ) -> SamplingPlan:
+    """Kernel C's launch: one block per (query, camera row) of
+    MSDA_BWD_THREADS threads, both dtypes; shared memory for the window
+    weights and their gradients, the query's sampled-value gradient and
+    the samples."""
+    what = "msda_patch_sel_backward"
+    num_levels = len(shapes)
+    if (num_levels > MAX_LEVELS or heads > MAX_HEADS or n % heads
+            or not 0 < k <= num_levels or pw % 2):
+        raise ValueError(f"{what}: {heads} heads of {n} samples, {k} of "
+                         f"{num_levels} levels and a {ph}x{pw} window do "
+                         "not fit together")
+    smem = 4 * (2 * k * heads * ph * pw + heads * c + 6 * k * n)
+    if smem > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block do "
+                         "not fit")
+    dims = [num_rows, num_queries, num_levels, n, heads, c,
+            sum(h * w for h, w in shapes), k, ph, pw, MSDA_BWD_THREADS, smem]
+    return SamplingPlan((num_queries, num_rows), MSDA_BWD_THREADS, smem, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
+def msda_patch_sel_backward(value, spatial_shapes, loc, attw, heads,
+                            patch_h, patch_w, sel_levels, grad_sampled,
+                            grad_wsum):
+    """Kernel C: the gradients (value in its dtype, loc, attw fp32) of
+    `_msda_patch_sel` at grad_sampled [B, Q, heads, C] and grad_wsum
+    [B, Q, heads]. CUDA tensors only."""
+    what = "msda_patch_sel_backward"
+    _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
+                    patch_w, sel_levels)
+    if value.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors")
+    b, _, c = value.shape
+    q, _, n = loc.shape[1:4]
+    plan = plan_msda_sel_backward(b, q, n, heads, c, sel_levels, patch_h,
+                                  patch_w, spatial_shapes.shapes)
+    dev = value.device
+    gs = grad_sampled.float().contiguous()
+    gw = grad_wsum.float().contiguous()
+    gvalue = torch.zeros(value.shape, dtype=torch.float32, device=dev)
+    gloc = torch.zeros(loc.shape, dtype=torch.float32, device=dev)
+    gattw = torch.zeros(attw.shape, dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.load("sampling").simpb_msda_sel_bwd(
+        *map(_kernels.ptr, (value, loc, attw, gs, gw, gvalue, gloc, gattw)),
+        plan.dims, _kernels.DTYPE_CODE[value.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(value))), what)
+    _LAUNCHES["msda_patch_sel_backward"] += 1
+    return gvalue.to(value.dtype), gloc, gattw
+
+
+def msda_patch_sel_backward_plain(value, spatial_shapes, loc, attw, heads,
+                                  patch_h, patch_w, sel_levels, grad_sampled,
+                                  grad_wsum):
+    """Kernel C's plain version: autograd through `_msda_patch_sel_plain`
+    (fp32 sums, the value gradient rounded once to its dtype)."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(True) for t in (value, loc, attw)]
+        sampled, wsum = _msda_patch_sel_plain(
+            args[0], spatial_shapes, args[1], args[2], heads, patch_h,
+            patch_w, sel_levels)
+        return torch.autograd.grad([sampled, wsum], args,
+                                   [grad_sampled, grad_wsum])
+
+
+class _MsdaSelFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, loc, attw, spatial_shapes, heads, patch_h,
+                patch_w, sel_levels):
+        ctx.save_for_backward(value, loc, attw)
+        ctx.args = (spatial_shapes, heads, patch_h, patch_w, sel_levels)
+        return _msda_sel_launch(value, spatial_shapes, loc, attw, heads,
+                                patch_h, patch_w, sel_levels)
+
+    @staticmethod
+    def backward(ctx, grad_sampled, grad_wsum):
+        value, loc, attw = ctx.saved_tensors
+        ss, heads, ph, pw, k = ctx.args
+        grads = msda_patch_sel_backward(value, ss, loc, attw, heads, ph, pw,
+                                        k, grad_sampled, grad_wsum)
+        return grads + (None,) * 5
+
+
+def _msda_patch_sel(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    attw: torch.Tensor,  # [B, Q, L, n]
+    heads: int,
+    patch_h: int,
+    patch_w: int,
+    sel_levels: int,
+):
+    """Windowed MSDA at each query's top-`sel_levels` levels (see
+    `_msda_patch_sel_plain`) -> (sampled [B, Q, heads, C], wsum
+    [B, Q, heads]), float32, differentiable in value, loc and attw.
+    Value float32 or bfloat16, locations and weights float32, all
+    contiguous; every level must hold the window. On the card bf16
+    values run on the tensor cores, fp32 on the CUDA cores."""
+    _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
+                    patch_w, sel_levels)
+    if value.device.type == "cpu":
+        return _msda_patch_sel_plain(value, spatial_shapes, loc, attw, heads,
+                                     patch_h, patch_w, sel_levels)
+    return _MsdaSelFunction.apply(value, loc, attw, spatial_shapes, heads,
+                                  patch_h, patch_w, sel_levels)
+
+
 # the kernels of this module: (name, wrapper, plain version, the TPU op
 # it replaces, an XLA gather there)
 KERNELS = (
@@ -704,6 +1029,14 @@ KERNELS = (
      deformable_aggregation_plain, "simpb_tpu/ops/sampling.py:350"),
     ("msda_patch_sel", _msda_patch_sel, _msda_patch_sel_plain,
      "simpb_tpu/ops/sampling.py:892"),
+)
+# the backward kernels: (name, wrapper, plain version, the JAX op whose
+# gradient it computes)
+BACKWARD_KERNELS = (
+    ("deformable_aggregation_backward", deformable_aggregation_backward,
+     deformable_aggregation_backward_plain, "simpb_tpu/ops/sampling.py:350"),
+    ("msda_patch_sel_backward", msda_patch_sel_backward,
+     msda_patch_sel_backward_plain, "simpb_tpu/ops/sampling.py:892"),
 )
 
 

@@ -1,0 +1,127 @@
+"""Planted faults against chip_smoke's gradient check of kernels B and C.
+
+    python -m simpb_tpu_torch.tools.planted_faults
+
+`chip_smoke.grad_check` holds the DFA and MSDA-sel backward kernels to
+their plain versions element by element. To show that it sees a fault
+that drops a small part of a scattered gradient, the tool copies the
+checkout into `build/planted_faults/<fault>/`, edits one scatter of
+`csrc/sampling.cu` there (`FAULTS`), builds that copy and runs
+chip_smoke's synthetic gradient cases (fp32 and bf16) on it. It prints
+one JSON line per (fault, case): whether `grad_check` passes, whether
+the bound it replaced (`MAX_SCALED`: a share of the plain gradient's
+largest value) passes, and each gradient's worst share of the check's
+bound; then one summary line per fault. It exits 1 when the unchanged
+copy fails a case, or when a fault passes the check on every case of
+the kernel it edits. The copies are removed at the end. Needs the card.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+WORK = ROOT / "build" / "planted_faults"
+_B_SCATTER = "          if (wk[k] != 0.f && gg != 0.f)\n"
+_C_SCATTER = "      if (used && gv != 0.f) atomicAdd(gr + c, gv);"
+# fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
+FAULTS = {
+    "none": (None, None, None),
+    # kernel B: every entry of anchor 0 drops its fourth corner
+    "dfa_corner3_of_anchor0": (
+        "deformable_aggregation_backward", _B_SCATTER,
+        "          if (wk[k] != 0.f && gg != 0.f && !(k == 3 && a == 0))\n"),
+    # kernel B: scattered contributions below 1e-4 are dropped
+    "dfa_small_contributions": (
+        "deformable_aggregation_backward", _B_SCATTER,
+        "          if (wk[k] != 0.f && gg != 0.f && fabsf(gg * wk[k]) >= "
+        "1e-4f)\n"),
+    # kernel C: window pixel 0 of query 0 scatters nothing
+    "msda_pixel0_of_query0": (
+        "msda_patch_sel_backward", _C_SCATTER,
+        "      if (used && gv != 0.f && !(q == 0 && e == 0)) "
+        "atomicAdd(gr + c, gv);"),
+    # kernel C: value-gradient rows below 1e-4 are dropped
+    "msda_small_contributions": (
+        "msda_patch_sel_backward", _C_SCATTER,
+        "      if (used && gv != 0.f && fabsf(gv) >= 1e-4f) "
+        "atomicAdd(gr + c, gv);"),
+}
+MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def run_cases() -> None:
+    """Run in a copy's root: chip_smoke's synthetic gradient cases, one
+    JSON line each."""
+    import torch
+
+    sys.path.insert(0, ".")
+    import chip_smoke
+
+    from ..ops import sampling
+
+    bwd = {n: (w, p) for n, w, p, _ in sampling.BACKWARD_KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, name, args in chip_smoke.grad_cases(torch, sampling, [], gen):
+        wrapper, plain = bwd[name]
+        got = wrapper(*args)
+        ref = plain(*(args[:6] if name.startswith("deformable") else args))
+        ok, recs = chip_smoke.grad_check(got, ref)
+        scaled = all(
+            (g.float() - r.float()).abs().max().item()
+            <= MAX_SCALED[str(g.dtype).split(".")[-1]]
+            * r.float().abs().max().item()
+            for g, r in zip(got, ref))
+        print(json.dumps(dict(
+            case=label, kernel=name, dtype=str(args[0].dtype).split(".")[-1],
+            passes_check=ok, passes_max_scaled=scaled,
+            worst_share_of_bound=[r["worst_share_of_bound"] for r in recs])),
+            flush=True)
+
+
+def main() -> int:
+    from ..utils.device import resolve_device
+
+    resolve_device(None)  # raises without a card
+    bad = False
+    try:
+        for fault, (kernel, old, new) in FAULTS.items():
+            copy = WORK / fault
+            shutil.rmtree(copy, ignore_errors=True)
+            shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+                "build", ".git", "__pycache__"))
+            if old is not None:
+                src = copy / "simpb_tpu_torch" / "csrc" / "sampling.cu"
+                text = src.read_text()
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{fault}: the scatter to edit is not "
+                                       "in csrc/sampling.cu once")
+                src.write_text(text.replace(old, new))
+            out = subprocess.run(
+                [sys.executable, "-c", "from simpb_tpu_torch.tools."
+                 "planted_faults import run_cases; run_cases()"],
+                cwd=copy, capture_output=True, text=True, timeout=900)
+            if out.returncode:
+                raise RuntimeError(f"{fault}: {out.stderr[-3000:]}")
+            rows = [json.loads(ln) for ln in out.stdout.splitlines()
+                    if ln.startswith("{")]
+            for row in rows:
+                print(json.dumps(dict(fault=fault, **row)), flush=True)
+            mine = [r for r in rows if kernel in (None, r["kernel"])]
+            failed = sum(not r["passes_check"] for r in mine)
+            summary = dict(
+                fault=fault, kernel=kernel, cases=len(mine),
+                fail_check=failed,
+                fail_max_scaled=sum(not r["passes_max_scaled"] for r in mine))
+            print(json.dumps(summary), flush=True)
+            bad = bad or (failed > 0 if kernel is None else failed == 0)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,10 +12,11 @@ its JAX path; only layouts change:
     LayerNorm / BatchNorm scale      -> weight
     BatchNorm batch_stats mean / var -> running_mean / running_var
 
-JAX leaves with no counterpart are refused, except the two kinds the
-serving model does not hold: the training-only depth branch, and the
-cls / quality branches of intermediate refine3d layers (present in a
-tree initialised for training, unused at inference).
+JAX leaves with no counterpart are refused, except, for a serving
+model, the two kinds it does not hold: the training-only depth branch,
+and the cls / quality branches of intermediate refine3d layers (present
+in a tree initialised for training, unused at inference). The training
+model (`train=True`) holds both, and every leaf must be used.
 `to_jax_variables` goes the other way, from a model's values to the
 JAX tree (`utils/torch_convert.py` merges a checkpoint over it).
 """
@@ -112,13 +113,16 @@ def state_from_jax(model: nn.Module, variables: Mapping,
     return state
 
 
-def from_jax_variables(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """The state dict of `SimPB(cfg)` holding the JAX tree's values."""
+def from_jax_variables(variables: Mapping, cfg,
+                       train: bool = False) -> Dict[str, torch.Tensor]:
+    """The state dict of `SimPB(cfg, train)` holding the JAX tree's
+    values (a training model takes a training tree, leaf for leaf)."""
     from ..models.detector import SimPB
 
     with torch.device("meta"):
-        model = SimPB(cfg)
-    return state_from_jax(model, variables)
+        model = SimPB(cfg, train=train)
+    return state_from_jax(model, variables,
+                          unused_ok=None if train else _TRAIN_ONLY)
 
 
 def to_jax_variables(model: nn.Module) -> Dict:

@@ -256,3 +256,148 @@ def write_synthetic_infos(
     with open(path, "wb") as f:
         pickle.dump({"infos": infos, "metadata": {"version": "synthetic"}}, f)
     return path
+
+
+def synthetic_train_batch(cfg, bs: int, seed: int = 0, num_objects: int = 24,
+                          max_gt3d: int = 128, max_gt2d: int = 64):
+    """A training batch in the train step's contract, numpy arrays at
+    the config's shapes on the synthetic rig: `num_objects` boxes a
+    sample on the ground around the ego car (in view of the cameras),
+    GT padded to `max_gt3d` 3D and `max_gt2d` 2D boxes a camera (the data
+    pipeline's `pad_sample` sizes), each object's 2D box in every camera
+    that sees its centre, and sparse depth maps (the object centres'
+    depths) for the first `num_depth_layers` levels."""
+    rng = np.random.default_rng(seed)
+    w_img, h_img = cfg.input_size
+    cams = cfg.head.num_cams
+    proj = synthetic_rig(bs, (w_img, h_img), cams)
+    n = min(num_objects, max_gt3d)
+    boxes = np.zeros((bs, max_gt3d, 9), np.float32)
+    r = rng.uniform(6.0, 40.0, (bs, n))
+    th = rng.uniform(-np.pi, np.pi, (bs, n))
+    boxes[:, :n, 0] = r * np.cos(th)
+    boxes[:, :n, 1] = r * np.sin(th)
+    boxes[:, :n, 2] = rng.uniform(-1.0, 0.5, (bs, n))
+    boxes[:, :n, 3:6] = rng.uniform(0.5, 4.0, (bs, n, 3))
+    boxes[:, :n, 6] = rng.uniform(-np.pi, np.pi, (bs, n))
+    boxes[:, :n, 7:9] = rng.normal(size=(bs, n, 2))
+    valid = np.zeros((bs, max_gt3d), bool)
+    valid[:, :n] = True
+    labels = np.zeros((bs, max_gt3d), np.int32)
+    labels[:, :n] = rng.integers(0, cfg.head.num_classes, (bs, n))
+    inst = np.full((bs, max_gt3d), -1, np.int32)
+    inst[:, :n] = np.arange(bs * n).reshape(bs, n)
+
+    vis = np.zeros((bs, max_gt3d, cams), bool)
+    b2d_per3d = np.zeros((bs, max_gt3d, cams, 4), np.float32)
+    l2d_per3d = np.full((bs, max_gt3d, cams), -1, np.int32)
+    a2d_per3d = np.zeros((bs, max_gt3d, cams), np.float32)
+    b2d = np.zeros((bs, cams, max_gt2d, 4), np.float32)
+    l2d = np.zeros((bs, cams, max_gt2d), np.int32)
+    a2d = np.zeros((bs, cams, max_gt2d), np.float32)
+    v2d = np.zeros((bs, cams, max_gt2d), bool)
+    strides = cfg.strides[: cfg.num_depth_layers]
+    depth = [np.zeros((bs, cams, h_img // s, w_img // s), np.float32)
+             for s in strides]
+    signs = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)
+                      for sz in (-.5, .5)], np.float32)
+    for b in range(bs):
+        for i in range(n):
+            x, y, z, bw, bl, bh, yaw = boxes[b, i, :7]
+            c, s = np.cos(yaw), np.sin(yaw)
+            local = signs * np.array([bw, bl, bh], np.float32)
+            corners = np.stack([
+                x + local[:, 0] * c - local[:, 1] * s,
+                y + local[:, 0] * s + local[:, 1] * c,
+                z + local[:, 2]], -1)
+            pts = np.concatenate([corners, [[x, y, z]]], 0)
+            hom = np.concatenate([pts, np.ones((9, 1), np.float32)], -1)
+            for cam in range(cams):
+                p = hom @ proj[b, cam].T
+                d = p[:, 2]
+                if d[8] <= 0.1:
+                    continue
+                uv = p[:, :2] / np.maximum(d[:, None], 1e-5)
+                cu, cv = uv[8]
+                if not (0 < cu < w_img and 0 < cv < h_img):
+                    continue
+                front = d[:8] > 0.1
+                box = np.array([
+                    np.clip(uv[:8][front, 0].min(), 0, w_img),
+                    np.clip(uv[:8][front, 1].min(), 0, h_img),
+                    np.clip(uv[:8][front, 0].max(), 0, w_img),
+                    np.clip(uv[:8][front, 1].max(), 0, h_img)], np.float32)
+                alpha = float(np.arctan2(s, c) - np.arctan2(x, y))
+                vis[b, i, cam] = True
+                b2d_per3d[b, i, cam] = box
+                l2d_per3d[b, i, cam] = labels[b, i]
+                a2d_per3d[b, i, cam] = alpha
+                k = int(v2d[b, cam].sum())
+                if k < max_gt2d:
+                    b2d[b, cam, k] = box
+                    l2d[b, cam, k] = labels[b, i]
+                    a2d[b, cam, k] = alpha
+                    v2d[b, cam, k] = True
+                for lvl, st in enumerate(strides):
+                    depth[lvl][b, cam, int(cv) // st, int(cu) // st] = d[8]
+    fx = 1266.0 * w_img / 1600.0
+    return {
+        "img": rng.normal(size=(bs, cams, h_img, w_img, 3)).astype(
+            np.float32),
+        "projection_mat": proj,
+        "time_interval": np.full((bs,), 0.5, np.float32),
+        "temp2cur": np.tile(np.eye(4, dtype=np.float32), (bs, 1, 1)),
+        "focal": np.full((bs, cams), fx, np.float32),
+        "gt_boxes3d": boxes,
+        "gt_labels3d": labels,
+        "gt_valid3d": valid,
+        "gt_instance_id": inst,
+        "gt_boxes2d": b2d,
+        "gt_labels2d": l2d,
+        "gt_alphas2d": a2d,
+        "gt_valid2d": v2d,
+        "gt_vis2d_per3d": vis,
+        "gt_boxes2d_per3d": b2d_per3d,
+        "gt_labels2d_per3d": l2d_per3d,
+        "gt_alphas2d_per3d": a2d_per3d,
+        "gt_depth": depth,
+    }
+
+
+def batch_to_torch(batch, device=None):
+    """A numpy batch (lists of arrays kept as lists) as tensors on
+    `device` (the card unless the caller names another; raises without
+    a card)."""
+    import torch
+
+    from .device import resolve_device
+
+    device = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+    return {k: conv(v) for k, v in batch.items()}
+
+
+def dn_bundle_from_numpy(tree, device="cpu"):
+    """A `DnBundle` from a mapping of numpy arrays (a JAX bundle's
+    fields, for the tests)."""
+    import torch
+
+    from ..training.targets3d import DnBundle
+
+    return DnBundle(**{k: torch.from_numpy(np.asarray(v).copy()).to(device)
+                       for k, v in tree.items()})
+
+
+def dn_state_from_numpy(tree, device="cpu"):
+    """A `DnState` from a mapping of numpy arrays."""
+    import torch
+
+    from ..training.dn import DnState
+
+    return DnState(**{k: torch.from_numpy(np.asarray(v).copy()).to(device)
+                      for k, v in tree.items()})

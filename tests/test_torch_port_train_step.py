@@ -1,0 +1,308 @@
+"""The port's whole tiny training step against the JAX package's (slow:
+minutes of JAX compile, outside tier-1; run it with `-m slow`).
+
+`simpb_tiny` with the flagship's fast knobs, dropout rates 0 and no grid
+mask, so that the step is deterministic on both sides: JAX's head gets
+no "sampling" rng (allocation ranks in anchor order and `cache_dn` is
+skipped), and `flax.linen.Dropout` is made the identity for the test
+(the 2D self-attention's output dropout is 0.1 whatever the config says;
+the port runs it without a dropout generator, which is the identity
+too). The DN bundle comes from the same uniforms on both sides
+(`jax.random.split(key, 3)`, as `get_dn_anchors` draws them). Weights:
+a JAX training tree from a numpy seed, converted by
+`from_jax_variables(..., train=True)` and loaded with strict=True.
+
+The step is compared in its three parts, each on the same inputs: the
+trunk (with the depth branch) on the batch; the head and the loss on
+JAX's trunk outputs; the trunk's backward from JAX's gradients of those
+outputs. Together they are the whole step's loss and gradient; apart,
+neither package's rounding of the trunk reaches the other's head. The
+trunk is cut to depth 26 (one bottleneck a stage; the head is the tiny
+config's): at depth 50 and 64x32, a training step with random weights is
+ill-conditioned in fp32 (in the port alone, a 1e-6 relative change of
+the trunk's weights moves its outputs by 1.9e-4 and the gradients by up
+to 5.6 %, and a ReLU input within a rounding of zero flips between two
+fp32 evaluations; tests/test_torch_port_train_trunk.py).
+
+Compared: the trunk's outputs (1e-4 of the largest value: C5's batch
+statistics come from 12 values a channel), the loss dict (same keys,
+1e-4 relative), each layer's 3D and 2D assignment (the class targets
+exactly; a flip is reported with the labels), the gradient the head
+sends into the trunk and the gradient of every parameter (5e-4 of its
+largest value, the head's bound, plus 1e-6 for gradients that vanish in
+exact arithmetic, such as a key bias, which moves every logit of a row
+alike: both sides hold rounding noise of 1e-7 there; the frozen
+`instance_feature` is left out: JAX computes its gradient and its
+optimizer zeroes the update, the port's parameter takes none), the new
+`batch_stats` (1e-5) and the carried temporal state (atol 5e-4, rtol
+1e-3, as tests/test_torch_port_slice.py holds the assembled head).
+"""
+import dataclasses
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simpb_tpu.configs.base import TrainConfig as JTrainConfig
+from simpb_tpu.configs.base import simpb_tiny as jax_tiny
+from simpb_tpu.models.detector import SimPB as JaxSimPB
+from simpb_tpu.ops import format as jfmt
+from simpb_tpu.training import loss_head as jlh
+from simpb_tpu.training import targets2d as jt2
+from simpb_tpu.training import targets3d as jt3
+from simpb_tpu.training.train_step import init_temporal as jinit_temporal
+from simpb_tpu.utils.synthetic import synthetic_anchors
+from simpb_tpu_torch.configs.base import TrainConfig, simpb_tiny
+from simpb_tpu_torch.models.detector import SimPB
+from simpb_tpu_torch.training import loss_head as tlh
+from simpb_tpu_torch.training import targets2d as tt2
+from simpb_tpu_torch.training import targets3d as tt3
+from simpb_tpu_torch.training.train_step import init_temporal
+from simpb_tpu_torch.utils.convert import _sources, from_jax_variables
+from simpb_tpu_torch.utils.synthetic import (
+    batch_to_torch, synthetic_train_batch,
+)
+
+pytestmark = pytest.mark.slow
+BS = 1
+TRUNK_TOL = 1e-4  # see the module docstring
+GRAD_TOL, GRAD_FLOOR = 5e-4, 1e-6
+
+
+def _parity(cfg):
+    head = dataclasses.replace(
+        cfg.head, msda_patch_mode=True, msda_gather_capacity=6,
+        dfa_gather_capacity=256, msda_sel_levels=2, drop_out=0.0,
+        dfa_attn_drop=0.0,
+    )
+    return dataclasses.replace(cfg, head=head, use_grid_mask=False,
+                               backbone_depth=26)
+
+
+def _random_tree(shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    leaves = []
+    for path, leaf in flat:
+        keys = [str(getattr(k, "key", k)) for k in path]
+        name, shape = keys[-1], leaf.shape
+        if name == "kernel":
+            v = rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+            if keys[-2] == "out_fc":
+                v = 0.1 * v
+        elif name == "anchor":
+            v = synthetic_anchors(shape[0], seed)
+        elif name == "instance_feature":
+            v = np.zeros(shape)
+        elif name == "scale":
+            v = 1.0 + 0.1 * rng.normal(size=shape)
+        elif name == "mean":
+            v = 0.1 * rng.normal(size=shape)
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = 0.05 * rng.normal(size=shape)
+        leaves.append(np.asarray(v, np.float32))
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def _targets(sample3d, sample2d, outs, batch, image_wh):
+    t3 = [sample3d(c, p[..., :10], batch["gt_boxes3d"], batch["gt_labels3d"],
+                   batch["gt_valid3d"])[0]
+          for c, p in zip(outs["classification"], outs["prediction"])]
+    t2 = [sample2d(c, p, a.valid, batch["gt_boxes2d"], batch["gt_labels2d"],
+                   batch["gt_alphas2d"], batch["gt_valid2d"], image_wh)[0]
+          for c, p, a in zip(outs["classification2d"], outs["prediction2d"],
+                             outs["allocations"])]
+    return t3, t2
+
+
+@pytest.fixture(scope="module")
+def step_run():
+    torch.set_num_threads(1)
+    jcfg, tcfg = _parity(jax_tiny()), _parity(simpb_tiny())
+    batch_np = synthetic_train_batch(tcfg, BS, seed=4, num_objects=8,
+                                     max_gt3d=8, max_gt2d=6)
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch_np)
+    model = JaxSimPB(jcfg)
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0), "aug": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2)},
+        jbatch["img"], jbatch["projection_mat"], train=True))
+    variables = _random_tree(shapes)
+    key_dn = jax.random.PRNGKey(11)
+    temporal, dn_state = jinit_temporal(jcfg, BS)
+    h = jcfg.head
+    wh = jcfg.input_size
+    ss = jfmt.SpatialShapes(jcfg.feature_shapes)
+
+    # the trunk (and depth branch) as a function of the parameters
+    def trunk(params):
+        (col, _, depths), mut = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jbatch["img"], train=True, focal=jbatch["focal"],
+            return_depth=True, method=JaxSimPB.extract_feat,
+            mutable=["batch_stats"])
+        return (col, depths), mut["batch_stats"]
+
+    # the head and the loss as a function of the parameters and of the
+    # trunk's outputs
+    def head_loss(params, col, depths):
+        dn = jt3.get_dn_anchors(
+            key_dn, jbatch["gt_boxes3d"], jbatch["gt_labels3d"],
+            jbatch["gt_valid3d"], gt_instance_id=jbatch["gt_instance_id"],
+            gt_vis2d=jbatch["gt_vis2d_per3d"],
+            gt_boxes2d=jbatch["gt_boxes2d_per3d"],
+            gt_labels2d=jbatch["gt_labels2d_per3d"],
+            gt_alphas2d=jbatch["gt_alphas2d_per3d"],
+            num_dn_groups=h.num_dn_groups, max_dn_gt=h.max_dn_gt,
+            add_neg_dn=h.add_neg_dn, noise_scale=h.dn_noise_scale,
+            num_cams=h.num_cams)
+        outs = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            col, ss, jbatch["projection_mat"], wh, temporal=temporal,
+            time_interval=jbatch["time_interval"],
+            temp2cur=jbatch["temp2cur"], dn=dn, dn_state=dn_state,
+            train=True, rngs={"dropout": jax.random.PRNGKey(6)},
+            method=lambda m, *a, **k: m.head(*a, **k))
+        outs["depth_preds"] = depths
+        loss, ld = jlh.total_loss(outs, jbatch, JTrainConfig(), image_wh=wh)
+        tgt = _targets(jt3.sample_targets3d,
+                       lambda *a: jt2.sample_targets2d(*a[:7], image_wh=a[7]),
+                       outs, jbatch, wh)
+        return loss, (ld, outs["temporal_state"], tgt)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn.Dropout, "__call__",
+                   lambda self, x, deterministic=None, rng=None: x)
+        (jcol, jdepths), jstats = jax.jit(
+            lambda p: trunk(p))(variables["params"])
+        (jloss, (jld, jtemp, jtgt)), (jg_head, jg_col, jg_depths) = jax.jit(
+            jax.value_and_grad(head_loss, argnums=(0, 1, 2), has_aux=True))(
+                variables["params"], jcol, jdepths)
+        jg_trunk = jax.jit(lambda p, gc, gd: jax.vjp(
+            lambda q: trunk(q)[0], p)[1]((gc, gd))[0])(
+                variables["params"], jg_col, jg_depths)
+
+    # the port: the same three pieces, the head on JAX's trunk outputs and
+    # the trunk's backward from JAX's output gradients
+    tmodel = SimPB(tcfg, train=True)
+    tmodel.load_state_dict(from_jax_variables(variables, tcfg, train=True),
+                           strict=True)
+    tb = batch_to_torch(batch_np, "cpu")
+    col, tss, depths = tmodel.extract_feat_train(tb["img"], tb["focal"])
+    g, per = h.num_dn_groups * BS, h.max_dn_gt
+    k1, k2, k3 = jax.random.split(key_dn, 3)
+    draws = tuple(torch.from_numpy(np.array(jax.random.uniform(k, (g, per,
+                                                                   10))))
+                  for k in (k1, k2, k3))
+    dn = tt3.get_dn_anchors(
+        draws, tb["gt_boxes3d"], tb["gt_labels3d"], tb["gt_valid3d"],
+        gt_instance_id=tb["gt_instance_id"], gt_vis2d=tb["gt_vis2d_per3d"],
+        gt_boxes2d=tb["gt_boxes2d_per3d"], gt_labels2d=tb["gt_labels2d_per3d"],
+        gt_alphas2d=tb["gt_alphas2d_per3d"], num_dn_groups=h.num_dn_groups,
+        max_dn_gt=h.max_dn_gt, add_neg_dn=h.add_neg_dn,
+        noise_scale=h.dn_noise_scale, num_cams=h.num_cams)
+    ttemp, tdn_state = init_temporal(tcfg, BS, "cpu")
+    hcol = torch.from_numpy(np.array(jcol)).requires_grad_(True)
+    hdepths = [torch.from_numpy(np.array(d)).requires_grad_(True)
+               for d in jdepths]
+    outs = tmodel.head(hcol, tss, tb["projection_mat"], wh, temporal=ttemp,
+                       time_interval=tb["time_interval"],
+                       temp2cur=tb["temp2cur"], dn=dn, dn_state=tdn_state,
+                       train=True)
+    outs["depth_preds"] = hdepths
+    loss, ld = tlh.total_loss(outs, tb, TrainConfig(), image_wh=wh)
+    loss.backward()
+    torch.autograd.backward(
+        [col] + list(depths),
+        [torch.from_numpy(np.array(jg_col))]
+        + [torch.from_numpy(np.array(d)) for d in jg_depths])
+    with torch.no_grad():
+        ttgt = _targets(tt3.sample_targets3d, tt2.sample_targets2d, outs, tb,
+                        wh)
+    jgrads = jax.tree_util.tree_map(lambda a, b: a + b, jg_head, jg_trunk)
+    return dict(jloss=jloss, jld=jld, jstats=jstats, jtemp=jtemp, jtgt=jtgt,
+                jgrads=jgrads, jcol=jcol, jdepths=jdepths, jg_col=jg_col,
+                loss=loss, ld=ld, model=tmodel, outs=outs, ttgt=ttgt,
+                col=col, depths=depths, hcol=hcol)
+
+
+def test_trunk_outputs_match_jax(step_run):
+    r = step_run
+    for got, ref in zip([r["col"]] + list(r["depths"]),
+                        [r["jcol"]] + list(r["jdepths"])):
+        ref = np.asarray(ref)
+        err = np.abs(got.detach().numpy() - ref).max()
+        assert err <= TRUNK_TOL * np.abs(ref).max(), err
+
+
+def test_loss_dict_matches_jax(step_run):
+    r = step_run
+    assert set(r["ld"]) == set(r["jld"])
+    for k, v in r["jld"].items():
+        np.testing.assert_allclose(float(r["ld"][k]), float(v), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(float(r["loss"]), float(r["jloss"]),
+                               rtol=1e-4)
+
+
+def test_assignments_match_jax(step_run):
+    r = step_run
+    for kind, jt, tt in (("3d", r["jtgt"][0], r["ttgt"][0]),
+                         ("2d", r["jtgt"][1], r["ttgt"][1])):
+        for layer, (j, t) in enumerate(zip(jt, tt)):
+            j, t = np.asarray(j), t.numpy()
+            flips = np.argwhere(j != t)
+            assert flips.size == 0, (
+                f"{kind} layer {layer}: assignment flips at {flips[:4]}; "
+                f"JAX labels {j[tuple(flips[:4].T)]}, port "
+                f"{t[tuple(flips[:4].T)]}")
+
+
+def _jax_leaf(tree, jpath):
+    node = tree
+    for k in jpath.split("/"):
+        node = node[k]
+    return np.asarray(node)
+
+
+def test_gradients_and_batch_stats_match_jax(step_run):
+    r = step_run
+    tree = {"params": r["jgrads"], "batch_stats": r["jstats"]}
+    model = r["model"]
+    params = dict(model.named_parameters())
+    state = model.state_dict()
+    # the gradient the head sends into the trunk
+    ref = np.asarray(r["jg_col"])
+    assert np.abs(r["hcol"].grad.numpy() - ref).max() <= \
+        GRAD_TOL * np.abs(ref).max()
+    checked = 0
+    for prefix, mod in model.named_modules():
+        for tname, jpath, (_, inverse) in _sources(mod, prefix):
+            ref = _jax_leaf(tree, jpath)
+            if jpath.startswith("batch_stats"):
+                np.testing.assert_allclose(
+                    inverse(state[tname].numpy()), ref, rtol=1e-5,
+                    atol=1e-6, err_msg=tname)
+            elif tname != "head.instance_feature":  # frozen, see above
+                p = params[tname]
+                got = (inverse(p.grad.numpy()) if p.grad is not None
+                       else np.zeros_like(ref))
+                bound = GRAD_TOL * np.abs(ref).max() + GRAD_FLOOR
+                assert np.abs(got - ref).max() <= bound, (
+                    tname, np.abs(got - ref).max(), bound)
+            checked += 1
+    assert checked > 100
+
+
+def test_carried_temporal_state_matches_jax(step_run):
+    r = step_run
+    t, j = r["outs"]["temporal_state"], r["jtemp"]
+    for name in ("feature", "anchor", "confidence"):
+        np.testing.assert_allclose(getattr(t, name).detach().numpy(),
+                                   np.asarray(getattr(j, name)), atol=5e-4,
+                                   rtol=1e-3, err_msg=name)
