@@ -106,8 +106,9 @@ Phases, each printing one JSON line:
              counts set to 0 just before and read just after. Checks a
              finite loss and the complete key set every step, launches a
              step (K1-K4 none; DFA and MSDA-sel forward and backward 3
-             each; the assignment 10: six refine3d layers, three refine2d
-             layers and the DN anchors), parameters moved and the frozen
+             each; the assignment 3: all six refine3d layers' matrices in
+             one call, all three refine2d layers' in one, the DN
+             anchors'), parameters moved and the frozen
              instance feature not; prints step ms (host clock ending in
              `synchronize`), forward / backward / optimizer ms (CUDA
              events) and the peak memory. The last step's kernel calls
@@ -116,11 +117,16 @@ Phases, each printing one JSON line:
              against their plain versions (fp32 sums of the forward's
              rounded quantities) on the recorded calls and on phase 6's
              synthetic cases with a random output gradient, each
-             launched twice (whether the atomic sums repeat bit for bit
-             is reported, not required); kernel A (the assignment) on
-             every recorded call against its plain version on the CPU
-             (exact `col4row`) and scipy's optimal cost (1e-5 relative),
-             launched twice (bit-identical), with scipy's host time.
+             launched twice (C's repeat must be bit-identical: it has no
+             atomics; whether B's atomic sums repeat is reported); kernel
+             A (the assignment) on every recorded call against its plain
+             version on the CPU (exact `col4row` on every row, padded
+             rows too) and scipy's optimal cost (1e-5 relative), launched
+             twice (bit-identical), with scipy's host time, the serial
+             Dijkstra steps of each call's longest matrix (counted by the
+             plain version) and the latency floor they set: steps times
+             one link of a chain of dependent warp argmins, timed on the
+             card by a one-warp kernel.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -1292,7 +1298,7 @@ TRAIN_STEPS = 4  # timed training steps after one warm step
 TRAIN_BS = 4  # TrainConfig.batch_size, the reference's per-GPU batch
 # kernels B and C against their plain versions (fp32 sums of the same
 # rounded forward quantities, rounded once), element by element:
-# |got - plain| <= rel * |plain| + frac * max |plain|. The fp32 atomicAdd
+# |got - plain| <= rel * |plain| + frac * max |plain|. The kernels' fp32
 # sums run in another order than the plain version's (frac, in both
 # types); a bf16 gradient then rounds the two sums once each, so they may
 # land one bf16 step apart, at most 2^-7 of the value (rel)
@@ -1338,16 +1344,16 @@ def train_config():
 
 def want_train_launches(cfg):
     """Launches a training step: no trunk kernel; DFA and MSDA-sel
-    forward and backward once per op; one assignment per refine3d layer
-    (3D targets), per refine2d layer (2D targets) and for the DN
-    anchors."""
+    forward and backward once per op; one assignment for all refine3d
+    layers (3D targets), one for all refine2d layers (2D targets) and
+    one for the DN anchors."""
     order = cfg.head.operation_order
     n3d, n2d = order.count("refine3d"), order.count("refine2d")
     return {"deformable_aggregation": order.count("deformable"),
             "deformable_aggregation_backward": order.count("deformable"),
             "msda_patch_sel": order.count("qg_cross_attn"),
             "msda_patch_sel_backward": order.count("qg_cross_attn"),
-            "assignment": n3d + n2d + 1}
+            "assignment": (n3d > 0) + (n2d > 0) + 1}
 
 
 def train_loss_keys(cfg):
@@ -1365,11 +1371,12 @@ def train_loss_keys(cfg):
 
 def train_recording(calls):
     """Append (name, args, kwargs) of every call of the step's kernel
-    wrappers (both sampling forwards and backwards, the assignment of the
-    3D and 2D targets) to `calls`, then run the wrapper."""
+    wrappers (both sampling forwards and backwards, the assignments of the
+    3D, 2D and DN targets, all made in targets3d) to `calls`, then run
+    the wrapper."""
     from simpb_tpu_torch.models import dfa
     from simpb_tpu_torch.ops import sampling
-    from simpb_tpu_torch.training import targets2d, targets3d
+    from simpb_tpu_torch.training import targets3d
 
     def recorder(name):
         def make(fn):
@@ -1386,8 +1393,7 @@ def train_recording(calls):
          recorder("deformable_aggregation_backward")),
         (sampling, "msda_patch_sel_backward",
          recorder("msda_patch_sel_backward")),
-        (targets3d, "batched_assignment", recorder("assignment")),
-        (targets2d, "batched_assignment", recorder("assignment")))
+        (targets3d, "batched_assignment", recorder("assignment")))
 
 
 def phase_train(torch):
@@ -1489,11 +1495,38 @@ def phase_train(torch):
 
 def lsa_work(args):
     """(bytes, operations) an assignment call must move and do at least:
-    its cost matrices read once and the columns written; a search from
-    each row reads that row at least (a compare and an add a column)."""
-    cost = args[0]
+    the valid rows of its cost matrices read once (a padded row's cost is
+    the pad cost, read by nobody), the row flags, the columns written; a
+    search from each row reads that row at least (a compare and an add a
+    column)."""
+    cost, valid = args[:2]
     b, r, c = cost.shape
-    return b * r * c * 4 + b * r * 4, 2 * b * r * c
+    return int(valid.sum()) * c * 4 + b * r * 5, 2 * b * r * c
+
+
+def argmin_link_us(torch, cols: int) -> float:
+    """Device microseconds of one link of a chain of dependent warp
+    argmins, the step reduction of kernel A's instance for `cols`
+    columns (an add a slot, the lane tree and two redux minima), from
+    two chain lengths (the slope drops the launch)."""
+    from simpb_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("assignment")
+    out = torch.empty(1, device="cuda")
+    stream = _kernels.stream_ptr(out)
+    times = {}
+    for n in (1 << 16, 1 << 17):
+        for timed in (False, True):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _kernels.check(lib.simpb_lsa_argmin_chain(
+                _kernels.ptr(out), n, cols, stream), "argmin chain")
+            end.record()
+            end.synchronize()
+            if timed:
+                times[n] = start.elapsed_time(end)
+    return (times[1 << 17] - times[1 << 16]) / (1 << 16) * 1e3
 
 
 def dfa_bwd_work(sampling, args, kwargs):
@@ -1556,10 +1589,13 @@ def grad_cases(torch, sampling, calls, gen):
 def phase_train_kernels(torch, calls, train_launches):
     """Kernels A, B and C against their plain versions: B and C on the
     last step's recorded backward calls and on synthetic cases, each
-    launched twice (whether the atomic sums came out bit-identical is
-    reported); A on every problem of each recorded call against its plain
-    version (exact col4row; the plain version runs on the CPU) and
-    against scipy's optimal cost. Returns the kernels-line entries."""
+    launched twice (C must repeat bit for bit; whether B's atomic sums
+    did is reported); A on every problem of each recorded call against
+    its plain version (exact col4row; the plain version runs on the CPU,
+    counting each matrix's serial Dijkstra steps) and against scipy's
+    optimal cost, with its latency floor: the longest matrix's steps
+    times one dependent warp argmin. Returns the kernels-line
+    entries."""
     import numpy as np
     import scipy.optimize
 
@@ -1584,7 +1620,9 @@ def phase_train_kernels(torch, calls, train_launches):
         torch.cuda.synchronize()
         same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
         close, recs = grad_check(got, ref)
-        ok = close and launched == 1
+        # kernel C has no atomics: its repeats must agree bit for bit
+        ok = close and launched == 1 and (
+            same or name != "msda_patch_sel_backward")
         errs = [r_["max_abs_err"] for r_ in recs]
         frame = label.startswith("step_call")
         ms = cuda_ms(lambda: wrapper(*args), iters=3)
@@ -1606,7 +1644,8 @@ def phase_train_kernels(torch, calls, train_launches):
                   operations=ops))
         if not ok:
             raise AssertionError(f"{label}: gradients {recs} beyond "
-                                 f"{GRAD_TOL}, or {launched} launches")
+                                 f"{GRAD_TOL}, {launched} launches, or "
+                                 f"repeats bit-identical: {same}")
         s = summary[name]
         s["max_abs_err"] = max([s["max_abs_err"]] + errs)
         s["bit_identical"] = s["bit_identical"] and same
@@ -1618,6 +1657,7 @@ def phase_train_kernels(torch, calls, train_launches):
         del got, again, ref
     s = summary["assignment"]
     scipy_ms = 0.0
+    serial, floors, links = [], [], {}
     for i, (name, args, kwargs) in enumerate(c for c in calls
                                              if c[0] == "assignment"):
         cost, valid = args[:2]
@@ -1628,9 +1668,16 @@ def phase_train_kernels(torch, calls, train_launches):
         again = matching.batched_assignment(cost, valid, pad)
         torch.cuda.synchronize()
         same = torch.equal(got, again)
+        steps = []
         t0 = time.perf_counter()
-        ref = matching.batched_assignment_plain(cost.cpu(), valid.cpu(), pad)
+        ref = matching.batched_assignment_plain(cost.cpu(), valid.cpu(), pad,
+                                                steps)
         plain_ms = (time.perf_counter() - t0) * 1e3
+        cols = cost.shape[2]
+        if cols not in links:
+            links[cols] = argmin_link_us(torch, cols)
+        serial.append(max(steps))
+        floors.append(serial[-1] * links[cols] * 1e-3)
         exact = torch.equal(got.cpu(), ref)
         safe = matching._masked_cost(cost, valid, pad).cpu().double().numpy()
         col = got.cpu().numpy()
@@ -1660,7 +1707,9 @@ def phase_train_kernels(torch, calls, train_launches):
                   exact=exact, scipy_rel_gap=gap, ok=ok,
                   ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                   library_ms=None, bound_ms=max(b_ms, o_ms),
-                  bound_by=bound_by))
+                  bound_by=bound_by, serial_steps=serial[-1],
+                  steps_total=sum(steps), argmin_link_us=links[cols],
+                  latency_floor_ms=floors[-1]))
         if not ok:
             raise AssertionError(f"assignment call {i}: launches "
                                  f"{launched}, repeat equal {same}, exact "
@@ -1670,7 +1719,8 @@ def phase_train_kernels(torch, calls, train_launches):
         s["device_ms"] += dev_ms
         s["plain_ms"] += plain_ms
         s["bound"][bound_by] += max(b_ms, o_ms)
-    emit(dict(phase="train_assignment", scipy_host_ms_step=scipy_ms))
+    emit(dict(phase="train_assignment", scipy_host_ms_step=scipy_ms,
+              argmin_link_us=links, serial_steps=serial))
     out = {}
     sources = {"assignment": "simpb_tpu_torch/csrc/assignment.cu"}
     replaces = {n: v[2] for n, v in bwd.items()}
@@ -1684,7 +1734,9 @@ def phase_train_kernels(torch, calls, train_launches):
             device_ms=s["device_ms"], plain_ms=s["plain_ms"],
             bound_ms=sum(s["bound"].values()),
             bound_by=max(s["bound"], key=s["bound"].get), library_ms=None,
-            **({"scipy_host_ms": scipy_ms} if name == "assignment" else
+            **({"scipy_host_ms": scipy_ms, "serial_steps": sum(serial),
+                "latency_floor_ms": sum(floors)}
+               if name == "assignment" else
                {"bit_identical": s["bit_identical"]}))
     return out
 

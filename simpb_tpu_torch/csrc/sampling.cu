@@ -93,10 +93,15 @@ struct Levels {
   int h[MAX_LEVELS], w[MAX_LEVELS], start[MAX_LEVELS];
 };
 
-// Loads and the storage type's rounding: R(v) rounds an fp32 result to T.
+// Loads, stores (rounded to T) and the storage type's rounding: R(v)
+// rounds an fp32 result to T.
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 template <typename T> __device__ __forceinline__ float R(float v);
 template <> __device__ __forceinline__ float R<float>(float v) { return v; }
@@ -1174,41 +1179,84 @@ int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
 
 // -------------------------------------------------- MSDA-sel backward
 // Kernel C: the gradients of MSDA-sel's (sampled [B, Q, heads, C], wsum
-// [B, Q, heads]) to the value (fp32 sums, scattered with atomicAdd onto
-// the window pixel rows), to the locations (through the taper-clamped
-// bilinear fractions; the window bases and the top-k level choice are
-// discrete; a sample exactly on a clamp bound passes half, as min and max
-// split a tie) and to the attention weights. It does not reuse the forward:
-// one block per (query, camera row) recomputes the levels, windows and
-// per-head window weights W from loc and attw (steps 1-5 of
-// msda_sel_kernel), so the autograd Function saves only its inputs. Then
-// a warp per window pixel: the pixel's gradient G[h, px] = g_sampled[h] .
-// V[px] + g_wsum[h] (lanes over channels, one shuffle sum a head) and
-// the value gradient sum_h W[h, px] g_sampled[h, c]; then a thread per
-// sample reads the four G of its corners.
+// [B, Q, heads]) to the value, to the locations (through the
+// taper-clamped bilinear fractions; the window bases and the top-k level
+// choice are discrete; a sample exactly on a clamp bound passes half, as
+// min and max split a tie) and to the attention weights. It replaces the
+// gradient of simpb_tpu/ops/sampling.py::_msda_patch_sel (:892; XLA's
+// scatter-adds on the TPU). Two launches, no atomics: every output
+// element has one owner and sums in a fixed order, so repeat launches
+// are bit-identical.
+//
+// C1, `msda_sel_bwd_kernel`: one block per (query, camera row). It does
+// not reuse the forward: it recomputes the levels, windows and per-head
+// window weights W from loc and attw (steps 1-5 of msda_sel_kernel), so
+// the autograd Function saves only its inputs; a warp finds each
+// window's base (shuffle min and max). Then each pixel's gradient G[h,
+// px] = g_sampled[h] . V[px] + g_wsum[h]: a lane per window pixel keeps
+// its heads' sums in registers (at most BWD_HEADS, a compile-time count)
+// over one channel half, reading g_sampled from shared memory as [C][8]
+// broadcasts; the two halves add in order. A thread per sample reads the
+// four G of its corners: the location and weight gradients, each written
+// once. It writes W [B, Q, K, heads, ph * pw] and each window's (level,
+// base) to scratch for C3.
+//
+// C3, `msda_sel_gvalue_kernel`: the value gradient, owner computes. One
+// block per (8x8 pixel tile of a level, camera row, channel slice of 32
+// * CPL) owns those gvalue elements and writes each once, zeros
+// included. It walks its row's windows in (query, k) order, keeps those
+// that reach its tile (a block scan compacts a chunk of 256 at a time),
+// and for each stages the window's weights, re-cut to the tile (zero
+// outside the window), and the query's g_sampled slice in shared memory
+// (loaded into registers while the previous window adds up; two buffers,
+// one barrier a window); warp y, the tile's pixel row y, adds W[h, px]
+// g_sampled[h, c] over the heads into fp32 registers (8 pixels x CPL
+// channels a lane), skipping windows that miss its row, and rounds to the
+// value's type once.
+//
+// What bounds it: fp32 operations (2 per (query, level, head, pixel,
+// channel) for G and as many for the value gradient) and the dense
+// value gradient written once. A scatter of the value gradient by the
+// query's block (fp32 atomicAdd, up to 2 x 64 x 256 a block, onto rows
+// that neighbouring queries share) would contend and sum in a
+// different order on every run; C3's owners do neither.
+constexpr int BWD_HEADS = 8;  // kernel C's heads at most (sums in registers)
+
+// Four channels of a value row as fp32 (16 bytes of fp32, 8 of bf16).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 template <typename T>
-__global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
-                                    const float* __restrict__ loc,
-                                    const float* __restrict__ attw,
-                                    const float* __restrict__ gsamp,
-                                    const float* __restrict__ gwsum,
-                                    MsdaArgs g, Levels lv,
-                                    float* __restrict__ gvalue,
-                                    float* __restrict__ gloc,
-                                    float* __restrict__ gattw) {
-  extern __shared__ float smem[];
-  __shared__ float mass[MAX_LEVELS], gws[MAX_HEADS];
+__global__ void __launch_bounds__(256)
+msda_sel_bwd_kernel(const T* __restrict__ value,
+                    const float* __restrict__ loc,
+                    const float* __restrict__ attw,
+                    const float* __restrict__ gsamp,
+                    const float* __restrict__ gwsum, MsdaArgs g, Levels lv,
+                    float* __restrict__ gloc, float* __restrict__ gattw,
+                    float* __restrict__ wscr, unsigned* __restrict__ wins) {
+  constexpr int HP = BWD_HEADS;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float mass[MAX_LEVELS], gws[HP];
   __shared__ int lsel[MAX_LEVELS], bxs[MAX_LEVELS], bys[MAX_LEVELS];
   const int q = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int L = lv.n, n = g.n, K = g.K, win = g.ph * g.pw, H = g.heads;
-  const int np = n / H;
+  const int np = n / H, KW = K * win;
   const long long bq = (long long)b * g.Q + q;
   const float* lq = loc + bq * L * n * 2;
   const float* aq = attw + bq * L * n;
-  float* W = smem;                 // [K][heads][win]
+  float* gsT = smem;               // [C][HP] g_sampled, zero past H
+  float* Gp = gsT + g.C * HP;      // [2][KW][HP] channel halves' sums
+  float* W = Gp + 2 * KW * HP;     // [K][heads][win]
   float* Gm = W + K * H * win;     // [K][heads][win] pixel gradients
-  float* gs = Gm + K * H * win;    // [heads][C]
-  float* fx = gs + H * g.C;        // [K][n]
+  float* fx = Gm + K * H * win;    // [K][n]
   float* fy = fx + K * n;          // [K][n]
   float* ak = fy + K * n;          // [K][n] attention * keep
   int* ix = (int*)(ak + K * n);    // [K][n]
@@ -1218,12 +1266,15 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
   // 1-3. levels and window bases, as msda_sel_kernel
   if (tid < L) {
     float m = 0.f;
+#pragma unroll 8
     for (int i = 0; i < n; ++i) m = __fadd_rn(m, aq[tid * n + i]);
     mass[tid] = m;
   }
-  if (tid < H) gws[tid] = gwsum[bq * H + tid];
+  if (tid < HP) gws[tid] = tid < H ? gwsum[bq * H + tid] : 0.f;
   for (int t = tid; t < H * g.C; t += blockDim.x)
-    gs[t] = gsamp[bq * H * g.C + t];
+    gsT[t % g.C * HP + t / g.C] = gsamp[bq * H * g.C + t];
+  for (int t = tid; t < (HP - H) * g.C; t += blockDim.x)
+    gsT[t / (HP - H) * HP + H + t % (HP - H)] = 0.f;
   __syncthreads();
   if (tid == 0) {
     bool taken[MAX_LEVELS] = {};
@@ -1236,10 +1287,12 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
     }
   }
   __syncthreads();
-  if (tid < K) {
-    const int l = lsel[tid], h = lv.h[l], w = lv.w[l];
+  // warp j: window j's base (min and max are exact in any order)
+  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  if (warp < K) {
+    const int j = warp, l = lsel[j], h = lv.h[l], w = lv.w[l];
     float mnx = 1e9f, mxx = -1e9f, mny = 1e9f, mxy = -1e9f;
-    for (int i = 0; i < n; ++i) {
+    for (int i = lane; i < n; i += 32) {
       const float px = pix(lq[(l * n + i) * 2], w);
       const float py = pix(lq[(l * n + i) * 2 + 1], h);
       if (px > -1.f && px < (float)w && py > -1.f && py < (float)h) {
@@ -1247,12 +1300,22 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
         mny = fminf(mny, py); mxy = fmaxf(mxy, py);
       }
     }
-    const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
-    const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
-    const int bx = (int)rintf(__fsub_rn(midx, (g.pw - 1) / 2.0f));
-    const int by = (int)rintf(__fsub_rn(midy, (g.ph - 1) / 2.0f));
-    bxs[tid] = min(max(bx, 0), w - g.pw);
-    bys[tid] = min(max(by, 0), h - g.ph);
+    for (int o = 16; o; o >>= 1) {
+      mnx = fminf(mnx, __shfl_xor_sync(0xffffffffu, mnx, o));
+      mxx = fmaxf(mxx, __shfl_xor_sync(0xffffffffu, mxx, o));
+      mny = fminf(mny, __shfl_xor_sync(0xffffffffu, mny, o));
+      mxy = fmaxf(mxy, __shfl_xor_sync(0xffffffffu, mxy, o));
+    }
+    if (lane == 0) {
+      const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
+      const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
+      const int bx = (int)rintf(__fsub_rn(midx, (g.pw - 1) / 2.0f));
+      const int by = (int)rintf(__fsub_rn(midy, (g.ph - 1) / 2.0f));
+      bxs[j] = min(max(bx, 0), w - g.pw);
+      bys[j] = min(max(by, 0), h - g.ph);
+      wins[bq * K + j] = (unsigned)l | (unsigned)bxs[j] << 3 |
+                         (unsigned)bys[j] << 17;
+    }
   }
   __syncthreads();
   // 4. the taper-clamped samples; whether the clamp passed each axis
@@ -1281,7 +1344,8 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
     fl[e] = (int)keep | cx << 1 | cy << 3;
   }
   __syncthreads();
-  // 5. per-head window weights, as msda_sel_kernel
+  // 5. per-head window weights, as msda_sel_kernel; C3 reads them
+  float* wq = wscr + bq * K * H * win;
   for (int t = tid; t < K * H * win; t += blockDim.x) {
     const int px = t % win, jh = t / win, hh = jh % H, j = jh / H;
     const int ey = px / g.pw, ex = px % g.pw;
@@ -1295,45 +1359,52 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
       acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wy, wx), ak[s]));
     }
     W[t] = acc;
+    wq[t] = acc;
   }
   __syncthreads();
 
-  // 6. a warp per window pixel: G and the value gradient
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  for (int t = warp; t < K * win; t += nw) {
-    const int j = t / win, e = t % win, l = lsel[j], w = lv.w[l];
-    const long long row = (long long)b * g.T + lv.start[l] +
-                          (long long)(bys[j] + e / g.pw) * w + bxs[j] +
-                          e % g.pw;
-    const T* vr = value + row * g.C;
-    float* gr = gvalue + row * g.C;
-    float wcol[MAX_HEADS], acc[MAX_HEADS];
-    bool used = false;
+  // 6. G: a lane per window pixel, its heads' sums in registers; warps
+  // take (32 pixels, channel half) items, the halves added in order
+  const int units = (KW + 31) / 32, half_c = g.C / 2;
+  for (int it = warp; it < 2 * units; it += nw) {
+    const int half = it / units, p = it % units * 32 + lane;
+    float acc[HP];
 #pragma unroll
-    for (int hh = 0; hh < MAX_HEADS; ++hh) {
-      wcol[hh] = hh < H ? W[(j * H + hh) * win + e] : 0.f;
-      used |= wcol[hh] != 0.f;
-      acc[hh] = 0.f;
-    }
-    for (int c = lane; c < g.C; c += 32) {
-      const float v = ld(vr + c);
-      float gv = 0.f;
+    for (int h = 0; h < HP; ++h) acc[h] = 0.f;
+    if (p < KW) {
+      const int j = p / win, e = p % win, l = lsel[j], w = lv.w[l];
+      const long long row = (long long)b * g.T + lv.start[l] +
+                            (long long)(bys[j] + e / g.pw) * w + bxs[j] +
+                            e % g.pw;
+      const T* vr = value + row * g.C;
+      const int c0 = half * half_c;
+#pragma unroll 4
+      for (int c = c0; c < c0 + half_c; c += 4) {
+        const float4 v = ld4(vr + c);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int hh = 0; hh < MAX_HEADS; ++hh)
-        if (hh < H) {
-          const float s = gs[hh * g.C + c];
-          acc[hh] += s * v;
-          gv += wcol[hh] * s;
+        for (int i = 0; i < 4; ++i) {
+          const float* gc = gsT + (c + i) * HP;
+#pragma unroll
+          for (int h = 0; h < HP; h += 4) {
+            const float4 s4 = *reinterpret_cast<const float4*>(gc + h);
+            acc[h] = fmaf(s4.x, vv[i], acc[h]);
+            acc[h + 1] = fmaf(s4.y, vv[i], acc[h + 1]);
+            acc[h + 2] = fmaf(s4.z, vv[i], acc[h + 2]);
+            acc[h + 3] = fmaf(s4.w, vv[i], acc[h + 3]);
+          }
         }
-      if (used && gv != 0.f) atomicAdd(gr + c, gv);
-    }
+      }
+      float* gp = Gp + (half * KW + p) * HP;
 #pragma unroll
-    for (int hh = 0; hh < MAX_HEADS; ++hh) {
-      if (hh >= H) break;
-      float a = acc[hh];
-      for (int o = 16; o; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane == 0) Gm[(j * H + hh) * win + e] = a + gws[hh];
+      for (int h = 0; h < HP; ++h) gp[h] = acc[h];
     }
+  }
+  __syncthreads();
+  for (int t = tid; t < K * H * win; t += blockDim.x) {
+    const int e = t % win, jh = t / win, hh = jh % H, j = jh / H;
+    const int p = j * win + e;
+    Gm[t] = (Gp[p * HP + hh] + Gp[(KW + p) * HP + hh]) + gws[hh];
   }
   __syncthreads();
 
@@ -1364,18 +1435,179 @@ __global__ void msda_sel_bwd_kernel(const T* __restrict__ value,
   }
 }
 
+constexpr int GV_TILE = 8;     // C3's pixel tile (GV_TILE x GV_TILE)
+constexpr int GV_NT = 256;     // C3's threads: a warp a tile row
+static_assert(GV_NT == 32 * GV_TILE, "one warp a tile row");
+
+// C3 (see above): gvalue [B, T, C] in the value's type T, each element
+// summed in fp32 and rounded once, written once. Tiles are numbered level
+// by level, row-major within a level.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(GV_NT)
+msda_sel_gvalue_kernel(const float* __restrict__ wscr,
+                       const unsigned* __restrict__ wins,
+                       const float* __restrict__ gsamp, MsdaArgs g,
+                       Levels lv, T* __restrict__ gvalue) {
+  constexpr int CS = 32 * CPL;  // channels a block
+  constexpr int TP = GV_TILE * GV_TILE, HP = BWD_HEADS;
+  // a thread's staging: WS weights (heads h0 + k * GV_NT / TP at its tile
+  // pixel) and GV 16-byte pieces of g_sampled
+  constexpr int WS = HP * TP / GV_NT, GQ = CS / 4;
+  constexpr int GV = (HP * GQ + GV_NT - 1) / GV_NT;
+  __shared__ __align__(16) float Wt[2][HP][TP];
+  __shared__ __align__(16) float gsS[2][HP][CS];
+  __shared__ int hits[GV_NT];
+  __shared__ int warp_sum[32];
+  int t = blockIdx.x, l = 0, ntx = 1;
+  for (; l < lv.n; ++l) {
+    ntx = (lv.w[l] + GV_TILE - 1) / GV_TILE;
+    const int nt = ntx * ((lv.h[l] + GV_TILE - 1) / GV_TILE);
+    if (t < nt) break;
+    t -= nt;
+  }
+  const int tx0 = t % ntx * GV_TILE, ty0 = t / ntx * GV_TILE;
+  const int b = blockIdx.y, c0 = blockIdx.z * CS;
+  const int tid = threadIdx.x, lane = tid & 31, y = tid >> 5;
+  const int H = g.heads, QK = g.Q * g.K, win = g.ph * g.pw;
+  const int yy = ty0 + y;
+  const bool row_in = yy < lv.h[l];
+  const unsigned* wb = wins + (long long)b * QK;
+  const int sp = tid % TP, sh = tid / TP;  // this thread's staged pixel
+  float acc[GV_TILE][CPL];
+#pragma unroll
+  for (int p = 0; p < GV_TILE; ++p)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[p][c] = 0.f;
+
+  // the next window's weights re-cut to the tile and its query's
+  // g_sampled slice, into registers while the current window adds up
+  float wreg[WS];
+  float4 greg[GV];
+  auto fetch = [&](int e) {
+    const unsigned d = wb[e];
+    const int lx = tx0 + sp % GV_TILE - (int)((d >> 3) & 0x3fff);
+    const int ly = ty0 + sp / GV_TILE - (int)(d >> 17);
+    const bool in = lx >= 0 && lx < g.pw && ly >= 0 && ly < g.ph;
+    const float* we =
+        wscr + ((long long)b * QK + e) * H * win + ly * g.pw + lx;
+#pragma unroll
+    for (int k = 0; k < WS; ++k) {
+      const int h = sh + k * (GV_NT / TP);
+      wreg[k] = in && h < H ? we[h * win] : 0.f;
+    }
+    const float* gq = gsamp + ((long long)b * g.Q + e / g.K) * H * g.C + c0;
+#pragma unroll
+    for (int k = 0; k < GV; ++k) {
+      const int s = tid + k * GV_NT, h = s / GQ, c = s % GQ * 4;
+      greg[k] = h < H && c0 + c < g.C
+                    ? *reinterpret_cast<const float4*>(gq + h * g.C + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  int buf = 0;
+  for (int base = 0; base < QK; base += GV_NT) {
+    // this chunk's windows that reach the tile, in (query, k) order
+    int hit = 0;
+    if (base + tid < QK) {
+      const unsigned d = wb[base + tid];
+      const int bx = (d >> 3) & 0x3fff, by = d >> 17;
+      hit = (int)(d & 7) == l && bx < tx0 + GV_TILE && bx + g.pw > tx0 &&
+            by < ty0 + GV_TILE && by + g.ph > ty0;
+    }
+    int tot;
+    const int pos = block_scan(hit, warp_sum, tot) - hit;
+    if (hit) hits[pos] = base + tid;
+    __syncthreads();
+    if (tot) fetch(hits[0]);
+    for (int i = 0; i < tot; ++i, buf ^= 1) {
+      const int e = hits[i];  // window e = query * K + k of the row
+      const unsigned d = wb[e];
+      const int bx = (d >> 3) & 0x3fff, by = d >> 17;
+      // two buffers: one barrier a window (the other buffer was last
+      // read before the previous window's barrier)
+#pragma unroll
+      for (int k = 0; k < WS; ++k) Wt[buf][sh + k * (GV_NT / TP)][sp] = wreg[k];
+#pragma unroll
+      for (int k = 0; k < GV; ++k) {
+        const int s = tid + k * GV_NT;
+        if (s < HP * GQ)
+          *reinterpret_cast<float4*>(&gsS[buf][s / GQ][s % GQ * 4]) =
+              greg[k];
+      }
+      __syncthreads();
+      if (i + 1 < tot) fetch(hits[i + 1]);
+      if (row_in && yy >= by && yy < by + g.ph) {
+        for (int h = 0; h < H; ++h) {
+          const float4 w0 =
+              *reinterpret_cast<const float4*>(&Wt[buf][h][y * GV_TILE]);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(&Wt[buf][h][y * GV_TILE + 4]);
+          const float wp[GV_TILE] = {w0.x, w0.y, w0.z, w0.w,
+                                     w1.x, w1.y, w1.z, w1.w};
+          float gv[CPL];
+          if constexpr (CPL == 4) {
+            const float4 g4 =
+                *reinterpret_cast<const float4*>(&gsS[buf][h][lane * 4]);
+            gv[0] = g4.x, gv[1] = g4.y, gv[2] = g4.z, gv[3] = g4.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) gv[c] = gsS[buf][h][lane * CPL + c];
+          }
+#pragma unroll
+          for (int p = 0; p < GV_TILE; ++p)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c)
+              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);
+        }
+      }
+    }
+    __syncthreads();  // hits is free for the next chunk
+  }
+  if (!row_in) return;
+  const int w = lv.w[l];
+  T* out =
+      gvalue + ((long long)b * g.T + lv.start[l] + (long long)yy * w) * g.C;
+#pragma unroll
+  for (int p = 0; p < GV_TILE; ++p) {
+    if (tx0 + p >= w) break;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int ch = c0 + lane * CPL + c;
+      if (ch < g.C) store_as(out + (long long)(tx0 + p) * g.C + ch, acc[p][c]);
+    }
+  }
+}
+
 int msda_bwd_smem_bytes(const MsdaArgs& g) {
-  return 4 * (2 * g.K * g.heads * g.ph * g.pw + g.heads * g.C + 6 * g.K * g.n);
+  const int kw = g.K * g.ph * g.pw;
+  return 4 * (g.C * BWD_HEADS + 2 * kw * BWD_HEADS + 2 * kw * g.heads +
+              6 * g.K * g.n);
+}
+
+template <typename T, int CPL>
+void launch_gvalue(const float* wscr, const unsigned* wins,
+                   const float* gsamp, const MsdaArgs& g, const Levels& lv,
+                   int tiles, T* gvalue, cudaStream_t st) {
+  msda_sel_gvalue_kernel<T, CPL>
+      <<<dim3(tiles, g.B, (g.C + 32 * CPL - 1) / (32 * CPL)), GV_NT, 0, st>>>(
+          wscr, wins, gsamp, g, lv, gvalue);
 }
 
 template <typename T>
 int launch_msda_sel_bwd(const void* value, const float* loc,
                         const float* attw, const float* gsamp,
-                        const float* gwsum, float* gvalue, float* gloc,
-                        float* gattw, const MsdaArgs& g, const Levels& lv,
-                        int threads, int smem, cudaStream_t st) {
-  if (msda_bwd_smem_bytes(g) > smem || g.heads > MAX_HEADS || threads % 32 ||
-      threads > 1024)
+                        const float* gwsum, void* gvalue, float* gloc,
+                        float* gattw, float* scratch, const MsdaArgs& g,
+                        const Levels& lv, int threads, int smem, int tiles,
+                        int cpl, cudaStream_t st) {
+  int want = 0;
+  for (int l = 0; l < lv.n; ++l)
+    want += (lv.w[l] + GV_TILE - 1) / GV_TILE *
+            ((lv.h[l] + GV_TILE - 1) / GV_TILE);
+  if (msda_bwd_smem_bytes(g) > smem || g.heads > BWD_HEADS ||
+      threads != 256 || g.K > threads / 32 || g.C % 8 || tiles != want ||
+      (cpl != 1 && cpl != 2 && cpl != 4))
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the attribute only grows (one card)
   if (smem > smem_set) {
@@ -1383,8 +1615,19 @@ int launch_msda_sel_bwd(const void* value, const float* loc,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     smem_set = smem;
   }
+  float* wscr = scratch;
+  unsigned* wins = reinterpret_cast<unsigned*>(
+      scratch + (long long)g.B * g.Q * g.K * g.heads * g.ph * g.pw);
   msda_sel_bwd_kernel<T><<<dim3(g.Q, g.B), threads, smem, st>>>(
-      (const T*)value, loc, attw, gsamp, gwsum, g, lv, gvalue, gloc, gattw);
+      (const T*)value, loc, attw, gsamp, gwsum, g, lv, gloc, gattw, wscr,
+      wins);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  T* gv = (T*)gvalue;
+  if (cpl == 4) launch_gvalue<T, 4>(wscr, wins, gsamp, g, lv, tiles, gv, st);
+  else if (cpl == 2)
+    launch_gvalue<T, 2>(wscr, wins, gsamp, g, lv, tiles, gv, st);
+  else launch_gvalue<T, 1>(wscr, wins, gsamp, g, lv, tiles, gv, st);
   return (int)cudaGetLastError();
 }
 
@@ -1481,29 +1724,35 @@ int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
                                        lv, threads, smem, st);
 }
 
-// dims as simpb_msda_sel's; gsamp [B, Q, heads, C] and gwsum [B, Q,
-// heads] fp32; gvalue fp32 [B, T, C], gloc [B, Q, L, n, 2] and gattw
-// [B, Q, L, n] fp32, zeroed by the caller (gvalue accumulates with
-// atomicAdd; unselected levels stay 0).
-// One block per (query, camera row), `threads` threads.
+// dims as simpb_msda_sel's, then C3's tile count and channels a lane
+// (1, 2 or 4), then the level table; gsamp [B, Q, heads, C] and gwsum
+// [B, Q, heads] fp32; gvalue [B, T, C] in the value's type (every
+// element written);
+// gloc [B, Q, L, n, 2] and gattw [B, Q, L, n] fp32, zeroed by the caller
+// (unselected levels stay 0); scratch: B * Q * K * (heads * ph * pw + 1)
+// words (C1's window weights, then the windows).
 int simpb_msda_sel_bwd(const void* value, const void* loc, const void* attw,
                        const void* gsamp, const void* gwsum, void* gvalue,
-                       void* gloc, void* gattw, const int* dims, int dtype,
-                       void* stream) {
+                       void* gloc, void* gattw, void* scratch,
+                       const int* dims, int dtype, void* stream) {
   MsdaArgs g;
   g.B = dims[0]; g.Q = dims[1]; g.n = dims[3]; g.heads = dims[4];
   g.C = dims[5]; g.T = dims[6]; g.K = dims[7]; g.ph = dims[8];
   g.pw = dims[9];
-  const int threads = dims[10], smem = dims[11];
-  const Levels lv = read_levels(dims[2], dims + 12);
+  const int threads = dims[10], smem = dims[11], tiles = dims[12];
+  const int cpl = dims[13];
+  const Levels lv = read_levels(dims[2], dims + 14);
   cudaStream_t st = (cudaStream_t)stream;
   const float *l = (const float*)loc, *a = (const float*)attw;
   const float *gs = (const float*)gsamp, *gw = (const float*)gwsum;
-  float *gv = (float*)gvalue, *gl = (float*)gloc, *ga = (float*)gattw;
-  return dtype ? launch_msda_sel_bwd<bf16>(value, l, a, gs, gw, gv, gl, ga, g,
-                                           lv, threads, smem, st)
-               : launch_msda_sel_bwd<float>(value, l, a, gs, gw, gv, gl, ga,
-                                            g, lv, threads, smem, st);
+  float *gl = (float*)gloc, *ga = (float*)gattw;
+  float* sc = (float*)scratch;
+  return dtype ? launch_msda_sel_bwd<bf16>(value, l, a, gs, gw, gvalue, gl,
+                                           ga, sc, g, lv, threads, smem,
+                                           tiles, cpl, st)
+               : launch_msda_sel_bwd<float>(value, l, a, gs, gw, gvalue, gl,
+                                            ga, sc, g, lv, threads, smem,
+                                            tiles, cpl, st);
 }
 
 }  // extern "C"

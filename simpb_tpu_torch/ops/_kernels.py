@@ -38,8 +38,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 PROBE_SIG = ((P, P, I, I, I, I, P), I)  # x, y, N, H, W, C, stream
 SIGNATURES = {
     "assignment": {
-        # cost, col4row, B, R, C, stream
-        "simpb_lsa": ((P, P, I, I, I, P), I),
+        # cost, row_valid, col4row, B, R, C, pad cost, stream
+        "simpb_lsa": ((P, P, P, I, I, I, ctypes.c_float, P), I),
+        # out, n, C, stream
+        "simpb_lsa_argmin_chain": ((P, I, I, P), I),
     },
     "conv_fused": {
         "simpb_maxpool_3x3_s2": ((P, P, I, I, I, I, I, P), I),
@@ -77,8 +79,8 @@ SIGNATURES = {
         # points, grad weights, dims, strides, dtype, stream
         "simpb_dfa_bwd": ((P,) * 10 + (I, P), I),
         # value, loc, attw, grad sampled, grad wsum, grad value, grad loc,
-        # grad attw, dims, dtype, stream
-        "simpb_msda_sel_bwd": ((P,) * 9 + (I, P), I),
+        # grad attw, scratch, dims, dtype, stream
+        "simpb_msda_sel_bwd": ((P,) * 10 + (I, P), I),
     },
 }
 

@@ -907,33 +907,71 @@ def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
     return sampled, wsum
 
 
-MSDA_BWD_THREADS = 256
+MSDA_BWD_THREADS = 256  # threads of a C1 block
+BWD_HEADS = 8  # kernel C's heads at most (csrc/sampling.cu BWD_HEADS)
+GV_TILE = 8  # C3's pixel tile (csrc/sampling.cu GV_TILE)
+MAX_LEVEL_SIDE = 1 << 14  # C1 packs a window's base in 14 bits an axis
+
+
+class MsdaBwdPlan(NamedTuple):
+    """Kernel C's two launches. C1: one block per (query, camera row),
+    `grid` (queries, rows), `threads` and `smem` bytes a block. C3:
+    `gvalue_grid` (8x8 pixel tiles of all levels, rows, channel slices of
+    32 * `cpl`). `scratch`: the fp32 words C1 hands C3 (each window's
+    per-head weights, then its level and base). `dims`: the host int
+    array the C entry reads."""
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+    gvalue_grid: Tuple[int, int, int]
+    cpl: int
+    scratch: int
+    dims: ctypes.Array
 
 
 @functools.lru_cache(maxsize=None)
 def plan_msda_sel_backward(num_rows: int, num_queries: int, n: int,
                            heads: int, c: int, k: int, ph: int, pw: int,
                            shapes: Tuple[Tuple[int, int], ...]
-                           ) -> SamplingPlan:
-    """Kernel C's launch: one block per (query, camera row) of
-    MSDA_BWD_THREADS threads, both dtypes; shared memory for the window
-    weights and their gradients, the query's sampled-value gradient and
-    the samples."""
+                           ) -> MsdaBwdPlan:
+    """Kernel C's launches, both dtypes: C1 one block per (query, camera
+    row) of MSDA_BWD_THREADS threads, shared memory for the query's
+    sampled-value gradient, the pixels' two channel halves of G, the
+    window weights and their gradients and the samples; C3 one block per
+    (8x8 tile, camera row, channel slice), 32 * cpl channels a slice (cpl
+    4 above 64 channels, 2 above 32, else 1). At most BWD_HEADS heads and
+    channels a multiple of 8. Raises ValueError on a shape the kernels do
+    not take."""
     what = "msda_patch_sel_backward"
     num_levels = len(shapes)
-    if (num_levels > MAX_LEVELS or heads > MAX_HEADS or n % heads
-            or not 0 < k <= num_levels or pw % 2):
+    if (num_levels > MAX_LEVELS or n % heads or not 0 < k <= num_levels
+            or pw % 2):
         raise ValueError(f"{what}: {heads} heads of {n} samples, {k} of "
                          f"{num_levels} levels and a {ph}x{pw} window do "
                          "not fit together")
-    smem = 4 * (2 * k * heads * ph * pw + heads * c + 6 * k * n)
+    if any(max(h, w) > MAX_LEVEL_SIDE for h, w in shapes):
+        raise ValueError(f"{what}: levels {shapes} exceed "
+                         f"{MAX_LEVEL_SIDE} pixels a side")
+    if heads > BWD_HEADS or c % 8:
+        raise ValueError(f"{what}: the kernel takes at most {BWD_HEADS} "
+                         "heads and channels a multiple of 8, got "
+                         f"{heads} and {c}")
+    kw = k * ph * pw
+    smem = 4 * (c * BWD_HEADS + 2 * kw * BWD_HEADS + 2 * kw * heads
+                + 6 * k * n)
     if smem > _kernels.MAX_SMEM:
         raise ValueError(f"{what}: {smem} bytes of shared memory a block do "
                          "not fit")
+    tiles = sum(-(-h // GV_TILE) * -(-w // GV_TILE) for h, w in shapes)
+    cpl = 4 if c > 64 else 2 if c > 32 else 1
+    slices = -(-c // (32 * cpl))
+    scratch = num_rows * num_queries * k * (heads * ph * pw + 1)
     dims = [num_rows, num_queries, num_levels, n, heads, c,
-            sum(h * w for h, w in shapes), k, ph, pw, MSDA_BWD_THREADS, smem]
-    return SamplingPlan((num_queries, num_rows), MSDA_BWD_THREADS, smem, 0,
-                        _kernels.int_array(dims + _level_table(shapes)))
+            sum(h * w for h, w in shapes), k, ph, pw, MSDA_BWD_THREADS, smem,
+            tiles, cpl]
+    return MsdaBwdPlan((num_queries, num_rows), MSDA_BWD_THREADS, smem,
+                       (tiles, num_rows, slices), cpl, scratch,
+                       _kernels.int_array(dims + _level_table(shapes)))
 
 
 def msda_patch_sel_backward(value, spatial_shapes, loc, attw, heads,
@@ -941,7 +979,8 @@ def msda_patch_sel_backward(value, spatial_shapes, loc, attw, heads,
                             grad_wsum):
     """Kernel C: the gradients (value in its dtype, loc, attw fp32) of
     `_msda_patch_sel` at grad_sampled [B, Q, heads, C] and grad_wsum
-    [B, Q, heads]. CUDA tensors only."""
+    [B, Q, heads]. CUDA tensors only. Deterministic: no atomics, so a
+    repeat call gives the same bits."""
     what = "msda_patch_sel_backward"
     _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
                     patch_w, sel_levels)
@@ -954,15 +993,17 @@ def msda_patch_sel_backward(value, spatial_shapes, loc, attw, heads,
     dev = value.device
     gs = grad_sampled.float().contiguous()
     gw = grad_wsum.float().contiguous()
-    gvalue = torch.zeros(value.shape, dtype=torch.float32, device=dev)
+    gvalue = torch.empty(value.shape, dtype=value.dtype, device=dev)
     gloc = torch.zeros(loc.shape, dtype=torch.float32, device=dev)
     gattw = torch.zeros(attw.shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
     _kernels.check(_kernels.load("sampling").simpb_msda_sel_bwd(
-        *map(_kernels.ptr, (value, loc, attw, gs, gw, gvalue, gloc, gattw)),
+        *map(_kernels.ptr, (value, loc, attw, gs, gw, gvalue, gloc, gattw,
+                            scratch)),
         plan.dims, _kernels.DTYPE_CODE[value.dtype],
         ctypes.c_void_p(_kernels.stream_ptr(value))), what)
     _LAUNCHES["msda_patch_sel_backward"] += 1
-    return gvalue.to(value.dtype), gloc, gattw
+    return gvalue, gloc, gattw
 
 
 def msda_patch_sel_backward_plain(value, spatial_shapes, loc, attw, heads,

@@ -4,9 +4,10 @@
 
 `chip_smoke.grad_check` holds the DFA and MSDA-sel backward kernels to
 their plain versions element by element. To show that it sees a fault
-that drops a small part of a scattered gradient, the tool copies the
-checkout into `build/planted_faults/<fault>/`, edits one scatter of
-`csrc/sampling.cu` there (`FAULTS`), builds that copy and runs
+that drops a small part of a feature or value gradient, the tool copies
+the checkout into `build/planted_faults/<fault>/`, edits one line of
+`csrc/sampling.cu` there (`FAULTS`: kernel B's atomic scatter, or
+kernel C's value-gradient accumulation in C3), builds that copy and runs
 chip_smoke's synthetic gradient cases (fp32 and bf16) on it. It prints
 one JSON line per (fault, case): whether `grad_check` passes, whether
 the bound it replaced (`MAX_SCALED`: a share of the plain gradient's
@@ -26,7 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 WORK = ROOT / "build" / "planted_faults"
 _B_SCATTER = "          if (wk[k] != 0.f && gg != 0.f)\n"
-_C_SCATTER = "      if (used && gv != 0.f) atomicAdd(gr + c, gv);"
+_C_ACCUMULATE = "              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
 FAULTS = {
     "none": (None, None, None),
@@ -39,16 +40,18 @@ FAULTS = {
         "deformable_aggregation_backward", _B_SCATTER,
         "          if (wk[k] != 0.f && gg != 0.f && fabsf(gg * wk[k]) >= "
         "1e-4f)\n"),
-    # kernel C: window pixel 0 of query 0 scatters nothing
+    # kernel C: window pixel 0 of query 0 adds nothing to the value
+    # gradient (C3 walks window e = query * K + k; its pixel 0 is the
+    # window's base)
     "msda_pixel0_of_query0": (
-        "msda_patch_sel_backward", _C_SCATTER,
-        "      if (used && gv != 0.f && !(q == 0 && e == 0)) "
-        "atomicAdd(gr + c, gv);"),
-    # kernel C: value-gradient rows below 1e-4 are dropped
+        "msda_patch_sel_backward", _C_ACCUMULATE,
+        "              if (!(e < g.K && tx0 + p == bx && yy == by)) "
+        "acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"),
+    # kernel C: value-gradient contributions below 1e-4 are dropped
     "msda_small_contributions": (
-        "msda_patch_sel_backward", _C_SCATTER,
-        "      if (used && gv != 0.f && fabsf(gv) >= 1e-4f) "
-        "atomicAdd(gr + c, gv);"),
+        "msda_patch_sel_backward", _C_ACCUMULATE,
+        "              if (fabsf(wp[p] * gv[c]) >= 1e-4f) "
+        "acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"),
 }
 MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
 

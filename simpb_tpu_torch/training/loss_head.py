@@ -2,8 +2,9 @@
 `simpb_tpu/training/loss_head.py`).
 
 Per-decoder-layer 3D assignment losses (`loss3d`), per-camera 2D losses
-(`loss2d`), the 3D + 2D denoising losses (`dn_loss`) and the dense depth
-loss, assembled by `total_loss` under the JAX package's key names
+(`loss2d`), each assigning all its layers' matrices in one call; the
+3D + 2D denoising losses (`dn_loss`) and the dense depth loss,
+assembled by `total_loss` under the JAX package's key names
 (`loss_cls3d_0`, `loss_box3d_dn_0`, `loss_alpha2d_1`, ...). Everything is
 masked fixed-shape arithmetic; the positive counts are global over the
 batch, as in the JAX package.
@@ -16,8 +17,10 @@ import torch
 
 from ..configs.base import TrainConfig
 from . import losses as L
-from .targets2d import Target2DConfig, sample_targets2d
-from .targets3d import DnBundle, TargetConfig, sample_targets3d
+from .targets2d import Target2DConfig, cost2d, targets2d
+from .targets3d import (
+    DnBundle, TargetConfig, assign_layers, cost3d, targets3d,
+)
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -29,13 +32,19 @@ def loss3d(outputs: Dict, gt_boxes, gt_labels, gt_valid, tc: TrainConfig,
            cls_threshold_to_reg: float = 0.05) -> Dict[str, torch.Tensor]:
     out = {}
     d = len(tc.reg_weights)
-    for idx, (cls, reg, qt) in enumerate(zip(
-            outputs["classification"], outputs["prediction"],
-            outputs["quality"])):
+    layers = list(zip(outputs["classification"], outputs["prediction"],
+                      outputs["quality"]))
+    costs = [cost3d(cls, reg[..., :d], gt_boxes, gt_labels, gt_valid,
+                    target_cfg) for cls, reg, _ in layers]
+    # every layer's matrices in one assignment call
+    cols = assign_layers([c for c, _, _ in costs], gt_valid) if costs \
+        else ()
+    for idx, ((cls, reg, qt), (_, gt_enc, inst_w), col) in enumerate(
+            zip(layers, costs, cols)):
         reg_weights = torch.tensor(tc.reg_weights, device=reg.device)
         reg = reg[..., :d]
-        cls_t, box_t, w = sample_targets3d(cls, reg, gt_boxes, gt_labels,
-                                           gt_valid, target_cfg)
+        cls_t, box_t, w = targets3d(col, gt_enc, inst_w, gt_labels,
+                                    gt_valid, reg, cls.shape[-1])
         mask = ~torch.all(box_t == 0, dim=-1)
         num_pos = _count(mask)
         if cls_threshold_to_reg > 0:
@@ -61,14 +70,20 @@ def loss2d(outputs: Dict, gt_boxes2d, gt_labels2d, gt_alphas2d, gt_valid2d,
            ) -> Dict[str, torch.Tensor]:
     out = {}
     img_w, img_h = image_wh
-    for idx, (cls, reg, alpha, alloc) in enumerate(zip(
-            outputs["classification2d"], outputs["prediction2d"],
-            outputs["prediction_alpha2d"], outputs["allocations"])):
+    layers = list(zip(outputs["classification2d"], outputs["prediction2d"],
+                      outputs["prediction_alpha2d"], outputs["allocations"]))
+    costs = [cost2d(cls, reg, alloc.valid, gt_boxes2d, gt_labels2d,
+                    gt_valid2d, image_wh, t2_cfg)
+             for cls, reg, _, alloc in layers]
+    # every layer's matrices in one assignment call
+    cols = assign_layers(costs, gt_valid2d.reshape(costs[0].shape[:2])) \
+        if costs else ()
+    for idx, ((cls, reg, alpha, alloc), col) in enumerate(zip(layers, cols)):
         factor = torch.tensor([img_w, img_h, img_w, img_h],
                               dtype=torch.float32, device=reg.device)
-        cls_t, box_t, alpha_t, w = sample_targets2d(
-            cls, reg, alloc.valid, gt_boxes2d, gt_labels2d, gt_alphas2d,
-            gt_valid2d, image_wh, t2_cfg)
+        cls_t, box_t, alpha_t, w = targets2d(
+            col, gt_boxes2d, gt_labels2d, gt_alphas2d, gt_valid2d,
+            cls.shape[1])
         mask = ~torch.all(box_t == 0, dim=-1) & alloc.valid
         num_pos = _count(mask)
         cls_loss = L.sigmoid_focal_loss(

@@ -4,7 +4,7 @@ Shortest augmenting path with dual potentials (Jonker-Volgenant), the
 scheme scipy's `linear_sum_assignment` uses. The JAX package runs it in
 `lax` loops on the device so that target assignment needs no host sync;
 the port runs it on the card as kernel A (`csrc/assignment.cu`, one
-block per cost matrix) and never calls scipy on the training step's
+warp per cost matrix) and never calls scipy on the training step's
 path (scipy is the tests' oracle).
 
 `linear_sum_assignment_plain` is the same algorithm, step for step, in
@@ -18,23 +18,31 @@ check.
 `batched_assignment` is the wrapper: CPU tensors run the plain version,
 CUDA tensors launch the kernel (or raise). Costs must be finite with
 R <= C; `masked_assignment` pushes padded rows to a constant cost and
-replaces NaN and infinities first.
+replaces NaN and infinities first. The kernel takes the row flags and
+the pad cost themselves: a padded row's Dijkstra steps read no cost
+row (most of a padded matrix's steps).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ..ops import _kernels
 
 INF = 1e30
+MAX_COLS = 1024  # kernel A: 32 columns a lane at most
 _LAUNCHES = {"assignment": 0}
 
 
-def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
+def linear_sum_assignment_plain(cost: torch.Tensor,
+                                steps: Optional[list] = None
+                                ) -> torch.Tensor:
     """cost [R, C] (R <= C, finite) -> col4row [R] int32, the column of
-    each row in a minimal-cost assignment."""
+    each row in a minimal-cost assignment. `steps`, if given, gets the
+    number of Dijkstra steps taken appended (the serial chain the kernel
+    walks)."""
     r_, c_ = cost.shape
     if r_ > c_:
         raise ValueError("requires rows <= cols; transpose the cost matrix")
@@ -45,6 +53,7 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
     col4row = torch.full((r_,), -1, dtype=torch.int64, device=dev)
     row4col = torch.full((c_,), -1, dtype=torch.int64, device=dev)
     inf = torch.tensor(INF, device=dev)
+    taken = 0
     for cur in range(r_):
         spc = torch.full((c_,), INF, device=dev)
         path = torch.full((c_,), -1, dtype=torch.int64, device=dev)
@@ -52,6 +61,7 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
         sc = torch.zeros(c_, dtype=torch.bool, device=dev)
         i, min_val, sink = cur, torch.zeros((), device=dev), -1
         while sink < 0:
+            taken += 1
             sr[i] = True
             reduced = min_val + cost[i] - u[i] - v
             better = (~sc) & (reduced < spc)
@@ -79,6 +89,8 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
             if i == cur:
                 break
             sink = max(old, 0)
+    if steps is not None:
+        steps.append(taken)
     return col4row.to(torch.int32)
 
 
@@ -90,10 +102,12 @@ def _masked_cost(cost, row_valid, pad_cost):
 
 
 def batched_assignment_plain(cost: torch.Tensor, row_valid: torch.Tensor,
-                             pad_cost: float = 1e6) -> torch.Tensor:
-    """`batched_assignment`'s plain version: [B, R, C] -> [B, R] int32."""
+                             pad_cost: float = 1e6,
+                             steps: Optional[list] = None) -> torch.Tensor:
+    """`batched_assignment`'s plain version: [B, R, C] -> [B, R] int32
+    (`steps`: each matrix's Dijkstra steps appended)."""
     safe = _masked_cost(cost, row_valid, pad_cost)
-    return torch.stack([linear_sum_assignment_plain(m) for m in safe])
+    return torch.stack([linear_sum_assignment_plain(m, steps) for m in safe])
 
 
 def batched_assignment(cost: torch.Tensor, row_valid: torch.Tensor,
@@ -101,7 +115,8 @@ def batched_assignment(cost: torch.Tensor, row_valid: torch.Tensor,
     """Per-matrix assignment with invalid (padded) rows at `pad_cost`:
     cost [B, R, C], row_valid [B, R] bool -> col4row [B, R] int32
     (meaningful only where row_valid). CPU tensors run the plain
-    version; CUDA tensors launch kernel A, one block per matrix."""
+    version; CUDA tensors launch kernel A, one warp per matrix, at most
+    MAX_COLS columns."""
     what = "batched_assignment"
     b, r_, c_ = cost.shape
     if r_ > c_ or tuple(row_valid.shape) != (b, r_):
@@ -114,11 +129,19 @@ def batched_assignment(cost: torch.Tensor, row_valid: torch.Tensor,
         return batched_assignment_plain(cost, row_valid, pad_cost)
     if cost.device.type != "cuda":
         raise ValueError(f"{what}: expected CPU or CUDA tensors")
-    safe = _masked_cost(cost, row_valid, pad_cost).contiguous()
+    if c_ > MAX_COLS:
+        raise ValueError(f"{what}: the kernel takes at most {MAX_COLS} "
+                         f"columns, got {c_}")
+    # valid rows as `_masked_cost` writes them; padded rows are not read
+    # (the kernel costs them at pad_cost)
+    safe = torch.nan_to_num(cost.float(), nan=pad_cost, posinf=pad_cost,
+                            neginf=-pad_cost).contiguous()
+    valid = row_valid.to(torch.bool).contiguous()
     out = torch.empty((b, r_), dtype=torch.int32, device=cost.device)
     if b:
         _kernels.check(_kernels.load("assignment").simpb_lsa(
-            _kernels.ptr(safe), _kernels.ptr(out), b, r_, c_,
+            _kernels.ptr(safe), _kernels.ptr(valid), _kernels.ptr(out), b,
+            r_, c_, float(pad_cost),
             ctypes.c_void_p(_kernels.stream_ptr(safe))), what)
         _LAUNCHES["assignment"] += 1
     return out

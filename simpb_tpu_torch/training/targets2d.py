@@ -1,8 +1,9 @@
 """Per-camera 2D target assignment (port of
 `simpb_tpu/training/targets2d.py`).
 
-Per-(sample, camera) focal + L1 + GIoU matching costs -> exact
-assignment (kernel A on the card) -> scattered per-slot targets. 2D
+Per-(sample, camera) focal + L1 + GIoU matching costs (`cost2d`) ->
+exact assignment (`targets3d.assign_layers`, kernel A on the card) ->
+scattered per-slot targets (`targets2d`). 2D
 ground truth arrives padded per camera: boxes [bs, cams, G2, 4] in pixel
 xyxy of the network input, labels / alphas / valid likewise.
 """
@@ -15,8 +16,7 @@ import torch
 from .losses import (
     bbox_cxcywh_to_xyxy, bbox_xyxy_to_cxcywh, focal_match_cost, giou,
 )
-from .matching import batched_assignment
-from .targets3d import scatter_rows
+from .targets3d import assign_layers, scatter_rows
 
 
 class Target2DConfig(NamedTuple):
@@ -28,27 +28,24 @@ class Target2DConfig(NamedTuple):
     gamma: float = 2.0
 
 
-def sample_targets2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels,
-                     gt_alphas, gt_valid, image_wh: Tuple[int, int],
-                     cfg: Target2DConfig = Target2DConfig()):
-    """cls_pred [bs, cams*K, C] logits, box_pred [bs, cams*K, 4]
-    normalised cxcywh, slot_valid [bs, cams*K]. Returns per-slot targets
-    [bs, cams*K, ...]: (cls_target int (-1 = unmatched), box_target pixel
-    xyxy, alpha_target (sin, cos), reg_weights [.., 4])."""
+def cost2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels, gt_valid,
+           image_wh: Tuple[int, int],
+           cfg: Target2DConfig = Target2DConfig()) -> torch.Tensor:
+    """The matching cost of one layer, one matrix a (sample, camera), as
+    the assignment takes it: [bs * cams, G2, K] detached (padded slots
+    at the matrix's largest valid cost)."""
     bs, q, num_cls = cls_pred.shape
     cams, g2 = gt_boxes.shape[1:3]
     k = q // cams
     img_w, img_h = image_wh
-    dev = cls_pred.device
     factor = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32,
-                          device=dev)
+                          device=cls_pred.device)
     b = bs * cams
     cls_p = cls_pred.detach().reshape(b, k, num_cls)
     box_p = box_pred.detach().reshape(b, k, 4)
     valid_p = slot_valid.reshape(b, k)
     gt_b = gt_boxes.reshape(b, g2, 4).float()
     gt_l = gt_labels.reshape(b, g2)
-    gt_a = gt_alphas.reshape(b, g2).float()
     gt_v = gt_valid.reshape(b, g2)
 
     cls_cost = focal_match_cost(cls_p, gt_l, cfg.alpha, cfg.gamma, cfg.eps,
@@ -65,8 +62,20 @@ def sample_targets2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels,
     cmax = torch.nan_to_num(cmax, neginf=0.0)
     cost = torch.where(valid_p[:, :, None], cost, cmax[:, None, None])
     cost = torch.nan_to_num(cost, nan=1e8, posinf=1e8, neginf=1e8)
-    col = batched_assignment(cost.transpose(1, 2), gt_v, 1e6)  # [B, G2]
+    return cost.transpose(1, 2)
 
+
+def targets2d(col, gt_boxes, gt_labels, gt_alphas, gt_valid, q: int):
+    """The per-slot targets of one layer from its assignment col
+    [bs * cams, G2], q = cams * K slots a sample: (cls_target int (-1 =
+    unmatched), box_target pixel xyxy, alpha_target (sin, cos),
+    reg_weights [.., 4]), each [bs, q, ...]."""
+    bs, cams, g2 = gt_boxes.shape[:3]
+    b, k = bs * cams, q // cams
+    gt_b = gt_boxes.reshape(b, g2, 4).float()
+    gt_l = gt_labels.reshape(b, g2)
+    gt_a = gt_alphas.reshape(b, g2).float()
+    gt_v = gt_valid.reshape(b, g2)
     cls_t = scatter_rows((b, k), -1, col, gt_v, gt_l.to(torch.int32))
     box_t = scatter_rows((b, k, 4), 0.0, col, gt_v, gt_b)
     alpha_sc = torch.stack([torch.sin(gt_a), torch.cos(gt_a)], dim=-1)
@@ -74,6 +83,20 @@ def sample_targets2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels,
     w_t = scatter_rows((b, k, 4), 0.0, col, gt_v, torch.ones_like(gt_b))
     unfold = lambda x: x.reshape((bs, q) + tuple(x.shape[2:]))
     return unfold(cls_t), unfold(box_t), unfold(alpha_t), unfold(w_t)
+
+
+def sample_targets2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels,
+                     gt_alphas, gt_valid, image_wh: Tuple[int, int],
+                     cfg: Target2DConfig = Target2DConfig()):
+    """cls_pred [bs, cams*K, C] logits, box_pred [bs, cams*K, 4]
+    normalised cxcywh, slot_valid [bs, cams*K]. Returns per-slot targets
+    [bs, cams*K, ...]: (cls_target int (-1 = unmatched), box_target pixel
+    xyxy, alpha_target (sin, cos), reg_weights [.., 4])."""
+    cost = cost2d(cls_pred, box_pred, slot_valid, gt_boxes, gt_labels,
+                  gt_valid, image_wh, cfg)
+    col, = assign_layers([cost], gt_valid.reshape(cost.shape[:2]))
+    return targets2d(col, gt_boxes, gt_labels, gt_alphas, gt_valid,
+                     cls_pred.shape[1])
 
 
 def trans_cost3d(cost2d, slot_valid, gt_valid, gt_2d_3d_map, trans_matrix,

@@ -1,12 +1,13 @@
 """3D target assignment and denoising anchors
 (port of `simpb_tpu/training/targets3d.py`).
 
-Focal classification cost + weighted-L1 box cost -> exact assignment
-(`training/matching.py`, kernel A on the card) -> scattered fixed-shape
-targets. Ground truth arrives padded to a static count with a validity
-mask. `get_dn_anchors` builds the noised GT anchor groups of denoising;
-its three uniform draws come from `dn_draws` (a `torch.Generator`), or
-are passed in, so that a test can feed it JAX's.
+Focal classification cost + weighted-L1 box cost (`cost3d`) -> exact
+assignment (`assign_layers`: `training/matching.py`, kernel A on the
+card, several layers' matrices in one call) -> scattered fixed-shape
+targets (`targets3d`). Ground truth arrives padded to a static count
+with a validity mask. `get_dn_anchors` builds the noised GT anchor
+groups of denoising; its three uniform draws come from `dn_draws` (a
+`torch.Generator`), or are passed in, so that a test can feed it JAX's.
 """
 from __future__ import annotations
 
@@ -82,19 +83,34 @@ def _box_cost(box_pred, gt_enc, inst_weights, cfg: TargetConfig):
     return (diff * w).sum(-1) * cfg.box_weight
 
 
-def sample_targets3d(cls_pred, box_pred, gt_boxes, gt_labels, gt_valid,
-                     cfg: TargetConfig = TargetConfig()):
-    """Hungarian label assignment. Returns (cls_target [bs, N] with
-    num_cls = background, box_target [bs, N, D], reg_weights [bs, N, D])
-    for box_pred [bs, N, D]."""
-    bs, n, num_cls = cls_pred.shape
+def cost3d(cls_pred, box_pred, gt_boxes, gt_labels, gt_valid,
+           cfg: TargetConfig = TargetConfig()):
+    """The matching cost of one decoder layer, as the assignment takes
+    it: (cost [bs, G, N] detached, gt_enc, inst_w) for box_pred
+    [bs, N, D]."""
     gt_enc = encode_gt(gt_boxes, gt_valid)
     inst_w = _reg_weights(gt_enc, gt_labels, cfg)
     cost = _cls_cost(cls_pred, gt_labels, cfg) + _box_cost(
         box_pred, gt_enc, inst_w, cfg)
     cost = torch.nan_to_num(cost, nan=1e8, neginf=1e8, posinf=1e8)
-    col = batched_assignment(cost.transpose(1, 2).detach(), gt_valid, 1e6)
-    d = box_pred.shape[-1]
+    return cost.transpose(1, 2).detach(), gt_enc, inst_w
+
+
+def assign_layers(costs: Sequence[torch.Tensor],
+                  gt_valid: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The assignments of several layers' costs [bs, G, N] over the same
+    ground truth, in one `batched_assignment` call: col [bs, G] each."""
+    col = batched_assignment(torch.cat(list(costs)),
+                             gt_valid.repeat(len(costs), 1), 1e6)
+    return col.chunk(len(costs))
+
+
+def targets3d(col, gt_enc, inst_w, gt_labels, gt_valid, box_pred,
+              num_cls: int):
+    """The targets of one layer from its assignment col [bs, G]:
+    (cls_target [bs, N] with num_cls = background, box_target
+    [bs, N, D], reg_weights [bs, N, D]) for box_pred [bs, N, D]."""
+    bs, n, d = box_pred.shape
     cls_target = scatter_rows((bs, n), num_cls, col, gt_valid,
                               gt_labels.to(torch.int32))
     box_target = scatter_rows((bs, n, d), 0.0, col, gt_valid,
@@ -103,6 +119,18 @@ def sample_targets3d(cls_pred, box_pred, gt_boxes, gt_labels, gt_valid,
     reg_weights = scatter_rows((bs, n, d), 0.0, col, gt_valid,
                                inst_w[..., :d].to(box_pred.dtype))
     return cls_target, box_target, reg_weights
+
+
+def sample_targets3d(cls_pred, box_pred, gt_boxes, gt_labels, gt_valid,
+                     cfg: TargetConfig = TargetConfig()):
+    """Hungarian label assignment. Returns (cls_target [bs, N] with
+    num_cls = background, box_target [bs, N, D], reg_weights [bs, N, D])
+    for box_pred [bs, N, D]."""
+    cost, gt_enc, inst_w = cost3d(cls_pred, box_pred, gt_boxes, gt_labels,
+                                  gt_valid, cfg)
+    col, = assign_layers([cost], gt_valid)
+    return targets3d(col, gt_enc, inst_w, gt_labels, gt_valid, box_pred,
+                     cls_pred.shape[-1])
 
 
 @dataclasses.dataclass
