@@ -117,8 +117,9 @@ Phases, each printing one JSON line:
              against their plain versions (fp32 sums of the forward's
              rounded quantities) on the recorded calls and on phase 6's
              synthetic cases with a random output gradient, each
-             launched twice (C's repeat must be bit-identical: it has no
-             atomics; whether B's atomic sums repeat is reported); kernel
+             launched twice (the repeats must be bit-identical: neither
+             has atomics), B's three launches (B0, B1, B2) also timed
+             apart on the device; kernel
              A (the assignment) on every recorded call against its plain
              version on the CPU (exact `col4row` on every row, padded
              rows too) and scipy's optimal cost (1e-5 relative), launched
@@ -1531,15 +1532,34 @@ def argmin_link_us(torch, cols: int) -> float:
 
 def dfa_bwd_work(sampling, args, kwargs):
     """(bytes, operations) of kernel B at least: the forward's reads
-    (`dfa_work`) and grad_out, the three dense gradients written once
-    (the features' in their dtype); about 30 operations per (counted
-    slot, level, channel)."""
+    (`dfa_work`, less the forward's output, which the backward does not
+    write) and grad_out, the three dense gradients written once, each in
+    its input's dtype; about 30 operations per (counted slot, level,
+    channel)."""
     col, ss, pts, wts, gout = args[:5]
     byts, ops = dfa_work(sampling, (col, ss, pts, wts),
                          dict(gather_capacity=args[5]))
+    byts -= pts.shape[0] * pts.shape[1] * col.shape[3] * 4
     byts += gout.numel() * 4 + col.numel() * col.element_size() + \
         (pts.numel() + wts.numel()) * pts.element_size()
     return byts, ops * 30 // 11
+
+
+def dfa_bwd_parts_ms(sampling, args):
+    """Device ms of kernel B's three launches apart (B0 the rank scan, B1
+    the per-anchor pass, B2 the feature gradient), each queued alone on
+    one set of buffers (B2 reads the records that B0 and B1 left)."""
+    col, ss, pts, wts, gout, cap, thr = args
+    plan = sampling.plan_dfa_backward(
+        col.shape[0], col.shape[1], pts.shape[1], pts.shape[2],
+        wts.shape[-1], col.shape[3], cap, ss.shapes)
+    bufs = sampling._dfa_bwd_buffers(col, pts, wts, plan)
+    go = gout.float().contiguous()
+    launch = lambda stages: sampling._dfa_bwd_launch(col, pts, wts, thr, go,
+                                                     plan, bufs, stages)
+    launch(7)
+    return {part: device_ms(lambda: launch(stage), iters=3)
+            for part, stage in (("B0", 1), ("B1", 2), ("B2", 4))}
 
 
 def msda_bwd_work(sampling, args):
@@ -1589,8 +1609,8 @@ def grad_cases(torch, sampling, calls, gen):
 def phase_train_kernels(torch, calls, train_launches):
     """Kernels A, B and C against their plain versions: B and C on the
     last step's recorded backward calls and on synthetic cases, each
-    launched twice (C must repeat bit for bit; whether B's atomic sums
-    did is reported); A on every problem of each recorded call against
+    launched twice (both must repeat bit for bit; B's three launches are
+    also timed apart); A on every problem of each recorded call against
     its plain version (exact col4row; the plain version runs on the CPU,
     counting each matrix's serial Dijkstra steps) and against scipy's
     optimal cost, with its latency floor: the longest matrix's steps
@@ -1607,6 +1627,7 @@ def phase_train_kernels(torch, calls, train_launches):
                        bound={"bytes": 0.0, "operations": 0.0},
                        bit_identical=True)
                for n in list(bwd) + ["assignment"]}
+    b_parts = {"B0": 0.0, "B1": 0.0, "B2": 0.0}  # device ms a step
     gen = torch.Generator(device="cuda").manual_seed(2)
     for label, name, args in grad_cases(torch, sampling, calls, gen):
         wrapper, plain, _ = bwd[name]
@@ -1620,17 +1641,18 @@ def phase_train_kernels(torch, calls, train_launches):
         torch.cuda.synchronize()
         same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
         close, recs = grad_check(got, ref)
-        # kernel C has no atomics: its repeats must agree bit for bit
-        ok = close and launched == 1 and (
-            same or name != "msda_patch_sel_backward")
+        # neither kernel has atomics: repeats must agree bit for bit
+        ok = close and launched == 1 and same
         errs = [r_["max_abs_err"] for r_ in recs]
         frame = label.startswith("step_call")
         ms = cuda_ms(lambda: wrapper(*args), iters=3)
         dev_ms = device_ms(lambda: wrapper(*args), iters=3)
         plain_ms = cuda_ms(lambda: plain(*plain_args), iters=2)
+        parts = None
         if name.startswith("deformable"):
             byts, ops = dfa_bwd_work(sampling, args, {})
             o_ms = ops / PEAK_OPS["float32"] * 1e3
+            parts = dfa_bwd_parts_ms(sampling, args)
         else:
             byts, ops = msda_bwd_work(sampling, args)
             o_ms = ops / PEAK_OPS["float32"] * 1e3
@@ -1639,6 +1661,7 @@ def phase_train_kernels(torch, calls, train_launches):
         emit(dict(phase="train_grad", case=label, name=name, dtype=dname,
                   grads=recs, tol=GRAD_TOL, ok=ok, launches=launched,
                   bit_identical=same, ms=ms, device_ms=dev_ms,
+                  **({"parts_device_ms": parts} if parts else {}),
                   plain_ms=plain_ms, library_ms=None,
                   bound_ms=max(b_ms, o_ms), bound_by=bound_by, bytes=byts,
                   operations=ops))
@@ -1654,6 +1677,8 @@ def phase_train_kernels(torch, calls, train_launches):
             s["device_ms"] += dev_ms
             s["plain_ms"] += plain_ms
             s["bound"][bound_by] += max(b_ms, o_ms)
+            for part, t in (parts or {}).items():
+                b_parts[part] += t
         del got, again, ref
     s = summary["assignment"]
     scipy_ms = 0.0
@@ -1737,7 +1762,9 @@ def phase_train_kernels(torch, calls, train_launches):
             **({"scipy_host_ms": scipy_ms, "serial_steps": sum(serial),
                 "latency_floor_ms": sum(floors)}
                if name == "assignment" else
-               {"bit_identical": s["bit_identical"]}))
+               {"bit_identical": s["bit_identical"]}),
+            **({"parts_device_ms": b_parts}
+               if name == "deformable_aggregation_backward" else {}))
     return out
 
 

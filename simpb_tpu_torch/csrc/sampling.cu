@@ -974,29 +974,157 @@ int launch_msda_sel_tc(const void* value, const float* loc, const float* attw,
 
 // ------------------------------------------------------- DFA backward
 // Kernel B: the gradients of dfa_kernel's output g [bs, A, C] (fp32) to
-// the feature column (fp32 sums, scattered with atomicAdd onto the four
-// corner rows of each live entry), to the points (through the corner
-// weights: d x / d loc = the level's width, d y / d loc its height) and
-// to the weights (a group's channels of g dotted with the sample). One
-// block per (anchor, batch), as the forward. Its threads place the
-// anchor's entries again and compact the live ones (in range, and kept
-// by the forward's capacity thresholds `thr`, which the forward's rank
-// pass wrote and the autograd Function saved: no rank pass here). A team
-// of C / 8 threads takes one live entry at a time, a thread 8 channels;
-// the teams step through the list in lockstep so that their shuffles
-// (the group sums of the weight gradient over C / G / 8 threads, the
-// point gradient over the team) see whole warps. A weight gradient
-// belongs to one (entry, group) and a point gradient to one (camera,
-// point): both are written without atomics, the point's levels summed in
-// level order. The sample that the weight gradient dots with is rounded
-// as the forward rounds it; the rest sums in fp32.
+// the feature column, to the points (through the corner weights: d x /
+// d loc = the level's width, d y / d loc its height) and to the weights
+// (a group's channels of g dotted with the sample). It replaces the
+// gradient of simpb_tpu/ops/sampling.py::deformable_aggregation (:350;
+// XLA's scatter-adds on the TPU). Three launches, no atomics: every
+// output element has one owner, sums in a fixed order and is written
+// once in its input's type, so repeat launches are bit-identical.
+//
+// B0, `dfa_bwd_rank_kernel`: one block per camera row counts each
+// anchor's live slots (in range, and kept by the forward's capacity
+// thresholds `thr`, which the forward's rank pass wrote and the autograd
+// Function saved) and scans them: the live slots before each anchor's
+// first (`base`) and in all (`cnt`). A live slot's rank in its row is
+// then its place in slot order a * P + p among the live slots, the order
+// the plain version's stable top-k keeps.
+//
+// B1, `dfa_bwd_kernel`: one block per (anchor, batch), as the forward.
+// Its threads place the anchor's entries again and compact the live
+// ones. A team of C / 8 threads takes one live entry at a time, a thread
+// 8 channels; the teams step through the list in lockstep so that their
+// shuffles (the group sums of the weight gradient over C / G / 8
+// threads, the point gradient over the team) see whole warps. A weight
+// gradient belongs to one (entry, group) and a point gradient to one
+// (camera, point): both are written once (zeros included), the point's
+// levels summed in level order. The sample that the weight gradient dots
+// with is rounded as the forward rounds it (bf16: two channels an
+// instruction, as the forward); the rest sums in fp32. For the feature
+// gradient B1 only writes each live entry's record to scratch at its
+// rank: the corner base, the four corner weights, the group weights and
+// the anchor.
+//
+// B2, `dfa_bwd_gcol_kernel`: the feature gradient, owner computes. One
+// block per (camera row, 8x8 pixel tile of a level) owns those feature
+// rows and writes each once, zeros included, in the column's type. It
+// walks its row's records in rank order and lists those whose 2x2
+// footprint reaches its tile (one block scan per round of records); warp
+// y, the tile's pixel row y, keeps the hits that reach its row and adds
+// g[anchor, c] x group weight x corner weight for the entry's one or two
+// corners in the row into fp32 sums in registers (8 pixels x 8 channels
+// a lane), skipping corners of zero weight, and rounds each sum once. A
+// pixel gets one corner of an entry at most, so its sum runs in rank
+// order. Balance: every live slot samples every level, so a small
+// level's tile sees far more entries than a large level's (at the step's
+// widths the 8x22 level has 1/64 of the pixels of the 64x176 one); the
+// warps walk their lists without a block barrier, and the tiles are
+// numbered smallest level first, so that the crowded blocks start first.
+//
+// What bounds it: bytes (the feature rows the live entries read, the
+// dense feature gradient written once); on the card B1's team loop is
+// bound by its instructions (some 30 a channel of a live entry) and B2
+// by the latency of its crowded tiles. A scatter of the feature gradient
+// by B1's blocks (fp32 atomicAdd, 4 corners x C a live entry, onto rows
+// that neighbouring samples share) would contend and sum in a different
+// order on every run, into an fp32 copy of the column; B2's owners do
+// neither and write the column's type directly.
+
+// B1's records of the live entries, by camera row and rank (N a row):
+// wk [rows][L][N] the corner weights wy0 wx0, wy0 wx1, wy1 wx0, wy1 wx1
+// (fp32 products of the rounded weights, 0 for a corner off the level),
+// gw [rows][L][N][G], pos [rows][L][N] (x0 + 1) | (y0 + 1) << 16,
+// anc [rows][N] the anchor; B0's base [rows][A] and cnt [rows].
+struct DfaRec {
+  float4* wk;
+  float* gw;
+  int *pos, *anc, *base, *cnt;
+  int N;
+};
+
+// B2's tiles: level l in B2_TILE x B2_TILE pixel tiles, numbered from
+// first[l] (row-major within the level).
+constexpr int B2_TILE = 8;
+constexpr int B2_NT = 32 * B2_TILE;  // B2's threads: a warp a tile row
+struct DfaTiles {
+  int first[MAX_LEVELS];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(RANK_NT)
+dfa_bwd_rank_kernel(const T* __restrict__ pts, const int* __restrict__ thr,
+                    DfaArgs g, DfaRec rec) {
+  __shared__ int warp_sum[32];
+  const int bc = blockIdx.x, batch = bc / g.cams, cam = bc % g.cams;
+  const int tid = threadIdx.x;
+  const T* pb = pts + batch * g.sp[0] + cam * g.sp[3];
+  const int lim = thr ? thr[bc] : g.A * g.P;
+  int base = 0;
+  for (int a0 = 0; a0 < g.A; a0 += RANK_NT) {
+    const int a = a0 + tid;
+    int n = 0;
+    if (a < g.A)
+      for (int p = 0; p < g.P; ++p) {
+        const T* q = pb + a * g.sp[1] + p * g.sp[2];
+        n += in_range(ld(q), ld(q + g.sp[4])) && a * g.P + p < lim;
+      }
+    int tot;
+    const int incl = block_scan(n, warp_sum, tot);
+    if (a < g.A) rec.base[bc * g.A + a] = base + incl - n;
+    base += tot;
+    __syncthreads();  // warp_sum is rewritten by the next pass
+  }
+  if (tid == 0) rec.cnt[bc] = base;
+}
+
+// One live entry's 8 samples, each rounded as the forward rounds it
+// (dfa_accumulate): the two-corner rows, then the sample.
+template <typename T>
+__device__ __forceinline__ void dfa_sample8(float (&smp)[8], const float4 w,
+                                            const Row8<T> (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float sx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[0][i])),
+                                     R<T>(__fmul_rn(w.y, v[1][i]))));
+    const float sx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[2][i])),
+                                     R<T>(__fmul_rn(w.y, v[3][i]))));
+    smp[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, sx0)),
+                            R<T>(__fmul_rn(w.w, sx1))));
+  }
+}
+
+// bf16, two channels an instruction, as dfa_accumulate<bf16>.
+template <>
+__device__ __forceinline__ void dfa_sample8<bf16>(float (&smp)[8],
+                                                  const float4 w,
+                                                  const Row8<bf16> (&v)[4]) {
+  const __nv_bfloat162 wx0 = __float2bfloat162_rn(w.x),
+                       wx1 = __float2bfloat162_rn(w.y),
+                       wy0 = __float2bfloat162_rn(w.z),
+                       wy1 = __float2bfloat162_rn(w.w);
+  const uint32_t a00[4] = {v[0].u[0].x, v[0].u[0].y, v[0].u[0].z, v[0].u[0].w};
+  const uint32_t a01[4] = {v[1].u[0].x, v[1].u[0].y, v[1].u[0].z, v[1].u[0].w};
+  const uint32_t a10[4] = {v[2].u[0].x, v[2].u[0].y, v[2].u[0].z, v[2].u[0].w};
+  const uint32_t a11[4] = {v[3].u[0].x, v[3].u[0].y, v[3].u[0].z, v[3].u[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 vx0 =
+        add2_rn(__hmul2(wx0, bf2(a00[i])), __hmul2(wx1, bf2(a01[i])));
+    const __nv_bfloat162 vx1 =
+        add2_rn(__hmul2(wx0, bf2(a10[i])), __hmul2(wx1, bf2(a11[i])));
+    const float2 t =
+        __bfloat1622float2(add2_rn(__hmul2(wy0, vx0), __hmul2(wy1, vx1)));
+    smp[2 * i] = t.x;
+    smp[2 * i + 1] = t.y;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
 dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
                const T* __restrict__ wts, const int* __restrict__ thr,
                const float* __restrict__ gout, DfaArgs g, Levels lv,
-               float* __restrict__ gcol, float* __restrict__ gpts,
-               float* __restrict__ gwts) {
+               DfaRec rec, T* __restrict__ gpts, T* __restrict__ gwts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int warp_sum[32];
   const int a = blockIdx.x, batch = blockIdx.y, tid = threadIdx.x;
@@ -1009,28 +1137,47 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
   int* eid = reinterpret_cast<int*>(dl + E);         // [E] entry index
   int* msk = eid + E;                                // [E] corner masks
   float* gw = reinterpret_cast<float*>(msk + E);     // [E][G]
+  int* live_pc = reinterpret_cast<int*>(gw + E * G);  // [cams * P]
+  int* abase = live_pc + g.cams * g.P;  // [cams] B0's counts before a
 
+  const long long aw = ((long long)batch * g.A + a) * g.P;  // (a, p = 0)
   for (int e = tid; e < E; e += blockDim.x) gl[e] = make_float2(0.f, 0.f);
-  // 1. place every entry, compact the live ones in entry order
+  for (int pc = tid; pc < g.cams * g.P; pc += blockDim.x) {
+    const int cam = pc / g.P, p = pc % g.P;
+    const T* q = pts + batch * g.sp[0] + a * g.sp[1] + p * g.sp[2] +
+                 cam * g.sp[3];
+    live_pc[pc] = in_range(ld(q), ld(q + g.sp[4])) &&
+                  (!thr || a * g.P + p < thr[batch * g.cams + cam]);
+  }
+  for (int cam = tid; cam < g.cams; cam += blockDim.x)
+    abase[cam] = rec.base[(batch * g.cams + cam) * g.A + a];
+  __syncthreads();
+  // 1. place every entry, compact the live ones in entry order; records
+  // of the live ones at their rank, zero weight gradients for the rest
   int nlive = 0;
   for (int r0 = 0; r0 < E; r0 += blockDim.x) {
     const int e = r0 + tid;
     const int l = e % L, p = e / L % g.P, cam = e / L / g.P;
     float lx = -1.f, ly = -1.f, gv[MAX_GROUPS];
-    int lim = 0;
+    int live = 0;
     if (e < E) {
       const T* q = pts + batch * g.sp[0] + a * g.sp[1] + p * g.sp[2] +
                    cam * g.sp[3];
       const T* wq = wts + batch * g.sw[0] + a * g.sw[1] + p * g.sw[2] +
                     cam * g.sw[3] + l * g.sw[4];
+      live = live_pc[cam * g.P + p];
       lx = ld(q);
       ly = ld(q + g.sp[4]);
-      lim = thr ? thr[batch * g.cams + cam] - a * g.P - p : 1;
 #pragma unroll
       for (int k = 0; k < MAX_GROUPS; ++k)
         if (k < G) gv[k] = ld(wq + k * g.sw[5]);
+      if (!live) {
+        T* o = gwts + (((aw + p) * g.cams + cam) * L + l) * G;
+#pragma unroll
+        for (int k = 0; k < MAX_GROUPS; ++k)
+          if (k < G) store_as(o + k, 0.f);
+      }
     }
-    const int live = in_range(lx, ly) && lim > 0;
     int tot;
     const int pos = nlive + block_scan(live, warp_sum, tot) - live;
     if (live) {
@@ -1042,10 +1189,11 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
       const int x0 = (int)x0f, y0 = (int)y0f;
       const bool mx0 = x0 >= 0 && x0 < w, mx1 = x0 + 1 >= 0 && x0 + 1 < w;
       const bool my0 = y0 >= 0 && y0 < h, my1 = y0 + 1 >= 0 && y0 + 1 < h;
-      cw[pos] = make_float4(mx0 ? R<T>(__fsub_rn(1.f, fx)) : 0.f,
-                            mx1 ? fx : 0.f,
-                            my0 ? R<T>(__fsub_rn(1.f, fy)) : 0.f,
-                            my1 ? fy : 0.f);
+      const float4 c4 = make_float4(mx0 ? R<T>(__fsub_rn(1.f, fx)) : 0.f,
+                                    mx1 ? fx : 0.f,
+                                    my0 ? R<T>(__fsub_rn(1.f, fy)) : 0.f,
+                                    my1 ? fy : 0.f);
+      cw[pos] = c4;
       const int xc0 = min(max(x0, 0), w - 1), xc1 = min(max(x0 + 1, 0), w - 1);
       const int base = cam * g.T + lv.start[l];
       const int ra = base + min(max(y0, 0), h - 1) * w;
@@ -1057,6 +1205,18 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
 #pragma unroll
       for (int k = 0; k < MAX_GROUPS; ++k)
         if (k < G) gw[pos * G + k] = gv[k];
+      // the record, at the slot's rank among its row's live slots
+      const int bc = batch * g.cams + cam;
+      int rank = abase[cam];
+      for (int q = 0; q < p; ++q) rank += live_pc[cam * g.P + q];
+      const long long ri = ((long long)bc * L + l) * rec.N + rank;
+      rec.wk[ri] = make_float4(__fmul_rn(c4.z, c4.x), __fmul_rn(c4.z, c4.y),
+                               __fmul_rn(c4.w, c4.x), __fmul_rn(c4.w, c4.y));
+      rec.pos[ri] = (x0 + 1) | (y0 + 1) << 16;
+#pragma unroll
+      for (int k = 0; k < MAX_GROUPS; ++k)
+        if (k < G) rec.gw[ri * G + k] = gv[k];
+      if (l == 0) rec.anc[(long long)bc * rec.N + rank] = a;
     }
     nlive += tot;
     __syncthreads();
@@ -1066,7 +1226,6 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
   const int team = tid / CH, ci = tid % CH;
   const int grp = ci / gsz;
   const T* cb = col + (long long)batch * g.cams * g.T * g.C + ci * 8;
-  float* gb = gcol + (long long)batch * g.cams * g.T * g.C + ci * 8;
   float go[8];
   {
     const float* gq = gout + ((long long)batch * g.A + a) * g.C + ci * 8;
@@ -1093,27 +1252,18 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
       const float gwv = gw[i * G + grp];
       const float fmx0 = m & 1 ? 1.f : 0.f, fmx1 = m & 2 ? 1.f : 0.f;
       const float fmy0 = m & 4 ? 1.f : 0.f, fmy1 = m & 8 ? 1.f : 0.f;
-      const float wk[4] = {w.z * w.x, w.z * w.y, w.w * w.x, w.w * w.y};
+      float smp[8];
+      dfa_sample8<T>(smp, w, v);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const float v00 = v[0][c], v01 = v[1][c], v10 = v[2][c],
                     v11 = v[3][c];
-        const float sx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v00)),
-                                         R<T>(__fmul_rn(w.y, v01))));
-        const float sx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v10)),
-                                         R<T>(__fmul_rn(w.y, v11))));
-        const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, sx0)),
-                                         R<T>(__fmul_rn(w.w, sx1))));
-        wdot += go[c] * smp;
+        wdot += go[c] * smp[c];
         const float gg = go[c] * gwv;
         const float vx0 = w.x * v00 + w.y * v01, vx1 = w.x * v10 + w.y * v11;
         glx += gg * (w.z * (fmx1 * v01 - fmx0 * v00) +
                      w.w * (fmx1 * v11 - fmx0 * v10));
         gly += gg * (fmy1 * vx1 - fmy0 * vx0);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (wk[k] != 0.f && gg != 0.f)
-            atomicAdd(gb + (long long)rr[k] * g.C + c, gg * wk[k]);
       }
     }
     for (int o = gsz >> 1; o; o >>= 1)
@@ -1126,8 +1276,7 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
       const int e = eid[i];
       if (ci % gsz == 0) {
         const int l = e % L, p = e / L % g.P, cam = e / L / g.P;
-        gwts[((((long long)(batch * g.A + a) * g.P + p) * g.cams + cam) * L +
-              l) * G + grp] = wdot;
+        store_as(gwts + (((aw + p) * g.cams + cam) * L + l) * G + grp, wdot);
       }
       if (ci == 0) gl[e] = make_float2(glx * dl[i].x, gly * dl[i].y);
     }
@@ -1142,28 +1291,206 @@ dfa_bwd_kernel(const T* __restrict__ col, const T* __restrict__ pts,
       sx += gl[pc * L + l].x;
       sy += gl[pc * L + l].y;
     }
-    float* o = gpts + (((long long)(batch * g.A + a) * g.P + p) * g.cams +
-                       cam) * 2;
-    o[0] = sx;
-    o[1] = sy;
+    T* o = gpts + ((aw + p) * g.cams + cam) * 2;
+    store_as(o, sx);
+    store_as(o + 1, sy);
   }
+}
+
+// Eight fp32 sums stored as T: one 16-byte store for bf16, two for fp32.
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+constexpr int B2_RUN = 8;     // records a B2 thread tests a round
+constexpr int B2_UNROLL = 4;  // hits whose g rows a B2 warp loads together
+
+// B2 (see above): gcol [bs, cams, T, C] in the column's type T, lane i
+// of warp y owning channels 8i..8i+7 of the tile's row y. A round tests
+// B2_NT * B2_RUN records, all loads issued before use, and lists the hits
+// in rank order with one block scan; B2_NT hits at a time are staged, and
+// each warp ballots its own list of them.
+template <typename T>
+__global__ void __launch_bounds__(B2_NT, 2)
+dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
+                    DfaRec rec, DfaTiles tl, T* __restrict__ gcol) {
+  constexpr int TS = B2_TILE, NT = B2_NT;
+  __shared__ int warp_sum[32];
+  __shared__ int lst[NT * B2_RUN];           // a round's hits (ranks)
+  __shared__ uint8_t hf[NT * B2_RUN];        // a round's hit flags
+  __shared__ int sPos[NT];                   // (x0 + 1) | (y0 + 1) << 8
+  __shared__ float4 sWk[NT];                 // in the tile's frame
+  __shared__ int sAnc[NT];
+  __shared__ float sGw[NT * MAX_GROUPS];
+  __shared__ uint16_t wl[TS][NT];            // each warp's hits
+  const int bc = blockIdx.x, batch = bc / g.cams, tid = threadIdx.x;
+  const int lane = tid & 31, yy = tid >> 5, L = lv.n, C = g.C, G = g.G;
+  const int N = rec.N;
+  int t = blockIdx.y, l = 0;
+  for (; l < L; ++l) {
+    const int n = (lv.h[l] + TS - 1) / TS * ((lv.w[l] + TS - 1) / TS);
+    if (t >= tl.first[l] && t < tl.first[l] + n) break;
+  }
+  t -= tl.first[l];
+  const int h = lv.h[l], w = lv.w[l], ntx = (w + TS - 1) / TS;
+  const int tx0 = t % ntx * TS, ty0 = t / ntx * TS;
+  const bool chans = lane * 8 < C;  // this lane has channels
+  const int grp = lane * 8 / (C / G);
+  float acc[TS][8];
+#pragma unroll
+  for (int p = 0; p < TS; ++p)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[p][c] = 0.f;
+
+  const int n = rec.cnt[bc];
+  const long long rl = ((long long)bc * L + l) * N;  // this level's records
+  const float* gb = gout + (long long)batch * g.A * C + lane * 8;
+  for (int r0 = 0; r0 < n; r0 += NT * B2_RUN) {
+    // the round's records that reach the tile, listed in rank order:
+    // loads with neighbouring threads on neighbouring records, then a
+    // thread ranks a contiguous run of the flags
+    const int len = min(n - r0, NT * B2_RUN);
+    int pk[B2_RUN];
+#pragma unroll
+    for (int k = 0; k < B2_RUN; ++k) {
+      const int i = k * NT + tid;
+      pk[k] = i < len ? rec.pos[rl + r0 + i] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < B2_RUN; ++k) {
+      const int i = k * NT + tid;
+      const int x0 = (pk[k] & 0xffff) - 1 - tx0, y0 = (pk[k] >> 16) - 1 - ty0;
+      if (i < len) hf[i] = x0 >= -1 && x0 < TS && y0 >= -1 && y0 < TS;
+    }
+    __syncthreads();
+    const int run = (len + NT - 1) / NT, first = tid * run;
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < B2_RUN; ++i)
+      if (i < run && first + i < len) bits |= (unsigned)hf[first + i] << i;
+    int tot;
+    int at = block_scan(__popc(bits), warp_sum, tot) - __popc(bits);
+#pragma unroll
+    for (int i = 0; i < B2_RUN; ++i)
+      if ((bits >> i) & 1u) lst[at++] = r0 + first + i;
+    __syncthreads();
+    for (int s0 = 0; s0 < tot; s0 += NT) {
+      // stage NT hits: the corner base in the tile's frame, the corner
+      // weights, the anchor, the group weights
+      const int m = min(NT, tot - s0);
+      if (tid < m) {
+        const int r = lst[s0 + tid], q = rec.pos[rl + r];
+        sPos[tid] = ((q & 0xffff) - tx0) | ((q >> 16) - ty0) << 8;
+        sWk[tid] = rec.wk[rl + r];
+        sAnc[tid] = rec.anc[(long long)bc * N + r];
+        for (int k = 0; k < G; ++k)
+          sGw[tid * G + k] = rec.gw[(rl + r) * G + k];
+      }
+      __syncthreads();
+      // this warp's hits: a corner in tile row yy
+      int cnt = 0;
+      for (int b = 0; b < m; b += 32) {
+        const int i = b + lane;
+        const int y0 = i < m ? (sPos[i] >> 8) - 1 : -9;
+        const bool mine = y0 == yy || y0 + 1 == yy;
+        const unsigned bal = __ballot_sync(0xffffffffu, mine);
+        if (mine) wl[yy][cnt + __popc(bal & ((1u << lane) - 1))] = i;
+        cnt += __popc(bal);
+      }
+      __syncwarp();
+      for (int j0 = 0; j0 < cnt; j0 += B2_UNROLL) {
+        float4 gr[B2_UNROLL][2];
+#pragma unroll
+        for (int u = 0; u < B2_UNROLL; ++u)
+          if (j0 + u < cnt && chans) {
+            const float4* q = reinterpret_cast<const float4*>(
+                gb + (long long)sAnc[wl[yy][j0 + u]] * C);
+            gr[u][0] = q[0];
+            gr[u][1] = q[1];
+          } else {
+            gr[u][0] = gr[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+        for (int u = 0; u < B2_UNROLL; ++u) {
+          if (j0 + u >= cnt) break;
+          const int e = wl[yy][j0 + u], pe = sPos[e];
+          const int x0 = (pe & 0xff) - 1, dy = yy - ((pe >> 8) - 1);
+          const float4 w4 = sWk[e];
+          const float gwv = sGw[e * G + grp];
+          const float gv[8] = {gr[u][0].x, gr[u][0].y, gr[u][0].z,
+                               gr[u][0].w, gr[u][1].x, gr[u][1].y,
+                               gr[u][1].z, gr[u][1].w};
+          float gg[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) gg[c] = __fmul_rn(gv[c], gwv);
+          // corner k = 2 dy + dx of the entry, weight wc, at pixel p
+          const int ka = 2 * dy;
+          const float wa = dy ? w4.z : w4.x, wb = dy ? w4.w : w4.y;
+          auto add = [&](float (&a)[8], int k, float wc) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              if (wc != 0.f)
+                a[c] = __fadd_rn(a[c], __fmul_rn(gg[c], wc));
+          };
+          switch (x0) {
+            case -1: add(acc[0], ka + 1, wb); break;
+            case 0: add(acc[0], ka, wa); add(acc[1], ka + 1, wb); break;
+            case 1: add(acc[1], ka, wa); add(acc[2], ka + 1, wb); break;
+            case 2: add(acc[2], ka, wa); add(acc[3], ka + 1, wb); break;
+            case 3: add(acc[3], ka, wa); add(acc[4], ka + 1, wb); break;
+            case 4: add(acc[4], ka, wa); add(acc[5], ka + 1, wb); break;
+            case 5: add(acc[5], ka, wa); add(acc[6], ka + 1, wb); break;
+            case 6: add(acc[6], ka, wa); add(acc[7], ka + 1, wb); break;
+            case 7: add(acc[7], ka, wa); break;
+          }
+        }
+      }
+      __syncthreads();  // the staging is rewritten by the next window
+    }
+  }
+  // the warp's tile row on the level, 8 pixels x 8 channels a lane
+  const int y = ty0 + yy;
+  if (y >= h || !chans) return;
+  T* out = gcol + ((long long)bc * g.T + lv.start[l] + (long long)y * w) * C +
+           lane * 8;
+#pragma unroll
+  for (int p = 0; p < TS; ++p)
+    if (tx0 + p < w) store8(out + (long long)(tx0 + p) * C, acc[p]);
 }
 
 int dfa_bwd_smem_bytes(const DfaArgs& g, int L) {
   const int E = g.cams * g.P * L;
-  return E * (16 + 16 + 8 + 8 + 4 + 4 + 4 * g.G);
+  return E * (16 + 16 + 8 + 8 + 4 + 4 + 4 * g.G) + 4 * g.cams * (g.P + 1);
 }
 
+// stages: 1 B0, 2 B1, 4 B2 (the wrapper launches all three; chip_smoke
+// times them apart on one scratch).
 template <typename T>
 int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
-                   const int* thr, const float* gout, float* gcol,
-                   float* gpts, float* gwts, const DfaArgs& g,
-                   const Levels& lv, int threads, int smem,
-                   cudaStream_t st) {
-  const int CH = g.C / 8;
+                   const int* thr, const float* gout, T* gcol, T* gpts,
+                   T* gwts, void* scratch, const DfaArgs& g,
+                   const Levels& lv, int threads, int smem, int tiles,
+                   const DfaTiles& tl, int stages, cudaStream_t st) {
+  const int CH = g.C / 8, rows = g.bs * g.cams, L = lv.n;
+  int want = 0;
+  for (int l = 0; l < L; ++l)
+    want += (lv.h[l] + B2_TILE - 1) / B2_TILE *
+            ((lv.w[l] + B2_TILE - 1) / B2_TILE);
   if (g.C % 8 || (g.C / g.G) % 8 || g.G > MAX_GROUPS || CH > 32 ||
       (CH & (CH - 1)) || ((CH / g.G) & (CH / g.G - 1)) || threads % CH ||
-      threads % 32 || threads > 256 || dfa_bwd_smem_bytes(g, lv.n) > smem)
+      threads % 32 || threads > 256 || dfa_bwd_smem_bytes(g, L) > smem ||
+      tiles != want || stages & ~7)
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the attribute only grows (one card)
   if (smem > smem_set) {
@@ -1171,9 +1498,31 @@ int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     smem_set = smem;
   }
-  dfa_bwd_kernel<T><<<dim3(g.A, g.bs), threads, smem, st>>>(
-      (const T*)col, (const T*)pts, (const T*)wts, thr, gout, g, lv, gcol,
-      gpts, gwts);
+  DfaRec rec;
+  rec.N = g.M >= 0 ? g.M : g.A * g.P;
+  const long long n = (long long)rows * L * rec.N;
+  rec.wk = reinterpret_cast<float4*>(scratch);
+  rec.gw = reinterpret_cast<float*>(rec.wk + n);
+  rec.pos = reinterpret_cast<int*>(rec.gw + n * g.G);
+  rec.anc = rec.pos + n;
+  rec.base = rec.anc + (long long)rows * rec.N;
+  rec.cnt = rec.base + (long long)rows * g.A;
+  if (stages & 1) {
+    dfa_bwd_rank_kernel<T><<<rows, RANK_NT, 0, st>>>((const T*)pts, thr, g,
+                                                     rec);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if (stages & 2) {
+    dfa_bwd_kernel<T><<<dim3(g.A, g.bs), threads, smem, st>>>(
+        (const T*)col, (const T*)pts, (const T*)wts, thr, gout, g, lv, rec,
+        gpts, gwts);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if (stages & 4)
+    dfa_bwd_gcol_kernel<T><<<dim3(rows, tiles), B2_NT, 0, st>>>(
+        gout, g, lv, rec, tl, gcol);
   return (int)cudaGetLastError();
 }
 
@@ -1697,31 +2046,41 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
                                             threads, smem, st);
 }
 
-// The backward passes (kernels B and C). dims and strides as the
-// forwards'; thr: the forward's saved count thresholds (NULL without a
-// capacity); gout [bs, A, C] fp32; gcol fp32 [bs, cams, T, C], gpts
-// [bs, A, P, cams, 2] and gwts [bs, A, P, cams, L, G] fp32, zeroed by the
-// caller (gcol accumulates with atomicAdd; entries the forward dropped
-// stay 0).
+// The backward passes (kernels B and C). Kernel B: dims as simpb_dfa's
+// (threads, smem: B1's), then B2's tile count and the L levels' first
+// tiles; strides as the forward's; thr: the forward's saved count
+// thresholds (NULL without a capacity); gout [bs, A, C] fp32; gcol [bs,
+// cams, T, C], gpts [bs, A, P, cams, 2] and gwts [bs, A, P, cams, L, G]
+// in the column's type, every element written; scratch: B1's records
+// and B0's counts, rows * (L * N * (5 + G) + N + A + 1) words with rows
+// = bs * cams and N = M (A * P without a capacity); stages: 1 B0, 2 B1,
+// 4 B2 (7: the whole pass).
 int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
                   const void* thr, const void* gout, void* gcol, void* gpts,
-                  void* gwts, const int* dims, const long long* strides,
-                  int dtype, void* stream) {
+                  void* gwts, void* scratch, const int* dims,
+                  const long long* strides, int dtype, int stages,
+                  void* stream) {
   DfaArgs g;
   g.bs = dims[0]; g.cams = dims[1]; g.A = dims[2]; g.P = dims[3];
   g.G = dims[5]; g.C = dims[6]; g.T = dims[7]; g.M = dims[8];
-  const int threads = dims[9], smem = dims[10];
+  const int threads = dims[9], smem = dims[10], L = dims[4];
   for (int i = 0; i < 5; ++i) g.sp[i] = strides[i];
   for (int i = 0; i < 6; ++i) g.sw[i] = strides[5 + i];
-  const Levels lv = read_levels(dims[4], dims + 11);
+  const Levels lv = read_levels(L, dims + 11);
+  const int* d2 = dims + 11 + 3 * L;
+  DfaTiles tl;
+  for (int l = 0; l < L; ++l) tl.first[l] = d2[1 + l];
   cudaStream_t st = (cudaStream_t)stream;
   const int* t = (const int*)thr;
   const float* go = (const float*)gout;
-  float *gc = (float*)gcol, *gp = (float*)gpts, *gw = (float*)gwts;
-  return dtype ? launch_dfa_bwd<bf16>(col, pts, wts, t, go, gc, gp, gw, g,
-                                      lv, threads, smem, st)
-               : launch_dfa_bwd<float>(col, pts, wts, t, go, gc, gp, gw, g,
-                                       lv, threads, smem, st);
+  return dtype ? launch_dfa_bwd<bf16>(col, pts, wts, t, go, (bf16*)gcol,
+                                      (bf16*)gpts, (bf16*)gwts, scratch, g,
+                                      lv, threads, smem, d2[0], tl, stages,
+                                      st)
+               : launch_dfa_bwd<float>(col, pts, wts, t, go, (float*)gcol,
+                                       (float*)gpts, (float*)gwts, scratch,
+                                       g, lv, threads, smem, d2[0], tl,
+                                       stages, st);
 }
 
 // dims as simpb_msda_sel's, then C3's tile count and channels a lane

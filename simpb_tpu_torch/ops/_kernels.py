@@ -76,8 +76,9 @@ SIGNATURES = {
         # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
         "simpb_msda_sel": ((P,) * 6 + (I, P), I),
         # col, points, weights, thresholds, grad out, grad col, grad
-        # points, grad weights, dims, strides, dtype, stream
-        "simpb_dfa_bwd": ((P,) * 10 + (I, P), I),
+        # points, grad weights, scratch, dims, strides, dtype, stages,
+        # stream
+        "simpb_dfa_bwd": ((P,) * 11 + (I, I, P), I),
         # value, loc, attw, grad sampled, grad wsum, grad value, grad loc,
         # grad attw, scratch, dims, dtype, stream
         "simpb_msda_sel_bwd": ((P,) * 10 + (I, P), I),

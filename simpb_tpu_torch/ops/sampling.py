@@ -42,9 +42,11 @@ through the plain versions. On the card each is a
 (`deformable_aggregation_backward`, kernel B: DFA's Function saves the
 forward's capacity thresholds, so the backward keeps exactly the slots
 the forward kept; `msda_patch_sel_backward`, kernel C: the Function
-saves only its inputs and the kernel recomputes the windows). The
-feature gradients are fp32 `atomicAdd` sums rounded once to the
-features' dtype, so their order varies from launch to launch.
+saves only its inputs and the kernel recomputes the windows). Neither
+uses atomics: each feature or value gradient element has one owner
+block, which sums it in fp32 in a fixed order, rounds it once to the
+features' dtype and writes it once, so repeat launches give the same
+bits.
 """
 from __future__ import annotations
 
@@ -61,6 +63,8 @@ MAX_LEVELS = 8  # level table of the CUDA kernels
 MAX_HEADS = 16  # heads of the fp32 MSDA-sel kernel's per-thread sums
 MAX_GROUPS = 8  # DFA weight groups
 DFA_THREADS = 256  # most threads of a DFA block
+# C1 packs a window's base in 14 bits an axis, B1 a corner's in 16
+MAX_LEVEL_SIDE = 1 << 14
 MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
 # the bf16 MSDA-sel kernel's head shape (csrc/sampling.cu): top-2 levels,
 # 8x8 windows, 4 points a head (and at most 8 heads), as in every
@@ -388,13 +392,33 @@ def _dfa_launch(col_feats, spatial_shapes, points_2d, weights,
     return out, scratch
 
 
+B2_TILE = 8  # B2's pixel tile side (csrc/sampling.cu)
+
+
+class DfaBwdPlan(NamedTuple):
+    """Kernel B's three launches. B0: one block per camera row. B1: one
+    block per (anchor, batch), `grid` (anchors, bs), `threads` and `smem`
+    bytes a block. B2: `gcol_grid` (camera rows, B2_TILE x B2_TILE pixel
+    tiles of all levels). `scratch`: the int32 words of B1's records and
+    B0's counts. `dims`: the host int array the C entry reads."""
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+    gcol_grid: Tuple[int, int]
+    scratch: int
+    dims: ctypes.Array
+
+
 @functools.lru_cache(maxsize=None)
 def plan_dfa_backward(bs: int, cams: int, num_anchor: int, num_pts: int,
                       num_groups: int, c: int, gather_capacity: Optional[int],
-                      shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
-    """Kernel B's launch: one block per (anchor, batch) of teams of C / 8
-    threads (C / 8 a power of two up to 32, and so C / G / 8), the live
-    entries' corner data and weights in shared memory."""
+                      shapes: Tuple[Tuple[int, int], ...]) -> DfaBwdPlan:
+    """Kernel B's launches: B1 one block per (anchor, batch) of teams of
+    C / 8 threads (C / 8 a power of two up to 32, and so C / G / 8), the
+    live entries' corner data and weights in shared memory; B2 one block
+    per (camera row, 8x8 tile), the tiles numbered smallest level first
+    so that the crowded ones start first. Raises ValueError on a shape
+    the kernels do not take."""
     what = "deformable_aggregation_backward"
     fwd = plan_dfa(bs, cams, num_anchor, num_pts, num_groups, c,
                    gather_capacity, shapes)
@@ -403,16 +427,50 @@ def plan_dfa_backward(bs: int, cams: int, num_anchor: int, num_pts: int,
     if ch > 32 or ch & (ch - 1) or gsz & (gsz - 1):
         raise ValueError(f"{what}: C / 8 = {ch} and C / G / 8 = {gsz} must "
                          "be powers of two, C / 8 at most 32")
+    if any(max(h, w) > MAX_LEVEL_SIDE for h, w in shapes):
+        raise ValueError(f"{what}: levels {shapes} exceed "
+                         f"{MAX_LEVEL_SIDE} pixels a side")
     threads = max(32, (DFA_THREADS // ch) * ch)
     entries = cams * num_pts * len(shapes)
-    smem = entries * (56 + 4 * num_groups)
+    smem = entries * (56 + 4 * num_groups) + 4 * cams * (num_pts + 1)
     if smem > _kernels.MAX_SMEM:
         raise ValueError(f"{what}: {entries} samples per anchor do not fit "
                          "in shared memory")
+    counts = [-(-h // B2_TILE) * -(-w // B2_TILE) for h, w in shapes]
+    first, tiles = [0] * len(shapes), 0
+    for lvl in sorted(range(len(shapes)),
+                      key=lambda i: shapes[i][0] * shapes[i][1]):
+        first[lvl], tiles = tiles, tiles + counts[lvl]
+    rows = bs * cams
+    cap = fwd.dims[8]
+    per_row = cap if cap >= 0 else num_anchor * num_pts
+    scratch = rows * (len(shapes) * per_row * (5 + num_groups) + per_row
+                      + num_anchor + 1)
     dims = list(fwd.dims)
     dims[9], dims[10] = threads, smem
-    return SamplingPlan((num_anchor, bs), threads, smem, 0,
-                        _kernels.int_array(dims))
+    return DfaBwdPlan((num_anchor, bs), threads, smem, (rows, tiles),
+                      scratch, _kernels.int_array(dims + [tiles] + first))
+
+
+def _dfa_bwd_buffers(col_feats, points_2d, weights, plan):
+    """Kernel B's outputs (gcol, gpts, gwts, each in its input's dtype and
+    written whole by the kernels) and its int32 scratch."""
+    dev = col_feats.device
+    empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
+    return (empty(col_feats), empty(points_2d), empty(weights),
+            torch.empty(plan.scratch, dtype=torch.int32, device=dev))
+
+
+def _dfa_bwd_launch(col_feats, points_2d, weights, thresholds, gout, plan,
+                    buffers, stages=7):
+    """Launch kernel B's stages (1 B0, 2 B1, 4 B2) into `buffers`."""
+    _kernels.check(_kernels.load("sampling").simpb_dfa_bwd(
+        *map(_kernels.ptr, (col_feats, points_2d, weights, thresholds, gout)
+             + tuple(buffers)),
+        plan.dims, _stride_array(points_2d.stride() + weights.stride()),
+        _kernels.DTYPE_CODE[col_feats.dtype], stages,
+        ctypes.c_void_p(_kernels.stream_ptr(col_feats))),
+        "deformable_aggregation_backward")
 
 
 def deformable_aggregation_backward(
@@ -424,7 +482,8 @@ def deformable_aggregation_backward(
     """Kernel B: the gradients (col_feats, points_2d, weights), each in
     its input's dtype, of `deformable_aggregation` at grad_out [bs, A, C].
     `thresholds` is the forward's saved capacity compaction (None when
-    the capacity does not bite). CUDA tensors only."""
+    the capacity does not bite). CUDA tensors only. Deterministic: no
+    atomics, so a repeat call gives the same bits."""
     what = "deformable_aggregation_backward"
     _check_dfa(col_feats, spatial_shapes, points_2d, weights)
     if col_feats.device.type != "cuda":
@@ -436,20 +495,12 @@ def deformable_aggregation_backward(
     if (thresholds is None) != (plan.dims[8] < 0):
         raise ValueError(f"{what}: the forward's thresholds are needed "
                          "exactly when the capacity bites")
-    dev = col_feats.device
-    gout = grad_out.float().contiguous()
-    gcol = torch.zeros(col_feats.shape, dtype=torch.float32, device=dev)
-    gpts = torch.zeros(points_2d.shape, dtype=torch.float32, device=dev)
-    gwts = torch.zeros(weights.shape, dtype=torch.float32, device=dev)
-    _kernels.check(_kernels.load("sampling").simpb_dfa_bwd(
-        *map(_kernels.ptr, (col_feats, points_2d, weights, thresholds, gout,
-                            gcol, gpts, gwts)),
-        plan.dims, _stride_array(points_2d.stride() + weights.stride()),
-        _kernels.DTYPE_CODE[col_feats.dtype],
-        ctypes.c_void_p(_kernels.stream_ptr(col_feats))), what)
+    _check_aligned(what, col_feats, "col_feats")
+    buffers = _dfa_bwd_buffers(col_feats, points_2d, weights, plan)
+    _dfa_bwd_launch(col_feats, points_2d, weights, thresholds,
+                    grad_out.float().contiguous(), plan, buffers)
     _LAUNCHES["deformable_aggregation_backward"] += 1
-    return (gcol.to(col_feats.dtype), gpts.to(points_2d.dtype),
-            gwts.to(weights.dtype))
+    return buffers[:3]
 
 
 def deformable_aggregation_backward_plain(
@@ -910,7 +961,6 @@ def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
 MSDA_BWD_THREADS = 256  # threads of a C1 block
 BWD_HEADS = 8  # kernel C's heads at most (csrc/sampling.cu BWD_HEADS)
 GV_TILE = 8  # C3's pixel tile (csrc/sampling.cu GV_TILE)
-MAX_LEVEL_SIDE = 1 << 14  # C1 packs a window's base in 14 bits an axis
 
 
 class MsdaBwdPlan(NamedTuple):

@@ -6,11 +6,12 @@
 their plain versions element by element. To show that it sees a fault
 that drops a small part of a feature or value gradient, the tool copies
 the checkout into `build/planted_faults/<fault>/`, edits one line of
-`csrc/sampling.cu` there (`FAULTS`: kernel B's atomic scatter, or
-kernel C's value-gradient accumulation in C3), builds that copy and runs
-chip_smoke's synthetic gradient cases (fp32 and bf16) on it. It prints
-one JSON line per (fault, case): whether `grad_check` passes, whether
-the bound it replaced (`MAX_SCALED`: a share of the plain gradient's
+`csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
+accumulation in B2, or kernel C's value-gradient accumulation in C3),
+builds that copy and runs chip_smoke's synthetic gradient cases (fp32
+and bf16) on it. It prints one JSON line per (fault, case): whether
+`grad_check` passes, whether the bound it replaced (`MAX_SCALED`: a
+share of the plain gradient's
 largest value) passes, and each gradient's worst share of the check's
 bound; then one summary line per fault. It exits 1 when the unchanged
 copy fails a case, or when a fault passes the check on every case of
@@ -26,20 +27,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 WORK = ROOT / "build" / "planted_faults"
-_B_SCATTER = "          if (wk[k] != 0.f && gg != 0.f)\n"
+_B_ACCUMULATE = "              if (wc != 0.f)\n"
 _C_ACCUMULATE = "              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
 FAULTS = {
     "none": (None, None, None),
-    # kernel B: every entry of anchor 0 drops its fourth corner
+    # kernel B: every entry of anchor 0 drops its fourth corner (B2's
+    # warps walk staged entry e, its anchor in sAnc[e], corner k)
     "dfa_corner3_of_anchor0": (
-        "deformable_aggregation_backward", _B_SCATTER,
-        "          if (wk[k] != 0.f && gg != 0.f && !(k == 3 && a == 0))\n"),
-    # kernel B: scattered contributions below 1e-4 are dropped
+        "deformable_aggregation_backward", _B_ACCUMULATE,
+        "              if (wc != 0.f && !(k == 3 && sAnc[e] == 0))\n"),
+    # kernel B: feature-gradient contributions below 1e-4 are dropped
     "dfa_small_contributions": (
-        "deformable_aggregation_backward", _B_SCATTER,
-        "          if (wk[k] != 0.f && gg != 0.f && fabsf(gg * wk[k]) >= "
-        "1e-4f)\n"),
+        "deformable_aggregation_backward", _B_ACCUMULATE,
+        "              if (wc != 0.f && fabsf(gg[c] * wc) >= 1e-4f)\n"),
     # kernel C: window pixel 0 of query 0 adds nothing to the value
     # gradient (C3 walks window e = query * K + k; its pixel 0 is the
     # window's base)
@@ -100,7 +101,7 @@ def main() -> int:
                 src = copy / "simpb_tpu_torch" / "csrc" / "sampling.cu"
                 text = src.read_text()
                 if text.count(old) != 1:
-                    raise RuntimeError(f"{fault}: the scatter to edit is not "
+                    raise RuntimeError(f"{fault}: the line to edit is not "
                                        "in csrc/sampling.cu once")
                 src.write_text(text.replace(old, new))
             out = subprocess.run(

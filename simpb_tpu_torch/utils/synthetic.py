@@ -382,22 +382,28 @@ def batch_to_torch(batch, device=None):
     return {k: conv(v) for k, v in batch.items()}
 
 
-def dn_bundle_from_numpy(tree, device="cpu"):
+def dn_bundle_from_numpy(tree, device=None):
     """A `DnBundle` from a mapping of numpy arrays (a JAX bundle's
-    fields, for the tests)."""
+    fields, for the tests), on `device` (the card unless the caller names
+    another; raises without a card)."""
     import torch
 
     from ..training.targets3d import DnBundle
+    from .device import resolve_device
 
+    device = resolve_device(device)
     return DnBundle(**{k: torch.from_numpy(np.asarray(v).copy()).to(device)
                        for k, v in tree.items()})
 
 
-def dn_state_from_numpy(tree, device="cpu"):
-    """A `DnState` from a mapping of numpy arrays."""
+def dn_state_from_numpy(tree, device=None):
+    """A `DnState` from a mapping of numpy arrays, on `device` (the card
+    unless the caller names another; raises without a card)."""
     import torch
 
     from ..training.dn import DnState
+    from .device import resolve_device
 
+    device = resolve_device(device)
     return DnState(**{k: torch.from_numpy(np.asarray(v).copy()).to(device)
                       for k, v in tree.items()})

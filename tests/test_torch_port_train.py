@@ -476,9 +476,10 @@ def test_update_and_cache_dn_match_jax():
     tvm = np.array([True, False])
     ref = jax.jit(lambda f, a, b, s, m: jdn.update_dn(
         f, a, b, s, m, a3, 2, 1))(feat, anchor, jb, jdn.DnState(**snp), tvm)
-    tb = dn_bundle_from_numpy(bnp)
-    got = tdn.update_dn(_t(feat), _t(anchor), tb, dn_state_from_numpy(snp),
-                        _t(tvm), a3, 2, 1)
+    tb = dn_bundle_from_numpy(bnp, device="cpu")
+    got = tdn.update_dn(_t(feat), _t(anchor), tb,
+                        dn_state_from_numpy(snp, device="cpu"), _t(tvm), a3,
+                        2, 1)
     _close(got[0], ref[0])
     _close(got[1], ref[1])
     rb = _bundle_np(ref[2])
@@ -607,7 +608,8 @@ def test_total_loss_matches_jax():
     jouts, jbatch = assemble(jnp.asarray, jb, Alloc)
     ref_total, ref = jax.jit(lambda ou, ba: jlh.total_loss(
         ou, ba, JTrainConfig(), image_wh=(64, 32)))(jouts, jbatch)
-    touts, tbatch = assemble(_t, dn_bundle_from_numpy(bnp), Alloc)
+    touts, tbatch = assemble(_t, dn_bundle_from_numpy(bnp, device="cpu"),
+                             Alloc)
     total, got = tlh.total_loss(touts, tbatch, TrainConfig(),
                                 image_wh=(64, 32))
     assert set(got) == set(ref)
