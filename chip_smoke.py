@@ -128,6 +128,35 @@ Phases, each printing one JSON line:
              plain version) and the latency floor they set: steps times
              one link of a chain of dependent warp argmins, timed on the
              card by a one-warp kernel.
+13. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
+             --config r50-fast --batch-size 4`, trunk bf16, head fp32)
+             through `tools/train.py::run`, TRAIN_CLI_ITERS (6) iterations
+             with a checkpoint every TRAIN_CLI_CKPT (3) and a log line
+             every one, over a synthetic training pkl
+             (`write_synthetic_infos`: TRAIN_CLI_FRAMES (24) frames of six
+             1600x900 cameras in two scenes, 2D GT and LiDAR files) and
+             a mid-training eval with `ckpt_best` at iteration 6 over a
+             12-frame val pkl; decoded frames served from memory by a
+             dataset subclass (no Pillow), everything after the decode
+             run as the CLI runs it (sampler, native preprocess,
+             photometric jitter, 2D GT, depth maps, 3D augmentation,
+             `pad_sample`, the producer thread). Then a second run
+             resumed from `ckpt_3` to iteration 6. The launch counts are
+             set to 0 before the first run and read after; each step's
+             launches must be want_train_launches (0 trunk, 3 each of
+             DFA, MSDA-sel, B, C and A), the eval's 1/4/12/4/3/3 a frame.
+             Checks the native route on every sample, finite losses with
+             the full key set, ckpt_3, ckpt_6 and ckpt_best written,
+             `ckpt_best` read back into fresh templates equal to the
+             run's final state bit for bit (parameters, BN buffers,
+             moments, step, temporal and DN state, poses, best score),
+             the resumed run's batches 4-6 equal the first run's bit for
+             bit (sha256 of every array on the host, before the card),
+             and step 4's loss within TRAIN_CLI_LOSS_RTOL of the first
+             run's. Prints the step ms (host clock; each log line
+             synchronises), the producer's ms a batch, the ms the loop
+             waited on the queue a step, checkpoint ms and bytes, the
+             restore's ms, the peak memory and the eval's ms a frame.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -138,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -815,9 +845,10 @@ def synthetic_sampling(torch, dtype, gen, dev="cuda"):
     edges = torch.tensor([0.0, 1.0, -0.1, 1.1, 2 ** -9, 1 - 2 ** -8, 0.5,
                           0.3], device=dev)
     border = edges[(rnd(1, a, p, cams, 2) * len(edges)).long()].to(dtype)
-    # anchors 0-99 with every point out of range: no live entry
+    # anchors 1-100 with every point out of range: no live entry (anchor
+    # 0 stays live, so a fault planted on its entries shows here too)
     dead = border.clone()
-    dead[:, :100] = -0.5
+    dead[:, 1:101] = -0.5
     cases = [
         ("dfa_capacity_bites", "deformable_aggregation",
          (col, ss, dense, wts), dict(gather_capacity=2048)),
@@ -1768,6 +1799,281 @@ def phase_train_kernels(torch, calls, train_launches):
     return out
 
 
+TRAIN_CLI_ITERS = 6  # iterations of the training CLI's run
+TRAIN_CLI_CKPT = 3  # its checkpoint interval; the resumed run starts here
+TRAIN_CLI_FRAMES = 24  # training frames, two scenes
+# step 4's loss, resumed against uninterrupted: the step starts from the
+# same parameters, moments, stream state and batch, and every kernel of
+# the path repeats bit for bit; the rest of the forward is cuDNN and
+# eager PyTorch, whose CUDA reductions and index adds may sum in another
+# order (fp32 atomics), so the losses may differ by rounding
+TRAIN_CLI_LOSS_RTOL = 1e-5
+
+
+def batch_digest(batch):
+    """{key: sha256 of the array's dtype, shape and bytes} of a numpy
+    batch (gt_depth's levels one by one)."""
+    import hashlib
+
+    import numpy as np
+
+    def one(a):
+        a = np.ascontiguousarray(a)
+        return hashlib.sha256(str((a.dtype, a.shape)).encode()
+                              + a.tobytes()).hexdigest()
+
+    return {k: ([one(x) for x in v] if isinstance(v, list) else one(v))
+            for k, v in batch.items()}
+
+
+def same_state(torch, got, want):
+    """Names of the entries of two training states (state, temporal,
+    dn_state, prev_pose, best_score) that are not equal bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    bad = []
+    sd_g, sd_w = got["state"].model.state_dict(), want["state"].model.state_dict()
+    bad += [k for k in sd_w if not torch.equal(sd_g[k], sd_w[k])]
+    for n, (mu, nu) in want["state"].opt_state.items():
+        gm, gn = got["state"].opt_state[n]
+        if not (torch.equal(gm, mu) and torch.equal(gn, nu)):
+            bad.append(f"opt_state.{n}")
+    if got["state"].step != want["state"].step:
+        bad.append("step")
+    for kind in ("temporal", "dn_state"):
+        for f in dataclasses.fields(want[kind]):
+            if not torch.equal(getattr(got[kind], f.name),
+                               getattr(want[kind], f.name)):
+                bad.append(f"{kind}.{f.name}")
+    for j, (g, w) in enumerate(zip(got["prev_pose"], want["prev_pose"])):
+        if (g is None) != (w is None) or (w is not None and not (
+                g[0] == w[0] and np.array_equal(g[1], w[1]))):
+            bad.append(f"prev_pose[{j}]")
+    if len(got["prev_pose"]) != len(want["prev_pose"]):
+        bad.append("prev_pose")
+    if got["best_score"] != want["best_score"]:
+        bad.append("best_score")
+    return bad
+
+
+def phase_train_cli(torch):
+    """The training CLI (`python -m simpb_tpu_torch.tools.train`) through
+    `run`, at full width: `--config r50-fast --batch-size 4` over a
+    synthetic 1600x900 training pkl with 2D GT and LiDAR files, decoded
+    frames served from memory (no Pillow on the card's machine), with a
+    mid-training eval over a 12-frame val pkl; then a second run resumed
+    from its first checkpoint. See the module docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.data.dataset import NuScenesDataset
+    from simpb_tpu_torch.tools import test as test_cli
+    from simpb_tpu_torch.tools import train as train_cli
+    from simpb_tpu_torch.training import train_step
+    from simpb_tpu_torch.training.checkpoint import restore_checkpoint
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    src_h, src_w = 900, 1600
+    bs = TRAIN_BS
+    pool = np.random.default_rng(0).integers(0, 256, (16, src_h, src_w, 3),
+                                             dtype=np.uint8)
+
+    class MemoryImages(NuScenesDataset):
+        """Serves decoded frames from memory (a pool of 16 seeded
+        frames, one per path by its number)."""
+
+        def load_images(self, paths, dtype=np.float32, scale_hint=None):
+            return [pool[self.frame_of[p]].astype(dtype, copy=False)
+                    for p in paths]
+
+    def memory(pkl, **kw):
+        ds = MemoryImages(pkl, **kw)
+        paths = [c["data_path"] for info in ds.data_infos
+                 for c in info["cams"].values()]
+        ds.frame_of = {p: n % len(pool) for n, p in enumerate(paths)}
+        return ds
+
+    digests, per_step = [], []
+
+    def recorded(fn):
+        def make(dataset, items, rng, prev_pose, cfg):
+            batch = fn(dataset, items, rng, prev_pose, cfg)
+            digests.append(batch_digest(batch))
+            return batch
+        return make
+
+    def counted(fn):
+        def build(model, tc, *a):
+            step = fn(model, tc, *a)
+
+            def counted_step(*args, **kwargs):
+                before = launch_counts()
+                res = step(*args, **kwargs)
+                after = launch_counts()
+                per_step.append({k: after[k] - before[k] for k in after
+                                 if after[k] - before[k]})
+                return res
+            return counted_step
+        return build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/train")
+        os.makedirs(f"{tmp}/val")
+        pkl = write_synthetic_infos(f"{tmp}/train", n_frames=TRAIN_CLI_FRAMES,
+                                    gap_at=(TRAIN_CLI_FRAMES // 2,),
+                                    src_hw=(src_h, src_w), with_2d=True,
+                                    with_lidar=True)
+        val = write_synthetic_infos(f"{tmp}/val", n_frames=EVAL_FRAMES,
+                                    gap_at=(EVAL_FRAMES // 2,),
+                                    src_hw=(src_h, src_w), seed=1)
+        argv = ["--ann-file", pkl, "--config", "r50-fast", "--batch-size",
+                str(bs), "--max-iters", str(TRAIN_CLI_ITERS),
+                "--ckpt-interval", str(TRAIN_CLI_CKPT), "--log-interval", "1",
+                "--seed", "0", "--work-dir", f"{tmp}/work"]
+        args = train_cli.parse_args(argv + [
+            "--eval-ann-file", val, "--eval-interval", str(TRAIN_CLI_ITERS),
+            "--eval-frames", str(EVAL_FRAMES)])
+        cfg = train_cli.build_config(args)
+        aug = train_cli.train_aug_conf(cfg, src_h, src_w)
+        dataset = memory(pkl, test_mode=False, data_aug_conf=aug,
+                         sequences_split_num=2,
+                         strides=cfg.strides[: cfg.num_depth_layers])
+        eval_dataset = memory(val, test_mode=True, sequences_split_num=1,
+                              data_aug_conf=test_cli.eval_aug_conf(
+                                  cfg, src_h, src_w))
+        sites = ((train_cli, "make_batch", recorded),
+                 (train_step, "build_train_step", counted))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with rebound(*sites):
+            first = train_cli.run(args, dataset=dataset,
+                                  eval_dataset=eval_dataset)
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        first_digests, first_steps = digests[:], per_step[:]
+        files = sorted(os.listdir(f"{tmp}/work"))
+
+        # the saved state read back into fresh templates on the card
+        model = train_step.build_train_model(cfg, device="cuda", seed=1)
+        state = train_step.create_train_state(
+            model, TrainConfig(batch_size=bs))
+        temporal, dn_state = train_step.init_temporal(cfg, bs, "cuda")
+        t0 = time.perf_counter()
+        state, temporal, dn_state, pose, it, best = restore_checkpoint(
+            f"{tmp}/work/ckpt_best", state, temporal, dn_state)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_diff = same_state(torch, dict(
+            state=state, temporal=temporal, dn_state=dn_state,
+            prev_pose=pose, best_score=best), first)
+        del model, state, temporal, dn_state
+        free_cuda(torch)
+
+        digests.clear()
+        per_step.clear()
+        resumed_route = dict(dataset.route_counts)
+        args2 = train_cli.parse_args(argv + [
+            "--resume-from", f"{tmp}/work/ckpt_{TRAIN_CLI_CKPT}",
+            "--work-dir", f"{tmp}/work2"])
+        with rebound(*sites):
+            second = train_cli.run(args2, dataset=dataset)
+        second_digests = digests[:]
+        second_steps = per_step[:]
+        dataset_route = {k: dataset.route_counts[k] - resumed_route[k]
+                         for k in resumed_route}
+
+    want = want_train_launches(cfg)
+    keys = train_loss_keys(cfg)
+    ev = first["evals"][0] if first["evals"] else {}
+    eval_launches = {k: launches[k] - sum(s.get(k, 0) for s in first_steps)
+                     for k in launches}
+    eval_launches = {k: v for k, v in eval_launches.items() if v}
+    loss4 = (first["losses"][TRAIN_CLI_CKPT + 1]["loss"],
+             second["losses"][TRAIN_CLI_CKPT + 1]["loss"])
+    later = {i: (first["losses"][i]["loss"], second["losses"][i]["loss"])
+             for i in range(TRAIN_CLI_CKPT + 2, TRAIN_CLI_ITERS + 1)}
+    same_batches = [a == b for a, b in zip(
+        first_digests[TRAIN_CLI_CKPT:], second_digests)]
+    ckpts = {os.path.basename(c["path"]): dict(ms=c["ms"], bytes=c["bytes"])
+             for c in first["checkpoints"]}
+    steps_ms = first["step_ms"]
+    srt = sorted(steps_ms)
+    emit(dict(phase="train_cli", config="simpb_r50_704x256_fast",
+              trunk="bfloat16", head="float32", batch_size=bs,
+              iters=TRAIN_CLI_ITERS, source_hw=[src_h, src_w],
+              frames=TRAIN_CLI_FRAMES, seconds=first_s,
+              step_ms=steps_ms, step_ms_median=statistics.median(steps_ms),
+              step_ms_range=[srt[0], srt[-1]],
+              producer_ms=first["producer_ms"],
+              producer_ms_median=statistics.median(first["producer_ms"]),
+              queue_wait_ms=first["queue_wait_ms"],
+              queue_wait_ms_median=statistics.median(first["queue_wait_ms"]),
+              max_memory_allocated=peak, checkpoints=ckpts,
+              restore_ms=restore_ms, resume_restore_ms=second["restore_ms"],
+              eval_frames=ev.get("frames"),
+              eval_ms_per_frame=(ev["ms"] / ev["frames"]) if ev else None,
+              eval_nds=ev.get("metrics", {}).get("NDS"),
+              route_counts=first["route_counts"],
+              eval_route_counts=dict(eval_dataset.route_counts),
+              resumed_route_counts=dataset_route,
+              launches=launches, launches_per_step=first_steps,
+              eval_launches=eval_launches,
+              loss=[first["losses"][i]["loss"]
+                    for i in range(1, TRAIN_CLI_ITERS + 1)],
+              resumed_loss=[second["losses"][i]["loss"] for i in range(
+                  TRAIN_CLI_CKPT + 1, TRAIN_CLI_ITERS + 1)],
+              step4_loss=loss4, step4_rel_diff=abs(loss4[0] - loss4[1])
+              / max(abs(loss4[0]), 1e-30), later_losses=later,
+              loss_rtol=TRAIN_CLI_LOSS_RTOL,
+              resumed_batches_bit_identical=same_batches,
+              restored_state_differs=restored_diff[:8], files=files))
+    problems = []
+    n_samples = TRAIN_CLI_ITERS * bs
+    if first["route_counts"] != {"native": n_samples, "pil": 0} or \
+            dataset_route != {"native": (TRAIN_CLI_ITERS - TRAIN_CLI_CKPT)
+                              * bs, "pil": 0}:
+        problems.append(f"routes {first['route_counts']} / {dataset_route}")
+    if eval_dataset.route_counts != {"native": EVAL_FRAMES, "pil": 0}:
+        problems.append(f"eval routes {eval_dataset.route_counts}")
+    if len(first_steps) != TRAIN_CLI_ITERS or any(
+            c != want for c in first_steps + second_steps):
+        problems.append(f"launches a step {first_steps + second_steps}, "
+                        f"want {want}")
+    if eval_launches != {k: EVAL_FRAMES * n for k, n in
+                         WANT_LAUNCHES.items()}:
+        problems.append(f"eval launches {eval_launches}")
+    for i, ld in list(first["losses"].items()) + list(
+            second["losses"].items()):
+        if set(ld) != keys or not all(math.isfinite(v) for v in ld.values()):
+            problems.append(f"iter {i}: loss keys or values {ld}")
+            break
+    if sorted(first["losses"]) != list(range(1, TRAIN_CLI_ITERS + 1)):
+        problems.append(f"logged iterations {sorted(first['losses'])}")
+    for name in (f"ckpt_{TRAIN_CLI_CKPT}", f"ckpt_{TRAIN_CLI_ITERS}",
+                 "ckpt_best"):
+        if name not in files:
+            problems.append(f"no {name} in {files}")
+    if restored_diff:
+        problems.append(f"restored state differs: {restored_diff[:8]}")
+    if it != TRAIN_CLI_ITERS or best is None:
+        problems.append(f"restored iter {it}, best score {best}")
+    if len(same_batches) != TRAIN_CLI_ITERS - TRAIN_CLI_CKPT or \
+            not all(same_batches):
+        problems.append(f"resumed batches {same_batches}")
+    if not abs(loss4[0] - loss4[1]) <= TRAIN_CLI_LOSS_RTOL * abs(loss4[0]):
+        problems.append(f"step {TRAIN_CLI_CKPT + 1} loss {loss4}")
+    if problems:
+        raise AssertionError(f"train_cli phase: {problems}")
+    del first, second
+    free_cuda(torch)
+
+
 def main() -> int:
     import torch
 
@@ -1818,6 +2124,7 @@ def main() -> int:
     train_launches, train_calls = phase_train(torch)
     train = phase_train_kernels(torch, train_calls, train_launches)
     del train_calls
+    phase_train_cli(torch)
 
     kernels = []
     for name, s in summary.items():

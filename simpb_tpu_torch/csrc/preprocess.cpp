@@ -7,11 +7,42 @@
 // horizontal flip and mean/std normalisation in a single pass over
 // output pixels. Host C++, built with g++ by
 // simpb_tpu_torch/data/native_preprocess.py and bound with ctypes.
+// `native_hang` is the watchdog tests' fault injection.
 
 #include <cstdint>
 #include <cmath>
+#include <ctime>
 
 extern "C" {
+
+// Fault injection for the preemption watchdog (utils/watchdog.py):
+// block the calling thread in native code for `seconds`, restarting
+// after EINTR, as a stalled native wait on the device does. Python's
+// C-level signal handler still runs (it sets the pending flag and
+// writes the wakeup fd), but the bytecode loop, and with it the
+// Python-level SIGTERM handler, cannot run until this returns.
+// Test-only entry point; never called on the training path.
+void native_hang(double seconds) {
+  struct timespec deadline;
+  clock_gettime(CLOCK_MONOTONIC, &deadline);
+  deadline.tv_sec += (time_t)seconds;
+  deadline.tv_nsec += (long)((seconds - (time_t)seconds) * 1e9);
+  if (deadline.tv_nsec >= 1000000000L) {
+    deadline.tv_sec += 1;
+    deadline.tv_nsec -= 1000000000L;
+  }
+  for (;;) {
+    struct timespec now;
+    clock_gettime(CLOCK_MONOTONIC, &now);
+    if (now.tv_sec > deadline.tv_sec ||
+        (now.tv_sec == deadline.tv_sec &&
+         now.tv_nsec >= deadline.tv_nsec)) {
+      return;
+    }
+    struct timespec chunk = {0, 50000000L};  // 50 ms, EINTR-restarted
+    nanosleep(&chunk, nullptr);
+  }
+}
 
 // in:  [in_h, in_w, 3] uint8 (RGB)
 // out: [out_h, out_w, 3] float32, normalised

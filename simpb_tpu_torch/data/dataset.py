@@ -1,18 +1,26 @@
-"""NuScenes multi-view dataset, test mode (port of the evaluation side of
-`simpb_tpu/data/dataset.py::NuScenesDataset`).
+"""NuScenes multi-view dataset and fixed-shape batch assembly (port of
+`simpb_tpu/data/dataset.py`).
 
 Consumes the `simpb_nuscenes_infos_{train,val}.pkl` files of the offline
 converter and builds per-frame camera geometry, sequence grouping, the
-fixed test-mode augmentation, the network input (the native C++ pass
-when it builds, else PIL) and the 3D ground truth for scoring. Samples
-are numpy; the evaluation loop moves them to the model's device.
-Temporal metadata (`timestamp`, `lidar2global`) stays on the host, so
-unix-epoch arithmetic never reaches the device.
+image augmentation (drawn per sequence in training, fixed in test mode),
+the network input, the 3D and per-camera 2D ground truth, the LiDAR
+depth maps, and pads a training sample to the static shapes of the train
+step (`pad_sample`). Samples are numpy; the evaluation loop and the
+training CLI move them to the model's device. Temporal metadata
+(`timestamp`, `lidar2global`) stays on the host, so unix-epoch
+arithmetic never reaches the device.
 
-Not ported yet (ROADMAP A.2): the training side — 2D ground truth,
-random and photometric augmentation, 3D rotation and scale, the range
-filter, depth maps and `pad_sample`. A dataset with `test_mode=False`
-raises `NotImplementedError`.
+The image route. The native C++ pass (`data/native_preprocess.py`) does
+resize + crop + flip in one pass over the output pixels whenever it
+builds and the augmentation does not rotate; otherwise PIL does
+(`transforms.img_transform`). In test mode the native pass also
+normalises, as in the JAX package. In training it runs with mean 0 and
+std 1, so that the photometric jitter and the normalisation follow in
+the JAX package's order (its training samples always take PIL; the
+native pass also serves a host without Pillow). The draws on the
+caller's generator are the same on both routes. `route_counts`
+counts the samples each route took.
 """
 from __future__ import annotations
 
@@ -26,6 +34,10 @@ import numpy as np
 
 from ..configs.base import CLASS_NAMES
 from . import transforms as T
+
+# the native pass's mean and std in training: resize + crop + flip alone
+_ZERO = np.zeros(3, np.float32)
+_ONE = np.ones(3, np.float32)
 
 try:
     from pyquaternion import Quaternion
@@ -54,22 +66,21 @@ class NuScenesDataset:
         self,
         ann_file: str,
         data_root: str = "",
-        test_mode: bool = True,
+        test_mode: bool = False,
         data_aug_conf: Optional[Dict] = None,
         sequences_split_num: int = 2,
+        with_info2d: bool = True,
+        strides=(4, 8, 16),
         load_interval: int = 1,
         use_valid_flag: bool = True,
         use_native: bool = True,
         draft_decode: bool = False,
     ):
-        if not test_mode:
-            raise NotImplementedError(
-                "training-mode samples (test_mode=False) are not ported "
-                "yet (ROADMAP A.2)"
-            )
         self.data_root = data_root
         self.test_mode = test_mode
         self.data_aug_conf = data_aug_conf
+        self.with_info2d = with_info2d
+        self.strides = strides
         self.use_valid_flag = use_valid_flag
         self.use_native = use_native
         # DCT-domain scaled JPEG decode (PIL `draft`): decode directly at
@@ -83,6 +94,7 @@ class NuScenesDataset:
         self.data_infos = self.data_infos[::load_interval]
         self.metadata = data.get("metadata", {})
         self.flag = self._sequence_flags(sequences_split_num)
+        self.route_counts = {"native": 0, "pil": 0}
 
     def __len__(self):
         return len(self.data_infos)
@@ -111,28 +123,45 @@ class NuScenesDataset:
         return np.asarray(new_flags, np.int64)
 
     # ---------------- augmentation ----------------
-    def get_augmentation(self):
-        """The fixed test-mode image augmentation (reference
-        nuscenes_dataset.py:193-241, eval branch): resize to cover the
-        final size, bottom crop at the mean of `bot_pct_lim`, centred
-        horizontally; no flip or rotation."""
+    def get_augmentation(self, rng: Optional[np.random.Generator] = None):
+        """Sample (train) or fix (eval) the image augmentation
+        (reference nuscenes_dataset.py:193-241)."""
         if self.data_aug_conf is None:
             return None
         conf = self.data_aug_conf
         h, w = conf["H"], conf["W"]
         fh, fw = conf["final_dim"]
-        resize = max(fh / h, fw / w)
-        new_w, new_h = int(w * resize), int(h * resize)
-        crop_h = int((1 - np.mean(conf["bot_pct_lim"])) * new_h) - fh
-        crop_w = int(max(0, new_w - fw) / 2)
-        crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+        if not self.test_mode and rng is not None:
+            resize = rng.uniform(*conf["resize_lim"])
+            new_w, new_h = int(w * resize), int(h * resize)
+            crop_h = int((1 - rng.uniform(*conf["bot_pct_lim"])) * new_h) - fh
+            crop_w = int(rng.uniform(0, max(0, new_w - fw)))
+            crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+            flip = bool(conf["rand_flip"] and rng.integers(2))
+            rotate = float(rng.uniform(*conf["rot_lim"]))
+            rotate_3d = float(rng.uniform(*conf["rot3d_range"]))
+            # draw only when configured: an unconditional draw would
+            # shift the shared seeded rng stream for every existing
+            # config (reproducibility of prior runs)
+            scale_3d = (
+                float(rng.uniform(*conf["scale_ratio_range"]))
+                if "scale_ratio_range" in conf
+                else 1.0
+            )
+        else:
+            resize = max(fh / h, fw / w)
+            new_w, new_h = int(w * resize), int(h * resize)
+            crop_h = int((1 - np.mean(conf["bot_pct_lim"])) * new_h) - fh
+            crop_w = int(max(0, new_w - fw) / 2)
+            crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+            flip, rotate, rotate_3d, scale_3d = False, 0.0, 0.0, 1.0
         return {
             "resize": resize,
             "crop": crop,
-            "flip": False,
-            "rotate": 0.0,
-            "rotate_3d": 0.0,
-            "scale_3d": 1.0,
+            "flip": flip,
+            "rotate": rotate,
+            "rotate_3d": rotate_3d,
+            "scale_3d": scale_3d,
             "final_dim": (fh, fw),
         }
 
@@ -169,6 +198,7 @@ class NuScenesDataset:
             "intrinsics": intrinsics,
             "extrinsics": extrinsics,
             "cam_intrinsic": cam_intrinsic,
+            "lidar_path": info.get("lidar_path"),
         }
 
     # ---------------- sample assembly ----------------
@@ -224,22 +254,32 @@ class NuScenesDataset:
                     )
         return list(NuScenesDataset._decode_pool.map(_one, paths))
 
-    def get_sample(self, idx: int) -> Dict:
-        """One frame's raw sample dict: `img` [cams, H, W, 3] float32
-        (normalised), `projection_mat` [cams, 4, 4] float32, `focal`,
-        `timestamp` (s), `lidar2global`, `ego2global`, the camera
-        matrices and `aug_config`."""
+    def get_sample(
+        self,
+        idx: int,
+        aug: Optional[Dict] = None,
+        rng: Optional[np.random.Generator] = None,
+    ) -> Dict:
+        """One frame's raw (un-padded) sample dict: `img` [cams, H, W, 3]
+        float32 (normalised), `projection_mat` [cams, 4, 4] float32,
+        `focal`, `timestamp` (s), `lidar2global`, `ego2global`, the
+        camera matrices and `aug_config`; in training also the 3D and 2D
+        ground truth and, with a LiDAR file, `gt_depth`.
+        `aug` defaults to `get_augmentation(rng)`; `rng` also draws the
+        photometric jitter in training."""
         info = self.data_infos[idx]
         geo = self.frame_geometry(info)
-        aug = self.get_augmentation()
+        if aug is None:
+            aug = self.get_augmentation(rng)
 
-        # decide the preprocessing path BEFORE decoding so the native
-        # path can take uint8 straight from the decoder
+        # decide the image route BEFORE decoding so the native pass can
+        # take uint8 straight from the decoder
         use_native_path = self.use_native and not aug.get("rotate")
         if use_native_path:
             from . import native_preprocess as npz
 
             use_native_path = npz.available()
+        self.route_counts["native" if use_native_path else "pil"] += 1
         imgs = self.load_images(
             geo["img_paths"],
             dtype=np.uint8 if use_native_path else np.float32,
@@ -257,6 +297,10 @@ class NuScenesDataset:
             "extrinsics": list(geo["extrinsics"]),
             "cam_intrinsic": list(geo["cam_intrinsic"]),
         }
+
+        # annotations
+        if not self.test_mode:
+            self._add_annotations(sample, info, geo)
 
         # image aug + intrinsic updates (the native fused pass, or PIL)
         new_imgs = []
@@ -281,7 +325,11 @@ class NuScenesDataset:
                     if k != 1.0
                     else aug
                 )
-                out = npz.preprocess_image(img, aug_i)
+                if self.test_mode:  # the pass normalises itself
+                    out = npz.preprocess_image(img, aug_i)
+                else:  # resize + crop + flip alone; jitter comes next
+                    out = npz.preprocess_image(img, aug_i, mean=_ZERO,
+                                               std=_ONE)
                 # intrinsic update matrix (same math as img_transform)
                 m = np.eye(3)
                 m[:2, :2] *= aug.get("resize", 1.0)
@@ -297,12 +345,46 @@ class NuScenesDataset:
             img, mat = T.img_transform(img, aug)
             sample["intrinsics"][i] = mat @ sample["intrinsics"][i]
             new_imgs.append(img)
+        if not self.test_mode and "gt_bboxes_2d" in sample:
+            self._transform_gt2d(sample, aug)
         sample["lidar2img"] = [
             sample["intrinsics"][i] @ sample["extrinsics"][i]
             for i in range(len(imgs))
         ]
-        if not use_native_path:  # the native pass normalises itself
+
+        # lidar depth supervision
+        if not self.test_mode and geo["lidar_path"]:
+            try:
+                pts = np.fromfile(geo["lidar_path"], np.float32).reshape(-1, 5)
+                fh, fw = aug["final_dim"]
+                sample["gt_depth"] = T.depth_maps_from_points(
+                    pts, sample["lidar2img"], (fh, fw), self.strides
+                )
+            except (FileNotFoundError, OSError):
+                pass
+
+        # 3D rotation and scale (identity unless the augmentation sets
+        # them)
+        if not self.test_mode and aug.get("rotate_3d"):
+            T.rotate_3d(sample, aug["rotate_3d"])
+        if not self.test_mode and aug.get("scale_3d", 1.0) != 1.0:
+            T.scale_3d(sample, aug["scale_3d"])
+
+        if not self.test_mode and rng is not None:
+            new_imgs = T.photometric_distortion(rng, new_imgs)
+        if not (use_native_path and self.test_mode):
             new_imgs = T.normalize_images(new_imgs)
+
+        # range + class filters (reference CircleObjectRangeFilter)
+        if not self.test_mode and "gt_bboxes_3d" in sample:
+            keep = T.circle_range_filter(
+                sample["gt_bboxes_3d"], sample["gt_labels_3d"]
+            )
+            keep &= sample["gt_labels_3d"] >= 0
+            self._filter_3d(sample, keep)
+            sample["gt_bboxes_3d"][:, 6] = T.limit_period(
+                sample["gt_bboxes_3d"][:, 6]
+            )
 
         sample["img"] = np.stack(new_imgs)  # [cams, H, W, 3]
         sample["projection_mat"] = np.stack(sample["lidar2img"]).astype(
@@ -315,11 +397,21 @@ class NuScenesDataset:
         return sample
 
     def get_annotations(self, idx: int) -> Dict:
-        """3D GT only (lidar frame), no image pipeline — for evaluation
-        (reference get_ann_info, nuscenes_dataset.py:427-502, 3D part)."""
+        """3D GT only (lidar frame), no image pipeline — for evaluation."""
         info = self.data_infos[idx]
         geo = self.frame_geometry(info)
         sample: Dict = {"lidar2global": geo["lidar2global"]}
+        saved = self.with_info2d
+        self.with_info2d = False
+        try:
+            self._add_annotations(sample, info, geo)
+        finally:
+            self.with_info2d = saved
+        return sample
+
+    def _add_annotations(self, sample, info, geo):
+        """3D + 2D GT assembly (reference get_ann_info,
+        nuscenes_dataset.py:427-502)."""
         mask = (
             info["valid_flag"]
             if self.use_valid_flag and "valid_flag" in info
@@ -344,4 +436,188 @@ class NuScenesDataset:
             sample["gt_instance_id"] = np.asarray(
                 info["instance_inds"], np.int64
             )[mask]
-        return sample
+
+        if self.with_info2d and "bboxes2d" in info:
+            alphas = self._alphas(info["gt_boxes"], geo["extrinsics"])
+            # remap 2D GT through the 3D validity mask
+            remap = -np.ones(len(mask) + 1, np.int64)
+            remap[: len(mask)][mask] = np.arange(mask.sum())
+            g2d, l2d, c2d, d2d, m2d, a2d = [], [], [], [], [], []
+            for cam in range(len(geo["img_paths"])):
+                mapping = np.asarray(info["gt_2d_3d_map"][cam], np.int64)
+                keep = np.ones(len(mapping), bool)
+                for j, m3d in enumerate(mapping):
+                    if 0 <= m3d < len(mask) and not mask[m3d]:
+                        keep[j] = False
+                g2d.append(np.asarray(info["bboxes2d"][cam])[keep])
+                l2d.append(np.asarray(info["labels2d"][cam])[keep])
+                c2d.append(np.asarray(info["centers2d"][cam])[keep])
+                d2d.append(np.asarray(info["depths"][cam])[keep])
+                # NB: mapping == -1 (2D GT without a 3D parent) python-
+                # wraps to the LAST 3D box's alpha — the reference does
+                # the identical wrap (nuscenes_dataset.py:472
+                # `gt_alphas_2d[cam_idx][map_2d_3d]`); kept for parity
+                a2d.append(alphas[cam][mapping][keep])
+                m2d.append(remap[mapping[keep]])
+            sample.update(
+                gt_bboxes_2d=g2d, gt_labels_2d=l2d, gt_centers_2d=c2d,
+                gt_depths_2d=d2d, gt_2d_3d_map=m2d, gt_alphas_2d=a2d,
+            )
+
+    @staticmethod
+    def _alphas(boxes3d, extrinsics):
+        """Per-camera observation angles (reference get_alphas,
+        nuscenes_dataset.py:388-425)."""
+        axis = np.array(
+            [[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+            np.float64,
+        )
+        out = []
+        for ext in extrinsics:
+            centers = np.concatenate(
+                [boxes3d[:, :3], np.ones((len(boxes3d), 1))], -1
+            )
+            cam = ext @ centers.T
+            alphas = np.zeros(len(boxes3d), np.float32)
+            valid = cam[2] > 0.2
+            for i in np.where(valid)[0]:
+                yaw = boxes3d[i][6]
+                rot = np.array(
+                    [
+                        [np.cos(yaw), -np.sin(yaw), 0, 0],
+                        [np.sin(yaw), np.cos(yaw), 0, 0],
+                        [0, 0, 1, 0],
+                        [0, 0, 0, 1],
+                    ]
+                )
+                m = (np.linalg.inv(axis) @ ext) @ rot
+                sy = math.hypot(m[0][0], m[1][0])
+                ry = -(
+                    math.atan2(m[1][0], m[0][0]) if sy > 1e-6 else 0.0
+                )
+                x, z = cam[0, i], cam[2, i]
+                beta = np.arctan(z / x) if x != 0 else np.pi / 2
+                if beta < 0:
+                    beta += np.pi
+                beta -= np.pi / 2
+                a = ry + beta
+                if a < -np.pi:
+                    a += 2 * np.pi
+                if a > np.pi:
+                    a -= 2 * np.pi
+                alphas[i] = a
+            out.append(alphas)
+        return out
+
+    def _transform_gt2d(self, sample, aug):
+        fh, fw = aug["final_dim"]
+        for cam in range(len(sample["gt_bboxes_2d"])):
+            b = np.asarray(sample["gt_bboxes_2d"][cam], np.float32).reshape(
+                -1, 4
+            )
+            c = np.asarray(sample["gt_centers_2d"][cam], np.float32).reshape(
+                -1, 2
+            )
+            a = np.asarray(sample["gt_alphas_2d"][cam], np.float32).reshape(-1)
+            if len(b) == 0:
+                continue
+            b, c, a, keep = T.transform_boxes2d(b, c, a, aug)
+            d = np.asarray(sample["gt_depths_2d"][cam])[keep]
+            m = np.asarray(sample["gt_2d_3d_map"][cam])[keep]
+            l = np.asarray(sample["gt_labels_2d"][cam])[keep]
+            b, c, a = b[keep], c[keep], a[keep]
+            vis = T.filter_occluded(b, d, fh, fw)
+            sample["gt_bboxes_2d"][cam] = b[vis]
+            sample["gt_centers_2d"][cam] = c[vis]
+            sample["gt_alphas_2d"][cam] = a[vis]
+            sample["gt_depths_2d"][cam] = d[vis]
+            sample["gt_2d_3d_map"][cam] = m[vis]
+            sample["gt_labels_2d"][cam] = l[vis]
+
+    def _filter_3d(self, sample, keep):
+        remap = -np.ones(len(keep) + 1, np.int64)
+        remap[: len(keep)][keep] = np.arange(keep.sum())
+        sample["gt_bboxes_3d"] = sample["gt_bboxes_3d"][keep]
+        sample["gt_labels_3d"] = sample["gt_labels_3d"][keep]
+        if "gt_instance_id" in sample:
+            sample["gt_instance_id"] = sample["gt_instance_id"][keep]
+        if "gt_2d_3d_map" in sample:
+            for cam in range(len(sample["gt_2d_3d_map"])):
+                mapping = np.asarray(sample["gt_2d_3d_map"][cam], np.int64)
+                keep2d = (mapping < 0) | keep[np.clip(mapping, 0, len(keep) - 1)]
+                for key in [
+                    "gt_bboxes_2d", "gt_labels_2d", "gt_centers_2d",
+                    "gt_depths_2d", "gt_alphas_2d",
+                ]:
+                    sample[key][cam] = np.asarray(sample[key][cam])[keep2d]
+                sample["gt_2d_3d_map"][cam] = remap[mapping[keep2d]]
+
+
+def pad_sample(
+    sample: Dict,
+    max_gt3d: int = 128,
+    max_gt2d: int = 64,
+    num_cams: int = 6,
+) -> Dict:
+    """Raw sample -> fixed-shape arrays matching the train-step batch
+    contract (`training/train_step.py`; `tools/train.py::make_batch`
+    stacks a batch of them)."""
+    out = {
+        "img": sample["img"].astype(np.float32),
+        "projection_mat": sample["projection_mat"].astype(np.float32),
+        "focal": sample["focal"].astype(np.float32),
+    }
+    if "gt_bboxes_3d" in sample:
+        g = len(sample["gt_bboxes_3d"])
+        gk = min(g, max_gt3d)
+        boxes = np.zeros((max_gt3d, 9), np.float32)
+        labels = np.full((max_gt3d,), -1, np.int32)
+        valid = np.zeros((max_gt3d,), bool)
+        iid = np.full((max_gt3d,), -1, np.int32)
+        if gk:
+            b = sample["gt_bboxes_3d"][:gk]
+            boxes[:gk, : b.shape[-1]] = b
+            labels[:gk] = sample["gt_labels_3d"][:gk]
+            valid[:gk] = True
+            if "gt_instance_id" in sample:
+                iid[:gk] = sample["gt_instance_id"][:gk]
+        out.update(
+            gt_boxes3d=boxes, gt_labels3d=labels, gt_valid3d=valid,
+            gt_instance_id=iid,
+        )
+    if "gt_bboxes_2d" in sample:
+        b2 = np.zeros((num_cams, max_gt2d, 4), np.float32)
+        l2 = np.full((num_cams, max_gt2d), -1, np.int32)
+        a2 = np.zeros((num_cams, max_gt2d), np.float32)
+        v2 = np.zeros((num_cams, max_gt2d), bool)
+        # per-3D-GT scattered 2D targets for DN (reference
+        # target.py:619-636 does this scatter on device; here on host)
+        vis_p3 = np.zeros((max_gt3d, num_cams), bool)
+        b_p3 = np.zeros((max_gt3d, num_cams, 4), np.float32)
+        l_p3 = np.full((max_gt3d, num_cams), -1, np.int32)
+        a_p3 = np.zeros((max_gt3d, num_cams), np.float32)
+        for cam in range(num_cams):
+            bb = np.asarray(sample["gt_bboxes_2d"][cam], np.float32).reshape(
+                -1, 4
+            )
+            n = min(len(bb), max_gt2d)
+            if n:
+                b2[cam, :n] = bb[:n]
+                l2[cam, :n] = sample["gt_labels_2d"][cam][:n]
+                a2[cam, :n] = sample["gt_alphas_2d"][cam][:n]
+                v2[cam, :n] = True
+            mapping = np.asarray(sample["gt_2d_3d_map"][cam], np.int64)
+            for j, m3d in enumerate(mapping):
+                if 0 <= m3d < max_gt3d and j < len(bb):
+                    vis_p3[m3d, cam] = True
+                    b_p3[m3d, cam] = bb[j]
+                    l_p3[m3d, cam] = sample["gt_labels_2d"][cam][j]
+                    a_p3[m3d, cam] = sample["gt_alphas_2d"][cam][j]
+        out.update(
+            gt_boxes2d=b2, gt_labels2d=l2, gt_alphas2d=a2, gt_valid2d=v2,
+            gt_vis2d_per3d=vis_p3, gt_boxes2d_per3d=b_p3,
+            gt_labels2d_per3d=l_p3, gt_alphas2d_per3d=a_p3,
+        )
+    if "gt_depth" in sample:
+        out["gt_depth"] = [d.astype(np.float32) for d in sample["gt_depth"]]
+    return out

@@ -3,7 +3,8 @@
 
 `csrc/preprocess.cpp` of this package compiles with g++ at first use
 into `build/simpb_tpu_torch/libpreprocess-<hash>.so` (the hash covers
-the source) and exposes the fused resize+crop+flip+normalise pass. When
+the source) and exposes the fused resize+crop+flip+normalise pass and
+`native_hang`, the fault injection of the watchdog tests. When
 no compiler is there, `available()` is False and the dataset takes the
 PIL path (`data/transforms.py`), as in the JAX package.
 
@@ -57,12 +58,27 @@ def _build() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
     ]
     lib.resize_crop_flip_normalize.restype = None
+    lib.native_hang.argtypes = [ctypes.c_double]
+    lib.native_hang.restype = None
     _lib = lib
     return lib
 
 
 def available() -> bool:
     return _build() is not None
+
+
+def native_hang(seconds: float) -> bool:
+    """Fault injection: block the calling thread in native code for
+    `seconds`, restarting through EINTR (`csrc/preprocess.cpp`), as a
+    stalled native device wait does, so that tests can show the
+    preemption watchdog (`utils/watchdog.py`) fires. Returns False when
+    the native library is unavailable."""
+    lib = _build()
+    if lib is None:
+        return False
+    lib.native_hang(ctypes.c_double(float(seconds)))
+    return True
 
 
 def preprocess_image(

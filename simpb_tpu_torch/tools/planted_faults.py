@@ -14,8 +14,10 @@ and bf16) on it. It prints one JSON line per (fault, case): whether
 share of the plain gradient's
 largest value) passes, and each gradient's worst share of the check's
 bound; then one summary line per fault. It exits 1 when the unchanged
-copy fails a case, or when a fault passes the check on every case of
-the kernel it edits. The copies are removed at the end. Needs the card.
+copy fails a case, or when a fault passes the check on any case of the
+kernel it edits (every case has live entries for each fault to hit:
+the dead-anchor cases keep anchor 0 live). The copies are removed at
+the end. Needs the card.
 """
 from __future__ import annotations
 
@@ -121,7 +123,8 @@ def main() -> int:
                 fail_check=failed,
                 fail_max_scaled=sum(not r["passes_max_scaled"] for r in mine))
             print(json.dumps(summary), flush=True)
-            bad = bad or (failed > 0 if kernel is None else failed == 0)
+            bad = bad or (failed > 0 if kernel is None
+                          else failed < len(mine))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     return 1 if bad else 0

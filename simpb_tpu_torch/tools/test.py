@@ -9,16 +9,20 @@ mAP/NDS (`data/nuscenes_eval.py`) and, with `--tracking`, AMOTA
 Usage:
   python -m simpb_tpu_torch.tools.test \\
       --ann-file data/nuscenes/simpb_nuscenes_infos_val.pkl \\
-      --config r50-fast --head-bf16 --torch-checkpoint simpb_r50.pth \\
+      --config r50-fast --head-bf16 --checkpoint work_dirs/x/ckpt_best \\
       [--out results.json] [--tracking] [--device cpu]
 
 The trunk is always the fused inference trunk (`models/detector.py`), so
 `--fused-trunk` changes nothing. The port's head serves the windowed
 MSDA only: `--config tiny` is the tiny config with `msda_patch_mode`
 (the JAX CLI's `--config tiny --msda-patch`), and a config the head or
-detector refuses exits with their "not ported yet" message. Not ported
-(exit non-zero, naming the flag): `--checkpoint` (orbax needs JAX),
-`--cam-shards` > 1, `--show-dir`, `--multihost` and `--gather-dir`.
+detector refuses exits with their "not ported yet" message.
+`--checkpoint` reads a checkpoint of the port's trainer
+(`python -m simpb_tpu_torch.tools.train`, `training/checkpoint.py`):
+the serving model takes the parameters and BatchNorm statistics it
+holds. `--torch-checkpoint` reads a reference (mmdet-named) `.pth`. Not
+ported (exit non-zero, naming the flag): `--cam-shards` > 1,
+`--show-dir`, `--multihost` and `--gather-dir`.
 """
 import argparse
 import dataclasses
@@ -37,7 +41,7 @@ def parse_args(argv=None):
     p.add_argument("--src-h", type=int, default=900)
     p.add_argument("--src-w", type=int, default=1600)
     p.add_argument("--checkpoint", default=None,
-                   help="orbax checkpoint of the JAX package: not ported")
+                   help="checkpoint of the port's trainer (ckpt_*)")
     p.add_argument("--torch-checkpoint", default=None,
                    help="reference (mmdet-named) torch .pth")
     p.add_argument("--out", default=None, help="submission json path")
@@ -72,9 +76,6 @@ def parse_args(argv=None):
 def refused_flags(args):
     """The flags given that the port does not serve yet."""
     refused = []
-    if args.checkpoint:
-        refused.append("--checkpoint (orbax needs JAX; use "
-                       "--torch-checkpoint)")
     if args.cam_shards > 1:
         refused.append("--cam-shards > 1")
     if args.show_dir:
@@ -161,6 +162,12 @@ def main(argv=None):
         sequences_split_num=1, draft_decode=args.draft_decode,
     )
     model = build_model(cfg, device=args.device, seed=0)
+    if args.checkpoint:
+        from ..training.checkpoint import load_model_state
+
+        trained = load_model_state(args.checkpoint)
+        model.load_state_dict({k: trained[k] for k in model.state_dict()},
+                              strict=True)
     if args.torch_checkpoint:
         from ..utils.torch_convert import load_torch_checkpoint
 

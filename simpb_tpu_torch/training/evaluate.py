@@ -11,7 +11,7 @@ becomes `make_stream_steps`; `_stream_shard`, `_score` and
     metrics, preds, tokens = streaming_eval(model, cfg, dataset)
 
 The model holds its weights, so `streaming_eval` takes no separate
-variables. Not ported yet (ROADMAP A.1): camera-axis sharding
+variables. Not ported yet (ROADMAP A.4, A.6): camera-axis sharding
 (`cam_shards > 1`), rendering (`show_dir`), `multidevice_streaming_eval`
 and `distributed_streaming_eval`.
 """
@@ -221,12 +221,12 @@ def streaming_eval(
     if cam_shards > 1:
         raise NotImplementedError(
             "cam_shards > 1 (camera-axis sharding) is not ported yet "
-            "(ROADMAP A.1)"
+            "(ROADMAP A.4)"
         )
     if show_dir:
         raise NotImplementedError(
             "show_dir (rendering with data/visualize.py) is not ported "
-            "yet (ROADMAP A.1)"
+            "yet (ROADMAP A.6)"
         )
     shard = sequence_eval_shards(dataset, world_size)[rank]
     if max_frames:
@@ -240,12 +240,12 @@ def streaming_eval(
 def multidevice_streaming_eval(*args, **kwargs):
     """One sequence shard per local device: not ported yet."""
     raise NotImplementedError(
-        "multidevice_streaming_eval is not ported yet (ROADMAP A.1)"
+        "multidevice_streaming_eval is not ported yet (ROADMAP A.4)"
     )
 
 
 def distributed_streaming_eval(*args, **kwargs):
     """Multi-process eval with a disk gather: not ported yet."""
     raise NotImplementedError(
-        "distributed_streaming_eval is not ported yet (ROADMAP A.1)"
+        "distributed_streaming_eval is not ported yet (ROADMAP A.4)"
     )

@@ -161,6 +161,8 @@ def write_synthetic_infos(
     num_objects: int = 12,
     seed: int = 0,
     write_images: bool = False,
+    with_2d: bool = False,
+    with_lidar: bool = False,
 ) -> str:
     """Write a nuScenes-format infos pkl (the layout the offline converter
     writes and `data/dataset.py` reads) and return its path.
@@ -175,7 +177,19 @@ def write_synthetic_infos(
     the car drives forward and turns slowly; their boxes are stored in
     the lidar frame. With `write_images`, each camera image is a seeded
     random PNG under `directory/imgs` (needs Pillow); otherwise the
-    paths are named but not written."""
+    paths are named but not written.
+
+    What training reads, both off by default (so the defaults write the
+    same pkl as before):
+    - `with_2d`: per camera `bboxes2d` [n, 4], `labels2d`, `centers2d`
+      [n, 2], `depths` and `gt_2d_3d_map` (the layout of the offline
+      converter): the projected 3D box of each object whose centre the
+      camera sees, plus one 2D box without a 3D parent (map -1) in the
+      first camera;
+    - `with_lidar`: a `lidar_path` per frame, a float32 [N, 5] `.bin`
+      (x, y, z, intensity, ring; `np.tofile`) of points on the ground
+      and inside the objects, drawn from a generator of its own so the
+      images and boxes stay those of the defaults."""
     import os
     import pickle
 
@@ -201,6 +215,9 @@ def write_synthetic_infos(
         cams.append((rot.T, center))
 
     infos, scene = [], -1
+    lidar_rng = np.random.default_rng(seed + 7919)
+    if with_lidar:
+        os.makedirs(os.path.join(directory, "lidar"), exist_ok=True)
     for i in range(n_frames):
         if i == 0 or i in gap_at:
             scene += 1
@@ -225,8 +242,11 @@ def write_synthetic_infos(
         boxes[:, :3] = (pos - ego_t) @ ego_r  # global -> lidar (= ego)
         boxes[:, 3:6] = dims
         boxes[:, 6] = yaw0 - ego_yaw
-        cam_infos = {}
+        cam_infos, ann2d = {}, []
         for cam_no, (s2l_rot, center) in enumerate(cams):
+            if with_2d:
+                ann2d.append(_project_boxes(boxes, names, s2l_rot.T, center,
+                                            k, src_hw, orphan=cam_no == 0))
             path = os.path.join(img_dir, f"img_{i}_{cam_no}.png")
             if write_images:
                 Image.fromarray(rng.integers(0, 256, (src_h, src_w, 3),
@@ -234,11 +254,20 @@ def write_synthetic_infos(
             cam_infos[f"CAM{cam_no}"] = dict(
                 data_path=path, sensor2lidar_rotation=s2l_rot,
                 sensor2lidar_translation=center, cam_intrinsic=k)
+        lidar_path = None
+        if with_lidar:
+            lidar_path = os.path.join(directory, "lidar", f"pts_{i}.bin")
+            _lidar_points(lidar_rng, boxes).tofile(lidar_path)
+        extra = {}
+        if with_2d:
+            extra = {key: [a[key] for a in ann2d] for key in (
+                "bboxes2d", "labels2d", "centers2d", "depths",
+                "gt_2d_3d_map")}
         infos.append(dict(
             token=f"tok{i}",
             cams=cam_infos,
             timestamp=(1.5e9 + 0.5 * i + 10.0 * scene) * 1e6,
-            lidar_path=None,
+            lidar_path=lidar_path,
             sweeps=[] if i == t0 else [1],
             lidar2ego_rotation=[1.0, 0.0, 0.0, 0.0],
             lidar2ego_translation=[0.0, 0.0, 0.0],
@@ -251,11 +280,81 @@ def write_synthetic_infos(
             num_lidar_pts=np.full(num_objects, 5),
             valid_flag=np.ones(num_objects, bool),
             instance_inds=np.arange(num_objects) + 1000 * scene,
+            **extra,
         ))
     path = os.path.join(directory, "infos.pkl")
     with open(path, "wb") as f:
         pickle.dump({"infos": infos, "metadata": {"version": "synthetic"}}, f)
     return path
+
+
+def _box_corners(boxes: np.ndarray) -> np.ndarray:
+    """[n, 7] (x, y, z, w, l, h, yaw) -> [n, 9, 3]: the 8 corners, then
+    the centre."""
+    signs = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)
+                      for sz in (-.5, .5)])
+    x, y, z, w, l, h, yaw = boxes[:, :7].T
+    c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+    local = signs[None] * np.stack([w, l, h], -1)[:, None]
+    corners = np.stack([x[:, None] + local[..., 0] * c - local[..., 1] * s,
+                        y[:, None] + local[..., 0] * s + local[..., 1] * c,
+                        z[:, None] + local[..., 2]], -1)
+    return np.concatenate([corners, boxes[:, None, :3]], 1)
+
+
+def _project_boxes(boxes, names, l2c_rot, center, k, src_hw, orphan):
+    """One camera's 2D GT at the source resolution: each object whose
+    centre projects into the image, its box the projected corners in
+    front of the camera (clipped to the image), its centre and depth,
+    its 3D index; with `orphan`, one more box mapped to no 3D box."""
+    from ..configs.base import CLASS_NAMES
+
+    src_h, src_w = src_hw
+    pts = (_box_corners(boxes) - center) @ l2c_rot.T  # [n, 9, 3] camera
+    depth = pts[..., 2]
+    uv = pts[..., :2] @ k[:2, :2].T / np.maximum(depth[..., None], 1e-5) \
+        + k[:2, 2]
+    b2d, lab, c2d, dep, m2d = [], [], [], [], []
+    for j in range(len(boxes)):
+        cu, cv = uv[j, 8]
+        if depth[j, 8] <= 0.1 or not (0 < cu < src_w and 0 < cv < src_h):
+            continue
+        front = uv[j, :8][depth[j, :8] > 0.1]
+        b2d.append([np.clip(front[:, 0].min(), 0, src_w),
+                    np.clip(front[:, 1].min(), 0, src_h),
+                    np.clip(front[:, 0].max(), 0, src_w),
+                    np.clip(front[:, 1].max(), 0, src_h)])
+        lab.append(CLASS_NAMES.index(names[j]))
+        c2d.append([cu, cv])
+        dep.append(depth[j, 8])
+        m2d.append(j)
+    if orphan:
+        b2d.append([0.1 * src_w, 0.1 * src_h, 0.3 * src_w, 0.3 * src_h])
+        lab.append(0)
+        c2d.append([0.2 * src_w, 0.2 * src_h])
+        dep.append(15.0)
+        m2d.append(-1)
+    return {"bboxes2d": np.asarray(b2d, np.float32).reshape(-1, 4),
+            "labels2d": np.asarray(lab, np.int64),
+            "centers2d": np.asarray(c2d, np.float32).reshape(-1, 2),
+            "depths": np.asarray(dep, np.float32),
+            "gt_2d_3d_map": np.asarray(m2d, np.int64)}
+
+
+def _lidar_points(rng, boxes, ground: int = 4000, per_object: int = 64):
+    """[N, 5] float32 lidar points: the ground around the car (1.8 m
+    below the sensor) and points inside each box."""
+    g = np.stack([rng.uniform(-50, 50, ground), rng.uniform(-50, 50, ground),
+                  np.full(ground, -1.8)], -1)
+    local = rng.uniform(-0.5, 0.5, (len(boxes), per_object, 3)) * \
+        boxes[:, None, 3:6]
+    c, s = np.cos(boxes[:, 6])[:, None], np.sin(boxes[:, 6])[:, None]
+    obj = np.stack([boxes[:, None, 0] + local[..., 0] * c - local[..., 1] * s,
+                    boxes[:, None, 1] + local[..., 0] * s + local[..., 1] * c,
+                    boxes[:, None, 2] + local[..., 2]], -1).reshape(-1, 3)
+    xyz = np.concatenate([g, obj])
+    extra = np.stack([rng.uniform(0, 255, len(xyz)), np.zeros(len(xyz))], -1)
+    return np.concatenate([xyz, extra], -1).astype(np.float32)
 
 
 def synthetic_train_batch(cfg, bs: int, seed: int = 0, num_objects: int = 24,

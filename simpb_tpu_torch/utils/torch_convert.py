@@ -10,7 +10,10 @@ the state dict of the port's `SimPB`, in two steps:
    into the JAX package's `{"params", "batch_stats"}` tree, merged over
    the model's own values, so that keys the checkpoint lacks keep them;
 2. `utils/convert.py::from_jax_variables` turns that tree into the
-   port's names and layouts.
+   port's names and layouts (the training tree for a training model).
+
+`load_pretrained_backbone` does the same for an ImageNet ResNet `.pth`,
+taking only the backbone.
 
 The mapping covers the backbone (torchvision/mmdet ResNet naming), the
 FPN and every decoder op of the head, including decoupled-attention
@@ -233,17 +236,33 @@ def merge_params(base: Dict, loaded: Dict) -> Dict:
     return out
 
 
-def load_torch_checkpoint(path: str, cfg: ModelConfig, model=None):
-    """The state dict of `SimPB(cfg)` from a reference torch `.pth`.
-
-    Leaves the checkpoint lacks keep `model`'s values (a freshly built
-    `SimPB(cfg)` when None), as `merge_params` keeps the initialised
-    leaves in the JAX package. A leaf whose shape differs from the
-    model's (another layout) is refused with ValueError, and so is a
-    file in which no SimPB parameter is recognised."""
-    import torch
-
+def _state_over(model, cfg: ModelConfig, params: Dict, stats: Dict):
+    """`model`'s state dict with the given JAX-layout leaves merged over
+    its own values (a training model, one with the depth branch, takes
+    the training tree)."""
     from .convert import from_jax_variables, to_jax_variables
+
+    base = to_jax_variables(model)
+    variables = {
+        "params": merge_params(base["params"], params),
+        "batch_stats": merge_params(base.get("batch_stats", {}), stats),
+    }
+    return from_jax_variables(variables, cfg,
+                              train=hasattr(model, "depth_branch"))
+
+
+def load_torch_checkpoint(path: str, cfg: ModelConfig, model=None):
+    """The state dict of `model` (a freshly built `SimPB(cfg)` when
+    None) from a reference torch `.pth`.
+
+    Leaves the checkpoint lacks keep `model`'s values, as `merge_params`
+    keeps the initialised leaves in the JAX package. A training model
+    (`SimPB(cfg, train=True)`, `--load-from` of the training CLI) takes
+    the checkpoint's depth branch and every layer's class and quality
+    branches too. A leaf whose shape differs from the model's (another
+    layout) is refused with ValueError, and so is a file in which no
+    SimPB parameter is recognised."""
+    import torch
 
     ckpt = torch.load(path, map_location="cpu")
     sd = ckpt.get("state_dict", ckpt)
@@ -258,9 +277,52 @@ def load_torch_checkpoint(path: str, cfg: ModelConfig, model=None):
         from ..models.detector import SimPB
 
         model = SimPB(cfg)
-    base = to_jax_variables(model)
-    variables = {
-        "params": merge_params(base["params"], params),
-        "batch_stats": merge_params(base.get("batch_stats", {}), stats),
-    }
-    return from_jax_variables(variables, cfg)
+    return _state_over(model, cfg, params, stats)
+
+
+def load_pretrained_backbone(path: str, cfg: ModelConfig, model):
+    """The state dict of `model` with its backbone taken from an
+    ImageNet-pretrained ResNet `.pth` (the reference's
+    `pretrained='torchvision://resnet50'`, config:85); everything else
+    keeps `model`'s values.
+
+    Accepts the three naming layouts a user actually has: plain
+    torchvision `resnet50/101` state dicts (`conv1.weight`,
+    `layer1.0.conv1.weight`, ...), mmcv/mmdet detector checkpoints
+    (`backbone.layer1...`, e.g. the nuImages-pretrained weights the
+    reference's uimg config starts from, config:84 `load_from`), and
+    already-prefixed `img_backbone.*` keys. Classifier heads
+    (`fc.weight` etc.) and non-backbone branches are ignored by the
+    mapping; a file with no backbone parameter raises ValueError."""
+    import torch
+
+    ckpt = torch.load(path, map_location="cpu")
+    sd = ckpt.get("state_dict", ckpt)
+    renamed = {}
+    for k, v in sd.items():
+        if not hasattr(v, "numpy"):
+            continue
+        # DataParallel / EMA wrappers first, then the detector prefix
+        for wrapper in ("module.", "model.", "ema."):
+            if k.startswith(wrapper):
+                k = k[len(wrapper):]
+        for prefix in ("img_backbone.", "backbone.", ""):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+                break
+        renamed[f"img_backbone.{k}"] = v.numpy()
+    params, stats = torch_to_flax(renamed, cfg)
+
+    def count(tree):
+        return sum(
+            count(v) if isinstance(v, dict) else 1 for v in tree.values()
+        )
+
+    if count(params) == 0:
+        raise ValueError(
+            f"no backbone parameters recognised in {path} — expected "
+            "torchvision ResNet keys (conv1.weight, layer1.0...), an "
+            "mmdet detector (backbone.*), or img_backbone.* "
+            f"(found keys like {list(sd)[:3]})"
+        )
+    return _state_over(model, cfg, params, stats)

@@ -38,6 +38,7 @@ from simpb_tpu_torch.data import native_preprocess, nuscenes_eval
 from simpb_tpu_torch.data import postprocess, sampler, tracking_eval
 from simpb_tpu_torch.data.dataset import NuScenesDataset
 from simpb_tpu_torch.tools import test as test_cli
+from simpb_tpu_torch.tools import train as train_cli
 from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,8 +108,19 @@ def test_native_preprocess_refuses_other_shapes(fake_set):
 
 
 def test_training_side_not_ported(fake_set):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        NuScenesDataset(fake_set[0], test_mode=False)
+    """What of the training side is still not ported (ROADMAP A.4, the
+    training CLI's multi-process run) is refused as "not ported". The
+    training-mode dataset is ported (tests/test_torch_port_train_data.py
+    holds it to JAX): it builds, and without a generator its augmentation
+    is the fixed test-mode one."""
+    pkl, aug = fake_set
+    for extra in (["--multihost"], ["--num-processes", "2"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            train_cli.main(["--ann-file", pkl, "--config", "tiny",
+                            "--device", "cpu"] + extra)
+    train = NuScenesDataset(pkl, test_mode=False, data_aug_conf=aug)
+    assert train.get_augmentation() == NuScenesDataset(
+        pkl, test_mode=True, data_aug_conf=aug).get_augmentation()
 
 
 @pytest.mark.parametrize("world_size", [1, 2, 3])
@@ -211,7 +223,7 @@ def test_scorers_match_jax():
 
 
 NOT_PORTED_ARGS = [
-    ["--checkpoint", "ckpt"], ["--cam-shards", "2"], ["--show-dir", "vis"],
+    ["--cam-shards", "2"], ["--show-dir", "vis"],
     ["--multihost"], ["--gather-dir", "gather"], ["--config", "r50"],
     ["--config", "r50-guarded"], ["--config", "r50-fast-guarded"],
     ["--config", "r50-hybrid"], ["--config", "r101-fast"],

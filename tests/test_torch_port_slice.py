@@ -254,8 +254,9 @@ def test_from_jax_variables_strict(slice_run):
 
 
 def test_port_imports_no_jax():
-    """The port (every module `walk_packages` finds, the probe tool and
-    the two CLIs among them) and chip_smoke.py import neither JAX nor
+    """The port (every module `walk_packages` finds, the probe tool, the
+    three CLIs and the checkpoint and watchdog modules among them) and
+    chip_smoke.py import neither JAX nor
     the JAX package, and none imports PIL at module level (the card's
     machine has no Pillow)."""
     code = textwrap.dedent("""
@@ -264,12 +265,13 @@ def test_port_imports_no_jax():
         for m in pkgutil.walk_packages(simpb_tpu_torch.__path__,
                                        "simpb_tpu_torch."):
             importlib.import_module(m.name)
-        for name in ("tools.mosaic_probe", "tools.test", "bench"):
+        for name in ("tools.mosaic_probe", "tools.test", "tools.train",
+                     "training.checkpoint", "utils.watchdog", "bench"):
             assert "simpb_tpu_torch." + name in sys.modules, name
         import chip_smoke
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "simpb_tpu",
-                                      "PIL")]
+                                      "orbax", "PIL")]
         assert not bad, bad
         print("ok")
     """)
