@@ -95,7 +95,34 @@ Phases, each printing one JSON line:
              `run_benchmark` with a window of BENCH_WINDOW frames, the
              launch counts set to 0 just before and read just after;
              prints the bench's JSON line; fps > 0 and a peak are set.
-11. train  — the training step of `simpb_r50_704x256_fast` as
+11. exact  — the exact-sampling serving path. (a) Frames: the configs
+             the bench serves under SIMPB_EXACT (`simpb_r50_704x256`:
+             exact MSDA, no slot capacity, DFA capacity 4096),
+             SIMPB_GUARDED (`_guarded`: exact MSDA, capacities 208 and
+             2304, guard counters) and SIMPB_FAST_GUARDED
+             (`_fast_guarded`: the flagship and its counters, windowed
+             ones among them), trunk and head bf16: a cold frame and
+             FRAMES stream frames each, the launch counts set to 0 just
+             before and read just after; 1/4/12/4/3 trunk and DFA
+             launches a frame, and 3 of exact MSDA (0 of MSDA-sel), or
+             the reverse for `_fast_guarded`; finite, sorted decodes;
+             frame ms, and each guard counter's maximum. The last
+             frame's sampling calls are recorded. (b) Kernels: the exact
+             MSDA kernel against `msda_plain` within EXACT_TOL, and DFA
+             at capacities 4096 and 2304 against its plain version, on
+             the recorded calls and on synthetic full-width cases in fp32
+             and bf16 (Q 256 and 208, locations at and past every
+             border, all-zero locations, 207 queries, the tiny widths),
+             each launched twice (bit-identical), timed as in phase 6,
+             exact MSDA beside the grid_sample chain (mmcv's plain
+             formulation, one `F.grid_sample` a level and the weighted
+             sum; timed, and held to `msda_plain` in fp32 once). (c) The
+             eval CLI: `tools/test.py --config r50-guarded --tracking`
+             through its `main` over a synthetic 1600x900 pkl of
+             EXACT_CLI_FRAMES frames (decoded frames served from memory),
+             launches counted; it prints the guard maxima and must exit 3
+             exactly when one is nonzero.
+12. train  — the training step of `simpb_r50_704x256_fast` as
              tools/train.py trains it (trunk bf16 with remat, head fp32,
              grid mask and dropout on, `TrainConfig()`), at full width
              and bs TRAIN_BS (4) x 6 cameras, seeded random weights and a
@@ -113,7 +140,7 @@ Phases, each printing one JSON line:
              `synchronize`), forward / backward / optimizer ms (CUDA
              events) and the peak memory. The last step's kernel calls
              are recorded.
-12. train kernels — kernels B (DFA backward) and C (MSDA-sel backward)
+13. train kernels — kernels B (DFA backward) and C (MSDA-sel backward)
              against their plain versions (fp32 sums of the forward's
              rounded quantities) on the recorded calls and on phase 6's
              synthetic cases with a random output gradient, each
@@ -128,7 +155,7 @@ Phases, each printing one JSON line:
              plain version) and the latency floor they set: steps times
              one link of a chain of dependent warp argmins, timed on the
              card by a one-warp kernel.
-13. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
+14. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
              --config r50-fast --batch-size 4`, trunk bf16, head fp32)
              through `tools/train.py::run`, TRAIN_CLI_ITERS (6) iterations
              with a checkpoint every TRAIN_CLI_CKPT (3) and a log line
@@ -194,6 +221,14 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
 # MSDA computes in fp32 whatever the value dtype.
 SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame (bf16 head)
+# the exact phase's configs: the bench's switches, in bench.py's order
+EXACT_SWITCHES = ("SIMPB_EXACT", "SIMPB_GUARDED", "SIMPB_FAST_GUARDED")
+EXACT_CLI_FRAMES = 6  # the eval CLI's frames under r50-guarded
+# exact MSDA against msda_plain, relative to max(|plain|, 1): every
+# bilinear sample rounds as the plain version's in both value types (the
+# corner weights, the x pairs and the y combine in the value's type), so
+# only the order of the fp32 sums of 16 weighted samples a head differs
+EXACT_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 FP32_HEAD_FRAMES = 3  # the same with the head in fp32
 EVAL_FRAMES = 12  # two scenes of six frames
 BENCH_WINDOW = 32  # frames a window (one warm, one timed)
@@ -593,7 +628,7 @@ def rebound(*sites):
 def recording(calls):
     """Append (name, args, kwargs) of every sampling-wrapper call to
     `calls`, then run the wrapper itself."""
-    from simpb_tpu_torch.models import dfa
+    from simpb_tpu_torch.models import dfa, group_attn
     from simpb_tpu_torch.ops import sampling
 
     def recorder(name):
@@ -606,7 +641,8 @@ def recording(calls):
 
     return rebound(
         (dfa, "deformable_aggregation", recorder("deformable_aggregation")),
-        (sampling, "_msda_patch_sel", recorder("msda_patch_sel")))
+        (sampling, "_msda_patch_sel", recorder("msda_patch_sel")),
+        (group_attn, "msda", recorder("msda")))
 
 
 def run_stream(torch, model, cfg, frames, calls=None):
@@ -915,6 +951,107 @@ def synthetic_sampling(torch, dtype, gen, dev="cuda"):
     return cases
 
 
+def sampling_bound(name, dname, byts, ops):
+    """(bound ms, what bounds it) of a sampling call: its bytes over the
+    memory rate, or its operations over the peak of the type it computes
+    in (DFA and exact MSDA: the CUDA cores, in fp32 for any storage type
+    but DFA's bf16 products; the bf16 MSDA-sel route: three bf16 products
+    a weight on the tensor cores)."""
+    if name == "deformable_aggregation":
+        o_ms = ops / PEAK_OPS[dname] * 1e3
+    elif name == "msda_patch_sel" and dname == "bfloat16":
+        o_ms = 3 * ops / PEAK_OPS["bfloat16"] * 1e3
+    else:
+        o_ms = ops / PEAK_OPS["float32"] * 1e3
+    b_ms = byts / PEAK_BYTES * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def within(got, ref, tol):
+    """(ok, max abs errors): each output within `tol` of max(|plain|,
+    1)."""
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    return all(e <= tol * max(r.abs().max().item(), 1.0)
+               for e, r in zip(errs, ref)), errs
+
+
+def hold_case(torch, label, name, wrapper, plain, args, kwargs, tol, work,
+              library=None):
+    """One sampling call through its kernel against its plain version:
+    one launch (the count rises by one), a second launch with the same
+    bits, every output within `tol` of max(|plain|, 1). Timed through the
+    wrapper back to back (`ms`), on the device alone (`device_ms`), the
+    plain version and `library` (a PyTorch call of the same function,
+    timed only); `work` is (bytes, operations). Emits the case's line and
+    returns it; raises on a failure."""
+    from simpb_tpu_torch.ops import sampling
+
+    before = sampling.launch_counts()[name]
+    got = wrapper(*args, **kwargs)
+    launched = sampling.launch_counts()[name] - before
+    ref = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    again = wrapper(*args, **kwargs)  # must give the same bits
+    again = again if isinstance(again, tuple) else (again,)
+    same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+    for g_, r_ in zip(got, ref):
+        if g_.shape != r_.shape or g_.dtype != r_.dtype:
+            raise AssertionError(f"{label}: {g_.shape}/{g_.dtype} vs "
+                                 f"{r_.shape}/{r_.dtype}")
+    ok, errs = within(got, ref, tol)
+    ok = ok and launched == 1 and same
+    dname = str(args[0].dtype).split(".")[-1]
+    bound, bound_by = sampling_bound(name, dname, *work)
+    line = dict(phase="sampling", case=label, name=name, dtype=dname,
+                max_abs_err=errs, tol_share=tol, ok=ok, launches=launched,
+                deterministic=same,
+                ms=cuda_ms(lambda: wrapper(*args, **kwargs)),
+                device_ms=device_ms(lambda: wrapper(*args, **kwargs)),
+                plain_ms=cuda_ms(lambda: plain(*args, **kwargs)),
+                library_ms=cuda_ms(library) if library else None,
+                bound_ms=bound, bound_by=bound_by, bytes=work[0],
+                operations=work[1])
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{label}: max abs err {errs} above {tol} of "
+                             f"max(|plain|, 1), {launched} launches, or a "
+                             "second launch gave other bits")
+    return line
+
+
+def add_frame_call(summary, line):
+    """Add one frame call's times and bound to its kernel's summary."""
+    s = summary[line["name"]]
+    for key in ("ms", "device_ms", "plain_ms"):
+        s[key] += line[key]
+    if line["library_ms"] is not None:
+        s["library_ms"] = (s.get("library_ms") or 0.0) + line["library_ms"]
+    s["bound"][line["bound_by"]] += line["bound_ms"]
+
+
+def kernel_row(name, tpu, launches, s):
+    """A kernel's entry of the kernels line from its summary."""
+    return dict(name=name, route="cuda",
+                source="simpb_tpu_torch/csrc/sampling.cu", replaces=tpu,
+                launches=launches, max_abs_err=s["max_abs_err"], ms=s["ms"],
+                device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+                bound_ms=sum(s["bound"].values()),
+                bound_by=max(s["bound"], key=s["bound"].get),
+                library_ms=s.get("library_ms"))
+
+
+def new_summary():
+    return dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                bound={"bytes": 0.0, "operations": 0.0})
+
+
+# the flagship's sampling kernels (the exact MSDA kernel is held by the
+# exact phase)
+FLAGSHIP_SAMPLING = ("deformable_aggregation", "msda_patch_sel")
+
+
 def phase_sampling(torch, calls, slice_launches):
     """DFA and MSDA-sel kernels against their plain versions on the
     recorded main-path calls and the synthetic cases; each call launched
@@ -923,10 +1060,9 @@ def phase_sampling(torch, calls, slice_launches):
     over one frame's recorded calls)."""
     from simpb_tpu_torch.ops import sampling
 
-    kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS}
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-                       bound={"bytes": 0.0, "operations": 0.0})
-               for n in kernels}
+    kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS
+               if n in FLAGSHIP_SAMPLING}
+    summary = {n: new_summary() for n in kernels}
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(f"frame_call_{i}", name, args, kwargs)
              for i, (name, args, kwargs) in enumerate(calls)]
@@ -934,73 +1070,334 @@ def phase_sampling(torch, calls, slice_launches):
         cases += synthetic_sampling(torch, dtype, gen)
     for label, name, args, kwargs in cases:
         wrapper, plain, _ = kernels[name]
-        before = sampling.launch_counts()[name]
-        got = wrapper(*args, **kwargs)
-        launched = sampling.launch_counts()[name] - before
-        ref = plain(*args, **kwargs)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        frame = label.startswith("frame_call")
-        again = wrapper(*args, **kwargs)  # must give the same bits
-        again = again if isinstance(again, tuple) else (again,)
-        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
         dname = str(args[0].dtype).split(".")[-1]
         tol = SAMPLING_TOL[dname if name == "deformable_aggregation"
                            else "float32"]
-        errs, ok = [], launched == 1 and same
-        for g_, r_ in zip(got, ref):
-            if g_.shape != r_.shape or g_.dtype != r_.dtype:
-                raise AssertionError(f"{label}: {g_.shape}/{g_.dtype} vs "
-                                     f"{r_.shape}/{r_.dtype}")
-            err = (g_ - r_).abs().max().item()
-            scale = max(r_.abs().max().item(), 1.0)
-            errs.append(err)
-            ok = ok and err <= tol * scale
-        ms = cuda_ms(lambda: wrapper(*args, **kwargs))
-        dev_ms = device_ms(lambda: wrapper(*args, **kwargs))
-        plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
-        if name == "deformable_aggregation":
-            byts, ops = dfa_work(sampling, args, kwargs)
-        else:
-            byts, ops = msda_work(sampling, args)
-        if name == "deformable_aggregation":
-            o_ms = ops / PEAK_OPS[dname] * 1e3
-        elif dname == "bfloat16":  # three bf16 products a weight
-            o_ms = 3 * ops / PEAK_OPS["bfloat16"] * 1e3
-        else:
-            o_ms = ops / PEAK_OPS["float32"] * 1e3
-        b_ms = byts / PEAK_BYTES * 1e3
-        bound_by = "bytes" if b_ms >= o_ms else "operations"
-        emit(dict(phase="sampling", case=label, name=name, dtype=dname,
-                  max_abs_err=errs, tol_share=tol, ok=ok, launches=launched,
-                  deterministic=same, ms=ms, device_ms=dev_ms,
-                  plain_ms=plain_ms, library_ms=None,
-                  bound_ms=max(b_ms, o_ms), bound_by=bound_by,
-                  bytes=byts, operations=ops))
-        if not ok:
-            raise AssertionError(f"{label}: max abs err {errs} above "
-                                 f"{tol} of max(|plain|, 1), "
-                                 f"{launched} launches, or a second launch "
-                                 "gave other bits")
+        work = (dfa_work(sampling, args, kwargs)
+                if name == "deformable_aggregation"
+                else msda_work(sampling, args))
+        line = hold_case(torch, label, name, wrapper, plain, args, kwargs,
+                         tol, work)
         s = summary[name]
-        s["max_abs_err"] = max([s["max_abs_err"]] + errs)
-        if frame:  # one stream frame's calls
-            s["ms"] += ms
-            s["device_ms"] += dev_ms
-            s["plain_ms"] += plain_ms
-            s["bound"][bound_by] += max(b_ms, o_ms)
-    out = {}
-    for name, s in summary.items():
-        out[name] = dict(
-            name=name, route="cuda",
-            source="simpb_tpu_torch/csrc/sampling.cu",
-            replaces=kernels[name][2], launches=slice_launches[name],
-            max_abs_err=s["max_abs_err"], ms=s["ms"],
-            device_ms=s["device_ms"], plain_ms=s["plain_ms"],
-            bound_ms=sum(s["bound"].values()),
-            bound_by=max(s["bound"], key=s["bound"].get), library_ms=None)
-    return out
+        s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
+        if label.startswith("frame_call"):  # one stream frame's calls
+            add_frame_call(summary, line)
+    return {name: kernel_row(name, kernels[name][2], slice_launches[name], s)
+            for name, s in summary.items()}
+
+
+def exact_config(switch):
+    """The config `python -m simpb_tpu_torch.bench` serves under the
+    environment switch `switch` (trunk and head bf16, the fused trunk)."""
+    from simpb_tpu_torch import bench
+
+    saved = os.environ.get(switch)
+    os.environ[switch] = "1"
+    try:
+        return bench.config_name(), bench.config()
+    finally:
+        if saved is None:
+            del os.environ[switch]
+        else:
+            os.environ[switch] = saved
+
+
+def exact_launches(cfg):
+    """Launches a frame of a served config: the trunk's and DFA's as the
+    flagship's, then exact MSDA or MSDA-sel for the 2D cross-attention."""
+    want = {k: v for k, v in WANT_LAUNCHES.items() if k != "msda_patch_sel"}
+    want["msda_patch_sel" if cfg.head.msda_patch_mode else "msda"] = 3
+    return want
+
+
+def phase_exact_frames(torch):
+    """The three configs of EXACT_SWITCHES as the bench serves them: cold
+    frame + FRAMES stream frames each, the launch counts set to 0 just
+    before and read just after; the last frame's sampling calls
+    recorded. Returns ({config: launches}, {config: calls})."""
+    from simpb_tpu_torch.training.evaluate import build_model
+
+    launches, calls = {}, {}
+    for switch in EXACT_SWITCHES:
+        name, cfg = exact_config(switch)
+        model = build_model(cfg, device="cuda", seed=0)
+        rec = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        decs, times, counts = run_stream(torch, model, cfg, FRAMES, rec)
+        launches[name] = {k: n for k, n in launch_counts().items() if n}
+        calls[name] = rec
+        want = exact_launches(cfg)
+        bad = [(f, c) for f, c in enumerate(counts) if c != want]
+        carried = check_stream(torch, decs)
+        guards = {k: max(float(d[k].max().item()) for d in decs)
+                  for k in decs[0] if k.startswith("guard_")}
+        stream_ms = sorted(times[1:])
+        emit(dict(phase="exact_frames", config=name, switch=switch,
+                  msda_patch_mode=cfg.head.msda_patch_mode,
+                  msda_gather_capacity=cfg.head.msda_gather_capacity,
+                  dfa_gather_capacity=cfg.head.dfa_gather_capacity,
+                  guard_sampling=cfg.head.guard_sampling, trunk="bfloat16",
+                  head="bfloat16", frames=len(decs), frame_ms=times,
+                  stream_ms_median=statistics.median(stream_ms),
+                  stream_ms_range=[stream_ms[0], stream_ms[-1]],
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches=launches[name], launches_per_frame=counts[-1],
+                  guard_maxima=guards, ids_carried_last_frame=carried,
+                  sampling_calls_recorded=[c[0] for c in rec]))
+        if bad:
+            raise AssertionError(f"{name}: launches {bad[0][1]} in frame "
+                                 f"{bad[0][0]}, want {want}")
+        if cfg.head.guard_sampling != bool(guards):
+            raise AssertionError(f"{name}: guard maxima {guards}")
+        del model, decs
+        free_cuda(torch)
+    return launches, calls
+
+
+def msda_exact_work(args):
+    """(bytes, operations) an exact MSDA call must move and do at least:
+    the distinct value rows its samples read at a corner of nonzero
+    weight, the locations and weights, the outputs; 10 operations per
+    (query, head, sample, channel): four corner products, three sums and
+    the attention's multiply-add."""
+    import torch
+
+    from simpb_tpu_torch.ops import sampling
+
+    value, ss, loc, attw = args[:4]
+    b, total, c = value.shape
+    q, heads, _, points = loc.shape[1:5]
+    base = torch.arange(b, device=value.device)[:, None] * total
+    rows = []
+    for lvl, (h, w) in enumerate(ss.shapes):
+        l_ = loc[:, :, :, lvl].reshape(b, -1, 2)
+        wx0, wx1, wy0, wy1, x0, y0, y1 = sampling._corner_weights(
+            l_, h, w, value.dtype, False)
+        start = base + ss.start_indices[lvl]
+        for wy, yy in ((wy0, y0), (wy1, y1)):
+            for wx, xx in ((wx0, x0), (wx1, x0 + 1)):
+                r = start + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+                rows.append(r[(wx != 0) & (wy != 0)])
+    n_rows = torch.cat(rows).unique().numel()
+    byts = (n_rows * c * value.element_size()
+            + (loc.numel() + attw.numel()) * 4 + b * q * heads * (c + 1) * 4)
+    return byts, 10 * b * q * heads * ss.num_levels * points * c
+
+
+def grid_sample_chain(value, ss, loc, attw):
+    """The yardstick of exact MSDA: mmcv's plain formulation
+    (multi_scale_deformable_attn_pytorch), one `F.grid_sample` a level
+    (bilinear, zero padding, align_corners False: the op's semantics)
+    and the weighted sum, here sampling each head's locations over all C
+    channels, the raw-heads function the kernel computes. In fp32: the
+    planes are widened once, outside the timed call, since grid_sample
+    takes its grid in the input's type and bf16 positions would compute
+    another function. Returns a callable giving sampled [B, Q, heads,
+    C]."""
+    import torch.nn.functional as F
+
+    b, _, c = value.shape
+    q, heads, _, points = loc.shape[1:5]
+    planes = [v.transpose(1, 2).reshape(b, c, h, w).float()
+              for v, (h, w) in zip(
+        value.split([h * w for h, w in ss.shapes], 1), ss.shapes)]
+
+    def run():
+        grids = 2.0 * loc - 1.0  # [B, Q, heads, L, P, 2]
+        acc = 0.0
+        for lvl, plane in enumerate(planes):
+            smp = F.grid_sample(
+                plane, grids[:, :, :, lvl].reshape(
+                    b, q * heads, points, 2), mode="bilinear",
+                padding_mode="zeros", align_corners=False)
+            acc = acc + (smp * attw[:, :, :, lvl].reshape(
+                b, 1, q * heads, points)).sum(-1)  # [B, C, Q * heads]
+        return acc.reshape(b, c, q, heads).permute(0, 2, 3, 1)
+
+    return run
+
+
+def exact_cases(torch, dtype, gen, dev="cuda"):
+    """Synthetic exact-MSDA cases at full width (6 camera rows, 8 heads x
+    4 levels x 4 points, C 256; the tiny widths C 64, 4 heads once):
+    (label, args). Query 0 of every case samples the interior, so that a
+    fault planted on it shows on each case."""
+    from simpb_tpu_torch.ops.format import SpatialShapes
+
+    ss = SpatialShapes(((64, 176), (32, 88), (16, 44), (8, 22)))
+    value = torch.randn(6, ss.total, 256, generator=gen,
+                        device=dev).to(dtype)
+
+    def inputs(q, heads=8):
+        ref = 0.1 + 0.8 * torch.rand(6, q, 1, 1, 1, 2, generator=gen,
+                                     device=dev)
+        loc = ref + 0.1 * torch.randn(6, q, heads, 4, 4, 2, generator=gen,
+                                      device=dev)
+        logits = torch.randn(6, q, heads, 16, generator=gen, device=dev)
+        return loc, logits.softmax(-1).reshape(6, q, heads, 4, 4)
+
+    cases = []
+    for q in (256, 208):  # no slot capacity, and the guarded config's
+        loc, attw = inputs(q)
+        cases.append((f"msda_exact_q{q}", (value, ss, loc, attw)))
+    # coordinates at 0, at 1, beyond them and just inside them, at every
+    # level (the 8x22 level's left border among them)
+    loc, attw = inputs(256)
+    edges = torch.tensor([0.0, 1.0, -0.1, 1.1, 2 ** -9, 1 - 2 ** -8, -2.0,
+                          3.0], device=dev)
+    pick = (torch.rand(loc[:, 1:].shape, generator=gen, device=dev)
+            * len(edges)).long()
+    loc[:, 1:] = edges[pick]
+    cases.append(("msda_exact_border", (value, ss, loc, attw)))
+    # padded slots: every location 0 (pixel (0, 0) at a quarter weight)
+    loc, attw = inputs(256)
+    loc[:, 1:] = 0.0
+    cases.append(("msda_exact_zero_locations", (value, ss, loc, attw)))
+    loc, attw = inputs(207)  # an odd query count
+    cases.append(("msda_exact_ragged", (value, ss, loc, attw)))
+    loc, attw = inputs(96, heads=4)  # the tiny config's widths
+    cases.append(("msda_exact_tiny_widths",
+                  (value[..., :64].contiguous(), ss, loc, attw)))
+    return cases
+
+
+def phase_exact_kernels(torch, calls, launches):
+    """Exact MSDA against `msda_plain`, and DFA at the exact configs'
+    capacities (4096, 2304) against its plain version: on each config's
+    recorded last-frame calls and on synthetic cases in fp32 and bf16,
+    each launched twice (the repeats bit-identical), exact MSDA beside
+    the grid_sample chain. Returns the exact MSDA kernel's entry of the
+    kernels line: launches of the `simpb_r50_704x256` run, ms / device /
+    plain / chain / bound summed over one frame's three calls of it."""
+    from simpb_tpu_torch.ops import sampling
+
+    kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS}
+    main = "simpb_r50_704x256"
+    summary = {"msda": new_summary()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for name, rec in calls.items():
+        cases += [(f"{name}_call_{i}", n, args, kw)
+                  for i, (n, args, kw) in enumerate(rec)]
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(label, "msda", args, {"raw_heads": True})
+                  for label, args in exact_cases(torch, dtype, gen)]
+        dfa = {c[0]: c for c in synthetic_sampling(torch, dtype, gen)}
+        for cap in (4096, 2304):
+            for label in ("dfa_capacity_bites", "dfa_border"):
+                _, n, args, _ = dfa[label]
+                cases.append((f"{label}_cap{cap}", n, args,
+                              {"gather_capacity": cap}))
+        del dfa
+    for label, name, args, kwargs in cases:
+        wrapper, plain, _ = kernels[name]
+        dname = str(args[0].dtype).split(".")[-1]
+        if name == "msda":
+            line = hold_case(torch, label, name, wrapper, plain, args,
+                             kwargs, EXACT_TOL[dname], msda_exact_work(args),
+                             library=grid_sample_chain(*args[:4]))
+            s = summary[name]
+            s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
+            if label.startswith(main + "_call"):
+                add_frame_call(summary, line)
+        elif name == "deformable_aggregation":
+            hold_case(torch, label, name, wrapper, plain, args, kwargs,
+                      SAMPLING_TOL[dname], dfa_work(sampling, args, kwargs))
+        else:  # the fast config's MSDA-sel calls
+            hold_case(torch, label, name, wrapper, plain, args, kwargs,
+                      SAMPLING_TOL["float32"], msda_work(sampling, args))
+    # the yardstick computes the same function: fp32, within fp32 sums
+    value, ss, loc, attw = exact_cases(torch, torch.float32, gen)[0][1]
+    chain = grid_sample_chain(value, ss, loc, attw)()
+    ref = sampling.msda_plain(value, ss, loc, attw, raw_heads=True)[0]
+    chain_err = (chain - ref).abs().max().item()
+    emit(dict(phase="exact_chain", case="msda_exact_q256",
+              max_abs_err_vs_plain=chain_err,
+              plain_max=ref.abs().max().item()))
+    if chain_err > 1e-4 * max(ref.abs().max().item(), 1.0):
+        raise AssertionError(f"grid_sample chain differs by {chain_err}")
+    return kernel_row("msda", kernels["msda"][2], launches[main]["msda"],
+                      summary["msda"])
+
+
+def phase_exact_cli(torch):
+    """`python -m simpb_tpu_torch.tools.test --config r50-guarded` through
+    its `main` over a synthetic 1600x900 infos pkl of EXACT_CLI_FRAMES
+    frames (decoded frames served from memory by a dataset subclass: no
+    Pillow on the card's machine), the launch counts set to 0 just before
+    and read just after. The CLI prints the metrics with the guard
+    maxima; it must exit 3 exactly when one is nonzero."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from simpb_tpu_torch.data import dataset as dataset_mod
+    from simpb_tpu_torch.tools import test as test_cli
+    from simpb_tpu_torch.utils.guards import check_guard_violations
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    src_h, src_w = 900, 1600
+    rng = np.random.default_rng(1)
+    images = {}
+
+    class MemoryImages(dataset_mod.NuScenesDataset):
+        def load_images(self, paths, dtype=np.float32, scale_hint=None):
+            for p in paths:
+                if p not in images:
+                    images[p] = rng.integers(0, 256, (src_h, src_w, 3),
+                                             dtype=np.uint8)
+            return [images[p].astype(dtype, copy=False) for p in paths]
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = write_synthetic_infos(tmp, n_frames=EXACT_CLI_FRAMES,
+                                    gap_at=(EXACT_CLI_FRAMES // 2,),
+                                    src_hw=(src_h, src_w))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with rebound((dataset_mod, "NuScenesDataset",
+                      lambda _: MemoryImages)), \
+                contextlib.redirect_stdout(out):
+            try:
+                test_cli.main(["--ann-file", pkl, "--config", "r50-guarded",
+                               "--tracking"])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        seconds = time.perf_counter() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    text = out.getvalue()
+    metrics = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    guards = {k: v for k, v in metrics.items() if k.startswith("guard_")}
+    violated = check_guard_violations(metrics)
+    want = {k: EXACT_CLI_FRAMES * n for k, n in exact_launches(
+        exact_config("SIMPB_GUARDED")[1]).items()}
+    emit(dict(phase="exact_cli", argv="--config r50-guarded --tracking",
+              frames=EXACT_CLI_FRAMES, source_hw=[src_h, src_w],
+              seconds=seconds, exit_code=code, guard_maxima=guards,
+              violated=violated, launches=launches,
+              metrics={k: metrics[k] for k in ("mAP", "NDS", "AMOTA")}))
+    if sorted(guards) != ["guard_dfa_overflow", "guard_msda_overflow"]:
+        raise AssertionError(f"exact_cli: guard maxima {guards}")
+    if code != (3 if violated else 0):
+        raise AssertionError(f"exact_cli: exit {code}, violations "
+                             f"{violated}")
+    if launches != want:
+        raise AssertionError(f"exact_cli: launches {launches}, want {want}")
+    free_cuda(torch)
+
+
+def phase_exact(torch):
+    """The exact-sampling serving path (see the module docstring); returns
+    the exact MSDA kernel's entry of the kernels line."""
+    launches, calls = phase_exact_frames(torch)
+    row = phase_exact_kernels(torch, calls, launches)
+    del calls
+    free_cuda(torch)
+    phase_exact_cli(torch)
+    return row
 
 
 def phase_parity(torch):
@@ -2121,6 +2518,7 @@ def main() -> int:
     phase_trunk(torch)
     phase_eval(torch)
     phase_bench(torch)
+    exact = phase_exact(torch)
     train_launches, train_calls = phase_train(torch)
     train = phase_train_kernels(torch, train_calls, train_launches)
     del train_calls
@@ -2140,10 +2538,10 @@ def main() -> int:
             **({"cudnn_chain_ms": s["cudnn_chain_ms"]}
                if s["cudnn_chain_ms"] is not None else {}),
         ))
-    kernels += (list(sampling.values()) + list(train.values())
+    kernels += (list(sampling.values()) + [exact] + list(train.values())
                 + list(probes.values()))
-    if len(kernels) != 16:
-        raise AssertionError(f"{len(kernels)} kernels, want 16")
+    if len(kernels) != 17:
+        raise AssertionError(f"{len(kernels)} kernels, want 17")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -15,39 +15,63 @@ same function.
 one card must keep up with one car (PERF.md §2). `bench.py` divides by
 a TPU v5e target, which is not a number of this port.
 
-Environment switches, as in `bench.py`: `SIMPB_MSDA_PATCH`,
-`SIMPB_DFA_CAP`, `SIMPB_MSDA_CAP` and `SIMPB_FUSED_TRUNK=1` are taken.
-`SIMPB_GUARDED`, `SIMPB_FAST_GUARDED`, `SIMPB_HYBRID`, `SIMPB_EXACT`,
-`SIMPB_CLAMP_CAP` and `SIMPB_FUSED_TRUNK` of another value select
-settings the port does not serve yet: the bench exits non-zero and
-names them, and never falls back to the default.
+Environment switches, as in `bench.py` and with its precedence: the
+configuration is `simpb_r50_704x256_guarded` under `SIMPB_GUARDED`, else
+`simpb_r50_704x256_fast_guarded` under `SIMPB_FAST_GUARDED`, else the
+hybrid under `SIMPB_HYBRID` (not ported), else `simpb_r50_704x256`
+(exact MSDA) under `SIMPB_EXACT`, else the default; then
+`SIMPB_MSDA_PATCH`, `SIMPB_DFA_CAP`, `SIMPB_MSDA_CAP` and
+`SIMPB_FUSED_TRUNK=1` are taken. The hybrid, `SIMPB_CLAMP_CAP` and
+`SIMPB_FUSED_TRUNK` of another value select settings the port does not
+serve yet: the bench exits non-zero and names them, and never falls
+back to the default. Under a guarded configuration the guard counters
+are computed every frame and charged against the number
+(`utils/benchmark.py`).
 """
 import dataclasses
 import json
 import os
 
-from .configs.base import simpb_r50_704x256_fast
+from .configs import base
 from .utils.benchmark import run_benchmark
 
 BASELINE_FPS = 12.0  # nuScenes camera rate, frames a second
-NOT_PORTED = ("SIMPB_GUARDED", "SIMPB_FAST_GUARDED", "SIMPB_HYBRID",
-              "SIMPB_EXACT", "SIMPB_CLAMP_CAP")
+NOT_PORTED = ("SIMPB_HYBRID", "SIMPB_CLAMP_CAP")
+# the configuration switches, highest precedence first (bench.py:29-48)
+CONFIG_SWITCHES = (
+    ("SIMPB_GUARDED", "simpb_r50_704x256_guarded"),
+    ("SIMPB_FAST_GUARDED", "simpb_r50_704x256_fast_guarded"),
+    ("SIMPB_HYBRID", "simpb_r50_704x256_hybrid"),
+    ("SIMPB_EXACT", "simpb_r50_704x256"),
+)
+
+
+def config_name() -> str:
+    """The name of the configuration the switches select."""
+    for switch, name in CONFIG_SWITCHES:
+        if os.environ.get(switch):
+            return name
+    return "simpb_r50_704x256_fast"
 
 
 def config():
     """The served config, from the environment switches; SystemExit
     naming every switch the port does not serve yet."""
     env = os.environ
+    name = config_name()
     refused = [k for k in NOT_PORTED if env.get(k)]
+    if "SIMPB_HYBRID" in refused and name != "simpb_r50_704x256_hybrid":
+        refused.remove("SIMPB_HYBRID")  # a guarded switch takes precedence
     if env.get("SIMPB_FUSED_TRUNK") and env["SIMPB_FUSED_TRUNK"] != "1":
         refused.append("SIMPB_FUSED_TRUNK=" + env["SIMPB_FUSED_TRUNK"])
     if refused:
         raise SystemExit(
-            f"not ported: {', '.join(refused)} (the port serves "
-            "simpb_r50_704x256_fast with the fused trunk; see ROADMAP.md)"
+            f"not ported: {', '.join(refused)} (the port serves the r50 "
+            "configurations but the hybrid, with the fused trunk; see "
+            "ROADMAP.md)"
         )
     cfg = dataclasses.replace(
-        simpb_r50_704x256_fast(), compute_dtype="bfloat16",
+        getattr(base, name)(), compute_dtype="bfloat16",
         head_dtype="bfloat16", backbone_fused_infer=True,
     )
     head = cfg.head

@@ -8,7 +8,17 @@
 //   msda_sel_tc_kernel (bf16), msda_sel_kernel (fp32)
 //                                <- simpb_tpu/ops/sampling.py::
 //       _msda_patch_sel (:892-1007, window placement _window_base :168)
+//   msda_kernel                  <- simpb_tpu/ops/sampling.py::msda
+//       (:611-715, raw_heads; the exact configurations' 2D sampling)
 // and compute what their plain PyTorch versions in ops/sampling.py compute.
+//
+// Exact MSDA: one warp per (camera row, query, head), a lane 8 channels
+// of the full-width value row, bound by bytes (four rows per sample, ten
+// operations per value read). Every bilinear sample rounds as the plain
+// version's (the corner weights, the x pairs and the y combine in the
+// value's type; the position in fp32, as the locations are); the
+// attention weighting and the sums are fp32, in another order than the
+// plain einsum's. The output is written once, with no atomics.
 //
 // DFA: bound by bytes (four feature rows per live sample, ten operations
 // per value read). `dfa_rank_kernel` (one block per camera row) finds
@@ -1980,6 +1990,176 @@ int launch_msda_sel_bwd(const void* value, const float* loc,
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------------------- exact MSDA
+struct MsdaExactArgs {
+  int B, Q, heads, L, P, C, T;
+};
+
+// One sample's corner weights (wx0, wx1, wy0, wy1; rounded to T as
+// _corner_weights rounds them, drop_out_of_range off) and the rows of its
+// four corners in the camera row's [T, C] table, indices clamped into the
+// level. The position stays fp32 (the locations are fp32). Border tests
+// compare floors as floats: exact for any finite position.
+template <typename T>
+__device__ __forceinline__ void msda_corners(float lx, float ly, int h, int w,
+                                             int start, float4& cw,
+                                             int4& rows) {
+  const float x = pix(lx, w), y = pix(ly, h);
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = R<T>(__fsub_rn(x, x0f)), fy = R<T>(__fsub_rn(y, y0f));
+  const float wf = (float)w, hf = (float)h;
+  cw = make_float4((x0f >= 0.f && x0f < wf) ? R<T>(__fsub_rn(1.f, fx)) : 0.f,
+                   (x0f >= -1.f && x0f < wf - 1.f) ? fx : 0.f,
+                   (y0f >= 0.f && y0f < hf) ? R<T>(__fsub_rn(1.f, fy)) : 0.f,
+                   (y0f >= -1.f && y0f < hf - 1.f) ? fy : 0.f);
+  const int xc0 = (int)fminf(fmaxf(x0f, 0.f), wf - 1.f);
+  const int xc1 = (int)fminf(fmaxf(x0f + 1.f, 0.f), wf - 1.f);
+  const int r0 = start + (int)fminf(fmaxf(y0f, 0.f), hf - 1.f) * w;
+  const int r1 = start + (int)fminf(fmaxf(y0f + 1.f, 0.f), hf - 1.f) * w;
+  rows = make_int4(r0 + xc0, r0 + xc1, r1 + xc0, r1 + xc1);
+}
+
+// A sample's 8 channels from its four corner rows, each rounding as the
+// plain version's (_sample_rows: the x pairs, then y, in T).
+template <typename T>
+__device__ __forceinline__ void msda_bilinear(float (&s)[8], const float4 w,
+                                              const Row8<T> (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float vx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[0][i])),
+                                     R<T>(__fmul_rn(w.y, v[1][i]))));
+    const float vx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[2][i])),
+                                     R<T>(__fmul_rn(w.y, v[3][i]))));
+    s[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0)),
+                          R<T>(__fmul_rn(w.w, vx1))));
+  }
+}
+template <>
+__device__ __forceinline__ void msda_bilinear<bf16>(
+    float (&s)[8], const float4 w, const Row8<bf16> (&v)[4]) {
+  const __nv_bfloat162 wx0 = __float2bfloat162_rn(w.x),
+                       wx1 = __float2bfloat162_rn(w.y),
+                       wy0 = __float2bfloat162_rn(w.z),
+                       wy1 = __float2bfloat162_rn(w.w);
+  const uint4 q0 = v[0].u[0], q1 = v[1].u[0], q2 = v[2].u[0], q3 = v[3].u[0];
+  const uint32_t a00[4] = {q0.x, q0.y, q0.z, q0.w};
+  const uint32_t a01[4] = {q1.x, q1.y, q1.z, q1.w};
+  const uint32_t a10[4] = {q2.x, q2.y, q2.z, q2.w};
+  const uint32_t a11[4] = {q3.x, q3.y, q3.z, q3.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 vx0 =
+        add2_rn(__hmul2(wx0, bf2(a00[i])), __hmul2(wx1, bf2(a01[i])));
+    const __nv_bfloat162 vx1 =
+        add2_rn(__hmul2(wx0, bf2(a10[i])), __hmul2(wx1, bf2(a11[i])));
+    const float2 t =
+        __bfloat1622float2(add2_rn(__hmul2(wy0, vx0), __hmul2(wy1, vx1)));
+    s[2 * i] = t.x;
+    s[2 * i + 1] = t.y;
+  }
+}
+
+// One block per (camera row, query), one warp per head: value [B, T, C]
+// (T storage), loc [B, Q, heads, L, P, 2] and attw [B, Q, heads, L, P]
+// fp32; sampled [B, Q, heads, C] and wsum [B, Q, heads] fp32, each
+// written once. Lane j places sample j of the head's L x P (its corner
+// weights and rows, attention weight and in-image mass), and the warp
+// walks the samples in order with the data shuffled from that lane: a
+// lane sums 8 channels of each sample (one 16-byte load a corner for
+// bf16), per level in fp32, then the levels in order, as the plain
+// version does.
+template <typename T>
+__global__ void __launch_bounds__(256)
+msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+            const float* __restrict__ attw, MsdaExactArgs g, Levels lv,
+            float* __restrict__ sampled, float* __restrict__ wsum) {
+  const int lane = threadIdx.x & 31;
+  const long long bq = blockIdx.x;
+  const long long bqh = bq * g.heads + (threadIdx.x >> 5);
+  const int S = g.L * g.P, packs = g.C / 8;
+  const float* lq = loc + bqh * S * 2;
+  const float* aq = attw + bqh * S;
+  const T* vrow = value + (bq / g.Q) * g.T * g.C;
+  float wsum_h = 0.f;
+  for (int pk0 = 0; pk0 < packs; pk0 += 32) {
+    const bool on = pk0 + lane < packs;
+    const T* vlane = vrow + (pk0 + lane) * 8;
+    float acc[8], lacc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = lacc[i] = 0.f;
+    float lw = 0.f;
+    int p = 0;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      float4 cw = make_float4(0.f, 0.f, 0.f, 0.f);
+      int4 cr = make_int4(0, 0, 0, 0);
+      float a = 0.f;
+      if (s0 + lane < S) {
+        const int s = s0 + lane, l = s / g.P;
+        a = aq[s];
+        msda_corners<T>(lq[2 * s], lq[2 * s + 1], lv.h[l], lv.w[l],
+                        lv.start[l], cw, cr);
+      }
+      const int n = min(32, S - s0);
+      for (int j = 0; j < n; ++j) {
+        const float4 w = make_float4(__shfl_sync(0xffffffffu, cw.x, j),
+                                     __shfl_sync(0xffffffffu, cw.y, j),
+                                     __shfl_sync(0xffffffffu, cw.z, j),
+                                     __shfl_sync(0xffffffffu, cw.w, j));
+        const int4 r = make_int4(__shfl_sync(0xffffffffu, cr.x, j),
+                                 __shfl_sync(0xffffffffu, cr.y, j),
+                                 __shfl_sync(0xffffffffu, cr.z, j),
+                                 __shfl_sync(0xffffffffu, cr.w, j));
+        const float aj = __shfl_sync(0xffffffffu, a, j);
+        Row8<T> corner[4];
+        if (on) {
+          dfa_corners(vlane, w, r, g.C, corner);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) corner[k].zero();
+        }
+        float smp[8];
+        msda_bilinear<T>(smp, w, corner);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          lacc[i] = __fadd_rn(lacc[i], __fmul_rn(smp[i], aj));
+        // in-image bilinear mass (wx0 + wx1)(wy0 + wy1), sums in T
+        const float mass = __fmul_rn(R<T>(__fadd_rn(w.x, w.y)),
+                                     R<T>(__fadd_rn(w.z, w.w)));
+        lw = __fadd_rn(lw, __fmul_rn(aj, mass));
+        if (++p == g.P) {  // a level ends
+          p = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i] = __fadd_rn(acc[i], lacc[i]);
+            lacc[i] = 0.f;
+          }
+          wsum_h = pk0 ? wsum_h : __fadd_rn(wsum_h, lw);
+          lw = 0.f;
+        }
+      }
+    }
+    if (on) {
+      float4* o = reinterpret_cast<float4*>(sampled + bqh * g.C +
+                                            (pk0 + lane) * 8);
+      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  }
+  if (lane == 0) wsum[bqh] = wsum_h;
+}
+
+template <typename T>
+int launch_msda(const void* value, const float* loc, const float* attw,
+                float* sampled, float* wsum, const MsdaExactArgs& g,
+                const Levels& lv, int threads, cudaStream_t st) {
+  if (g.C % 8 || g.C < 8 || g.heads < 1 || g.heads > 8 || g.P < 1 ||
+      g.L != lv.n || threads != 32 * g.heads || g.B * g.Q < 1)
+    return (int)cudaErrorInvalidValue;
+  msda_kernel<T><<<g.B * g.Q, threads, 0, st>>>((const T*)value, loc, attw,
+                                                 g, lv, sampled, wsum);
+  return (int)cudaGetLastError();
+}
+
 Levels read_levels(int L, const int* d) {
   Levels lv;
   lv.n = L;
@@ -2044,6 +2224,24 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
                                             threads, smem, st)
                     : launch_msda_sel_tc<2>(value, l, a, sp, ws, g, lv,
                                             threads, smem, st);
+}
+
+// dims: B, Q, heads, L, P, C, T, threads (32 a head), then the L level
+// heights, widths and start rows. One block per (camera row, query).
+int simpb_msda(const void* value, const void* loc, const void* attw,
+               void* sampled, void* wsum, const int* dims, int dtype,
+               void* stream) {
+  MsdaExactArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.C = dims[5]; g.T = dims[6];
+  const Levels lv = read_levels(dims[3], dims + 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)loc;
+  const float* a = (const float*)attw;
+  return dtype ? launch_msda<bf16>(value, l, a, (float*)sampled,
+                                   (float*)wsum, g, lv, dims[7], st)
+               : launch_msda<float>(value, l, a, (float*)sampled,
+                                    (float*)wsum, g, lv, dims[7], st);
 }
 
 // The backward passes (kernels B and C). Kernel B: dims as simpb_dfa's

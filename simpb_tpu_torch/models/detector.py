@@ -11,8 +11,9 @@ bottleneck under `backbone_remat`) and module FPN, `depth_preds` from
 the `DenseDepthNet`, and the head's training program. The feature column
 stays in the trunk's dtype; the head computes in `head_dtype`. `rngs`
 holds the training generators under JAX's rng names: "aug" (grid mask),
-"dropout" and "sampling". Not ported yet: `stem_s2d` and FPNs with
-other than 4 levels.
+"dropout" and "sampling". Not ported yet: `stem_s2d`, FPNs with
+other than 4 levels, ResNet-101 (until it is held to JAX's), and training
+a configuration with exact MSDA (its backward, ROADMAP B.1).
 """
 from __future__ import annotations
 
@@ -42,7 +43,20 @@ def check_serving_config(cfg: ModelConfig) -> None:
     if cfg.head.num_levels != 4:
         raise NotImplementedError("FPNs with other than 4 levels are not "
                                   "ported yet")
+    if cfg.backbone_depth == 101:
+        raise NotImplementedError("not ported: ResNet-101 (backbone_depth="
+                                  "101) is not yet held to JAX's (ROADMAP "
+                                  "A.5)")
     check_head_config(cfg.head)
+
+
+def check_training_config(cfg: ModelConfig) -> None:
+    """`check_serving_config`, and NotImplementedError for what the port
+    serves but does not train: exact MSDA, whose backward is not ported."""
+    check_serving_config(cfg)
+    if not cfg.head.msda_patch_mode:
+        raise NotImplementedError("not ported: the exact MSDA backward "
+                                  "(ROADMAP B.1)")
 
 
 class SimPB(nn.Module):
@@ -51,7 +65,7 @@ class SimPB(nn.Module):
 
     def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
-        check_serving_config(cfg)
+        (check_training_config if train else check_serving_config)(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.img_backbone = ResNet(cfg.backbone_depth)

@@ -8,7 +8,11 @@ In `dtype`: the weights and their softmax, the camera embedding and
 `output_proj`; the points and weights are cast to the features' dtype
 for the kernel, which returns float32, as in JAX. In training,
 `attn_drop` drops whole (camera, point) pairs of the weights with the
-installed dropout generator (`point_keep_draw`).
+installed dropout generator (`point_keep_draw`). With a `guards`
+collector the forward appends `dfa_overflow`, the most in-range
+(anchor, point) slots a camera holds beyond the gather capacity (JAX's
+sown counter; `dfa_level_dropped_mass` belongs to `dfa_sel_levels`,
+which is not ported).
 """
 from __future__ import annotations
 
@@ -55,10 +59,11 @@ class DeformableFeatureAggregation(nn.Module):
 
     def forward(self, instance_feature, anchor, anchor_embed,
                 col_feats: torch.Tensor, spatial_shapes: SpatialShapes,
-                projection_mat, image_wh):
+                projection_mat, image_wh, guards: Optional[dict] = None):
         """instance_feature [bs, A, C], anchor [bs, A, 11], col_feats
         [bs, cams, ΣHW, C], projection_mat [bs, cams, 4, 4], image_wh
-        [bs, cams, 2] -> [bs, A, 2C] (output ‖ instance_feature)."""
+        [bs, cams, 2] -> [bs, A, 2C] (output ‖ instance_feature).
+        `guards`: a collector dict the overflow counter is appended to."""
         bs, num_anchor = instance_feature.shape[:2]
         key_points = self.kps_generator(anchor, instance_feature)
         num_pts = key_points.shape[2]
@@ -82,6 +87,16 @@ class DeformableFeatureAggregation(nn.Module):
         points_2d = box3d.project_points(key_points, projection_mat, image_wh)
         points_2d = points_2d.permute(0, 2, 3, 1, 4)  # [bs, A, P, cams, 2]
         w = weights.permute(0, 1, 4, 2, 3, 5)  # [bs, A, P, cams, L, G]
+        if guards is not None:
+            # the in-range test of the op's compaction, on the points
+            # before their cast to the features' dtype, as in JAX
+            in_r = ((points_2d[..., 0] > 0.0) & (points_2d[..., 0] < 1.0)
+                    & (points_2d[..., 1] > 0.0) & (points_2d[..., 1] < 1.0))
+            slots = num_anchor * num_pts
+            cap = self.gather_capacity
+            cap_eff = cap if cap is not None and cap < slots else slots
+            guards.setdefault("dfa_overflow", []).append(
+                (in_r.sum((1, 2)).max() - cap_eff).clamp(min=0).float())
         features = deformable_aggregation(
             col_feats, spatial_shapes, points_2d.to(col_feats.dtype),
             w.to(col_feats.dtype), gather_capacity=self.gather_capacity,

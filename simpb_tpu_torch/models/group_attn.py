@@ -3,14 +3,16 @@
 
 * `QueryGroupSelfAttention` — attention within each camera's K slots,
   cameras folded into the batch; padded slots are masked as keys.
-* `QueryGroupMSDA` — per-camera windowed multi-scale deformable
-  cross-attention on the serving path of the JAX package: patch mode
-  with top-k level selection and valid-slot compaction, sampling the
-  RAW feature column and applying the value projection to the sampled
-  rows afterwards, with the `(wsum - 1) * bias` border correction
-  (the order the JAX serving head computes in). In training
-  (`project_first`) the value projection runs on the feature column
-  before sampling, as the JAX training head computes it.
+* `QueryGroupMSDA` — per-camera multi-scale deformable cross-attention
+  on the serving path of the JAX package: windowed (`patch_mode`, with
+  top-k level selection) or exact (`msda`), with valid-slot compaction,
+  sampling the RAW feature column and applying the value projection to
+  the sampled rows afterwards, with the `(wsum - 1) * bias` border
+  correction (the order the JAX serving head computes in). In training
+  (`project_first`, windowed only) the value projection runs on the
+  feature column before sampling, as the JAX training head computes it.
+  With a `guards` collector it records the guard counters JAX sows
+  (`utils/guards.py`). The hybrid mode is not ported.
 
 Both compute in `dtype`. In bf16 the offsets and attention weights come
 out of bf16 layers; the locations are float32 (float32 reference points
@@ -26,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.format import SpatialShapes
-from ..ops.sampling import msda_patch, topk_stable
+from ..ops.sampling import msda, msda_patch, msda_window_stats, topk_stable
 from .layers import Dense, MultiheadAttention, dropout
 
 
@@ -68,7 +70,8 @@ def msda_offset_bias_init(num_heads: int, num_levels: int,
 
 
 class QueryGroupMSDA(nn.Module):
-    """Per-camera windowed MSDA for 2D queries, residual_mode='cat'.
+    """Per-camera MSDA for 2D queries, residual_mode='cat': windowed with
+    `patch_mode` (the default here; JAX's default is exact), else exact.
     Slots without an allocated depth get zero locations (the padded
     slots), and with `gather_capacity` only the first `cap` valid slots
     of each camera are sampled."""
@@ -78,9 +81,11 @@ class QueryGroupMSDA(nn.Module):
                  num_cams: int = 6, gather_capacity: Optional[int] = None,
                  sel_levels: Optional[int] = None,
                  patch_hw: Tuple[int, int] = (8, 8),
-                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0,
+                 patch_mode: bool = True):
         super().__init__()
         self.drop = drop
+        self.patch_mode = patch_mode
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.num_levels = num_levels
@@ -105,6 +110,28 @@ class QueryGroupMSDA(nn.Module):
             self.attention_weights.weight.zero_()
             self.attention_weights.bias.zero_()
 
+    def _guards(self, guards, loc, attn, ref_depth, spatial_shapes, cap):
+        """The counters JAX's layer sows, on the device: `msda_overflow`
+        (the most valid slots of a camera beyond the capacity) and, when
+        windowed, the window and level-selection counters of
+        `msda_window_stats`."""
+        bs, q_total = ref_depth.shape[:2]
+        k = q_total // self.num_cams
+        valid = ref_depth[..., 0] > 0  # [bs, cams*K]
+        counts = valid.reshape(bs * self.num_cams, k).sum(-1)
+        cap_eff = cap if cap is not None and cap < k else k
+        add = lambda name, v: guards.setdefault(name, []).append(v)
+        add("msda_overflow", (counts.max() - cap_eff).clamp(min=0).float())
+        if self.patch_mode:
+            stats = msda_window_stats(
+                spatial_shapes, loc, attn, self.patch_hw[0],
+                self.patch_hw[1], sel_levels=self.sel_levels, valid=valid)
+            add("msda_window_clamped", stats["window_clamped"].sum())
+            add("msda_window_clamped_mass",
+                stats["window_clamped_mass"].sum())
+            add("msda_level_dropped_mass",
+                stats["level_dropped_mass"].max())
+
     def _project(self, sampled, wsum):
         """Per-head value projection of raw samples plus the weight-mass
         bias correction: channel d of head h(d) becomes
@@ -123,12 +150,17 @@ class QueryGroupMSDA(nn.Module):
     def forward(self, query, query_pos, reference_points, ref_depth,
                 value: torch.Tensor, spatial_shapes: SpatialShapes,
                 project_first: bool = False,
-                capacity_override: Optional[int] = None):
+                capacity_override: Optional[int] = None,
+                guards: Optional[dict] = None):
         """query/query_pos [bs, cams*K, C], reference_points [bs, cams*K,
         2], ref_depth [bs, cams*K, 1], value [bs, cams, ΣHW, C] (raw
         features). Returns [bs, cams*K, 2C]. `project_first` projects the
-        value column before sampling (the training order);
-        `capacity_override` replaces `gather_capacity`."""
+        value column before sampling (the training order; windowed only);
+        `capacity_override` replaces `gather_capacity`; `guards`, a
+        collector dict, gets this call's guard counters appended."""
+        if project_first and not self.patch_mode:
+            raise NotImplementedError("not ported: the exact MSDA backward "
+                                      "(ROADMAP B.1)")
         bs, q_total, _ = query.shape
         heads, levels, points = (self.num_heads, self.num_levels,
                                  self.num_points)
@@ -158,10 +190,17 @@ class QueryGroupMSDA(nn.Module):
                + offsets / normalizer[None, None, None, :, None, :])
         loc = torch.where(ref_depth[:, :, None, None, None, :] > 0, loc,
                           torch.zeros_like(loc))
+        cap = (capacity_override if capacity_override is not None
+               else self.gather_capacity)
+        if guards is not None:
+            self._guards(guards, loc, attn, ref_depth, spatial_shapes, cap)
         loc = loc.reshape(b2, k, heads, levels, points, 2)
         w = attn.reshape(b2, k, heads, levels, points).float()
 
         def sample(loc_, w_):
+            if not self.patch_mode:
+                return self._project(*msda(v, spatial_shapes, loc_, w_,
+                                           raw_heads=True))
             if project_first:
                 return msda_patch(
                     v, spatial_shapes, loc_, w_, patch_h=self.patch_hw[0],
@@ -174,8 +213,6 @@ class QueryGroupMSDA(nn.Module):
             )
             return self._project(sampled, wsum)
 
-        cap = (capacity_override if capacity_override is not None
-               else self.gather_capacity)
         if cap is not None and cap < k:
             valid = (ref_depth[..., 0] > 0).reshape(b2, k)
             score = valid.float() * (2.0 * k) - torch.arange(

@@ -20,6 +20,11 @@ generator; `sampling` (a generator) ranks corner-only allocations at
 random and caches DN groups for the next frame. No instance ids are
 assigned under training.
 
+Serving under `guard_sampling` fills a collector, {counter name: [a value
+a layer]}, from the DFA and MSDA layers (the counters JAX sows into its
+"guards" collection) and returns it as `guards`; the values stay on the
+device (`utils/guards.py` reduces them).
+
 The head computes in `dtype` (float32, or bfloat16 as `head_dtype`
 sets it); its parameters, the anchors and the carried temporal state
 stay float32, as in the JAX head.
@@ -50,11 +55,9 @@ def check_head_config(c: HeadConfig) -> None:
     unsupported = {
         "decouple_attn": not c.decouple_attn,
         "decouple_attn2d": not c.decouple_attn2d,
-        "msda_patch_mode": not c.msda_patch_mode,
         "msda_hybrid_mode": c.msda_hybrid_mode,
         "dfa_sel_levels": bool(c.dfa_sel_levels),
         "dfa_level_capacity": bool(c.dfa_level_capacity),
-        "guard_sampling": c.guard_sampling,
         "encoder2d_layers": bool(c.encoder2d_layers),
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -159,6 +162,7 @@ class SimPBHead(nn.Module):
                     gather_capacity=c.msda_gather_capacity,
                     sel_levels=c.msda_sel_levels or None,
                     patch_hw=c.msda_patch_hw, dtype=dtype, drop=c.drop_out,
+                    patch_mode=c.msda_patch_mode,
                 )
             elif op == "aggregation":
                 self.add_module(f"op{i}_reweight", ReWeight(e, dtype))
@@ -202,6 +206,7 @@ class SimPBHead(nn.Module):
         c = self.cfg
         bs = col_feats.shape[0]
         dev = col_feats.device
+        guards = {} if c.guard_sampling and not train else None
         image_wh_arr = torch.tensor(
             image_wh, dtype=torch.float32, device=dev
         )[None, None].expand(bs, c.num_cams, 2)
@@ -275,7 +280,7 @@ class SimPBHead(nn.Module):
             elif op == "qg_cross_attn":
                 feat2d = self._qg_cross_attn(layer, feat2d, anchor_embed2d,
                                              alloc, dn2d, col_feats,
-                                             spatial_shapes, train)
+                                             spatial_shapes, train, guards)
             elif op == "refine2d":
                 box2d, cls2d, alpha2d = layer(feat2d, anchor2d,
                                               anchor_embed2d)
@@ -318,6 +323,7 @@ class SimPBHead(nn.Module):
                 instance_feature = layer(
                     instance_feature, anchor, anchor_embed, col_feats,
                     spatial_shapes, projection_mat, image_wh_arr,
+                    guards=guards,
                 )
             elif op == "refine3d":
                 return_cls = (
@@ -407,6 +413,8 @@ class SimPBHead(nn.Module):
             )
             output["instance_id"] = instance_id
         output["temporal_state"] = new_state
+        if guards is not None:
+            output["guards"] = guards
         return output
 
     def _qg_self_attn(self, layer, feat2d, anchor_embed2d, alloc, dn2d):
@@ -426,7 +434,7 @@ class SimPBHead(nn.Module):
                                     dn2d.valid)], 1)
 
     def _qg_cross_attn(self, layer, feat2d, anchor_embed2d, alloc, dn2d,
-                       col_feats, spatial_shapes, train):
+                       col_feats, spatial_shapes, train, guards=None):
         """Per-camera MSDA; with DN each camera's real and DN slots both
         sample that camera (interleaved along the camera fold), with the
         slot capacity widened by the DN slots."""
@@ -434,7 +442,7 @@ class SimPBHead(nn.Module):
         if dn2d is None:
             return layer(feat2d, anchor_embed2d, alloc.anchor2d[..., :2],
                          alloc.ref_depth, col_feats, spatial_shapes,
-                         project_first=train)
+                         project_first=train, guards=guards)
         q2 = alloc.valid.shape[1]
         bs = feat2d.shape[0]
         k, kd, cams = c.allocation_capacity, c.dn_allocation_capacity, \

@@ -75,6 +75,8 @@ SIGNATURES = {
         "simpb_dfa": ((P,) * 7 + (I, P), I),
         # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
         "simpb_msda_sel": ((P,) * 6 + (I, P), I),
+        # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
+        "simpb_msda": ((P,) * 6 + (I, P), I),
         # col, points, weights, thresholds, grad out, grad col, grad
         # points, grad weights, scratch, dims, strides, dtype, stages,
         # stream

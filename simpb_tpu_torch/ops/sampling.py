@@ -70,7 +70,7 @@ MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
 # 8x8 windows, 4 points a head (and at most 8 heads), as in every
 # configuration of the repo
 MSDA_TC_SHAPE = (2, 8, 8, 4)
-_LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0,
+_LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
              "deformable_aggregation_backward": 0,
              "msda_patch_sel_backward": 0}
 
@@ -643,6 +643,155 @@ def deformable_aggregation(
                               gather_capacity)
 
 
+def msda_plain(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    attention_weights: torch.Tensor,  # [B, Q, heads, L, P]
+    raw_heads: bool = False,
+):
+    """Exact multi-scale deformable attention, plain PyTorch: every
+    sample reads its level bilinearly (border corners weigh zero, samples
+    outside (0, 1) are kept; a padded slot's location 0 samples pixel
+    (0, 0) with a quarter of its attention). In JAX's rounding order: the
+    corner weights and the x-then-y combine in the value's type, the
+    attention weighting in fp32.
+
+    raw_heads: (sampled [B, Q, heads, C], wsum [B, Q, heads]) before the
+    per-head channel split, wsum the attention times the in-image
+    bilinear mass (wx0 + wx1)(wy0 + wy1); otherwise [B, Q, C] float32."""
+    b, total_hw, c = value.shape
+    q, heads, num_levels, num_points = sampling_locations.shape[1:5]
+    dev = value.device
+    table = value.reshape(b * total_hw, c)
+    batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
+    acc = torch.zeros((b, q, heads, c), dtype=torch.float32, device=dev)
+    acc_w = torch.zeros((b, q, heads), dtype=torch.float32, device=dev)
+    for lvl in range(num_levels):
+        h_, w_ = spatial_shapes.shapes[lvl]
+        start = spatial_shapes.start_indices[lvl]
+        loc = sampling_locations[:, :, :, lvl].reshape(b, -1, 2)
+        sampled, wx0, wx1, wy0, wy1 = _sample_rows(
+            table, batch_base + start, h_, w_, loc, False)
+        w_l = attention_weights[:, :, :, lvl].float()  # [B, Q, heads, P]
+        acc = acc + torch.einsum(
+            "bqhpc,bqhp->bqhc",
+            sampled.reshape(b, q, heads, num_points, c).float(), w_l)
+        mass = ((wx0 + wx1).float() * (wy0 + wy1).float()).reshape(
+            b, q, heads, num_points)
+        acc_w = acc_w + torch.einsum("bqhp,bqhp->bqh", w_l, mass)
+    if raw_heads:
+        return acc, acc_w
+    head_mask = torch.repeat_interleave(
+        torch.eye(heads, device=dev), c // heads, dim=1)
+    return torch.einsum("bqhc,hc->bqc", acc, head_mask)
+
+
+MSDA_HEADS = 8  # heads of an exact-MSDA block, a warp each
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda(num_rows: int, num_queries: int, heads: int, num_points: int,
+              c: int, shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """The exact MSDA kernel's launch for [num_rows, ΣHW, c] values over
+    the levels `shapes`: one block per (camera row, query), a warp per
+    head, a lane 8 channels. Raises ValueError on a shape the kernel does
+    not take: more than MSDA_HEADS heads, C not a multiple of 8, more
+    than MAX_LEVELS levels, no query."""
+    what = "msda"
+    num_levels = len(shapes)
+    if (not 0 < heads <= MSDA_HEADS or c % 8 or not c
+            or not 0 < num_levels <= MAX_LEVELS or num_points < 1
+            or num_rows * num_queries < 1):
+        raise ValueError(f"{what}: the kernel takes 1 to {MSDA_HEADS} heads, "
+                         "C a multiple of 8, 1 to "
+                         f"{MAX_LEVELS} levels and at least one query, got "
+                         f"{heads} heads, C = {c}, {num_levels} levels, "
+                         f"{num_rows} x {num_queries} queries")
+    threads = 32 * heads
+    dims = [num_rows, num_queries, heads, num_levels, num_points, c,
+            sum(h * w for h, w in shapes), threads]
+    return SamplingPlan((num_rows * num_queries, 1), threads, 0, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
+def _check_msda(value, spatial_shapes, sampling_locations,
+                attention_weights):
+    what = "msda"
+    _check_devices(what, value, sampling_locations, attention_weights)
+    _check_storage(what, value, "value")
+    for name, t in (("sampling_locations", sampling_locations),
+                    ("attention_weights", attention_weights)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    b, total_hw, _ = value.shape
+    q = sampling_locations.shape[1]
+    if (sampling_locations.dim() != 6 or sampling_locations.shape[0] != b
+            or sampling_locations.shape[-1] != 2
+            or sampling_locations.shape[3] != spatial_shapes.num_levels
+            or tuple(attention_weights.shape)
+            != tuple(sampling_locations.shape[:5])):
+        raise ValueError(f"{what}: shapes {tuple(value.shape)}, "
+                         f"{tuple(sampling_locations.shape)}, "
+                         f"{tuple(attention_weights.shape)} do not fit "
+                         f"together over {spatial_shapes.num_levels} levels "
+                         f"({q} queries)")
+    _check_levels(what, spatial_shapes, total_hw)
+
+
+def _msda_launch(value, spatial_shapes, sampling_locations,
+                 attention_weights):
+    what = "msda"
+    b, _, c = value.shape
+    q, heads, _, num_points = sampling_locations.shape[1:5]
+    plan = plan_msda(b, q, heads, num_points, c, spatial_shapes.shapes)
+    _check_aligned(what, value, "value")
+    dev = value.device
+    sampled = torch.empty((b, q, heads, c), dtype=torch.float32, device=dev)
+    wsum = torch.empty((b, q, heads), dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.load("sampling").simpb_msda(
+        *map(_kernels.ptr, (value, sampling_locations, attention_weights,
+                            sampled, wsum)), plan.dims,
+        _kernels.DTYPE_CODE[value.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(value))), what)
+    _LAUNCHES["msda"] += 1
+    return sampled, wsum
+
+
+def msda(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    attention_weights: torch.Tensor,  # [B, Q, heads, L, P]
+    raw_heads: bool = False,
+):
+    """Exact multi-scale deformable attention (see `msda_plain`), the
+    forward only: (sampled [B, Q, heads, C], wsum [B, Q, heads]) float32
+    with `raw_heads`, else [B, Q, C] float32. Value float32 or bfloat16,
+    contiguous (16-byte aligned on the card); locations and weights
+    float32, contiguous. The backward is not ported (ROADMAP B.1): a call
+    that autograd would differentiate raises."""
+    _check_msda(value, spatial_shapes, sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations,
+                                      attention_weights)):
+        raise NotImplementedError("msda: not ported: the exact MSDA backward "
+                                  "(ROADMAP B.1)")
+    if value.device.type == "cpu":
+        return msda_plain(value, spatial_shapes, sampling_locations,
+                          attention_weights, raw_heads)
+    sampled, wsum = _msda_launch(value, spatial_shapes, sampling_locations,
+                                 attention_weights)
+    if raw_heads:
+        return sampled, wsum
+    heads, c = sampled.shape[2:]
+    head_mask = torch.repeat_interleave(
+        torch.eye(heads, device=value.device), c // heads, dim=1)
+    return torch.einsum("bqhc,hc->bqc", sampled, head_mask)
+
+
 def _window_base(px, py, keep, ph, pw, hlim, wlim):
     """Midrange-centred window base (int64) for patch-mode sampling;
     dropped (zero-weight) samples do not drag the window, and a query
@@ -775,6 +924,91 @@ def msda_patch(
         torch.eye(heads, device=dev), c // heads, dim=1
     )
     return torch.einsum("bqhc,hc->bqc", acc, head_mask)
+
+
+def _lost_weights(spatial_shapes: SpatialShapes, loc: torch.Tensor,
+                  patch_h: int, patch_w: int):
+    """Per sample of loc [B, Q, L, n, 2] (head-major samples), the
+    bilinear weight its lost corners carry: corners inside the image but
+    outside the window `msda_patch` places (`_window_base`,
+    `shrink_patch`). Returns (lost_w, keep), both [B, Q, L, n] float32,
+    `keep` the in-image support mask."""
+    lost_all, keep_all = [], []
+    for lvl, (h_, w_) in enumerate(spatial_shapes.shapes):
+        ph, pw = shrink_patch(patch_h, patch_w, h_, w_)
+        l = loc[:, :, lvl].float()
+        px = l[..., 0] * w_ - 0.5
+        py = l[..., 1] * h_ - 0.5
+        keep = ((px > -1.0) & (px < w_) & (py > -1.0)
+                & (py < h_)).float()
+        base_x, base_y = _window_base(px, py, keep, ph, pw, h_, w_)
+        x0 = torch.floor(px).to(torch.int64)
+        y0 = torch.floor(py).to(torch.int64)
+        bx, by = base_x[..., None], base_y[..., None]
+        fx = px - x0.float()
+        fy = py - y0.float()
+        lost_w = torch.zeros_like(px)
+        for cx, wx_ in ((x0, 1.0 - fx), (x0 + 1, fx)):
+            in_x = (cx >= 0) & (cx <= w_ - 1)
+            out_x = (cx < bx) | (cx > bx + pw - 1)
+            for cy, wy_ in ((y0, 1.0 - fy), (y0 + 1, fy)):
+                in_y = (cy >= 0) & (cy <= h_ - 1)
+                out_y = (cy < by) | (cy > by + ph - 1)
+                lost_c = in_x & in_y & (out_x | out_y)
+                lost_w = lost_w + lost_c.float() * wx_ * wy_
+        lost_all.append(lost_w * keep)
+        keep_all.append(keep)
+    return torch.stack(lost_all, dim=2), torch.stack(keep_all, dim=2)
+
+
+def msda_window_stats(
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    attention_weights: torch.Tensor,  # [B, Q, heads, L, P]
+    patch_h: int,
+    patch_w: int,
+    sel_levels: Optional[int] = None,
+    valid: Optional[torch.Tensor] = None,  # [B, Q] bool
+):
+    """The exactness guard of windowed MSDA (window and level selection),
+    per batch row: `window_clamped`, the weight-bearing samples whose
+    bilinear stencil the window does not serve whole; `window_clamped_mass`,
+    their attention mass times the lost corners' bilinear weight;
+    `level_dropped_mass`, the largest attention mass of a query on the
+    levels it does not sample (0 without `sel_levels`). Slots outside
+    `valid` count nothing. Plain PyTorch on every device: it reads
+    locations and weights, not feature rows."""
+    b, q = sampling_locations.shape[:2]
+    heads, num_levels, num_points = sampling_locations.shape[2:5]
+    n = heads * num_points
+    dev = sampling_locations.device
+    loc = sampling_locations.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, q, num_levels, n, 2)
+    attw = attention_weights.permute(0, 1, 3, 2, 4).reshape(
+        b, q, num_levels, n).float()
+    vmask = (torch.ones((b, q), dtype=torch.float32, device=dev)
+             if valid is None else valid.float())
+    patch_fits_all = all(
+        h_ >= patch_h and w_ >= patch_w and patch_w % 2 == 0
+        for h_, w_ in spatial_shapes.shapes
+    )
+    if sel_levels is not None and sel_levels < num_levels and patch_fits_all:
+        mass = attw.sum(-1)  # [B, Q, L]
+        _, lsel = topk_stable(mass, sel_levels)
+        sel_mask = one_hot(lsel, num_levels).sum(2)  # [B, Q, L]
+        dropped = ((mass * (1.0 - sel_mask)).sum(-1) * vmask).amax(-1)
+    else:
+        sel_mask = torch.ones((b, q, num_levels), dtype=torch.float32,
+                              device=dev)
+        dropped = torch.zeros((b,), dtype=torch.float32, device=dev)
+    lost_w, _ = _lost_weights(spatial_shapes, loc, patch_h, patch_w)
+    gate = vmask[:, :, None, None] * sel_mask[:, :, :, None]
+    inexact = (lost_w > 0).float() * gate
+    return {
+        "window_clamped": inexact.sum((1, 2, 3)),
+        "window_clamped_mass": (lost_w * gate * attw).sum((1, 2, 3)),
+        "level_dropped_mass": dropped,
+    }
 
 
 def msda_sel_windows(
@@ -1120,6 +1354,7 @@ KERNELS = (
      deformable_aggregation_plain, "simpb_tpu/ops/sampling.py:350"),
     ("msda_patch_sel", _msda_patch_sel, _msda_patch_sel_plain,
      "simpb_tpu/ops/sampling.py:892"),
+    ("msda", msda, msda_plain, "simpb_tpu/ops/sampling.py:611"),
 )
 # the backward kernels: (name, wrapper, plain version, the JAX op whose
 # gradient it computes)

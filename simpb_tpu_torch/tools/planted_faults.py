@@ -1,23 +1,26 @@
-"""Planted faults against chip_smoke's gradient check of kernels B and C.
+"""Planted faults against chip_smoke's checks of kernels B and C and of
+the exact MSDA forward.
 
     python -m simpb_tpu_torch.tools.planted_faults
 
 `chip_smoke.grad_check` holds the DFA and MSDA-sel backward kernels to
-their plain versions element by element. To show that it sees a fault
-that drops a small part of a feature or value gradient, the tool copies
-the checkout into `build/planted_faults/<fault>/`, edits one line of
-`csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
-accumulation in B2, or kernel C's value-gradient accumulation in C3),
-builds that copy and runs chip_smoke's synthetic gradient cases (fp32
-and bf16) on it. It prints one JSON line per (fault, case): whether
-`grad_check` passes, whether the bound it replaced (`MAX_SCALED`: a
-share of the plain gradient's
-largest value) passes, and each gradient's worst share of the check's
-bound; then one summary line per fault. It exits 1 when the unchanged
-copy fails a case, or when a fault passes the check on any case of the
-kernel it edits (every case has live entries for each fault to hit:
-the dead-anchor cases keep anchor 0 live). The copies are removed at
-the end. Needs the card.
+their plain versions element by element; the exact phase holds the exact
+MSDA kernel to `msda_plain` (`chip_smoke.within`, at EXACT_TOL). To show
+that they see a fault that drops a small part of a result, the tool
+copies the checkout into `build/planted_faults/<fault>/`, edits one line
+of `csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
+accumulation in B2, kernel C's value-gradient accumulation in C3, or the
+exact MSDA kernel's bilinear sample), builds that copy and runs
+chip_smoke's synthetic gradient cases and exact MSDA cases (fp32 and
+bf16) on it. It prints one JSON line per (fault, case): whether the
+check passes, whether the bound it replaced (`MAX_SCALED`: a share of
+the plain gradient's largest value; for exact MSDA the check itself)
+passes, and each gradient's worst share of the check's bound; then one
+summary line per fault. It exits 1 when the unchanged copy fails a case,
+or when a fault passes the check on any case of the kernel it edits
+(every case has live entries for each fault to hit: the dead-anchor
+cases keep anchor 0 live, and query 0 of every exact case samples the
+interior). The copies are removed at the end. Needs the card.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ ROOT = Path(__file__).resolve().parents[2]
 WORK = ROOT / "build" / "planted_faults"
 _B_ACCUMULATE = "              if (wc != 0.f)\n"
 _C_ACCUMULATE = "              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"
+_EXACT_SAMPLE = "        msda_bilinear<T>(smp, w, corner);\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
 FAULTS = {
     "none": (None, None, None),
@@ -55,6 +59,11 @@ FAULTS = {
         "msda_patch_sel_backward", _C_ACCUMULATE,
         "              if (fabsf(wp[p] * gv[c]) >= 1e-4f) "
         "acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"),
+    # exact MSDA: query 0 of camera row 0 drops the fourth bilinear
+    # corner (x1, y1) of every sample (the block bq = 0)
+    "msda_exact_corner3_of_query0": (
+        "msda", _EXACT_SAMPLE,
+        "        if (bq == 0) corner[3].zero();\n" + _EXACT_SAMPLE),
 }
 MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -69,6 +78,16 @@ def run_cases() -> None:
 
     from ..ops import sampling
 
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        dname = str(dtype).split(".")[-1]
+        for label, args in chip_smoke.exact_cases(torch, dtype, gen):
+            got = sampling.msda(*args, raw_heads=True)
+            ref = sampling.msda_plain(*args, raw_heads=True)
+            ok, errs = chip_smoke.within(got, ref, chip_smoke.EXACT_TOL[dname])
+            print(json.dumps(dict(
+                case=label, kernel="msda", dtype=dname, passes_check=ok,
+                passes_max_scaled=ok, max_abs_err=errs)), flush=True)
     bwd = {n: (w, p) for n, w, p, _ in sampling.BACKWARD_KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for label, name, args in chip_smoke.grad_cases(torch, sampling, [], gen):

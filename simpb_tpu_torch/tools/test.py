@@ -13,10 +13,14 @@ Usage:
       [--out results.json] [--tracking] [--device cpu]
 
 The trunk is always the fused inference trunk (`models/detector.py`), so
-`--fused-trunk` changes nothing. The port's head serves the windowed
-MSDA only: `--config tiny` is the tiny config with `msda_patch_mode`
-(the JAX CLI's `--config tiny --msda-patch`), and a config the head or
-detector refuses exits with their "not ported yet" message.
+`--fused-trunk` changes nothing. The configs are the JAX CLI's: `r50`
+(the default) and `r50-guarded` sample with exact MSDA, `r50-fast`,
+`r50-fast-guarded` and `--msda-patch` with the windowed one; a config
+the head or detector refuses (`r50-hybrid`, `r101`, `r101-fast`) exits
+with their "not ported" message. Under a guarded config the metrics
+hold each `guard_*` counter's maximum over the frames, and a nonzero
+one (a frame that left the exact semantics) makes the CLI exit 3 after
+printing them, as the JAX CLI does.
 `--checkpoint` reads a checkpoint of the port's trainer
 (`python -m simpb_tpu_torch.tools.train`, `training/checkpoint.py`):
 the serving model takes the parameters and BatchNorm statistics it
@@ -28,6 +32,7 @@ import argparse
 import dataclasses
 import json
 import math
+import sys
 
 
 def parse_args(argv=None):
@@ -99,18 +104,13 @@ def build_config(args):
         simpb_tiny,
     )
 
-    def tiny():
-        cfg = simpb_tiny()
-        return dataclasses.replace(cfg, head=dataclasses.replace(
-            cfg.head, msda_patch_mode=True))
-
     cfg = {"r50": simpb_r50_704x256, "r50-fast": simpb_r50_704x256_fast,
            "r50-guarded": simpb_r50_704x256_guarded,
            "r50-fast-guarded": simpb_r50_704x256_fast_guarded,
            "r50-hybrid": simpb_r50_704x256_hybrid,
            "r101": simpb_r101_1408x512,
            "r101-fast": simpb_r101_1408x512_fast,
-           "tiny": tiny}[args.config]()
+           "tiny": simpb_tiny}[args.config]()
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16",
                               backbone_fused_infer=True)
     if args.head_bf16:
@@ -120,6 +120,22 @@ def build_config(args):
             cfg, head=dataclasses.replace(cfg.head, msda_patch_mode=True)
         )
     return cfg
+
+
+def enforce_guards(metrics) -> int:
+    """The exit code for sampling guard violations (0: none): a nonzero
+    `guard_*` maximum means a frame's outputs left the exact semantics a
+    guarded config promises; warns and returns 3."""
+    from ..utils.guards import check_guard_violations
+
+    violated = check_guard_violations(metrics)
+    if not violated:
+        return 0
+    print("WARNING: sampling-exactness guard violated: "
+          + ", ".join(f"{k}={float(metrics[k]):g}" for k in violated)
+          + " — outputs deviated from exact semantics; raise the capacity "
+          "caps or use the exact config", file=sys.stderr)
+    return 3
 
 
 def eval_aug_conf(cfg, src_h: int, src_w: int):
@@ -187,6 +203,9 @@ def main(argv=None):
          for k, v in metrics.items()},
         indent=1,
     ))
+    rc = enforce_guards(metrics)
+    if rc:
+        sys.exit(rc)
 
     if args.out:
         sub = format_nuscenes_submission(

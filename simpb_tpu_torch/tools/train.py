@@ -26,9 +26,11 @@ generator's and the sampler's (each its own generator, as in JAX).
 Refused with "not ported" (ROADMAP.md): `--multihost`, `--coordinator`,
 `--num-processes` and `--process-id` (data-parallel training, A.4);
 `--img-bf16` (a workaround of the TPU host link, not ported); the
-configs whose head or detector the port refuses (`r50`, `r101`: exact
-MSDA, B.1; `r101-fast`: `stem_s2d`, A.5). `--config tiny` is the tiny
-config with windowed MSDA, as in `tools/test.py`.
+configs the port does not train (`r50`, `r101`: exact MSDA, whose
+backward is not ported, B.1; `r101-fast`: `stem_s2d`, A.5), before any
+model is built. `--config tiny` is the tiny config with windowed MSDA
+(the eval CLI's `--config tiny --msda-patch`) until exact MSDA has its
+backward.
 
 `run(args, dataset=None, eval_dataset=None)` runs a parsed command line
 and returns what it measured (losses, step, producer and queue-wait
@@ -49,8 +51,8 @@ import time
 import numpy as np
 
 NOT_PORTED_CONFIGS = {
-    "r50": "exact MSDA (ROADMAP B.1)",
-    "r101": "exact MSDA (ROADMAP B.1)",
+    "r50": "the exact MSDA backward (ROADMAP B.1)",
+    "r101": "the exact MSDA backward (ROADMAP B.1)",
     "r101-fast": "stem_s2d (ROADMAP A.5)",
 }
 

@@ -25,6 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.decoder3d import decode_boxes3d
 from ..models.instance_bank import TemporalState
+from ..utils.guards import merge_guard_maxima, summarize_guards
 
 Step = Callable[..., Tuple[Dict[str, torch.Tensor], TemporalState]]
 
@@ -34,7 +35,9 @@ def make_stream_steps(model, cfg: ModelConfig) -> Tuple[Step, Step]:
 
     cold_step(img, proj) starts a stream; stream_step(img, proj, state,
     time_interval, temp2cur) carries the instance bank. Both run on the
-    model's device, in inference mode."""
+    model's device, in inference mode. Under `guard_sampling` the decode
+    also holds each guard counter's maximum over the frame's layers as
+    `guard_<name>`, broadcast to [bs] and left on the device."""
 
     def _apply(img, proj, **kw):
         with torch.inference_mode():
@@ -47,6 +50,9 @@ def make_stream_steps(model, cfg: ModelConfig) -> Tuple[Step, Step]:
                 num_output=cfg.head.num_output,
                 score_threshold=cfg.head.score_threshold,
             )
+            bs = out["prediction"][-1].shape[0]
+            for k, v in summarize_guards(out.get("guards") or {}).items():
+                dec["guard_" + k] = v.expand(bs)
         return dec, out["temporal_state"]
 
     def cold_step(img, proj):
@@ -98,8 +104,9 @@ def _stream_shard(
     shard: List[int],
     progress: bool = False,
 ):
-    """Stream one sequence-aligned shard; returns
-    (preds, gts, scene_ids, tokens) with boxes in the global frame."""
+    """Stream one sequence-aligned shard; returns (preds, gts,
+    scene_ids, tokens, guard_max) with boxes in the global frame and
+    guard_max each `guard_*` counter's maximum over the frames."""
     from ..data.postprocess import boxes_lidar_to_global
 
     device = next(model.parameters()).device
@@ -109,6 +116,7 @@ def _stream_shard(
     gts: List[dict] = []
     tokens: List[str] = []
     scene_ids: List[int] = []
+    guard_max: Dict[str, float] = {}
     scene_no = 0
     state = None
     prev_ts = prev_t_global = None
@@ -135,6 +143,8 @@ def _stream_shard(
         prev_ts, prev_t_global = ts, t_global
 
         dec = _decode_to_host(dec)
+        guard_max = merge_guard_maxima(guard_max, {
+            k: dec.pop(k) for k in list(dec) if k.startswith("guard_")})
         boxes_g = boxes_lidar_to_global(dec["boxes_3d"], t_global)
         valid = dec["valid"]
         # boxes are in the GLOBAL frame here: the class-range filter in
@@ -171,7 +181,7 @@ def _stream_shard(
         if progress and (n + 1) % 100 == 0:
             print(f"{n + 1}/{len(shard)} frames", flush=True)
 
-    return preds, gts, scene_ids, tokens
+    return preds, gts, scene_ids, tokens, guard_max
 
 
 def _score(preds, gts, scene_ids, tracking: bool) -> Dict[str, float]:
@@ -215,7 +225,8 @@ def streaming_eval(
     `tracking=True` the decoder's persistent instance ids are scored
     with the native AMOTA/AMOTP evaluator (data/tracking_eval.py).
     `world_size`/`rank` select one sequence-aligned shard (metrics then
-    cover that shard only)."""
+    cover that shard only). Under `guard_sampling` the metrics also hold
+    each `guard_*` counter's maximum over the frames."""
     from ..data.sampler import sequence_eval_shards
 
     if cam_shards > 1:
@@ -231,10 +242,12 @@ def streaming_eval(
     shard = sequence_eval_shards(dataset, world_size)[rank]
     if max_frames:
         shard = shard[:max_frames]
-    preds, gts, scene_ids, tokens = _stream_shard(
+    preds, gts, scene_ids, tokens, guard_max = _stream_shard(
         model, cfg, dataset, shard, progress=progress,
     )
-    return _score(preds, gts, scene_ids, tracking), preds, tokens
+    metrics = _score(preds, gts, scene_ids, tracking)
+    metrics.update(guard_max)
+    return metrics, preds, tokens
 
 
 def multidevice_streaming_eval(*args, **kwargs):

@@ -10,7 +10,8 @@ the number, as the JAX scan body generates them; the stream step and
 the decode run every frame, and the decode is reduced to a probe on the
 device so that nothing is skipped. One warm window runs, then one timed
 window, which ends in a `torch.cuda.synchronize()` (host clock around
-it). The reference benchmark reports fps and peak CUDA memory
+it). Under `guard_sampling` the guard counters join the probe, so that
+their cost is charged too. The reference benchmark reports fps and peak CUDA memory
 (reference tools/benchmark.py:100-113); so does this one.
 """
 from __future__ import annotations
@@ -62,6 +63,11 @@ def run_benchmark(
                                 device=dev)
             dec, state = stream_step(frame, proj, state, dt, t2c)
             probe = probe + dec["scores_3d"].max() + dec["boxes_3d"].sum()
+            # under guard_sampling the guard counters, which every eval
+            # of such a config computes, are charged against the number
+            for k in dec:
+                if k.startswith("guard_"):
+                    probe = probe + dec[k].sum()
         return state, probe
 
     def sync():

@@ -8,10 +8,14 @@ small PNG images (`img`, `projection_mat`, `timestamp`, `lidar2global`,
 `get_annotations`, `sequence_eval_shards`, `boxes_lidar_to_global`,
 `format_nuscenes_submission`, and the two scorers (the same keys, values
 within 1e-12). Then the CLIs: `simpb_tpu_torch.tools.test` over the fake
-set on the CPU, `run_benchmark` on the CPU, `simpb_tpu_torch.bench`'s
-line, and every setting the port refuses as "not ported". No JAX model
-is compiled here; the whole-path parity of `streaming_eval` lives in
-tests/test_torch_port_slice.py, which reuses its compiled steps.
+set on the CPU (windowed and exact MSDA), `run_benchmark` on the CPU,
+`simpb_tpu_torch.bench`'s line, the configurations the CLI and the bench
+serve (each equal, field by field, to the JAX configuration its switch
+selects), the CLI's exit on a guard violation, and every setting the
+port refuses as "not ported". No JAX model is compiled here; the
+whole-path parity of `streaming_eval` lives in
+tests/test_torch_port_slice.py, which reuses its compiled steps, and the
+exact path's in tests/test_torch_port_exact.py.
 """
 import dataclasses
 import importlib.util
@@ -32,6 +36,7 @@ from simpb_tpu.data import nuscenes_eval as jax_det
 from simpb_tpu.data import postprocess as jax_post
 from simpb_tpu.data import sampler as jax_sampler
 from simpb_tpu.data import tracking_eval as jax_trk
+from simpb_tpu.configs import base as jax_base
 from simpb_tpu.data.dataset import NuScenesDataset as JaxDataset
 from simpb_tpu_torch.configs.base import CLASS_NAMES, simpb_tiny
 from simpb_tpu_torch.data import native_preprocess, nuscenes_eval
@@ -222,29 +227,100 @@ def test_scorers_match_jax():
     assert 0.0 < want["AMOTA"] < 1.0
 
 
+# each flag the CLI refuses (None), or a configuration it now serves: the
+# JAX configuration that `--config` selects
 NOT_PORTED_ARGS = [
-    ["--cam-shards", "2"], ["--show-dir", "vis"],
-    ["--multihost"], ["--gather-dir", "gather"], ["--config", "r50"],
-    ["--config", "r50-guarded"], ["--config", "r50-fast-guarded"],
-    ["--config", "r50-hybrid"], ["--config", "r101-fast"],
+    (["--cam-shards", "2"], None), (["--show-dir", "vis"], None),
+    (["--multihost"], None), (["--gather-dir", "gather"], None),
+    (["--config", "r50"], "simpb_r50_704x256"),
+    (["--config", "r50-guarded"], "simpb_r50_704x256_guarded"),
+    (["--config", "r50-fast-guarded"], "simpb_r50_704x256_fast_guarded"),
+    (["--config", "r50-hybrid"], None), (["--config", "r101-fast"], None),
+    (["--config", "r101"], None),
 ]
 
 
-@pytest.mark.parametrize("extra", NOT_PORTED_ARGS,
-                         ids=[" ".join(a) for a in NOT_PORTED_ARGS])
-def test_test_cli_refuses(fake_set, extra):
+def _fake_eval(monkeypatch, metrics):
+    """Replace the CLI's model build and stream by recorders: nothing is
+    built; the stream returns `metrics`. Returns the served configs."""
+    from simpb_tpu_torch.training import evaluate
+
+    served = []
+    monkeypatch.setattr(evaluate, "build_model",
+                        lambda cfg, device=None, seed=0: served.append(cfg))
+    monkeypatch.setattr(evaluate, "streaming_eval",
+                        lambda model, cfg, dataset, **kw: (dict(metrics), [],
+                                                           []))
+    return served
+
+
+@pytest.mark.parametrize("extra,served", NOT_PORTED_ARGS,
+                         ids=[" ".join(a) for a, _ in NOT_PORTED_ARGS])
+def test_test_cli_refuses(fake_set, monkeypatch, extra, served):
+    """Every flag the port does not serve exits with "not ported". The
+    configurations it serves run (no model built here): the config equals
+    the JAX CLI's of that name, field by field, trunk bf16 and the fused
+    trunk, and `check_serving_config` accepts it."""
+    from simpb_tpu_torch.models.detector import check_serving_config
+
     argv = ["--ann-file", fake_set[0], "--device", "cpu"] + extra
+    if served is None:
+        with pytest.raises(SystemExit) as exc:
+            test_cli.main(argv)
+        assert "not ported" in str(exc.value.code)
+        return
+    configs = _fake_eval(monkeypatch, {"mAP": 0.0})
+    assert test_cli.main(argv) == {"mAP": 0.0}
+    (cfg,) = configs
+    want = dataclasses.replace(getattr(jax_base, served)(),
+                               compute_dtype="bfloat16",
+                               backbone_fused_infer=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    check_serving_config(cfg)
+
+
+def test_test_cli_exits_on_guard_violation(fake_set, monkeypatch, capsys):
+    """A nonzero `guard_*` maximum (a frame that left the exact semantics)
+    makes the CLI exit 3 after printing the metrics, as the JAX CLI does;
+    zero maxima and `*_demand` statistics do not."""
+    argv = ["--ann-file", fake_set[0], "--device", "cpu", "--config",
+            "r50-guarded"]
+    _fake_eval(monkeypatch, {"mAP": 0.0, "guard_dfa_overflow": 0.0,
+                             "guard_msda_overflow": 2.0})
     with pytest.raises(SystemExit) as exc:
         test_cli.main(argv)
-    assert "not ported" in str(exc.value.code)
+    assert exc.value.code == 3
+    assert '"guard_msda_overflow": 2.0' in capsys.readouterr().out
+    _fake_eval(monkeypatch, {"mAP": 0.0, "guard_dfa_overflow": 0.0,
+                             "guard_msda_clamp_demand": 5.0})
+    assert test_cli.main(argv)["guard_msda_clamp_demand"] == 5.0
+
+
+def test_test_cli_tiny_is_exact(fake_set, monkeypatch):
+    """`--config tiny` is JAX's tiny: the 2D cross-attention samples with
+    exact MSDA (three layers a frame), never the windowed op."""
+    from simpb_tpu_torch.models import group_attn
+    from simpb_tpu_torch.ops import sampling
+
+    calls = []
+    exact, windowed = group_attn.msda, sampling._msda_patch_sel
+    monkeypatch.setattr(group_attn, "msda", lambda *a, **k: (
+        calls.append("msda"), exact(*a, **k))[1])
+    monkeypatch.setattr(sampling, "_msda_patch_sel", lambda *a, **k: (
+        calls.append("window"), windowed(*a, **k))[1])
+    metrics = test_cli.main([
+        "--ann-file", fake_set[0], "--config", "tiny", "--device", "cpu",
+        "--src-h", str(SRC_H), "--src-w", str(SRC_W), "--max-frames", "2"])
+    assert {"mAP", "NDS"} <= set(metrics)
+    assert calls == ["msda"] * 6
 
 
 def test_test_cli_runs_on_cpu(fake_set, tmp_path, capsys):
     out = tmp_path / "sub.json"
     metrics = test_cli.main([
-        "--ann-file", fake_set[0], "--config", "tiny", "--device", "cpu",
-        "--src-h", str(SRC_H), "--src-w", str(SRC_W), "--tracking",
-        "--out", str(out)])
+        "--ann-file", fake_set[0], "--config", "tiny", "--msda-patch",
+        "--device", "cpu", "--src-h", str(SRC_H), "--src-w", str(SRC_W),
+        "--tracking", "--out", str(out)])
     printed = capsys.readouterr().out
     assert f"wrote {out}" in printed
     assert {"mAP", "NDS", "AMOTA", "AMOTP"} <= set(metrics)
@@ -334,28 +410,81 @@ def test_bench_switches(monkeypatch):
     assert cfg.head.msda_gather_capacity == 192
 
 
-BENCH_REFUSED = [("SIMPB_GUARDED", "1"), ("SIMPB_FAST_GUARDED", "1"),
-                 ("SIMPB_HYBRID", "1"), ("SIMPB_EXACT", "1"),
-                 ("SIMPB_CLAMP_CAP", "64"), ("SIMPB_FUSED_TRUNK", "0")]
+def _jax_bench_config(monkeypatch):
+    """The config the repository's bench.py serves under the current
+    environment, from its own main with its measurement replaced by a
+    recorder (nothing is compiled)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench", os.path.join(REPO, "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    seen = []
+    mod.run_benchmark = lambda cfg, **kw: (seen.append(cfg), (
+        60.0, {"peak_hbm_bytes": None}))[1]
+    with redirect_stdout(io.StringIO()):
+        mod.main()
+    return seen[0]
 
 
-@pytest.mark.parametrize("name,value", BENCH_REFUSED,
-                         ids=[n for n, _ in BENCH_REFUSED])
-def test_bench_refuses(monkeypatch, name, value):
+# each switch the bench refuses (False), or serves (True): then its
+# config is bench.py's under the same switch, with the fused trunk
+BENCH_REFUSED = [("SIMPB_GUARDED", "1", True),
+                 ("SIMPB_FAST_GUARDED", "1", True),
+                 ("SIMPB_HYBRID", "1", False), ("SIMPB_EXACT", "1", True),
+                 ("SIMPB_CLAMP_CAP", "64", False),
+                 ("SIMPB_FUSED_TRUNK", "0", False)]
+
+
+@pytest.mark.parametrize("name,value,served", BENCH_REFUSED,
+                         ids=[n for n, _, _ in BENCH_REFUSED])
+def test_bench_refuses(monkeypatch, name, value, served):
+    """A switch the port does not serve exits with "not ported" and its
+    name; a served one selects bench.py's config, field by field (the
+    trunk always the fused one), which `check_serving_config` accepts."""
     from simpb_tpu_torch import bench
+    from simpb_tpu_torch.models.detector import check_serving_config
 
     monkeypatch.setenv(name, value)
-    with pytest.raises(SystemExit) as exc:
+    if not served:
+        with pytest.raises(SystemExit) as exc:
+            bench.config()
+        assert "not ported" in str(exc.value.code)
+        assert name in str(exc.value.code)
+        return
+    cfg = bench.config()
+    want = dataclasses.replace(_jax_bench_config(monkeypatch),
+                               backbone_fused_infer=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    check_serving_config(cfg)
+
+
+def test_bench_switch_precedence(monkeypatch):
+    """bench.py's precedence: a guarded switch wins over the hybrid one,
+    which the port serves only where bench.py would not select it; the
+    hybrid wins over `SIMPB_EXACT`, so that pair is refused."""
+    from simpb_tpu_torch import bench
+
+    monkeypatch.setenv("SIMPB_HYBRID", "1")
+    monkeypatch.setenv("SIMPB_EXACT", "1")
+    with pytest.raises(SystemExit, match="not ported: SIMPB_HYBRID"):
         bench.config()
-    assert "not ported" in str(exc.value.code) and name in str(exc.value.code)
+    monkeypatch.setenv("SIMPB_FAST_GUARDED", "1")
+    assert bench.config_name() == "simpb_r50_704x256_fast_guarded"
+    cfg = bench.config()
+    want = dataclasses.replace(_jax_bench_config(monkeypatch),
+                               backbone_fused_infer=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
 
 
 def test_bench_module_refuses_in_a_process():
-    """`python -m simpb_tpu_torch.bench` exits non-zero on a switch the
-    port lacks, before it builds anything."""
-    env = dict(os.environ, PYTHONPATH=REPO, SIMPB_EXACT="1")
+    """`python -m simpb_tpu_torch.bench` serves `SIMPB_EXACT`: in a
+    process without a card it takes the switch and stops only where it
+    needs the card, before it builds anything."""
+    env = dict(os.environ, PYTHONPATH=REPO, SIMPB_EXACT="1",
+               CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-m", "simpb_tpu_torch.bench"],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0
-    assert "not ported" in out.stderr and out.stdout == ""
+    assert "no CUDA device" in out.stderr and out.stdout == ""
+    assert "not ported" not in out.stderr

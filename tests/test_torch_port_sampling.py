@@ -49,7 +49,7 @@ def test_dfa_wrapper_on_cpu_is_plain(dtype, capacity):
     assert got.dtype == torch.float32 and got.shape == (1, 8, 16)
     assert torch.equal(got, ref)
     assert tsmp.launch_counts() == {
-        "deformable_aggregation": 0, "msda_patch_sel": 0,
+        "deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
         "deformable_aggregation_backward": 0, "msda_patch_sel_backward": 0}
 
 

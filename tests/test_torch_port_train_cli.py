@@ -280,8 +280,8 @@ def test_eval_cli_reads_the_trainers_checkpoint(cli_runs, monkeypatch):
     monkeypatch.setattr(evaluate, "streaming_eval", fake_eval)
     ckpt = cli_runs["dir"] / "work" / "ckpt_3"
     test_cli.main(["--ann-file", cli_runs["pkl"], "--config", "tiny",
-                   "--device", "cpu", "--src-h", str(SRC_H), "--src-w",
-                   str(SRC_W), "--checkpoint", str(ckpt)])
+                   "--msda-patch", "--device", "cpu", "--src-h", str(SRC_H),
+                   "--src-w", str(SRC_W), "--checkpoint", str(ckpt)])
     trained = checkpoint.load_model_state(str(ckpt))
     assert len(seen["state"]) > 100
     for k, v in seen["state"].items():
@@ -306,6 +306,8 @@ def test_train_cli_refuses(extra):
     assert "not ported" in msg and extra[0] in msg
     if extra[0] == "--config":
         assert "r50-fast" in msg
+    if extra[1:] in (["r50"], ["r101"]):
+        assert "the exact MSDA backward (ROADMAP B.1)" in msg
 
 
 def test_train_cli_default_config_is_refused():
