@@ -155,7 +155,20 @@ Phases, each printing one JSON line:
              plain version) and the latency floor they set: steps times
              one link of a chain of dependent warp argmins, timed on the
              card by a one-warp kernel.
-14. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
+14. train_exact — phase 12 for `simpb_r50_704x256` as `tools/train.py
+             --config r50` (the trainer's default) trains it: exact MSDA,
+             no slot capacity, DFA capacity 4096. Launches a step: K1-K4
+             none; DFA, B, exact MSDA and D (its backward) 3 each; MSDA-sel
+             and C none; the assignment 3. Then kernel D against
+             `msda_backward_plain` (autograd through `msda_plain`: fp32
+             sums, the value gradient rounded once) element by element
+             at GRAD_TOL on the last step's recorded calls and on the
+             exact phase's synthetic cases in fp32 and bf16 with random
+             sampled and wsum gradients, each launched twice
+             (bit-identical: no atomics), D1 and D2 (and D2 over each
+             level's tiles alone) timed apart on the device, beside the
+             grid_sample chain's backward (timed only).
+15. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
              --config r50-fast --batch-size 4`, trunk bf16, head fp32)
              through `tools/train.py::run`, TRAIN_CLI_ITERS (6) iterations
              with a checkpoint every TRAIN_CLI_CKPT (3) and a log line
@@ -184,6 +197,11 @@ Phases, each printing one JSON line:
              synchronises), the producer's ms a batch, the ms the loop
              waited on the queue a step, checkpoint ms and bytes, the
              restore's ms, the peak memory and the eval's ms a frame.
+16. train_cli_exact — the training CLI's default, `--config r50
+             --batch-size 4` (exact MSDA), through `run` for
+             TRAIN_CLI_EXACT_ITERS (3) iterations over the same synthetic
+             training pkl, no eval: each step's launches (as phase 14's),
+             finite losses with the full key set, the final checkpoint.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -1759,29 +1777,33 @@ def grad_check(got, ref):
     return ok, recs
 
 
-def train_config():
-    """`simpb_r50_704x256_fast` as tools/train.py trains it: trunk bf16
+# the training CLI's configs the train phases run, by `--config`
+TRAIN_CONFIGS = {"r50-fast": "simpb_r50_704x256_fast",
+                 "r50": "simpb_r50_704x256"}
+
+
+def train_config(config="r50-fast"):
+    """The config `tools/train.py --config <config>` trains: trunk bf16
     (--bf16), head fp32, backbone remat, grid mask and dropout on."""
-    import dataclasses
+    from simpb_tpu_torch.tools import train as train_cli
 
-    from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
-
-    return dataclasses.replace(simpb_r50_704x256_fast(),
-                               compute_dtype="bfloat16",
-                               head_dtype="float32")
+    return train_cli.build_config(train_cli.parse_args(
+        ["--ann-file", "unused", "--config", config]))
 
 
 def want_train_launches(cfg):
-    """Launches a training step: no trunk kernel; DFA and MSDA-sel
+    """Launches a training step: no trunk kernel; DFA and the 2D
+    cross-attention's op (MSDA-sel windowed, exact MSDA otherwise)
     forward and backward once per op; one assignment for all refine3d
     layers (3D targets), one for all refine2d layers (2D targets) and
     one for the DN anchors."""
     order = cfg.head.operation_order
     n3d, n2d = order.count("refine3d"), order.count("refine2d")
+    msda = "msda_patch_sel" if cfg.head.msda_patch_mode else "msda"
     return {"deformable_aggregation": order.count("deformable"),
             "deformable_aggregation_backward": order.count("deformable"),
-            "msda_patch_sel": order.count("qg_cross_attn"),
-            "msda_patch_sel_backward": order.count("qg_cross_attn"),
+            msda: order.count("qg_cross_attn"),
+            f"{msda}_backward": order.count("qg_cross_attn"),
             "assignment": (n3d > 0) + (n2d > 0) + 1}
 
 
@@ -1800,9 +1822,9 @@ def train_loss_keys(cfg):
 
 def train_recording(calls):
     """Append (name, args, kwargs) of every call of the step's kernel
-    wrappers (both sampling forwards and backwards, the assignments of the
-    3D, 2D and DN targets, all made in targets3d) to `calls`, then run
-    the wrapper."""
+    wrappers (DFA's and MSDA-sel's forwards, the three sampling
+    backwards, the assignments of the 3D, 2D and DN targets, all made in
+    targets3d) to `calls`, then run the wrapper."""
     from simpb_tpu_torch.models import dfa
     from simpb_tpu_torch.ops import sampling
     from simpb_tpu_torch.training import targets3d
@@ -1822,14 +1844,16 @@ def train_recording(calls):
          recorder("deformable_aggregation_backward")),
         (sampling, "msda_patch_sel_backward",
          recorder("msda_patch_sel_backward")),
+        (sampling, "msda_backward", recorder("msda_backward")),
         (targets3d, "batched_assignment", recorder("assignment")))
 
 
-def phase_train(torch):
-    """The training step of the flagship at full width: bs 4 x 6
-    cameras, one warm step, then TRAIN_STEPS steps carrying the temporal
-    and DN state, the launch counts set to 0 just before and read just
-    after. Returns (launches, recorded calls of the last step)."""
+def phase_train(torch, config="r50-fast", phase="train"):
+    """The training step of `tools/train.py --config <config>` at full
+    width: bs 4 x 6 cameras, one warm step, then TRAIN_STEPS steps
+    carrying the temporal and DN state, the launch counts set to 0 just
+    before and read just after. Returns (launches, recorded calls of the
+    last step)."""
     from simpb_tpu_torch.configs.base import TrainConfig
     from simpb_tpu_torch.training.train_step import (
         build_train_model, build_train_step, create_train_state,
@@ -1839,7 +1863,7 @@ def phase_train(torch):
         batch_to_torch, synthetic_train_batch,
     )
 
-    cfg = train_config()
+    cfg = train_config(config)
     tc = TrainConfig()
     model = build_train_model(cfg, device="cuda", seed=0)
     state = create_train_state(model, tc)
@@ -1903,7 +1927,10 @@ def phase_train(torch):
         raise AssertionError("the frozen instance feature moved")
     srt = sorted(times)
     med = lambda k: statistics.median(p[k] for p in parts)
-    emit(dict(phase="train", config="simpb_r50_704x256_fast",
+    emit(dict(phase=phase, config=TRAIN_CONFIGS[config],
+              msda_patch_mode=cfg.head.msda_patch_mode,
+              dfa_gather_capacity=cfg.head.dfa_gather_capacity,
+              msda_gather_capacity=cfg.head.msda_gather_capacity,
               trunk="bfloat16", head="float32", batch_size=TRAIN_BS,
               backbone_remat=cfg.backbone_remat,
               grid_mask=cfg.use_grid_mask, drop_out=cfg.head.drop_out,
@@ -2004,18 +2031,90 @@ def msda_bwd_work(sampling, args):
     return byts, 2 * ops
 
 
-def grad_cases(torch, sampling, calls, gen):
-    """(label, name, args) of the gradient checks: kernel B and C's
-    recorded calls of the last step, then synthetic full-width cases in
-    fp32 and bf16 (phase 6's inputs with a random output gradient)."""
+def msda_exact_bwd_work(args):
+    """(bytes, operations) of kernel D at least: the exact forward's
+    reads (`msda_exact_work`: the distinct value rows its samples read),
+    the sampled and wsum gradients, the dense value gradient written once
+    and the location and weight gradients; 25 operations per (query,
+    head, sample, channel): the sample again (7), its dot with the
+    gradient (2), the four corner-weight derivatives (8) and the four
+    corners' value gradients (8)."""
+    value, _, loc, attw, gs, gw = args
+    byts, ops = msda_exact_work(args[:4])
+    byts += ((gs.numel() + gw.numel() - gw.numel() * (value.shape[-1] + 1))
+             * 4 + value.numel() * value.element_size()
+             + (loc.numel() + attw.numel()) * 4)
+    return byts, ops * 25 // 10
+
+
+def msda_bwd_parts_ms(sampling, args):
+    """Device ms of kernel D's launches apart: D1 (the per-query pass),
+    D2 over all tiles, and D2 over each level's tiles alone (`D2_<h>x<w>`;
+    the small levels' few tiles see as many records as the large ones'
+    many), each queued alone on one set of buffers (D2 reads the records
+    that D1 left)."""
+    value, ss, loc, attw, gs, gw = args
+    b, _, c = value.shape
+    q, heads, _, points = loc.shape[1:5]
+    plan = sampling.plan_msda_backward(b, q, heads, points, c, ss.shapes)
+    bufs = sampling._msda_bwd_buffers(value, loc, attw, plan)
+    gs, gw = gs.float().contiguous(), gw.float().contiguous()
+    launch = lambda stages, tiles=None: sampling._msda_bwd_launch(
+        value, loc, attw, gs, gw, plan, bufs, stages, tiles)
+    launch(3)
+    parts = {"D1": device_ms(lambda: launch(1), iters=3),
+             "D2": device_ms(lambda: launch(2), iters=3)}
+    for lvl, (h, w) in enumerate(ss.shapes):
+        lo = plan.first[lvl]
+        tiles = (lo, lo + -(-h // sampling.B2_TILE) * -(-w // sampling.B2_TILE))
+        parts[f"D2_{h}x{w}"] = device_ms(lambda: launch(2, tiles), iters=3)
+    return parts
+
+
+def grid_sample_chain_backward(value, ss, loc, attw, gs):
+    """The yardstick of kernel D: the backward of `grid_sample_chain` (to
+    the fp32 value planes, the locations and the weights) at the sampled
+    gradient `gs`, its forward run once outside the timed call. Returns a
+    callable giving the three gradients."""
+    import torch
+
+    v = value.detach().float().requires_grad_(True)
+    l_ = loc.detach().requires_grad_(True)
+    a = attw.detach().requires_grad_(True)
+    out = grid_sample_chain(v, ss, l_, a)()
+    return lambda: torch.autograd.grad(out, (v, l_, a), gs,
+                                       retain_graph=True)
+
+
+def grad_cases(torch, sampling, calls, gen, names=(
+        "deformable_aggregation_backward", "msda_patch_sel_backward",
+        "msda_backward")):
+    """(label, name, args) of the gradient checks of the backward kernels
+    `names`: their recorded calls of the last step, then synthetic
+    full-width cases in fp32 and bf16 (B and C: phase 6's inputs with a
+    random output gradient; D: the exact phase's with random sampled and
+    wsum gradients)."""
     cases = [(f"step_call_{i}", name, args + tuple(
         kwargs.get(k) for k in ("gather_capacity", "thresholds")
         if name == "deformable_aggregation_backward" and k in kwargs))
-        for i, (name, args, kwargs) in enumerate(calls)
-        if name.endswith("_backward")]
+        for i, (name, args, kwargs) in enumerate(calls) if name in names]
     for dtype in (torch.float32, torch.bfloat16):
+        if "msda_backward" in names:
+            for label, args in exact_cases(torch, dtype, gen):
+                value, ss, loc, attw = args
+                gs = torch.randn(loc.shape[:3] + value.shape[-1:],
+                                 generator=gen, device="cuda")
+                gw = torch.randn(loc.shape[:3], generator=gen,
+                                 device="cuda")
+                cases.append((f"{label}_bwd", "msda_backward",
+                              args + (gs, gw)))
+        if not {"deformable_aggregation_backward",
+                "msda_patch_sel_backward"} & set(names):
+            continue
         for label, name, args, kwargs in synthetic_sampling(torch, dtype,
                                                             gen):
+            if f"{name}_backward" not in names:
+                continue
             if name == "deformable_aggregation":
                 col, ss, pts, wts = args
                 cap = kwargs.get("gather_capacity")
@@ -2034,16 +2133,24 @@ def grad_cases(torch, sampling, calls, gen):
     return cases
 
 
-def phase_train_kernels(torch, calls, train_launches):
-    """Kernels A, B and C against their plain versions: B and C on the
-    last step's recorded backward calls and on synthetic cases, each
-    launched twice (both must repeat bit for bit; B's three launches are
-    also timed apart); A on every problem of each recorded call against
-    its plain version (exact col4row; the plain version runs on the CPU,
-    counting each matrix's serial Dijkstra steps) and against scipy's
-    optimal cost, with its latency floor: the longest matrix's steps
-    times one dependent warp argmin. Returns the kernels-line
-    entries."""
+# the kernels the train phase holds, and those the train_exact phase holds
+FAST_TRAIN_KERNELS = ("deformable_aggregation_backward",
+                      "msda_patch_sel_backward", "assignment")
+EXACT_TRAIN_KERNELS = ("msda_backward",)
+
+
+def phase_train_kernels(torch, calls, train_launches,
+                        names=FAST_TRAIN_KERNELS):
+    """The kernels `names` against their plain versions. The backwards
+    (B, C, D) on the last step's recorded calls and on synthetic cases,
+    each launched twice (both must repeat bit for bit; B's three
+    launches and D's two, D2 also level by level, are also timed apart;
+    D beside the grid_sample chain's backward); A on every problem of
+    each recorded call against its plain version (exact col4row; the
+    plain version runs on the CPU, counting each matrix's serial
+    Dijkstra steps) and against scipy's optimal cost, with its latency
+    floor: the longest matrix's steps times one dependent warp argmin.
+    Returns the kernels-line entries."""
     import numpy as np
     import scipy.optimize
 
@@ -2052,12 +2159,15 @@ def phase_train_kernels(torch, calls, train_launches):
 
     bwd = {n: (w, p, tpu) for n, w, p, tpu in sampling.BACKWARD_KERNELS}
     summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                       library_ms=None,
                        bound={"bytes": 0.0, "operations": 0.0},
                        bit_identical=True)
-               for n in list(bwd) + ["assignment"]}
-    b_parts = {"B0": 0.0, "B1": 0.0, "B2": 0.0}  # device ms a step
+               for n in names}
+    parts_step = {}  # device ms a step of B's and D's launches
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for label, name, args in grad_cases(torch, sampling, calls, gen):
+    backwards = tuple(n for n in names if n != "assignment")
+    for label, name, args in grad_cases(torch, sampling, calls, gen,
+                                        backwards):
         wrapper, plain, _ = bwd[name]
         dname = str(args[0].dtype).split(".")[-1]
         before = sampling.launch_counts()[name]
@@ -2076,21 +2186,25 @@ def phase_train_kernels(torch, calls, train_launches):
         ms = cuda_ms(lambda: wrapper(*args), iters=3)
         dev_ms = device_ms(lambda: wrapper(*args), iters=3)
         plain_ms = cuda_ms(lambda: plain(*plain_args), iters=2)
-        parts = None
+        parts = library_ms = None
         if name.startswith("deformable"):
             byts, ops = dfa_bwd_work(sampling, args, {})
-            o_ms = ops / PEAK_OPS["float32"] * 1e3
             parts = dfa_bwd_parts_ms(sampling, args)
+        elif name == "msda_backward":
+            byts, ops = msda_exact_bwd_work(args)
+            parts = msda_bwd_parts_ms(sampling, args)
+            library_ms = cuda_ms(grid_sample_chain_backward(*args[:5]),
+                                 iters=2)
         else:
             byts, ops = msda_bwd_work(sampling, args)
-            o_ms = ops / PEAK_OPS["float32"] * 1e3
+        o_ms = ops / PEAK_OPS["float32"] * 1e3
         b_ms = byts / PEAK_BYTES * 1e3
         bound_by = "bytes" if b_ms >= o_ms else "operations"
         emit(dict(phase="train_grad", case=label, name=name, dtype=dname,
                   grads=recs, tol=GRAD_TOL, ok=ok, launches=launched,
                   bit_identical=same, ms=ms, device_ms=dev_ms,
                   **({"parts_device_ms": parts} if parts else {}),
-                  plain_ms=plain_ms, library_ms=None,
+                  plain_ms=plain_ms, library_ms=library_ms,
                   bound_ms=max(b_ms, o_ms), bound_by=bound_by, bytes=byts,
                   operations=ops))
         if not ok:
@@ -2104,10 +2218,19 @@ def phase_train_kernels(torch, calls, train_launches):
             s["ms"] += ms
             s["device_ms"] += dev_ms
             s["plain_ms"] += plain_ms
+            if library_ms is not None:
+                s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
             s["bound"][bound_by] += max(b_ms, o_ms)
             for part, t in (parts or {}).items():
-                b_parts[part] += t
+                steps = parts_step.setdefault(name, {})
+                steps[part] = steps.get(part, 0.0) + t
         del got, again, ref
+    out = {name: train_kernel_row(
+        name, summary[name], bwd[name][2], train_launches[name],
+        parts_step.get(name), bit_identical=summary[name]["bit_identical"])
+        for name in backwards}
+    if "assignment" not in names:
+        return out
     s = summary["assignment"]
     scipy_ms = 0.0
     serial, floors, links = [], [], {}
@@ -2174,26 +2297,27 @@ def phase_train_kernels(torch, calls, train_launches):
         s["bound"][bound_by] += max(b_ms, o_ms)
     emit(dict(phase="train_assignment", scipy_host_ms_step=scipy_ms,
               argmin_link_us=links, serial_steps=serial))
-    out = {}
-    sources = {"assignment": "simpb_tpu_torch/csrc/assignment.cu"}
-    replaces = {n: v[2] for n, v in bwd.items()}
-    replaces["assignment"] = matching.KERNELS[0][3]
-    for name, s in summary.items():
-        out[name] = dict(
-            name=name, route="cuda",
-            source=sources.get(name, "simpb_tpu_torch/csrc/sampling.cu"),
-            replaces=replaces[name], launches=train_launches[name],
-            max_abs_err=s["max_abs_err"], ms=s["ms"],
-            device_ms=s["device_ms"], plain_ms=s["plain_ms"],
-            bound_ms=sum(s["bound"].values()),
-            bound_by=max(s["bound"], key=s["bound"].get), library_ms=None,
-            **({"scipy_host_ms": scipy_ms, "serial_steps": sum(serial),
-                "latency_floor_ms": sum(floors)}
-               if name == "assignment" else
-               {"bit_identical": s["bit_identical"]}),
-            **({"parts_device_ms": b_parts}
-               if name == "deformable_aggregation_backward" else {}))
+    out["assignment"] = train_kernel_row(
+        "assignment", s, matching.KERNELS[0][3], train_launches["assignment"],
+        scipy_host_ms=scipy_ms, serial_steps=sum(serial),
+        latency_floor_ms=sum(floors))
     return out
+
+
+def train_kernel_row(name, s, replaces, launches, parts=None, **extra):
+    """A training kernel's entry of the kernels line from its summary
+    (times and bound summed over one step's calls; `parts`, the device
+    ms of its launches apart)."""
+    source = "assignment" if name == "assignment" else "sampling"
+    return dict(name=name, route="cuda",
+                source=f"simpb_tpu_torch/csrc/{source}.cu",
+                replaces=replaces, launches=launches,
+                max_abs_err=s["max_abs_err"], ms=s["ms"],
+                device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+                bound_ms=sum(s["bound"].values()),
+                bound_by=max(s["bound"], key=s["bound"].get),
+                library_ms=s["library_ms"], **extra,
+                **({"parts_device_ms": parts} if parts else {}))
 
 
 TRAIN_CLI_ITERS = 6  # iterations of the training CLI's run
@@ -2255,35 +2379,21 @@ def same_state(torch, got, want):
     return bad
 
 
-def phase_train_cli(torch):
-    """The training CLI (`python -m simpb_tpu_torch.tools.train`) through
-    `run`, at full width: `--config r50-fast --batch-size 4` over a
-    synthetic 1600x900 training pkl with 2D GT and LiDAR files, decoded
-    frames served from memory (no Pillow on the card's machine), with a
-    mid-training eval over a 12-frame val pkl; then a second run resumed
-    from its first checkpoint. See the module docstring."""
-    import math
-    import tempfile
+SRC_HW = (900, 1600)  # the training CLI phases' source images
 
+
+def memory_datasets():
+    """A `NuScenesDataset` maker whose datasets serve decoded frames from
+    memory (a pool of 16 seeded SRC_HW frames, one per path by its
+    number): the card's machine has no Pillow."""
     import numpy as np
 
-    from simpb_tpu_torch.configs.base import TrainConfig
     from simpb_tpu_torch.data.dataset import NuScenesDataset
-    from simpb_tpu_torch.tools import test as test_cli
-    from simpb_tpu_torch.tools import train as train_cli
-    from simpb_tpu_torch.training import train_step
-    from simpb_tpu_torch.training.checkpoint import restore_checkpoint
-    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
 
-    src_h, src_w = 900, 1600
-    bs = TRAIN_BS
-    pool = np.random.default_rng(0).integers(0, 256, (16, src_h, src_w, 3),
-                                             dtype=np.uint8)
+    pool = np.random.default_rng(0).integers(
+        0, 256, (16,) + SRC_HW + (3,), dtype=np.uint8)
 
     class MemoryImages(NuScenesDataset):
-        """Serves decoded frames from memory (a pool of 16 seeded
-        frames, one per path by its number)."""
-
         def load_images(self, paths, dtype=np.float32, scale_hint=None):
             return [pool[self.frame_of[p]].astype(dtype, copy=False)
                     for p in paths]
@@ -2295,16 +2405,26 @@ def phase_train_cli(torch):
         ds.frame_of = {p: n % len(pool) for n, p in enumerate(paths)}
         return ds
 
-    digests, per_step = [], []
+    return memory
 
-    def recorded(fn):
-        def make(dataset, items, rng, prev_pose, cfg):
-            batch = fn(dataset, items, rng, prev_pose, cfg)
-            digests.append(batch_digest(batch))
-            return batch
-        return make
 
-    def counted(fn):
+def train_pkl(tmp):
+    """The training CLI phases' synthetic training pkl under `tmp`/train:
+    TRAIN_CLI_FRAMES frames of six SRC_HW cameras in two scenes, with 2D
+    GT and LiDAR files."""
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    os.makedirs(f"{tmp}/train")
+    return write_synthetic_infos(f"{tmp}/train", n_frames=TRAIN_CLI_FRAMES,
+                                 gap_at=(TRAIN_CLI_FRAMES // 2,),
+                                 src_hw=SRC_HW, with_2d=True,
+                                 with_lidar=True)
+
+
+def counting(per_step):
+    """A rebinding of `train_step.build_train_step` whose steps append
+    their launch counts to `per_step`."""
+    def wrap(fn):
         def build(model, tc, *a):
             step = fn(model, tc, *a)
 
@@ -2317,14 +2437,41 @@ def phase_train_cli(torch):
                 return res
             return counted_step
         return build
+    return wrap
+
+
+def phase_train_cli(torch):
+    """The training CLI (`python -m simpb_tpu_torch.tools.train`) through
+    `run`, at full width: `--config r50-fast --batch-size 4` over a
+    synthetic 1600x900 training pkl with 2D GT and LiDAR files, decoded
+    frames served from memory (no Pillow on the card's machine), with a
+    mid-training eval over a 12-frame val pkl; then a second run resumed
+    from its first checkpoint. See the module docstring."""
+    import math
+    import tempfile
+
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.tools import test as test_cli
+    from simpb_tpu_torch.tools import train as train_cli
+    from simpb_tpu_torch.training import train_step
+    from simpb_tpu_torch.training.checkpoint import restore_checkpoint
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    src_h, src_w = SRC_HW
+    bs = TRAIN_BS
+    memory = memory_datasets()
+    digests, per_step = [], []
+
+    def recorded(fn):
+        def make(dataset, items, rng, prev_pose, cfg):
+            batch = fn(dataset, items, rng, prev_pose, cfg)
+            digests.append(batch_digest(batch))
+            return batch
+        return make
 
     with tempfile.TemporaryDirectory() as tmp:
-        os.makedirs(f"{tmp}/train")
         os.makedirs(f"{tmp}/val")
-        pkl = write_synthetic_infos(f"{tmp}/train", n_frames=TRAIN_CLI_FRAMES,
-                                    gap_at=(TRAIN_CLI_FRAMES // 2,),
-                                    src_hw=(src_h, src_w), with_2d=True,
-                                    with_lidar=True)
+        pkl = train_pkl(tmp)
         val = write_synthetic_infos(f"{tmp}/val", n_frames=EVAL_FRAMES,
                                     gap_at=(EVAL_FRAMES // 2,),
                                     src_hw=(src_h, src_w), seed=1)
@@ -2344,7 +2491,7 @@ def phase_train_cli(torch):
                               data_aug_conf=test_cli.eval_aug_conf(
                                   cfg, src_h, src_w))
         sites = ((train_cli, "make_batch", recorded),
-                 (train_step, "build_train_step", counted))
+                 (train_step, "build_train_step", counting(per_step)))
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -2471,6 +2618,78 @@ def phase_train_cli(torch):
     free_cuda(torch)
 
 
+TRAIN_CLI_EXACT_ITERS = 3  # iterations of the training CLI's --config r50
+
+
+def phase_train_cli_exact(torch):
+    """The training CLI's default, `--config r50 --batch-size 4` (exact
+    MSDA), through `tools/train.py::run` for TRAIN_CLI_EXACT_ITERS
+    iterations over the train_cli phase's synthetic training pkl (frames
+    from memory), no eval, the launch counts set to 0 just before and
+    read just after: each step's launches (want_train_launches of the
+    exact config: 3 of exact MSDA and of kernel D, none of MSDA-sel or
+    C), finite losses with the full key set, the final checkpoint
+    written."""
+    import math
+    import tempfile
+
+    from simpb_tpu_torch.tools import train as train_cli
+    from simpb_tpu_torch.training import train_step
+
+    memory = memory_datasets()
+    per_step = []
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = train_pkl(tmp)
+        args = train_cli.parse_args([
+            "--ann-file", pkl, "--batch-size", str(TRAIN_BS),
+            "--max-iters", str(TRAIN_CLI_EXACT_ITERS), "--log-interval",
+            "1", "--seed", "0", "--work-dir", f"{tmp}/work"])
+        cfg = train_cli.build_config(args)
+        dataset = memory(pkl, test_mode=False, sequences_split_num=2,
+                         data_aug_conf=train_cli.train_aug_conf(
+                             cfg, *SRC_HW),
+                         strides=cfg.strides[: cfg.num_depth_layers])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with rebound((train_step, "build_train_step", counting(per_step))):
+            res = train_cli.run(args, dataset=dataset)
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in launch_counts().items() if n}
+        files = sorted(os.listdir(f"{tmp}/work"))
+    want = want_train_launches(cfg)
+    keys = train_loss_keys(cfg)
+    steps_ms = res["step_ms"]
+    emit(dict(phase="train_cli_exact", config=TRAIN_CONFIGS[args.config],
+              argv_config=args.config, msda_patch_mode=cfg.head.msda_patch_mode,
+              trunk="bfloat16", head="float32", batch_size=TRAIN_BS,
+              iters=TRAIN_CLI_EXACT_ITERS, seconds=seconds,
+              step_ms=steps_ms, step_ms_median=statistics.median(steps_ms),
+              producer_ms=res["producer_ms"],
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=launches, launches_per_step=per_step,
+              loss=[res["losses"][i]["loss"]
+                    for i in sorted(res["losses"])], files=files))
+    problems = []
+    if args.config != "r50" or cfg.head.msda_patch_mode:
+        problems.append(f"default config {args.config}")
+    if len(per_step) != TRAIN_CLI_EXACT_ITERS or any(
+            c != want for c in per_step):
+        problems.append(f"launches a step {per_step}, want {want}")
+    if sorted(res["losses"]) != list(range(1, TRAIN_CLI_EXACT_ITERS + 1)):
+        problems.append(f"logged iterations {sorted(res['losses'])}")
+    for i, ld in res["losses"].items():
+        if set(ld) != keys or not all(math.isfinite(v) for v in ld.values()):
+            problems.append(f"iter {i}: loss keys or values {ld}")
+            break
+    if f"ckpt_{TRAIN_CLI_EXACT_ITERS}" not in files:
+        problems.append(f"no final checkpoint in {files}")
+    if problems:
+        raise AssertionError(f"train_cli_exact phase: {problems}")
+    del res
+    free_cuda(torch)
+
+
 def main() -> int:
     import torch
 
@@ -2522,7 +2741,13 @@ def main() -> int:
     train_launches, train_calls = phase_train(torch)
     train = phase_train_kernels(torch, train_calls, train_launches)
     del train_calls
+    # the exact configs' training: the trainer's default, kernel D
+    train_launches, train_calls = phase_train(torch, "r50", "train_exact")
+    train.update(phase_train_kernels(torch, train_calls, train_launches,
+                                     EXACT_TRAIN_KERNELS))
+    del train_calls
     phase_train_cli(torch)
+    phase_train_cli_exact(torch)
 
     kernels = []
     for name, s in summary.items():
@@ -2540,8 +2765,8 @@ def main() -> int:
         ))
     kernels += (list(sampling.values()) + [exact] + list(train.values())
                 + list(probes.values()))
-    if len(kernels) != 17:
-        raise AssertionError(f"{len(kernels)} kernels, want 17")
+    if len(kernels) != 18:
+        raise AssertionError(f"{len(kernels)} kernels, want 18")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

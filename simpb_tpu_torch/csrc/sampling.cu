@@ -1053,11 +1053,12 @@ struct DfaRec {
 };
 
 // B2's tiles: level l in B2_TILE x B2_TILE pixel tiles, numbered from
-// first[l] (row-major within the level).
+// first[l] (row-major within the level); a launch takes tiles lo onwards.
 constexpr int B2_TILE = 8;
 constexpr int B2_NT = 32 * B2_TILE;  // B2's threads: a warp a tile row
 struct DfaTiles {
   int first[MAX_LEVELS];
+  int lo;
 };
 
 template <typename T>
@@ -1331,7 +1332,13 @@ constexpr int B2_UNROLL = 4;  // hits whose g rows a B2 warp loads together
 // B2_NT * B2_RUN records, all loads issued before use, and lists the hits
 // in rank order with one block scan; B2_NT hits at a time are staged, and
 // each warp ballots its own list of them.
-template <typename T>
+//
+// EXACT: kernel D's D2 (see the exact MSDA backward below), the same
+// owner pass over D1's records: every camera row (cams = 1) has N records
+// a level, record r's row of g being r / P (its (query, head) of the
+// [A = Q x heads, C] grad_sampled), one group of weight 1 (the attention
+// is in the corner weights), and blockIdx.z the slice of 256 channels.
+template <typename T, bool EXACT>
 __global__ void __launch_bounds__(B2_NT, 2)
 dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
                     DfaRec rec, DfaTiles tl, T* __restrict__ gcol) {
@@ -1347,7 +1354,7 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
   const int bc = blockIdx.x, batch = bc / g.cams, tid = threadIdx.x;
   const int lane = tid & 31, yy = tid >> 5, L = lv.n, C = g.C, G = g.G;
   const int N = rec.N;
-  int t = blockIdx.y, l = 0;
+  int t = blockIdx.y + tl.lo, l = 0;
   for (; l < L; ++l) {
     const int n = (lv.h[l] + TS - 1) / TS * ((lv.w[l] + TS - 1) / TS);
     if (t >= tl.first[l] && t < tl.first[l] + n) break;
@@ -1355,17 +1362,18 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
   t -= tl.first[l];
   const int h = lv.h[l], w = lv.w[l], ntx = (w + TS - 1) / TS;
   const int tx0 = t % ntx * TS, ty0 = t / ntx * TS;
-  const bool chans = lane * 8 < C;  // this lane has channels
-  const int grp = lane * 8 / (C / G);
+  const int c0 = EXACT ? blockIdx.z * 256 + lane * 8 : lane * 8;
+  const bool chans = c0 < C;  // this lane has channels
+  const int grp = c0 / (C / G);
   float acc[TS][8];
 #pragma unroll
   for (int p = 0; p < TS; ++p)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[p][c] = 0.f;
 
-  const int n = rec.cnt[bc];
+  const int n = EXACT ? N : rec.cnt[bc];
   const long long rl = ((long long)bc * L + l) * N;  // this level's records
-  const float* gb = gout + (long long)batch * g.A * C + lane * 8;
+  const float* gb = gout + (long long)batch * g.A * C + c0;
   for (int r0 = 0; r0 < n; r0 += NT * B2_RUN) {
     // the round's records that reach the tile, listed in rank order:
     // loads with neighbouring threads on neighbouring records, then a
@@ -1403,9 +1411,9 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
         const int r = lst[s0 + tid], q = rec.pos[rl + r];
         sPos[tid] = ((q & 0xffff) - tx0) | ((q >> 16) - ty0) << 8;
         sWk[tid] = rec.wk[rl + r];
-        sAnc[tid] = rec.anc[(long long)bc * N + r];
+        sAnc[tid] = EXACT ? r / g.P : rec.anc[(long long)bc * N + r];
         for (int k = 0; k < G; ++k)
-          sGw[tid * G + k] = rec.gw[(rl + r) * G + k];
+          sGw[tid * G + k] = EXACT ? 1.f : rec.gw[(rl + r) * G + k];
       }
       __syncthreads();
       // this warp's hits: a corner in tile row yy
@@ -1473,7 +1481,7 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
   const int y = ty0 + yy;
   if (y >= h || !chans) return;
   T* out = gcol + ((long long)bc * g.T + lv.start[l] + (long long)y * w) * C +
-           lane * 8;
+           c0;
 #pragma unroll
   for (int p = 0; p < TS; ++p)
     if (tx0 + p < w) store8(out + (long long)(tx0 + p) * C, acc[p]);
@@ -1531,7 +1539,7 @@ int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
     if (err) return err;
   }
   if (stages & 4)
-    dfa_bwd_gcol_kernel<T><<<dim3(rows, tiles), B2_NT, 0, st>>>(
+    dfa_bwd_gcol_kernel<T, false><<<dim3(rows, tiles), B2_NT, 0, st>>>(
         gout, g, lv, rec, tl, gcol);
   return (int)cudaGetLastError();
 }
@@ -2160,6 +2168,209 @@ int launch_msda(const void* value, const float* loc, const float* attw,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- exact MSDA backward
+// Kernel D: the gradients of msda_kernel's (sampled [B, Q, heads, C],
+// wsum [B, Q, heads]) to the value, to the locations (through the corner
+// weights: d x / d loc = the level's width, d y / d loc its height; a
+// corner off the level has a masked weight, whose derivative is 0, so
+// the location gradient is one-sided at a border) and to the attention
+// weights (the sample dotted with g_sampled[q, h], plus g_wsum[q, h]
+// times the in-image mass). It replaces the gradient of
+// simpb_tpu/ops/sampling.py::msda (:611; XLA's autodiff of gathers under
+// jax.checkpoint on the TPU). Two launches, no atomics: every output
+// element has one owner, sums in a fixed order and is written once, so
+// repeat launches are bit-identical.
+//
+// D1, `msda_bwd_kernel`: one block per (camera row, query), a warp per
+// head, as the forward. Lane j places sample j of the head's L x P (its
+// corner weights, rounded as the forward rounds them, its corner rows
+// and which corners lie on the level) and the warp walks the samples in
+// order: a lane reads the four corners of its 8 channels (a corner off
+// the level reads as 0, a corner on it is read even where its weight
+// rounds to 0, since the location gradient needs it) and sums, in fp32,
+// g_sampled times the sample, the two x and the two y pair derivatives;
+// shuffles add the lanes in a fixed order, and the sample's lane writes
+// its location and weight gradients once. It recomputes the samples from
+// the inputs (the autograd Function saves only them) and writes each
+// sample's record at its natural index (q * heads + h) * P + p of its
+// (camera row, level) list: the four corner weights times the attention
+// weight, and the corner base (x0 + 1) | (y0 + 1) << 16, or -1 when no
+// corner weighs. Every exact-MSDA sample is live (samples outside (0, 1)
+// keep their in-border corners; a padded slot's location 0 samples pixel
+// (0, 0)), so no rank pass is needed.
+//
+// D2 is kernel B's owner pass (dfa_bwd_gcol_kernel<T, true>): one block
+// per (camera row, 8x8 pixel tile of a level, 256 channels), smallest
+// level first, owns those value rows and writes each once in the value's
+// type, zeros included, walking its level's records in index order and
+// adding g_sampled[q, h, c] x corner weight for the record's one or two
+// corners in each of its rows into fp32 registers. Balance: every sample
+// reads every level, so the 8x22 level's 3 tiles of a camera row see as
+// many records as the 64x176 level's 176 (B2's imbalance).
+//
+// What bounds it: bytes (the value rows the samples read, g_sampled, the
+// dense value gradient written once). A scatter of the value gradient by
+// D1's blocks (fp32 atomicAdd onto rows that neighbouring queries share)
+// would contend and sum in a different order on every run, into an fp32
+// copy of the value; D2's owners do neither and write its type directly.
+template <typename T>
+__global__ void __launch_bounds__(256)
+msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ attw,
+                const float* __restrict__ gsamp,
+                const float* __restrict__ gwsum, MsdaExactArgs g, Levels lv,
+                float* __restrict__ gloc, float* __restrict__ gattw,
+                float4* __restrict__ rwk, int* __restrict__ rpos) {
+  const int lane = threadIdx.x & 31, head = threadIdx.x >> 5;
+  const long long bq = blockIdx.x, row = bq / g.Q;
+  const long long bqh = bq * g.heads + head;
+  const int S = g.L * g.P, packs = g.C / 8;
+  const float* lq = loc + bqh * S * 2;
+  const float* aq = attw + bqh * S;
+  const float* gq = gsamp + bqh * g.C;
+  const T* vrow = value + row * g.T * g.C;
+  const float gw = gwsum[bqh];
+  // records: N a (camera row, level), this head's from its natural index
+  const long long N = (long long)g.Q * g.heads * g.P;
+  const long long rbase = row * g.L * N + (bq % g.Q * g.heads + head) * g.P;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    float4 cw = make_float4(0.f, 0.f, 0.f, 0.f);
+    int4 cr = make_int4(0, 0, 0, 0);
+    float a = 0.f, x0f = 0.f, y0f = 0.f;
+    int m = 0;  // bit k: corner k = 2 dy + dx on the level; 4-7: mx0..my1
+    if (s < S) {
+      const int l = s / g.P, h = lv.h[l], w = lv.w[l];
+      a = aq[s];
+      msda_corners<T>(lq[2 * s], lq[2 * s + 1], h, w, lv.start[l], cw, cr);
+      x0f = floorf(pix(lq[2 * s], w));
+      y0f = floorf(pix(lq[2 * s + 1], h));
+      const int mx0 = x0f >= 0.f && x0f < (float)w;
+      const int mx1 = x0f >= -1.f && x0f < (float)(w - 1);
+      const int my0 = y0f >= 0.f && y0f < (float)h;
+      const int my1 = y0f >= -1.f && y0f < (float)(h - 1);
+      m = (mx0 & my0) | (mx1 & my0) << 1 | (mx0 & my1) << 2 |
+          (mx1 & my1) << 3 | mx0 << 4 | mx1 << 5 | my0 << 6 | my1 << 7;
+    }
+    // this lane's sample: g.smp, then the derivatives to wx0, wx1, wy0,
+    // wy1 of g.smp, all before the attention weight
+    float mine[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    const int n = min(32, S - s0);
+    for (int j = 0; j < n; ++j) {
+      const float4 w = make_float4(__shfl_sync(0xffffffffu, cw.x, j),
+                                   __shfl_sync(0xffffffffu, cw.y, j),
+                                   __shfl_sync(0xffffffffu, cw.z, j),
+                                   __shfl_sync(0xffffffffu, cw.w, j));
+      const int rr[4] = {__shfl_sync(0xffffffffu, cr.x, j),
+                         __shfl_sync(0xffffffffu, cr.y, j),
+                         __shfl_sync(0xffffffffu, cr.z, j),
+                         __shfl_sync(0xffffffffu, cr.w, j)};
+      const int mj = __shfl_sync(0xffffffffu, m, j);
+      float part[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int pk = lane; pk < packs; pk += 32) {
+        const T* vl = vrow + pk * 8;
+        Row8<T> v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[k].zero();
+          if ((mj >> k) & 1) v[k].load(vl + (long long)rr[k] * g.C);
+        }
+        const float4 g0 = *reinterpret_cast<const float4*>(gq + pk * 8);
+        const float4 g1 = *reinterpret_cast<const float4*>(gq + pk * 8 + 4);
+        const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float v00 = v[0][i], v01 = v[1][i], v10 = v[2][i],
+                      v11 = v[3][i];
+          const float vx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v00)),
+                                           R<T>(__fmul_rn(w.y, v01))));
+          const float vx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v10)),
+                                           R<T>(__fmul_rn(w.y, v11))));
+          const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0)),
+                                           R<T>(__fmul_rn(w.w, vx1))));
+          part[0] += gs[i] * smp;
+          part[1] += gs[i] * (w.z * v00 + w.w * v10);
+          part[2] += gs[i] * (w.z * v01 + w.w * v11);
+          part[3] += gs[i] * vx0;
+          part[4] += gs[i] * vx1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+#pragma unroll
+        for (int o = 16; o; o >>= 1)
+          part[k] += __shfl_xor_sync(0xffffffffu, part[k], o);
+        if (lane == j) mine[k] = part[k];
+      }
+    }
+    if (s >= S) continue;
+    const int l = s / g.P, p = s % g.P;
+    const float sx = R<T>(__fadd_rn(cw.x, cw.y));
+    const float sy = R<T>(__fadd_rn(cw.z, cw.w));
+    gattw[bqh * S + s] = mine[0] + gw * __fmul_rn(sx, sy);
+    // d wsum / d wx = a (wy0 + wy1), d wsum / d wy = a (wx0 + wx1)
+    const float ga = gw * a;
+    const float dx0 = a * mine[1] + ga * sy, dx1 = a * mine[2] + ga * sy;
+    const float dy0 = a * mine[3] + ga * sx, dy1 = a * mine[4] + ga * sx;
+    // wx0 = (1 - fx) mx0, wx1 = fx mx1: d / d fx = mx1 dx1 - mx0 dx0
+    const float gx = ((m >> 5) & 1 ? dx1 : 0.f) - ((m >> 4) & 1 ? dx0 : 0.f);
+    const float gy = ((m >> 7) & 1 ? dy1 : 0.f) - ((m >> 6) & 1 ? dy0 : 0.f);
+    gloc[(bqh * S + s) * 2] = gx * (float)lv.w[l];
+    gloc[(bqh * S + s) * 2 + 1] = gy * (float)lv.h[l];
+    const float az = __fmul_rn(a, cw.z), aw = __fmul_rn(a, cw.w);
+    const float4 wk = make_float4(__fmul_rn(az, cw.x), __fmul_rn(az, cw.y),
+                                  __fmul_rn(aw, cw.x), __fmul_rn(aw, cw.y));
+    const long long ri = rbase + l * N + p;
+    rwk[ri] = wk;
+    // a weighing corner puts x0 in [-1, w - 1] and y0 in [-1, h - 1]
+    const bool live = wk.x != 0.f || wk.y != 0.f || wk.z != 0.f ||
+                      wk.w != 0.f;
+    rpos[ri] = live ? ((int)x0f + 1) | ((int)y0f + 1) << 16 : -1;
+  }
+}
+
+// stages: 1 D1, 2 D2 over the tiles [lo, hi) (the wrapper launches both
+// over all tiles; chip_smoke times them apart, D2 level by level).
+template <typename T>
+int launch_msda_bwd(const T* value, const float* loc, const float* attw,
+                    const float* gs, const float* gw, T* gvalue, float* gloc,
+                    float* gattw, void* scratch, const MsdaExactArgs& g,
+                    const Levels& lv, int threads, int tiles, int slices,
+                    DfaTiles tl, int stages, int lo, int hi,
+                    cudaStream_t st) {
+  int want = 0;
+  for (int l = 0; l < lv.n; ++l)
+    want += (lv.h[l] + B2_TILE - 1) / B2_TILE *
+            ((lv.w[l] + B2_TILE - 1) / B2_TILE);
+  const long long N = (long long)g.Q * g.heads * g.P;
+  if (g.C % 8 || g.C < 8 || g.heads < 1 || g.heads > 8 || g.P < 1 ||
+      g.L != lv.n || threads != 32 * g.heads || g.B * g.Q < 1 ||
+      tiles != want || slices != (g.C + 255) / 256 || lo < 0 || lo > hi ||
+      hi > tiles || stages & ~3 || N > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  float4* rwk = reinterpret_cast<float4*>(scratch);
+  int* rpos = reinterpret_cast<int*>(rwk + (long long)g.B * g.L * N);
+  if (stages & 1) {
+    msda_bwd_kernel<T><<<g.B * g.Q, threads, 0, st>>>(
+        value, loc, attw, gs, gw, g, lv, gloc, gattw, rwk, rpos);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if ((stages & 2) && hi > lo) {
+    DfaArgs d = {};
+    d.bs = g.B; d.cams = 1; d.A = g.Q * g.heads; d.P = g.P; d.G = 1;
+    d.C = g.C; d.T = g.T; d.M = -1;
+    DfaRec rec = {};
+    rec.wk = rwk;
+    rec.pos = rpos;
+    rec.N = (int)N;
+    tl.lo = lo;
+    dfa_bwd_gcol_kernel<T, true><<<dim3(g.B, hi - lo, slices), B2_NT, 0,
+                                   st>>>(gs, d, lv, rec, tl, gvalue);
+  }
+  return (int)cudaGetLastError();
+}
+
 Levels read_levels(int L, const int* d) {
   Levels lv;
   lv.n = L;
@@ -2268,6 +2479,7 @@ int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
   const int* d2 = dims + 11 + 3 * L;
   DfaTiles tl;
   for (int l = 0; l < L; ++l) tl.first[l] = d2[1 + l];
+  tl.lo = 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int* t = (const int*)thr;
   const float* go = (const float*)gout;
@@ -2279,6 +2491,39 @@ int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
                                        (float*)gpts, (float*)gwts, scratch,
                                        g, lv, threads, smem, d2[0], tl,
                                        stages, st);
+}
+
+// Kernel D: dims B, Q, heads, L, P, C, T, D1's threads (32 a head), D2's
+// tile count and channel slices (of 256), then the L level heights,
+// widths and start rows, then the L levels' first tiles; gsamp [B, Q,
+// heads, C] and gwsum [B, Q, heads] fp32; gvalue [B, T, C] in the value's
+// type, gloc [B, Q, heads, L, P, 2] and gattw [B, Q, heads, L, P] fp32,
+// every element written; scratch: D1's records, 5 words each, B * L * Q
+// * heads * P of them; stages: 1 D1, 2 D2 over the tiles [lo, hi).
+int simpb_msda_bwd(const void* value, const void* loc, const void* attw,
+                   const void* gsamp, const void* gwsum, void* gvalue,
+                   void* gloc, void* gattw, void* scratch, const int* dims,
+                   int dtype, int stages, int lo, int hi, void* stream) {
+  MsdaExactArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.C = dims[5]; g.T = dims[6];
+  const int threads = dims[7], tiles = dims[8], slices = dims[9];
+  const Levels lv = read_levels(g.L, dims + 10);
+  DfaTiles tl;
+  for (int l = 0; l < g.L; ++l) tl.first[l] = dims[10 + 3 * g.L + l];
+  tl.lo = 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *l = (const float*)loc, *a = (const float*)attw;
+  const float *gs = (const float*)gsamp, *gw = (const float*)gwsum;
+  float *gl = (float*)gloc, *ga = (float*)gattw;
+  return dtype ? launch_msda_bwd<bf16>((const bf16*)value, l, a, gs, gw,
+                                       (bf16*)gvalue, gl, ga, scratch, g, lv,
+                                       threads, tiles, slices, tl, stages, lo,
+                                       hi, st)
+               : launch_msda_bwd<float>((const float*)value, l, a, gs, gw,
+                                        (float*)gvalue, gl, ga, scratch, g,
+                                        lv, threads, tiles, slices, tl,
+                                        stages, lo, hi, st);
 }
 
 // dims as simpb_msda_sel's, then C3's tile count and channels a lane

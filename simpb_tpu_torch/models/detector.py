@@ -12,8 +12,7 @@ the `DenseDepthNet`, and the head's training program. The feature column
 stays in the trunk's dtype; the head computes in `head_dtype`. `rngs`
 holds the training generators under JAX's rng names: "aug" (grid mask),
 "dropout" and "sampling". Not ported yet: `stem_s2d`, FPNs with
-other than 4 levels, ResNet-101 (until it is held to JAX's), and training
-a configuration with exact MSDA (its backward, ROADMAP B.1).
+other than 4 levels and ResNet-101 (until it is held to JAX's).
 """
 from __future__ import annotations
 
@@ -36,8 +35,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_serving_config(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a setting the port does not serve
-    yet; `SimPB` calls it before it builds anything."""
+    """Raise NotImplementedError for a setting the port does not serve or
+    train yet; `SimPB` calls it before it builds anything. The port
+    trains every configuration it serves, windowed or exact MSDA."""
     if cfg.stem_s2d:
         raise NotImplementedError("stem_s2d is not ported yet")
     if cfg.head.num_levels != 4:
@@ -50,22 +50,13 @@ def check_serving_config(cfg: ModelConfig) -> None:
     check_head_config(cfg.head)
 
 
-def check_training_config(cfg: ModelConfig) -> None:
-    """`check_serving_config`, and NotImplementedError for what the port
-    serves but does not train: exact MSDA, whose backward is not ported."""
-    check_serving_config(cfg)
-    if not cfg.head.msda_patch_mode:
-        raise NotImplementedError("not ported: the exact MSDA backward "
-                                  "(ROADMAP B.1)")
-
-
 class SimPB(nn.Module):
     """`train=True` builds the training tree: the depth branch and every
     refine3d's class and quality branches."""
 
     def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
-        (check_training_config if train else check_serving_config)(cfg)
+        check_serving_config(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.img_backbone = ResNet(cfg.backbone_depth)

@@ -9,8 +9,9 @@
   sampling the RAW feature column and applying the value projection to
   the sampled rows afterwards, with the `(wsum - 1) * bias` border
   correction (the order the JAX serving head computes in). In training
-  (`project_first`, windowed only) the value projection runs on the
-  feature column before sampling, as the JAX training head computes it.
+  (`project_first`, windowed or exact) the value projection runs on the
+  feature column before sampling, as the JAX training head computes it
+  (JAX's head passes no pair table in training).
   With a `guards` collector it records the guard counters JAX sows
   (`utils/guards.py`). The hybrid mode is not ported.
 
@@ -155,12 +156,9 @@ class QueryGroupMSDA(nn.Module):
         """query/query_pos [bs, cams*K, C], reference_points [bs, cams*K,
         2], ref_depth [bs, cams*K, 1], value [bs, cams, ΣHW, C] (raw
         features). Returns [bs, cams*K, 2C]. `project_first` projects the
-        value column before sampling (the training order; windowed only);
+        value column before sampling (the training order);
         `capacity_override` replaces `gather_capacity`; `guards`, a
         collector dict, gets this call's guard counters appended."""
-        if project_first and not self.patch_mode:
-            raise NotImplementedError("not ported: the exact MSDA backward "
-                                      "(ROADMAP B.1)")
         bs, q_total, _ = query.shape
         heads, levels, points = (self.num_heads, self.num_levels,
                                  self.num_points)
@@ -199,6 +197,8 @@ class QueryGroupMSDA(nn.Module):
 
         def sample(loc_, w_):
             if not self.patch_mode:
+                if project_first:
+                    return msda(v, spatial_shapes, loc_, w_)
                 return self._project(*msda(v, spatial_shapes, loc_, w_,
                                            raw_heads=True))
             if project_first:

@@ -84,6 +84,10 @@ SIGNATURES = {
         # value, loc, attw, grad sampled, grad wsum, grad value, grad loc,
         # grad attw, scratch, dims, dtype, stream
         "simpb_msda_sel_bwd": ((P,) * 10 + (I, P), I),
+        # value, loc, attw, grad sampled, grad wsum, grad value, grad loc,
+        # grad attw, scratch, dims, dtype, stages, first tile, end tile,
+        # stream
+        "simpb_msda_bwd": ((P,) * 10 + (I, I, I, I, P), I),
     },
 }
 

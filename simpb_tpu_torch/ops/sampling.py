@@ -8,7 +8,9 @@ Port of the serving path of `simpb_tpu/ops/sampling.py`:
 * `msda_patch` / `_msda_patch_sel` — windowed multi-scale deformable
   attention with per-query top-k level selection and `raw_heads`
   output (the value projection is applied after sampling by the
-  caller).
+  caller);
+* `msda` — exact multi-scale deformable attention (the exact configs'
+  2D cross-attention).
 
 Sampling semantics, as in the JAX package: pixel position is
 `loc * size - 0.5`; out-of-border bilinear corners weigh zero; DFA drops
@@ -36,17 +38,17 @@ raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
 fp32 on the CUDA cores (the wrapper picks by dtype alone); DFA is one
 kernel for both dtypes.
 
-Training: both wrappers are differentiable. On the CPU autograd runs
-through the plain versions. On the card each is a
+Training: the three wrappers are differentiable. On the CPU autograd
+runs through the plain versions. On the card each is a
 `torch.autograd.Function` whose backward is a kernel of its own
 (`deformable_aggregation_backward`, kernel B: DFA's Function saves the
 forward's capacity thresholds, so the backward keeps exactly the slots
-the forward kept; `msda_patch_sel_backward`, kernel C: the Function
-saves only its inputs and the kernel recomputes the windows). Neither
-uses atomics: each feature or value gradient element has one owner
-block, which sums it in fp32 in a fixed order, rounds it once to the
-features' dtype and writes it once, so repeat launches give the same
-bits.
+the forward kept; `msda_patch_sel_backward`, kernel C, and
+`msda_backward`, kernel D: the Function saves only its inputs and the
+kernel recomputes the windows or the samples). None uses atomics: each
+feature or value gradient element has one owner block, which sums it in
+fp32 in a fixed order, rounds it once to the features' dtype and writes
+it once, so repeat launches give the same bits.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
 MSDA_TC_SHAPE = (2, 8, 8, 4)
 _LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
              "deformable_aggregation_backward": 0,
-             "msda_patch_sel_backward": 0}
+             "msda_patch_sel_backward": 0, "msda_backward": 0}
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -395,6 +397,18 @@ def _dfa_launch(col_feats, spatial_shapes, points_2d, weights,
 B2_TILE = 8  # B2's pixel tile side (csrc/sampling.cu)
 
 
+def _tile_plan(shapes):
+    """B2_TILE x B2_TILE pixel tiles of the levels, numbered smallest
+    level first (the crowded tiles start first): (count, first tile of
+    each level)."""
+    counts = [-(-h // B2_TILE) * -(-w // B2_TILE) for h, w in shapes]
+    first, tiles = [0] * len(shapes), 0
+    for lvl in sorted(range(len(shapes)),
+                      key=lambda i: shapes[i][0] * shapes[i][1]):
+        first[lvl], tiles = tiles, tiles + counts[lvl]
+    return tiles, first
+
+
 class DfaBwdPlan(NamedTuple):
     """Kernel B's three launches. B0: one block per camera row. B1: one
     block per (anchor, batch), `grid` (anchors, bs), `threads` and `smem`
@@ -436,11 +450,7 @@ def plan_dfa_backward(bs: int, cams: int, num_anchor: int, num_pts: int,
     if smem > _kernels.MAX_SMEM:
         raise ValueError(f"{what}: {entries} samples per anchor do not fit "
                          "in shared memory")
-    counts = [-(-h // B2_TILE) * -(-w // B2_TILE) for h, w in shapes]
-    first, tiles = [0] * len(shapes), 0
-    for lvl in sorted(range(len(shapes)),
-                      key=lambda i: shapes[i][0] * shapes[i][1]):
-        first[lvl], tiles = tiles, tiles + counts[lvl]
+    tiles, first = _tile_plan(shapes)
     rows = bs * cams
     cap = fwd.dims[8]
     per_row = cap if cap >= 0 else num_anchor * num_pts
@@ -643,6 +653,43 @@ def deformable_aggregation(
                               gather_capacity)
 
 
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 `x` rounded to `dtype` and widened back; its gradient passes
+    unchanged, as through a cast, and stays fp32."""
+    if dtype == torch.float32:
+        return x
+    return x + (x.to(dtype).float() - x).detach()
+
+
+def _msda_level(table, base, h, w, loc, dtype):
+    """One level of exact MSDA read from the fp32 [R, C] table: (samples
+    [B, N, C], in-image bilinear mass [B, N]), fp32 holding what the
+    value's type computes (JAX's order: the corner weights, the x pairs
+    and the y combine each rounded to `dtype`, the mass the fp32 product
+    of the rounded weight sums). Border corners weigh zero and have no
+    location gradient; indices are clamped into the level."""
+    r = lambda t: _round_to(t, dtype)
+    x = loc[..., 0] * w - 0.5
+    y = loc[..., 1] * h - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    lx, ly = r(x - x0f), r(y - y0f)
+    x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+    inside = lambda i, n: ((i >= 0) & (i < n)).float()
+    wx0 = r(1.0 - lx) * inside(x0, w)
+    wx1 = lx * inside(x0 + 1, w)
+    wy0 = r(1.0 - ly) * inside(y0, h)
+    wy1 = ly * inside(y0 + 1, h)
+    xc0, xc1 = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+    r0 = base + y0.clamp(0, h - 1) * w
+    r1 = base + (y0 + 1).clamp(0, h - 1) * w
+    take = lambda rows: _take_rows(table, rows)
+    e = lambda t: t[..., None]
+    vx0 = r(r(e(wx0) * take(r0 + xc0)) + r(e(wx1) * take(r0 + xc1)))
+    vx1 = r(r(e(wx0) * take(r1 + xc0)) + r(e(wx1) * take(r1 + xc1)))
+    sample = r(r(e(wy0) * vx0) + r(e(wy1) * vx1))
+    return sample, r(wx0 + wx1) * r(wy0 + wy1)
+
+
 def msda_plain(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -655,7 +702,10 @@ def msda_plain(
     outside (0, 1) are kept; a padded slot's location 0 samples pixel
     (0, 0) with a quarter of its attention). In JAX's rounding order: the
     corner weights and the x-then-y combine in the value's type, the
-    attention weighting in fp32.
+    attention weighting in fp32. Computed in fp32 with each rounding to
+    the value's type written out, so that autograd through it sums every
+    gradient in fp32 and rounds the value gradient once, to the value's
+    type.
 
     raw_heads: (sampled [B, Q, heads, C], wsum [B, Q, heads]) before the
     per-head channel split, wsum the attention times the in-image
@@ -663,7 +713,7 @@ def msda_plain(
     b, total_hw, c = value.shape
     q, heads, num_levels, num_points = sampling_locations.shape[1:5]
     dev = value.device
-    table = value.reshape(b * total_hw, c)
+    table = value.reshape(b * total_hw, c).float()
     batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
     acc = torch.zeros((b, q, heads, c), dtype=torch.float32, device=dev)
     acc_w = torch.zeros((b, q, heads), dtype=torch.float32, device=dev)
@@ -671,15 +721,14 @@ def msda_plain(
         h_, w_ = spatial_shapes.shapes[lvl]
         start = spatial_shapes.start_indices[lvl]
         loc = sampling_locations[:, :, :, lvl].reshape(b, -1, 2)
-        sampled, wx0, wx1, wy0, wy1 = _sample_rows(
-            table, batch_base + start, h_, w_, loc, False)
+        sampled, mass = _msda_level(table, batch_base + start, h_, w_, loc,
+                                    value.dtype)
         w_l = attention_weights[:, :, :, lvl].float()  # [B, Q, heads, P]
         acc = acc + torch.einsum(
-            "bqhpc,bqhp->bqhc",
-            sampled.reshape(b, q, heads, num_points, c).float(), w_l)
-        mass = ((wx0 + wx1).float() * (wy0 + wy1).float()).reshape(
-            b, q, heads, num_points)
-        acc_w = acc_w + torch.einsum("bqhp,bqhp->bqh", w_l, mass)
+            "bqhpc,bqhp->bqhc", sampled.reshape(b, q, heads, num_points, c),
+            w_l)
+        acc_w = acc_w + torch.einsum(
+            "bqhp,bqhp->bqh", w_l, mass.reshape(b, q, heads, num_points))
     if raw_heads:
         return acc, acc_w
     head_mask = torch.repeat_interleave(
@@ -760,6 +809,26 @@ def _msda_launch(value, spatial_shapes, sampling_locations,
     return sampled, wsum
 
 
+class _MsdaFunction(torch.autograd.Function):
+    """Exact MSDA on the card: the forward kernel, and kernel D as its
+    backward. Saves only its inputs: D recomputes the samples (what
+    `jax.checkpoint` does around JAX's op)."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        return _msda_launch(value, spatial_shapes, sampling_locations,
+                            attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_sampled, grad_wsum):
+        value, loc, attw = ctx.saved_tensors
+        return msda_backward(value, ctx.spatial_shapes, loc, attw,
+                             grad_sampled, grad_wsum) + (None,)
+
+
 def msda(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -767,23 +836,20 @@ def msda(
     attention_weights: torch.Tensor,  # [B, Q, heads, L, P]
     raw_heads: bool = False,
 ):
-    """Exact multi-scale deformable attention (see `msda_plain`), the
-    forward only: (sampled [B, Q, heads, C], wsum [B, Q, heads]) float32
-    with `raw_heads`, else [B, Q, C] float32. Value float32 or bfloat16,
-    contiguous (16-byte aligned on the card); locations and weights
-    float32, contiguous. The backward is not ported (ROADMAP B.1): a call
-    that autograd would differentiate raises."""
+    """Exact multi-scale deformable attention (see `msda_plain`):
+    (sampled [B, Q, heads, C], wsum [B, Q, heads]) float32 with
+    `raw_heads`, else [B, Q, C] float32 (the per-head channel split in
+    torch around the op), differentiable in all three tensors. Value
+    float32 or bfloat16, contiguous (16-byte aligned on the card);
+    locations and weights float32, contiguous. On the CPU the plain
+    version (under autograd when asked); on the card the forward kernel,
+    with kernel D (`msda_backward`) as its backward."""
     _check_msda(value, spatial_shapes, sampling_locations, attention_weights)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (value, sampling_locations,
-                                      attention_weights)):
-        raise NotImplementedError("msda: not ported: the exact MSDA backward "
-                                  "(ROADMAP B.1)")
     if value.device.type == "cpu":
         return msda_plain(value, spatial_shapes, sampling_locations,
                           attention_weights, raw_heads)
-    sampled, wsum = _msda_launch(value, spatial_shapes, sampling_locations,
-                                 attention_weights)
+    sampled, wsum = _MsdaFunction.apply(value, sampling_locations,
+                                        attention_weights, spatial_shapes)
     if raw_heads:
         return sampled, wsum
     heads, c = sampled.shape[2:]
@@ -1322,6 +1388,114 @@ class _MsdaSelFunction(torch.autograd.Function):
         return grads + (None,) * 5
 
 
+class MsdaExactBwdPlan(NamedTuple):
+    """Kernel D's two launches. D1: one block per (camera row, query),
+    `grid` blocks of `threads` (a warp a head). D2: `gvalue_grid`
+    (camera rows, B2_TILE x B2_TILE pixel tiles of all levels, channel
+    slices of 256), the tiles numbered smallest level first from
+    `first[l]`. `scratch`: the int32 words of D1's records. `dims`: the
+    host int array the C entry reads."""
+    grid: int
+    threads: int
+    gvalue_grid: Tuple[int, int, int]
+    first: Tuple[int, ...]
+    scratch: int
+    dims: ctypes.Array
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda_backward(num_rows: int, num_queries: int, heads: int,
+                       num_points: int, c: int,
+                       shapes: Tuple[Tuple[int, int], ...]
+                       ) -> MsdaExactBwdPlan:
+    """Kernel D's launches for `msda` at [num_rows, ΣHW, c] values over
+    the levels `shapes`: D1 as the forward (one block per (camera row,
+    query), a warp per head, a lane 8 channels), D2 one block per (camera
+    row, 8x8 pixel tile, 256 channels). Raises ValueError on a shape the
+    kernels do not take: the forward's limits (1 to MSDA_HEADS heads, C a
+    multiple of 8, 1 to MAX_LEVELS levels), and levels of at most
+    MAX_LEVEL_SIDE pixels a side (D1 packs a corner base in 16 bits an
+    axis)."""
+    what = "msda_backward"
+    num_levels = len(shapes)
+    if (not 0 < heads <= MSDA_HEADS or c % 8 or not c
+            or not 0 < num_levels <= MAX_LEVELS or num_points < 1
+            or num_rows * num_queries < 1):
+        raise ValueError(f"{what}: the kernels take 1 to {MSDA_HEADS} "
+                         "heads, C a multiple of 8, 1 to "
+                         f"{MAX_LEVELS} levels and at least one query, got "
+                         f"{heads} heads, C = {c}, {num_levels} levels, "
+                         f"{num_rows} x {num_queries} queries")
+    if any(max(h, w) > MAX_LEVEL_SIDE for h, w in shapes):
+        raise ValueError(f"{what}: levels {shapes} exceed "
+                         f"{MAX_LEVEL_SIDE} pixels a side")
+    tiles, first = _tile_plan(shapes)
+    slices = -(-c // 256)
+    records = num_rows * num_levels * num_queries * heads * num_points
+    dims = [num_rows, num_queries, heads, num_levels, num_points, c,
+            sum(h * w for h, w in shapes), 32 * heads, tiles, slices]
+    return MsdaExactBwdPlan(
+        num_rows * num_queries, 32 * heads, (num_rows, tiles, slices),
+        tuple(first), 5 * records,
+        _kernels.int_array(dims + _level_table(shapes) + first))
+
+
+def _msda_bwd_buffers(value, loc, attw, plan):
+    """Kernel D's outputs (gvalue in the value's dtype, gloc and gattw
+    fp32, each written whole by the kernels) and its int32 scratch."""
+    dev = value.device
+    return (torch.empty(value.shape, dtype=value.dtype, device=dev),
+            torch.empty(loc.shape, dtype=torch.float32, device=dev),
+            torch.empty(attw.shape, dtype=torch.float32, device=dev),
+            torch.empty(plan.scratch, dtype=torch.int32, device=dev))
+
+
+def _msda_bwd_launch(value, loc, attw, gs, gw, plan, buffers, stages=3,
+                     tiles=None):
+    """Launch kernel D's stages (1 D1, 2 D2; D2 over the tile range
+    `tiles`, all tiles when None) into `buffers`."""
+    lo, hi = tiles or (0, plan.gvalue_grid[1])
+    _kernels.check(_kernels.load("sampling").simpb_msda_bwd(
+        *map(_kernels.ptr, (value, loc, attw, gs, gw) + tuple(buffers)),
+        plan.dims, _kernels.DTYPE_CODE[value.dtype], stages, lo, hi,
+        ctypes.c_void_p(_kernels.stream_ptr(value))), "msda_backward")
+
+
+def msda_backward(value, spatial_shapes, loc, attw, grad_sampled,
+                  grad_wsum):
+    """Kernel D: the gradients (value in its dtype, loc, attw fp32) of
+    `msda(..., raw_heads=True)` at grad_sampled [B, Q, heads, C] and
+    grad_wsum [B, Q, heads]. CUDA tensors only. Deterministic: no
+    atomics, so a repeat call gives the same bits."""
+    what = "msda_backward"
+    _check_msda(value, spatial_shapes, loc, attw)
+    if value.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors")
+    b, _, c = value.shape
+    q, heads, _, num_points = loc.shape[1:5]
+    plan = plan_msda_backward(b, q, heads, num_points, c,
+                              spatial_shapes.shapes)
+    _check_aligned(what, value, "value")
+    buffers = _msda_bwd_buffers(value, loc, attw, plan)
+    _msda_bwd_launch(value, loc, attw, grad_sampled.float().contiguous(),
+                     grad_wsum.float().contiguous(), plan, buffers)
+    _LAUNCHES["msda_backward"] += 1
+    return buffers[:3]
+
+
+def msda_backward_plain(value, spatial_shapes, loc, attw, grad_sampled,
+                        grad_wsum):
+    """Kernel D's plain version: autograd through `msda_plain(...,
+    raw_heads=True)` (fp32 sums, the value gradient rounded once to its
+    dtype)."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(True) for t in (value, loc, attw)]
+        sampled, wsum = msda_plain(args[0], spatial_shapes, args[1],
+                                   args[2], raw_heads=True)
+        return torch.autograd.grad([sampled, wsum], args,
+                                   [grad_sampled, grad_wsum])
+
+
 def _msda_patch_sel(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -1363,6 +1537,8 @@ BACKWARD_KERNELS = (
      deformable_aggregation_backward_plain, "simpb_tpu/ops/sampling.py:350"),
     ("msda_patch_sel_backward", msda_patch_sel_backward,
      msda_patch_sel_backward_plain, "simpb_tpu/ops/sampling.py:892"),
+    ("msda_backward", msda_backward, msda_backward_plain,
+     "simpb_tpu/ops/sampling.py:611"),
 )
 
 

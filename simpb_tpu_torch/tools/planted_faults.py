@@ -1,16 +1,18 @@
-"""Planted faults against chip_smoke's checks of kernels B and C and of
-the exact MSDA forward.
+"""Planted faults against chip_smoke's checks of kernels B, C and D and
+of the exact MSDA forward.
 
     python -m simpb_tpu_torch.tools.planted_faults
 
-`chip_smoke.grad_check` holds the DFA and MSDA-sel backward kernels to
-their plain versions element by element; the exact phase holds the exact
+`chip_smoke.grad_check` holds the DFA, MSDA-sel and exact MSDA backward
+kernels to their plain versions element by element; the exact phase holds
+the exact
 MSDA kernel to `msda_plain` (`chip_smoke.within`, at EXACT_TOL). To show
 that they see a fault that drops a small part of a result, the tool
 copies the checkout into `build/planted_faults/<fault>/`, edits one line
 of `csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
-accumulation in B2, kernel C's value-gradient accumulation in C3, or the
-exact MSDA kernel's bilinear sample), builds that copy and runs
+accumulation in B2, the same owner pass's accumulation in kernel D's D2,
+kernel C's value-gradient accumulation in C3, or the exact MSDA kernel's
+bilinear sample), builds that copy and runs
 chip_smoke's synthetic gradient cases and exact MSDA cases (fp32 and
 bf16) on it. It prints one JSON line per (fault, case): whether the
 check passes, whether the bound it replaced (`MAX_SCALED`: a share of
@@ -20,7 +22,8 @@ summary line per fault. It exits 1 when the unchanged copy fails a case,
 or when a fault passes the check on any case of the kernel it edits
 (every case has live entries for each fault to hit: the dead-anchor
 cases keep anchor 0 live, and query 0 of every exact case samples the
-interior). The copies are removed at the end. Needs the card.
+interior, for the forward and for D). The copies are removed at the end.
+Needs the card.
 """
 from __future__ import annotations
 
@@ -47,6 +50,13 @@ FAULTS = {
     "dfa_small_contributions": (
         "deformable_aggregation_backward", _B_ACCUMULATE,
         "              if (wc != 0.f && fabsf(gg[c] * wc) >= 1e-4f)\n"),
+    # kernel D: in D2 (B2's pass over D1's records, EXACT) every sample of
+    # query 0, head 0 (its g_sampled row, staged in sAnc[e], is 0) drops
+    # its fourth corner
+    "msda_exact_bwd_corner3_of_query0": (
+        "msda_backward", _B_ACCUMULATE,
+        "              if (wc != 0.f && !(EXACT && k == 3 && "
+        "sAnc[e] == 0))\n"),
     # kernel C: window pixel 0 of query 0 adds nothing to the value
     # gradient (C3 walks window e = query * K + k; its pixel 0 is the
     # window's base)

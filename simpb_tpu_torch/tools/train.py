@@ -13,7 +13,7 @@ GroupInBatchSampler stream.
 Usage:
   python -m simpb_tpu_torch.tools.train \\
       --ann-file data/nuscenes/simpb_nuscenes_infos_train.pkl \\
-      --config r50-fast [--work-dir work_dirs/simpb_r50] [--max-iters N] \\
+      --config r50 [--work-dir work_dirs/simpb_r50] [--max-iters N] \\
       [--eval-ann-file val.pkl] [--resume-from work_dirs/.../ckpt_1000] \\
       [--device cpu]
 
@@ -26,11 +26,10 @@ generator's and the sampler's (each its own generator, as in JAX).
 Refused with "not ported" (ROADMAP.md): `--multihost`, `--coordinator`,
 `--num-processes` and `--process-id` (data-parallel training, A.4);
 `--img-bf16` (a workaround of the TPU host link, not ported); the
-configs the port does not train (`r50`, `r101`: exact MSDA, whose
-backward is not ported, B.1; `r101-fast`: `stem_s2d`, A.5), before any
-model is built. `--config tiny` is the tiny config with windowed MSDA
-(the eval CLI's `--config tiny --msda-patch`) until exact MSDA has its
-backward.
+configs the port does not train yet (`r101`: ResNet-101, A.5;
+`r101-fast`: `stem_s2d`, A.5), before any model is built. `--config r50`
+(the default) is the released recipe with exact MSDA, `r50-fast` the
+windowed one; `--config tiny` is JAX's tiny config, exact MSDA.
 
 `run(args, dataset=None, eval_dataset=None)` runs a parsed command line
 and returns what it measured (losses, step, producer and queue-wait
@@ -51,8 +50,7 @@ import time
 import numpy as np
 
 NOT_PORTED_CONFIGS = {
-    "r50": "the exact MSDA backward (ROADMAP B.1)",
-    "r101": "the exact MSDA backward (ROADMAP B.1)",
+    "r101": "ResNet-101 (ROADMAP A.5)",
     "r101-fast": "stem_s2d (ROADMAP A.5)",
 }
 
@@ -121,21 +119,20 @@ def refused_flags(args):
     ) if given]
     if args.config in NOT_PORTED_CONFIGS:
         refused.append(f"--config {args.config} "
-                       f"({NOT_PORTED_CONFIGS[args.config]}; use r50-fast)")
+                       f"({NOT_PORTED_CONFIGS[args.config]}; use r50 or "
+                       "r50-fast)")
     return refused
 
 
 def build_config(args):
-    """The model configuration of `--config`, trunk bf16 and head fp32
-    (`--bf16`)."""
-    from ..configs.base import simpb_r50_704x256_fast, simpb_tiny
+    """The model configuration of `--config`, as JAX's CLI builds it,
+    trunk bf16 and head fp32 (`--bf16`)."""
+    from ..configs.base import (
+        simpb_r50_704x256, simpb_r50_704x256_fast, simpb_tiny,
+    )
 
-    if args.config == "tiny":
-        cfg = simpb_tiny()
-        cfg = dataclasses.replace(cfg, head=dataclasses.replace(
-            cfg.head, msda_patch_mode=True))
-    else:
-        cfg = simpb_r50_704x256_fast()
+    cfg = {"r50": simpb_r50_704x256, "r50-fast": simpb_r50_704x256_fast,
+           "tiny": simpb_tiny}[args.config]()
     return dataclasses.replace(cfg, compute_dtype="bfloat16",
                                head_dtype="float32")
 

@@ -97,9 +97,9 @@ def test_msda_plain_matches_jax(dtype, raw):
 
 
 def test_msda_wrapper_on_cpu():
-    """On CPU tensors the wrapper is its plain version bit for bit and
-    launches nothing; it refuses what the kernel does not take, and any
-    call autograd would differentiate (the backward is not ported)."""
+    """On CPU tensors the wrapper is its plain version bit for bit, also
+    under autograd, and launches nothing; it refuses what the kernel
+    does not take."""
     value, loc, attw = map(_t, _msda_inputs(np.random.default_rng(1)))
     ss = SpatialShapes(TINY_SHAPES)
     tsmp.reset_launch_counts()
@@ -108,9 +108,12 @@ def test_msda_wrapper_on_cpu():
         ref = tsmp.msda_plain(value, ss, loc, attw, raw_heads=raw)
         for g, r in zip(got if raw else (got,), ref if raw else (ref,)):
             assert torch.equal(g, r)
+    loc.requires_grad_(True)
+    got = torch.autograd.grad(tsmp.msda(value, ss, loc, attw).sum(), loc)[0]
+    ref = torch.autograd.grad(tsmp.msda_plain(value, ss, loc, attw).sum(),
+                              loc)[0]
+    assert torch.equal(got, ref) and got.abs().max() > 0
     assert set(tsmp.launch_counts().values()) == {0}
-    with pytest.raises(NotImplementedError, match="exact MSDA backward"):
-        tsmp.msda(value, ss, loc.requires_grad_(True), attw)
     loc = loc.detach()
     with pytest.raises(TypeError, match="float32"):
         tsmp.msda(value, ss, loc.double(), attw)
@@ -393,17 +396,50 @@ def test_exact_stream_step_attaches_guards(exact_run):
 
 
 def test_training_an_exact_config_is_refused():
-    """Exact MSDA has no backward yet (ROADMAP B.1): the training model
-    of an exact config is refused before anything is built, and the exact
-    layer refuses the training order."""
-    from simpb_tpu_torch.training.train_step import build_train_model
+    """Exact MSDA has its backward (kernel D, ROADMAP B.1 done), so an
+    exact config trains: the training model of `simpb_tiny` builds, and
+    one training step on the CPU gives a finite loss and nonzero
+    gradients to every input of each of its three exact MSDA calls; the
+    exact layer takes the training order (`project_first`)."""
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.training.train_step import (
+        build_train_model, build_train_step, create_train_state,
+        init_temporal,
+    )
+    from simpb_tpu_torch.utils.synthetic import (
+        batch_to_torch, synthetic_train_batch,
+    )
 
-    with pytest.raises(NotImplementedError, match="exact MSDA backward"):
-        SimPB(simpb_tiny(), train=True)
-    with pytest.raises(NotImplementedError, match="exact MSDA backward"):
-        build_train_model(simpb_tiny(), device="cpu")
+    cfg = simpb_tiny()
+    assert not cfg.head.msda_patch_mode
+    SimPB(cfg, train=True)
+    model = build_train_model(cfg, device="cpu")
+    tc = TrainConfig()
+    state = create_train_state(model, tc)
+    batch = batch_to_torch(synthetic_train_batch(
+        cfg, 1, num_objects=8, max_gt3d=8, max_gt2d=6), "cpu")
+    temporal, dn_state = init_temporal(cfg, 1, "cpu")
+    inputs = []
+    plain = tsmp.msda_plain
+
+    def record(value, ss, loc, attw, raw_heads=False):
+        for t in (value, loc, attw):
+            t.retain_grad()
+        inputs.append((value, loc, attw))
+        return plain(value, ss, loc, attw, raw_heads)
+
+    step = build_train_step(model, tc)
+    tsmp.msda_plain = record
+    try:
+        _, _, _, m = step(state, batch, temporal, dn_state, 0)
+    finally:
+        tsmp.msda_plain = plain
+    assert torch.isfinite(m["loss"]) and len(inputs) == 3
+    for value, loc, attw in inputs:
+        assert all(t.grad is not None and t.grad.abs().max() > 0
+                   for t in (value, loc, attw))
     layer = QueryGroupMSDA(16, 4, 4, 4, 6, patch_mode=False)
-    with pytest.raises(NotImplementedError, match="exact MSDA backward"):
-        layer(torch.zeros(1, 6, 16), None, torch.zeros(1, 6, 2),
-              torch.ones(1, 6, 1), torch.zeros(1, 6, 170, 16),
-              SpatialShapes(TINY_SHAPES), project_first=True)
+    out = layer(torch.zeros(1, 6, 16), None, torch.full((1, 6, 2), 0.5),
+                torch.ones(1, 6, 1), torch.randn(1, 6, 170, 16),
+                SpatialShapes(TINY_SHAPES), project_first=True)
+    assert tuple(out.shape) == (1, 6, 32)

@@ -50,7 +50,8 @@ def test_dfa_wrapper_on_cpu_is_plain(dtype, capacity):
     assert torch.equal(got, ref)
     assert tsmp.launch_counts() == {
         "deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
-        "deformable_aggregation_backward": 0, "msda_patch_sel_backward": 0}
+        "deformable_aggregation_backward": 0, "msda_patch_sel_backward": 0,
+        "msda_backward": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

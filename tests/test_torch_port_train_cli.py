@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from simpb_tpu.configs import base as jax_base
 from simpb_tpu.utils import torch_convert as jax_tc
 from simpb_tpu_torch.configs.base import TrainConfig
 from simpb_tpu_torch.models.detector import SimPB
@@ -280,7 +281,7 @@ def test_eval_cli_reads_the_trainers_checkpoint(cli_runs, monkeypatch):
     monkeypatch.setattr(evaluate, "streaming_eval", fake_eval)
     ckpt = cli_runs["dir"] / "work" / "ckpt_3"
     test_cli.main(["--ann-file", cli_runs["pkl"], "--config", "tiny",
-                   "--msda-patch", "--device", "cpu", "--src-h", str(SRC_H),
+                   "--device", "cpu", "--src-h", str(SRC_H),
                    "--src-w", str(SRC_W), "--checkpoint", str(ckpt)])
     trained = checkpoint.load_model_state(str(ckpt))
     assert len(seen["state"]) > 100
@@ -294,25 +295,50 @@ NOT_PORTED = [["--multihost"], ["--coordinator", "host:1234"],
               ["--config", "r101-fast"]]
 
 
+def _accepted(monkeypatch, argv):
+    """Run the CLI's `main` on `argv` with `run` replaced by a recorder:
+    the configuration it would train."""
+    configs = []
+    monkeypatch.setattr(train_cli, "run", lambda args: configs.append(
+        train_cli.build_config(args)))
+    train_cli.main(argv)
+    (cfg,) = configs
+    return cfg
+
+
 @pytest.mark.parametrize("extra", NOT_PORTED,
                          ids=[" ".join(a) for a in NOT_PORTED])
-def test_train_cli_refuses(extra):
+def test_train_cli_refuses(extra, monkeypatch):
+    """Every flag the port does not train exits with "not ported"; `--config
+    r50` is trained since the exact MSDA backward (kernel D) landed: the
+    CLI takes it (no run here), exact MSDA, the JAX CLI's config."""
     argv = ["--ann-file", "none.pkl", "--device", "cpu"]
     if "--config" not in extra:
         argv += ["--config", "tiny"]
+    if extra == ["--config", "r50"]:
+        cfg = _accepted(monkeypatch, argv + extra)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            dataclasses.replace(jax_base.simpb_r50_704x256(),
+                                compute_dtype="bfloat16"))
+        return
     with pytest.raises(SystemExit) as exc:
         train_cli.main(argv + extra)
     msg = str(exc.value.code)
     assert "not ported" in msg and extra[0] in msg
     if extra[0] == "--config":
-        assert "r50-fast" in msg
-    if extra[1:] in (["r50"], ["r101"]):
-        assert "the exact MSDA backward (ROADMAP B.1)" in msg
+        assert "r50 or r50-fast" in msg
+    if extra[1:] == ["r101"]:
+        assert "ResNet-101 (ROADMAP A.5)" in msg
+    if extra[1:] == ["r101-fast"]:
+        assert "stem_s2d (ROADMAP A.5)" in msg
 
 
-def test_train_cli_default_config_is_refused():
-    with pytest.raises(SystemExit, match="--config r50 .*r50-fast"):
-        train_cli.main(["--ann-file", "none.pkl", "--device", "cpu"])
+def test_train_cli_default_config_is_refused(monkeypatch):
+    """The default `--config r50`, exact MSDA, is no longer refused: the
+    CLI takes it."""
+    cfg = _accepted(monkeypatch, ["--ann-file", "none.pkl", "--device",
+                                  "cpu"])
+    assert not cfg.head.msda_patch_mode and cfg.backbone_depth == 50
 
 
 def test_train_cli_refuses_without_a_card(monkeypatch):

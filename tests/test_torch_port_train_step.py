@@ -1,8 +1,9 @@
 """The port's whole tiny training step against the JAX package's (slow:
 minutes of JAX compile, outside tier-1; run it with `-m slow`).
 
-`simpb_tiny` with the flagship's fast knobs, dropout rates 0 and no grid
-mask, so that the step is deterministic on both sides: JAX's head gets
+`simpb_tiny` with the flagship's fast knobs (windowed MSDA) or with its
+own exact MSDA, dropout rates 0 and no grid mask, so that the step is
+deterministic on both sides: JAX's head gets
 no "sampling" rng (allocation ranks in anchor order and `cache_dn` is
 skipped), and `flax.linen.Dropout` is made the identity for the test
 (the 2D self-attention's output dropout is 0.1 whatever the config says;
@@ -12,8 +13,9 @@ too). The DN bundle comes from the same uniforms on both sides
 a JAX training tree from a numpy seed, converted by
 `from_jax_variables(..., train=True)` and loaded with strict=True.
 
-Each test runs twice: on a batch of `synthetic_train_batch`, and on a
-batch of the training CLI's data pipeline (`tools/train.py::make_batch`
+Each test runs for both MSDA modes, each twice: on a batch of
+`synthetic_train_batch`, and on a batch of the training CLI's data
+pipeline (`tools/train.py::make_batch`
 over a fake nuScenes-format pkl: augmented images, 2D GT from projected
 boxes, LiDAR depth maps, a stream frame's dt and temp2cur). On the
 pipeline batch the trunk (and depth branch) runs in float64 on both
@@ -87,12 +89,14 @@ TRUNK_TOL = 1e-4  # see the module docstring
 GRAD_TOL, GRAD_FLOOR = 5e-4, 1e-6
 
 
-def _parity(cfg):
+def _parity(cfg, msda):
+    """The parity config: `msda` "windowed" takes the flagship's fast
+    knobs, "exact" keeps the tiny config's exact MSDA."""
+    fast = dict(msda_patch_mode=True, msda_gather_capacity=6,
+                dfa_gather_capacity=256, msda_sel_levels=2)
     head = dataclasses.replace(
-        cfg.head, msda_patch_mode=True, msda_gather_capacity=6,
-        dfa_gather_capacity=256, msda_sel_levels=2, drop_out=0.0,
-        dfa_attn_drop=0.0,
-    )
+        cfg.head, drop_out=0.0, dfa_attn_drop=0.0,
+        **(fast if msda == "windowed" else {}))
     return dataclasses.replace(cfg, head=head, use_grid_mask=False,
                                backbone_depth=26)
 
@@ -173,14 +177,18 @@ def _rows(outs):
                                    outs["prediction2d"])])
 
 
-@pytest.fixture(scope="module", params=["synthetic", "pipeline"])
+@pytest.fixture(scope="module", params=[
+    (batch, msda) for msda in ("windowed", "exact")
+    for batch in ("synthetic", "pipeline")], ids="-".join)
 def step_run(request, tmp_path_factory):
     """The step's pieces on a batch of `synthetic_train_batch`, or on one
     of the training CLI's data pipeline (`make_batch`), whose trunk runs
-    in float64 on both sides (see the module docstring)."""
+    in float64 on both sides (see the module docstring), with windowed or
+    exact MSDA."""
     torch.set_num_threads(1)
-    jcfg, tcfg = _parity(jax_tiny()), _parity(simpb_tiny())
-    f64 = request.param == "pipeline"
+    kind, msda = request.param
+    jcfg, tcfg = _parity(jax_tiny(), msda), _parity(simpb_tiny(), msda)
+    f64 = kind == "pipeline"
     if f64:
         batch_np = _pipeline_batch(tcfg, tmp_path_factory.mktemp("pipe"))
     else:
@@ -319,7 +327,7 @@ def step_run(request, tmp_path_factory):
     jgrads = jax.tree_util.tree_map(
         lambda a, b: np.asarray(a, np.float64) + np.asarray(b, np.float64),
         jg_head, jg_trunk)
-    return dict(case=request.param,
+    return dict(case=kind,
                 jloss=jloss, jld=jld, jstats=jstats, jtemp=jtemp, jtgt=jtgt,
                 jrows=jrows, jgrads=jgrads, jcol=jcol, jdepths=jdepths,
                 jg_col=jg_col, loss=loss, ld=ld, model=tmodel,
