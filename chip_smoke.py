@@ -202,6 +202,50 @@ Phases, each printing one JSON line:
              TRAIN_CLI_EXACT_ITERS (3) iterations over the same synthetic
              training pkl, no eval: each step's launches (as phase 14's),
              finite losses with the full key set, the final checkpoint.
+17. train_ddp — data-parallel training over torch.distributed, in
+             DDP_WORLD (2) spawned processes at bs 2 each on rows 2r, 2r+1
+             of a bs-4 batch, both on cuda:0 over gloo (set up here: NCCL
+             refuses two ranks on one device), against this process at
+             bs 4. The parity run (parity_config(): `simpb_tiny` with the
+             flagship's fast knobs, ResNet-50 trunk in float64, head fp32, at
+             DDP_PARITY_LR; at full width the random-weight step is
+             chaotic, see `spread` below): a rank takes the one process's
+             assignments (nearest cost matrix) and, from step 2, its
+             carried temporal and DN state (random weights put predictions
+             within a rounding of a tie); step 1's reduced gradients
+             against the one process's element by element, head and trunk
+             apart (the relative L2 norm of the difference over each group
+             within DDP_GRAD_REL_L2; the worst element printed), the global
+             losses of DDP_STEPS (3) steps within DDP_LOSS_RTOL, launches
+             PARITY_LAUNCHES a step. The timed run: the flagship as the
+             CLI trains it (trunk bf16, head fp32, `TrainConfig()`), 3
+             steps a rank, launches 0 trunk and 3 each of DFA, B, MSDA-sel,
+             C and A a step, step ms and peak bytes a rank. In both the
+             ranks' parameters, BatchNorm statistics and Adam moments are
+             bit-identical (sha256) and the backend is gloo. `spread`:
+             the flagship's step 1 here at bs 4 twice, as it is and with
+             every BatchNorm mean moved by two fp32 ulps, beside the timed
+             run's step 1 at world 2 (printed, not held). Then
+             `tools/train.py::main --multihost --coordinator
+             127.0.0.1:<port> --num-processes 1 --process-id 0` for
+             NCCL_ITERS (2) iterations in a spawned process: NCCL at world
+             1, every collective through it (and at world 2, one card a
+             rank, when the machine has two cards).
+18. eval_dist — `distributed_streaming_eval` in train_ddp's two
+             processes (gloo) over the eval phase's 12-frame set, one
+             scene a rank, gathered on disk: rank 0's metrics and every
+             prediction equal to this process streaming the same two
+             shards; 1/4/12/4/3/3 launches a frame on each rank.
+19. eval_multi — `multidevice_streaming_eval(devices=["cuda:0"] * 4)`,
+             the flagship as bench.py serves it, over four scenes of four
+             frames: bs 4 on one card against `streaming_eval` of each
+             shard at bs 1. The first decoder layer's outputs (no temporal
+             input yet) of every frame and slot within MULTI_TOL of their
+             largest value, each frame's valid instance ids equal, frames
+             shard-major, launches 1/4/12/4/3/3 a step (not a slot); ms a
+             step and frames a second at bs 4 and bs 1.
+             The kernels are built once, before any process starts; each
+             of these phases' seconds is printed.
 
 Then the kernels' summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
@@ -2690,6 +2734,789 @@ def phase_train_cli_exact(torch):
     free_cuda(torch)
 
 
+# --- data parallel (torch.distributed) and the multi-shard evals -------
+
+DDP_WORLD = 2  # train_ddp's and eval_dist's processes, both on cuda:0
+DDP_BS = TRAIN_BS // DDP_WORLD  # a rank's batch: rank r takes rows 2r, 2r+1
+DDP_STEPS = 3
+DDP_SPAWN_TIMEOUT_S = 420  # each spawned process's limit
+# train_ddp's parity run (world 2 against world 1, element by element)
+# takes the tiny config with the flagship's fast knobs at depth 50, the
+# trunk and its BatchNorm in float64 (its outputs rounded to fp32 for
+# the fp32 head): at full width the random-weight step is chaotic
+# (moving the BatchNorm means by two fp32 ulps in one process moves its
+# step-1 losses by several percent: the `spread` that train_ddp prints,
+# through near-ties of the assignment, the bank's top-k, the sampling
+# capacities and windows), and a random-weight ResNet-50's training
+# backward in fp32 amplifies roundings (JAX's own fp32 gradients lie
+# 13-30 % of their largest value from float64,
+# tests/test_torch_port_train_trunk.py), so the two
+# worlds' other orders of summation could not be told from a fault
+# there; at the tiny size with a float64 trunk they can
+# (tests/test_torch_port_ddp.py fails each planted fault on the same
+# comparison). Its learning rate is DDP_PARITY_LR:
+# Adam's first update moves every parameter by +-lr whatever its
+# gradient's size, so gradients that are rounding noise in both worlds
+# would move apart by 2 lr and make steps 2-3 differ by more than their
+# own roundings. The timed run is the CLI's own full-width step.
+DDP_PARITY_LR = 1e-6
+# step 1's reduced gradients against the one process's, element by
+# element, head and trunk apart: the relative L2 norm of the difference
+# over each group's gradient elements at most DDP_GRAD_REL_L2. The
+# worlds sum the BatchNorm statistics, the gradients and the losses in
+# other orders (1e-7 of the norm on the CPU at this size, about 7e-4 on
+# an H100, where cuDNN's float64 convolutions at 12 and 24 images and the
+# fp32 head round apart), and the gradient is not a smooth function of
+# those roundings: a ReLU input or a bilinear sample within a rounding of
+# its kink passes or blocks its element's gradient in one world and not
+# in the other (the whole tiny step's one gap to JAX is such a ReLU
+# input, -1.2e-6, ROADMAP C.2). So a single element may jump (the worst
+# element's share of its tensor's largest value is printed), while the
+# group's gradient as a whole stays put; a planted fault moves it by
+# 50 % (averaged gradients) to 490 % (tests/test_torch_port_ddp.py)
+DDP_GRAD_REL_L2 = {"head": 1e-2, "trunk": 1e-2}
+# the worst element's share counts this share of the group's largest
+# gradient in, for gradients that vanish in exact arithmetic (a key bias
+# moves every logit of a row alike: both worlds hold rounding noise)
+DDP_GRAD_FLOOR = 1e-6
+# the parity run's launches a step: the tiny config's 2D cross-attention
+# takes `msda_patch`'s per-level branch (levels smaller than the window),
+# plain PyTorch on the card, so it launches no MSDA-sel and no C
+PARITY_LAUNCHES = {"deformable_aggregation": 3,
+                   "deformable_aggregation_backward": 3, "assignment": 3}
+DDP_LOSS_RTOL = 1e-4  # the global losses of each step, relative
+NCCL_ITERS = 2  # iterations of the training CLI under NCCL
+MULTI_SLOTS = 4  # eval_multi's slots, all on cuda:0: bs 4
+MULTI_SCENES, MULTI_SCENE_FRAMES = 4, 4
+MULTI_TOL = 1e-2  # bf16 head: of each layer-0 output's largest value
+
+
+def spawn(job, world, tmp, timeout=DDP_SPAWN_TIMEOUT_S):
+    """Run `chip_smoke.<job>(rank, world, port, tmp)` in `world` processes
+    started together; returns their outputs, or raises with the failing
+    rank's last lines. Every process is gone when it returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke.{job}(int(sys.argv[1]), {world}, {port}, "
+            f"{tmp!r})")
+    env = dict(os.environ, SIMPB_NO_TB="1", PYTHONPATH=here)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                              cwd=here, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{job} rank {r} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}")
+    return outs
+
+
+def join_gloo(world, rank, port):
+    """The one-card phases' process group: gloo over the card's tensors
+    (NCCL refuses two ranks on one device), set up here, as a caller
+    may; `parallel/mesh.py` takes its world from it."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from simpb_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=300))
+    mesh.warm_mesh_collectives()
+
+
+def state_digest(torch, state):
+    """sha256 of the parameters, BatchNorm buffers and Adam moments."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(state.model.state_dict().values()) + [
+        t for mu_nu in state.opt_state.values() for t in mu_nu]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parity_config():
+    """train_ddp's parity config: `simpb_tiny` with the flagship's fast
+    knobs (windowed MSDA, capacities), ResNet-50, head fp32, remat, grid
+    mask and dropout on (`float64_trunk` then moves the trunk to
+    float64)."""
+    import dataclasses
+
+    from simpb_tpu_torch.configs.base import simpb_tiny
+
+    cfg = simpb_tiny()
+    head = dataclasses.replace(
+        cfg.head, msda_patch_mode=True, msda_gather_capacity=6,
+        dfa_gather_capacity=256, msda_sel_levels=2)
+    return dataclasses.replace(cfg, head=head, backbone_remat=True,
+                               compute_dtype="float32",
+                               head_dtype="float32")
+
+
+def float64_trunk(torch, model):
+    """The training model's trunk, FPN and depth branch, BatchNorm
+    included, in float64; their outputs rounded to fp32 for the head."""
+    for mod in (model.img_backbone, model.img_neck, model.depth_branch):
+        mod.double()
+    model.compute_dtype = torch.float64
+    extract = model.extract_feat_train
+
+    def extract_fp32_out(*args, **kwargs):
+        col, shapes, depths = extract(*args, **kwargs)
+        return col.float(), shapes, [d.float() for d in depths]
+
+    model.extract_feat_train = extract_fp32_out
+
+
+def ddp_train(torch, bs, rank, impose=None, parity=True):
+    """DDP_STEPS training steps on rows rank*bs:(rank+1)*bs of a bs-4
+    batch: `simpb_r50_704x256_fast` as the CLI trains it on the train
+    phase's batch (`parity` False: the timed run), or parity_config() at
+    DDP_PARITY_LR on a tiny synthetic batch (the parity run). In the
+    parity run the one process
+    (impose None) records its assignment calls and carried state, and a
+    rank takes, for each of its cost matrices, the assignment the one
+    process made on the nearest of its own, and at each later step its
+    carried temporal and DN state (random weights put many predictions
+    within a rounding of a tie, which the two worlds would break apart).
+    Returns the losses, step 1's reduced gradients (on the host), the
+    records, each step's ms and launches, the peak memory and the
+    state's digest."""
+    import dataclasses
+    import math
+
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.training import targets3d, train_step
+    from simpb_tpu_torch.utils.synthetic import (
+        batch_to_torch, synthetic_train_batch,
+    )
+
+    cfg, tc = train_config("r50-fast"), TrainConfig()
+    full = None
+    if parity:
+        cfg = parity_config()
+        tc = dataclasses.replace(tc, lr=DDP_PARITY_LR)
+        full = synthetic_train_batch(cfg, TRAIN_BS, seed=3, num_objects=6,
+                                     max_gt3d=8, max_gt2d=6)
+    model = train_step.build_train_model(cfg, device="cuda", seed=0)
+    if parity:
+        float64_trunk(torch, model)
+    state = train_step.create_train_state(model, tc)
+    step = train_step.build_train_step(model, tc)
+    if full is None:
+        full = synthetic_train_batch(cfg, TRAIN_BS, seed=0)
+    lo, hi = rank * bs, (rank + 1) * bs
+    batch = batch_to_torch({k: ([x[lo:hi] for x in v] if isinstance(
+        v, list) else v[lo:hi]) for k, v in full.items()}, "cuda")
+    temporal, dn_state = train_step.init_temporal(cfg, bs, "cuda")
+    grads, calls, cost_rel = [], [], [0.0]
+
+    def recording_apply(fn):
+        def apply(state, tc, g):
+            if not grads:
+                grads.append({n: t.detach().cpu() for n, t in g.items()})
+            return fn(state, tc, g)
+        return apply
+
+    def imposing(fn):
+        def assign(cost, row_valid, pad_cost=1e6):
+            own = fn(cost, row_valid, pad_cost)
+            cost = torch.nan_to_num(cost, posinf=1e9, neginf=-1e9)
+            if impose is None:
+                calls.append((cost.cpu(), row_valid.cpu(), own.cpu()))
+                return own
+            rcost, rvalid, rcol = (t.cuda() for t in
+                                   impose["calls"][len(calls)])
+            calls.append(None)
+            out = torch.empty_like(own)
+            for i in range(cost.shape[0]):
+                diff = (rcost - cost[i]).abs().amax(dim=(1, 2))
+                diff[~(rvalid == row_valid[i]).all(dim=1)] = math.inf
+                j = int(diff.argmin())
+                cost_rel[0] = max(cost_rel[0], float(diff[j]) / max(
+                    float(rcost[j].abs().max()), 1e-30))
+                out[i] = rcol[j]
+            return out
+        return assign
+
+    losses, carried, times, counts = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with (rebound((train_step, "apply_optimizer", recording_apply),
+                  (targets3d, "batched_assignment", imposing))
+          if parity else contextlib.nullcontext()):
+        for s in range(DDP_STEPS):
+            if s and impose is not None:
+                temporal, dn_state = (
+                    type(x)(**{k: v[lo:hi].cuda() for k, v in ref.items()})
+                    for x, ref in zip((temporal, dn_state),
+                                      impose["carried"][s - 1]))
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, temporal, dn_state, m = step(state, batch, temporal,
+                                                dn_state, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            after = launch_counts()
+            counts.append({k: after[k] - before[k] for k in after
+                           if after[k] - before[k]})
+            losses.append({k: float(v) for k, v in m.items()})
+            carried.append(tuple({f: getattr(x, f).cpu()
+                                  for f in x.__dataclass_fields__}
+                                 for x in (temporal, dn_state)))
+    out = dict(losses=losses, grads=grads[0] if grads else None,
+               calls=calls, carried=carried,
+               step_ms=times, launches_per_step=counts, cost_rel=cost_rel[0],
+               peak=torch.cuda.max_memory_allocated(),
+               digest=state_digest(torch, state))
+    del model, state, batch, temporal, dn_state, m
+    free_cuda(torch)
+    return out
+
+
+def full_width_spread(torch):
+    """Step 1 of `simpb_r50_704x256_fast` as the CLI trains it at bs 4 on
+    the train phase's batch, twice from the same start: as it is, and
+    with every BatchNorm mean moved by two fp32 ulps (x (1 + 2^-22)).
+    Returns both loss dicts: how far one process's step moves under a
+    rounding, the yardstick for the two worlds' full-width steps."""
+    from simpb_tpu_torch.configs.base import TrainConfig
+    from simpb_tpu_torch.models import backbone
+    from simpb_tpu_torch.training import train_step
+    from simpb_tpu_torch.utils.synthetic import (
+        batch_to_torch, synthetic_train_batch,
+    )
+
+    def moved(x, bn, dtype):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3)) * (1 + 2 ** -22)
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + backbone.BN_EPS) * bn.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + bn.bias[:, None, None])
+        return y.to(dtype), (mean.detach(), var.detach())
+
+    cfg, tc = train_config("r50-fast"), TrainConfig()
+    model = train_step.build_train_model(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = batch_to_torch(synthetic_train_batch(cfg, TRAIN_BS, seed=0),
+                           "cuda")
+    losses = []
+    for move in (False, True):
+        model.load_state_dict(start)
+        state = train_step.create_train_state(model, tc)
+        step = train_step.build_train_step(model, tc)
+        temporal, dn_state = train_step.init_temporal(cfg, TRAIN_BS, "cuda")
+        with (rebound((backbone, "batch_norm_train", lambda fn: moved))
+              if move else contextlib.nullcontext()):
+            m = step(state, batch, temporal, dn_state, 0)[3]
+        losses.append({k: float(v) for k, v in m.items()})
+    del model, state, batch, start
+    free_cuda(torch)
+    return losses
+
+
+def worst_rel(got, ref, n=4):
+    """The n largest relative differences of a loss dict from another."""
+    return sorted(((abs(got[k] - v) / max(abs(v), 1e-30), k)
+                   for k, v in ref.items()), reverse=True)[:n]
+
+
+def ddp_eval_dataset(pkl):
+    """eval_dist's val set (the eval phase's 12 synthetic 1600x900 frames
+    in two scenes, written by phase_ddp), decoded frames from the seeded
+    memory pool (no Pillow)."""
+    from simpb_tpu_torch.tools.test import eval_aug_conf
+
+    return memory_datasets()(
+        pkl, test_mode=True, sequences_split_num=1,
+        data_aug_conf=eval_aug_conf(flagship("bfloat16"), *SRC_HW))
+
+
+def train_ddp_job(rank, world, port, tmp):
+    """A rank of train_ddp and then of eval_dist (gloo on cuda:0)."""
+    import torch
+
+    from simpb_tpu_torch.parallel import mesh
+    from simpb_tpu_torch.training import evaluate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    join_gloo(world, rank, port)
+    impose = torch.load(f"{tmp}/reference.pt", weights_only=True)
+    res = ddp_train(torch, TRAIN_BS // world, rank, impose)
+    if rank == 0:
+        torch.save(res.pop("grads"), f"{tmp}/grads_0.pt")
+    else:
+        res.pop("grads")
+    res.pop("calls")
+    res.pop("carried")
+    res["backend"] = torch.distributed.get_backend()
+    # the CLI's own step (bf16 trunk), timed
+    timed = ddp_train(torch, TRAIN_BS // world, rank, parity=False)
+    res["timed"] = {k: timed[k] for k in ("losses", "step_ms",
+                                          "launches_per_step", "peak",
+                                          "digest")}
+
+    # eval_dist: one sequence shard a rank, gathered on disk
+    cfg = flagship("bfloat16")
+    model = evaluate.build_model(cfg, device="cuda", seed=0)
+    dataset = ddp_eval_dataset(f"{tmp}/val/infos.pkl")
+    per_frame = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with rebound((evaluate, "make_stream_steps", counted_steps(per_frame))):
+        got = evaluate.distributed_streaming_eval(model, cfg, dataset,
+                                                  f"{tmp}/gather")
+    res["eval"] = dict(seconds=time.perf_counter() - t0,
+                       launches_per_frame=per_frame,
+                       metrics=got[0] if got else None,
+                       preds=got[1] if got else None,
+                       tokens=got[2] if got else None)
+    mesh.shutdown()
+    torch.save(res, f"{tmp}/rank_{rank}.pt")
+
+
+def counted_steps(per_frame):
+    """A rebinding of `make_stream_steps` whose steps append their launch
+    counts to `per_frame`."""
+    def wrap(make):
+        def steps(model, cfg):
+            def counted(fn):
+                def step(*args):
+                    before = launch_counts()
+                    out = fn(*args)
+                    after = launch_counts()
+                    per_frame.append({k: after[k] - before[k] for k in after
+                                      if after[k] - before[k]})
+                    return out
+                return step
+            return tuple(counted(fn) for fn in make(model, cfg))
+        return steps
+    return wrap
+
+
+def nccl_job(rank, world, port, tmp):
+    """The training CLI's own `main --multihost` over NCCL (one card a
+    rank) for NCCL_ITERS iterations at --batch-size TRAIN_BS, the frames
+    served from the memory pool (the class's decode replaced, since
+    `main` builds its own dataset)."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from simpb_tpu_torch.data.dataset import NuScenesDataset
+    from simpb_tpu_torch.parallel import mesh
+    from simpb_tpu_torch.tools import train as train_cli
+    from simpb_tpu_torch.training import train_step
+
+    pool = np.random.default_rng(0).integers(
+        0, 256, (16,) + SRC_HW + (3,), dtype=np.uint8)
+    NuScenesDataset.load_images = lambda self, paths, dtype=np.float32, \
+        scale_hint=None: [pool[zlib.crc32(p.encode()) % len(pool)]
+                          .astype(dtype) for p in paths]
+    seen, per_step = {}, []
+
+    def recording_init(fn):
+        def init(*args, **kwargs):
+            dev = fn(*args, **kwargs)
+            seen.update(backend=torch.distributed.get_backend(),
+                        world=mesh.process_count(), device=str(dev))
+            return dev
+        return init
+
+    with rebound((mesh, "initialize_multihost", recording_init),
+                 (train_step, "build_train_step", counting(per_step))):
+        res = train_cli.main([
+            "--ann-file", f"{tmp}/train/infos.pkl", "--config", "r50-fast",
+            "--batch-size", str(TRAIN_BS), "--max-iters", str(NCCL_ITERS),
+            "--log-interval", "1", "--work-dir", f"{tmp}/nccl_{world}",
+            "--src-h", str(SRC_HW[0]), "--src-w", str(SRC_HW[1]),
+            "--multihost", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", str(world), "--process-id", str(rank)])
+    torch.save(dict(seen, losses=res["losses"], step_ms=res["step_ms"],
+                    launches_per_step=per_step,
+                    peak=torch.cuda.max_memory_allocated(),
+                    group_left=not mesh.is_initialized()),
+               f"{tmp}/nccl_{world}_{rank}.pt")
+
+
+def grad_shares(torch, got, ref):
+    """Per tensor group ("trunk": img_backbone, img_neck, depth_branch;
+    "head"): the relative L2 norm of got - ref over the group's elements,
+    and the worst element's max |got - ref| / (max |ref| +
+    DDP_GRAD_FLOOR x the group's largest gradient) with its tensor."""
+    group = lambda n: "trunk" if n.split(".")[0] in (
+        "img_backbone", "img_neck", "depth_branch") else "head"
+    top = {n: float(r.abs().max()) for n, r in ref.items()}
+    largest, sq_diff, sq_ref, worst = {}, {}, {}, {}
+    for n, t in top.items():
+        largest[group(n)] = max(largest.get(group(n), 0.0), t)
+    for n, r in ref.items():
+        g, d = group(n), (got[n].double() - r.double())
+        sq_diff[g] = sq_diff.get(g, 0.0) + float((d * d).sum())
+        sq_ref[g] = sq_ref.get(g, 0.0) + float((r.double() ** 2).sum())
+        share = float(d.abs().max()) / max(
+            top[n] + DDP_GRAD_FLOOR * largest[g], 1e-30)
+        if share > worst.get(g, (0.0, ""))[0]:
+            worst[g] = (share, n)
+    return {g: dict(rel_l2=(sq_diff[g] / max(sq_ref[g], 1e-300)) ** 0.5,
+                    worst_element_share=worst[g][0], worst_tensor=worst[g][1])
+            for g in sq_ref}
+
+
+def phase_train_ddp(torch, tmp):
+    """train_ddp (see the module docstring): the one-process reference
+    here, the two ranks spawned (each then runs eval_dist's shard), then
+    the training CLI's NCCL run at world 1 (and 2 on two cards)."""
+    import math
+
+    t0 = time.perf_counter()
+    ref = ddp_train(torch, TRAIN_BS, 0)
+    torch.save(dict(calls=ref.pop("calls"), carried=ref.pop("carried")),
+               f"{tmp}/reference.pt")
+    ref_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn("train_ddp_job", DDP_WORLD, tmp)
+    ranks_seconds = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/rank_{r}.pt", weights_only=False)
+             for r in range(DDP_WORLD)]
+    got = torch.load(f"{tmp}/grads_0.pt", weights_only=True)
+    shares = grad_shares(torch, got, ref["grads"])
+    loss_rel = max(abs(r["losses"][s][k] - ref["losses"][s][k])
+                   / max(abs(ref["losses"][s][k]), 1e-30)
+                   for r in ranks for s in range(DDP_STEPS)
+                   for k in ref["losses"][s])
+    want = want_train_launches(train_config("r50-fast"))
+    problems = []
+    if set(ranks[0]["losses"][0]) != set(ref["losses"][0]):
+        problems.append("loss keys differ")
+    for run in ("parity", "timed"):
+        res = [r if run == "parity" else r["timed"] for r in ranks]
+        if res[0]["losses"] != res[1]["losses"]:
+            problems.append(f"{run}: the ranks' global losses differ")
+        if len({r["digest"] for r in res}) != 1:
+            problems.append(f"{run}: parameters, statistics or moments "
+                            "differ across the ranks")
+        if not all(math.isfinite(v) for v in res[0]["losses"][-1].values()):
+            problems.append(f"{run}: non-finite losses")
+    for group, sh in shares.items():
+        if not sh["rel_l2"] <= DDP_GRAD_REL_L2[group]:
+            problems.append(f"{group} gradients: relative L2 "
+                            f"{sh['rel_l2']}")
+    if not loss_rel <= DDP_LOSS_RTOL:
+        problems.append(f"losses {loss_rel} relative")
+    for r, res in enumerate(ranks):
+        for run, counts, w in (("parity", res["launches_per_step"],
+                                PARITY_LAUNCHES),
+                               ("timed", res["timed"]["launches_per_step"],
+                                want)):
+            bad = [c for c in counts if c != w]
+            if bad:
+                problems.append(f"rank {r} {run} launches {bad[0]}, want "
+                                f"{w}")
+        if res["backend"] != "gloo":
+            problems.append(f"rank {r} backend {res['backend']}")
+    timed = [r["timed"] for r in ranks]
+    plain, moved = full_width_spread(torch)
+    emit(dict(phase="train_ddp",
+              config="simpb_r50_704x256_fast (timed); simpb_tiny with its "
+              "fast knobs at depth 50, trunk float64 (parity)",
+              head="float32", world=DDP_WORLD,
+              backend="gloo (set up by chip_smoke: two ranks on one card)",
+              device="cuda:0 for both ranks", batch_per_rank=DDP_BS,
+              global_batch=TRAIN_BS, steps=DDP_STEPS,
+              parity_trunk="float64", parity_lr=DDP_PARITY_LR,
+              timed_trunk="bfloat16", timed_lr="TrainConfig()",
+              step_ms=[t["step_ms"] for t in timed],
+              step_ms_median=[statistics.median(t["step_ms"][1:])
+                              for t in timed],
+              peak_bytes=[t["peak"] for t in timed],
+              timed_losses=[s["loss"] for s in timed[0]["losses"]],
+              parity_reference_step_ms=ref["step_ms"],
+              parity_rank_step_ms=[r["step_ms"] for r in ranks],
+              parity_reference_peak_bytes=ref["peak"],
+              parity_rank_peak_bytes=[r["peak"] for r in ranks],
+              gradients=shares, grad_rel_l2=DDP_GRAD_REL_L2,
+              loss_worst_rel=loss_rel, loss_rtol=DDP_LOSS_RTOL,
+              step1_worst_losses=worst_rel(ranks[0]["losses"][0],
+                                           ref["losses"][0]),
+              full_width_step1=dict(
+                  world2_vs_world1=worst_rel(timed[0]["losses"][0], plain),
+                  world1_bn_means_moved_2ulp=worst_rel(moved, plain),
+                  loss=[plain["loss"], moved["loss"],
+                        timed[0]["losses"][0]["loss"]]),
+              losses=[s["loss"] for s in ranks[0]["losses"]],
+              reference_losses=[s["loss"] for s in ref["losses"]],
+              assignment_cost_rel=[r["cost_rel"] for r in ranks],
+              launches_per_step=timed[0]["launches_per_step"][-1],
+              parity_launches_per_step=ranks[0]["launches_per_step"][-1],
+              digests_equal=[len({r["digest"] for r in ranks}) == 1,
+                             len({t["digest"] for t in timed}) == 1],
+              reference_seconds=ref_seconds, ranks_seconds=ranks_seconds))
+    if problems:
+        raise AssertionError(f"train_ddp phase: {problems}")
+
+    # the training CLI's own --multihost: NCCL, world 1 (and 2 on two
+    # cards, one a rank)
+    for world in (1, 2) if torch.cuda.device_count() >= 2 else (1,):
+        t0 = time.perf_counter()
+        spawn("nccl_job", world, tmp)
+        res = [torch.load(f"{tmp}/nccl_{world}_{r}.pt", weights_only=False)
+               for r in range(world)]
+        cfg = train_config("r50-fast")
+        keys = train_loss_keys(cfg)
+        emit(dict(phase="train_ddp_nccl", world=world, cards=world,
+                  backend=res[0]["backend"],
+                  devices=[r["device"] for r in res],
+                  iters=NCCL_ITERS, batch_per_rank=TRAIN_BS,
+                  step_ms=[r["step_ms"] for r in res],
+                  peak_bytes=[r["peak"] for r in res],
+                  losses=[res[0]["losses"][i]["loss"]
+                          for i in sorted(res[0]["losses"])],
+                  launches_per_step=res[0]["launches_per_step"],
+                  seconds=time.perf_counter() - t0,
+                  device_count=torch.cuda.device_count()))
+        want = want_train_launches(cfg)
+        for r in res:
+            if r["backend"] != "nccl" or r["world"] != world or \
+                    not r["group_left"]:
+                raise AssertionError(f"train_ddp_nccl: {r['backend']}, "
+                                     f"world {r['world']}")
+            if sorted(r["losses"]) != list(range(1, NCCL_ITERS + 1)) or any(
+                    set(ld) != keys or not all(map(math.isfinite,
+                                                   ld.values()))
+                    for ld in r["losses"].values()):
+                raise AssertionError("train_ddp_nccl: losses "
+                                     f"{r['losses']}")
+            if any(c != want for c in r["launches_per_step"]):
+                raise AssertionError("train_ddp_nccl: launches "
+                                     f"{r['launches_per_step']}")
+        if world == 2 and res[0]["losses"] != res[1]["losses"]:
+            raise AssertionError("train_ddp_nccl: the ranks' losses differ")
+    return ranks
+
+
+def phase_eval_dist(torch, tmp, ranks):
+    """eval_dist: the two ranks' `distributed_streaming_eval` (run by the
+    train_ddp processes) against this one process streaming the same two
+    shards (explicit ranks): rank 0's metrics equal, every prediction
+    bit for bit; 1/4/12/4/3/3 launches a frame on each rank."""
+    import math
+
+    import numpy as np
+
+    from simpb_tpu_torch.training import evaluate
+
+    cfg = flagship("bfloat16")
+    model = evaluate.build_model(cfg, device="cuda", seed=0)
+    dataset = ddp_eval_dataset(f"{tmp}/val/infos.pkl")
+    t0 = time.perf_counter()
+    for r in range(DDP_WORLD - 1, -1, -1):
+        one = evaluate.distributed_streaming_eval(
+            model, cfg, dataset, f"{tmp}/gather_one", world_size=DDP_WORLD,
+            rank=r)
+    seconds = time.perf_counter() - t0
+    metrics, preds, tokens = one
+    got = ranks[0]["eval"]
+    same = lambda a, b: a == b or (math.isnan(a) and math.isnan(b))
+    problems = []
+    if ranks[1]["eval"]["metrics"] is not None:
+        problems.append("rank 1 returned metrics")
+    if list(got["metrics"]) != list(metrics) or not all(
+            same(got["metrics"][k], metrics[k]) for k in metrics):
+        problems.append("rank 0's metrics differ from one process's")
+    if got["tokens"] != tokens or len(got["preds"]) != len(preds) or not \
+            all(sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in a)
+                for a, b in zip(got["preds"], preds)):
+        problems.append("predictions differ from one process's")
+    for r, res in enumerate(ranks):
+        bad = [c for c in res["eval"]["launches_per_frame"]
+               if c != WANT_LAUNCHES]
+        if bad or not res["eval"]["launches_per_frame"]:
+            problems.append(f"rank {r} launches {bad[:1]}")
+    emit(dict(phase="eval_dist", config="simpb_r50_704x256_fast",
+              trunk="bfloat16", head="bfloat16", world=DDP_WORLD,
+              backend="gloo (set up by chip_smoke: two ranks on one card)",
+              frames=len(tokens),
+              frames_per_rank=[len(r["eval"]["launches_per_frame"])
+                               for r in ranks],
+              rank_seconds=[r["eval"]["seconds"] for r in ranks],
+              one_process_seconds=seconds,
+              launches_per_frame=ranks[0]["eval"]["launches_per_frame"][-1],
+              metrics_equal=not problems,
+              metrics={k: None if math.isnan(v) else v
+                       for k, v in got["metrics"].items()}))
+    if problems:
+        raise AssertionError(f"eval_dist phase: {problems}")
+    del model
+    free_cuda(torch)
+
+
+def phase_eval_multi(torch, tmp, device="cuda:0"):
+    """eval_multi: `multidevice_streaming_eval(devices=["cuda:0"] * 4)`,
+    the flagship as bench.py serves it, over MULTI_SCENES scenes of
+    MULTI_SCENE_FRAMES frames (one shard a slot: bs 4 on one card),
+    against `streaming_eval` of each shard alone at bs 1. The first
+    decoder layer's outputs (before any temporal input or bank update)
+    of every frame and slot within MULTI_TOL of their largest value; the
+    decodes by instance ids (each frame's set of valid ids); launches
+    1/4/12/4/3/3 a step, not a slot; ms a step and frames a second
+    against the bs-1 streams in this call."""
+    import numpy as np
+
+    from simpb_tpu_torch.tools.test import eval_aug_conf
+    from simpb_tpu_torch.training import evaluate
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    cfg = flagship("bfloat16")
+    model = evaluate.build_model(cfg, device=device, seed=0)
+    n = MULTI_SCENES * MULTI_SCENE_FRAMES
+    os.makedirs(f"{tmp}/multi")
+    pkl = write_synthetic_infos(
+        f"{tmp}/multi", n_frames=n, src_hw=SRC_HW,
+        gap_at=tuple(range(MULTI_SCENE_FRAMES, n, MULTI_SCENE_FRAMES)))
+    dataset = memory_datasets()(pkl, test_mode=True, sequences_split_num=1,
+                                data_aug_conf=eval_aug_conf(cfg, *SRC_HW))
+    layer0 = []
+    hook = model.head.register_forward_hook(
+        lambda mod, args, out: layer0.append(
+            [out[k][0].float() for k in ("prediction", "classification")]))
+    per_step, step_ms = [], []
+
+    def timed(make):
+        counted = counted_steps(per_step)(make)
+
+        def steps(model, cfg):
+            def clock(fn):
+                def step(*args):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return step
+            return tuple(clock(fn) for fn in counted(model, cfg))
+        return steps
+
+    try:
+        reset_launch_counts()
+        with rebound((evaluate, "make_stream_steps", timed)):
+            t0 = time.perf_counter()
+            multi = evaluate.multidevice_streaming_eval(
+                model, cfg, dataset, devices=[device] * MULTI_SLOTS,
+                tracking=True)
+            multi_s = time.perf_counter() - t0
+            multi_layer0, multi_ms = layer0[:], step_ms[:]
+            singles, single_layer0, single_s = [], [], 0.0
+            for s in range(MULTI_SLOTS):
+                layer0.clear()
+                t0 = time.perf_counter()
+                singles.append(evaluate.streaming_eval(
+                    model, cfg, dataset, world_size=MULTI_SLOTS, rank=s,
+                    tracking=True))
+                single_s += time.perf_counter() - t0
+                single_layer0.append(layer0[:])
+    finally:
+        hook.remove()
+    single_ms = step_ms[len(multi_ms):]
+    worst, id_frames, id_equal = 0.0, 0, 0
+    for s in range(MULTI_SLOTS):
+        for t, (p1, c1) in enumerate(single_layer0[s]):
+            p4, c4 = (x[s] for x in multi_layer0[t])
+            for a, b in ((p4, p1[0]), (c4, c1[0])):
+                worst = max(worst, float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+    # the multi-slot predictions are shard-major: shard s's frames in order
+    preds = multi[1]
+    at = 0
+    for s in range(MULTI_SLOTS):
+        for p in singles[s][1]:
+            id_frames += 1
+            id_equal += int(np.array_equal(np.sort(p["track_ids"]),
+                                           np.sort(preds[at]["track_ids"])))
+            at += 1
+    tokens_ok = multi[2] == [t for sg in singles for t in sg[2]]
+    bad = [c for c in per_step[:len(multi_ms)] if c != WANT_LAUNCHES]
+    # frames a second from the median step (the cold steps included in
+    # the medians, one a stream)
+    fps = MULTI_SLOTS / (statistics.median(multi_ms) / 1e3)
+    fps1 = 1 / (statistics.median(single_ms) / 1e3)
+    emit(dict(phase="eval_multi", config="simpb_r50_704x256_fast",
+              trunk="bfloat16", head="bfloat16", slots=MULTI_SLOTS,
+              devices=[device] * MULTI_SLOTS, batch=MULTI_SLOTS,
+              steps=len(multi_ms), step_ms=multi_ms,
+              step_ms_median=statistics.median(multi_ms),
+              bs1_frame_ms_median=statistics.median(single_ms),
+              frames_per_s_bs4=fps, frames_per_s_bs1=fps1,
+              multi_seconds=multi_s, bs1_seconds=single_s,
+              layer0_worst_share=worst, layer0_tol=MULTI_TOL,
+              instance_id_frames_equal=[id_equal, id_frames],
+              launches_per_step=per_step[len(multi_ms) - 1],
+              tokens_shard_major=tokens_ok))
+    problems = []
+    if bad or len(multi_ms) != MULTI_SCENE_FRAMES:
+        problems.append(f"launches {bad[:1]} over {len(multi_ms)} steps")
+    if not worst <= MULTI_TOL:
+        problems.append(f"layer-0 outputs {worst} of their largest value")
+    if id_equal != id_frames or not tokens_ok:
+        problems.append(f"instance ids equal in {id_equal}/{id_frames} "
+                        f"frames, tokens shard-major {tokens_ok}")
+    if problems:
+        raise AssertionError(f"eval_multi phase: {problems}")
+    del model
+    free_cuda(torch)
+
+
+def phase_ddp(torch):
+    """train_ddp, eval_dist (in train_ddp's processes) and eval_multi,
+    with their shared synthetic sets in one temporary directory; the
+    kernels are built before any process starts."""
+    import tempfile
+
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_pkl(tmp)
+        os.makedirs(f"{tmp}/val")
+        write_synthetic_infos(f"{tmp}/val", n_frames=EVAL_FRAMES,
+                              gap_at=(EVAL_FRAMES // 2,), src_hw=SRC_HW)
+        t0 = time.perf_counter()
+        phase_eval_multi(torch, tmp)
+        t1 = time.perf_counter()
+        ranks = phase_train_ddp(torch, tmp)
+        t2 = time.perf_counter()
+        phase_eval_dist(torch, tmp, ranks)
+        emit(dict(phase="ddp_seconds", eval_multi=t1 - t0,
+                  train_ddp_and_nccl=t2 - t1,
+                  eval_dist=time.perf_counter() - t2))
+
+
 def main() -> int:
     import torch
 
@@ -2748,6 +3575,7 @@ def main() -> int:
     del train_calls
     phase_train_cli(torch)
     phase_train_cli_exact(torch)
+    phase_ddp(torch)
 
     kernels = []
     for name, s in summary.items():

@@ -20,6 +20,7 @@ import torch
 
 from ..core import box3d
 from ..ops.sampling import one_hot, topk_stable
+from ..parallel.mesh import batch_slice_draw
 
 
 class Allocation(NamedTuple):
@@ -35,8 +36,10 @@ class Allocation(NamedTuple):
 
 
 def corner_rank_draw(generator: torch.Generator, shape, device):
-    """Allocation's training draw: one uniform a (batch, camera, anchor)."""
-    return torch.rand(tuple(shape), generator=generator, device=device)
+    """Allocation's training draw: one uniform a (batch, camera, anchor);
+    this rank's rows of the global batch's (`batch_slice_draw`)."""
+    return batch_slice_draw(
+        lambda s: torch.rand(s, generator=generator, device=device), shape)
 
 
 def allocate_queries(

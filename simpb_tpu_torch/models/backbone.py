@@ -30,8 +30,11 @@ the running averages at momentum 0.9), `F.max_pool2d` for the stem pool
 `nn.max_pool`'s does), each bottleneck optionally rematerialised with
 `torch.utils.checkpoint` (the statistics of the first forward update
 the running averages once; the recompute's are dropped, as `nn.remat`
-drops the recomputed mutation), and the module FPN. `DenseDepthNet`
-is the training-only depth head.
+drops the recomputed mutation), and the module FPN. Under a process
+group the batch statistics are the global batch's (a SyncBatchNorm);
+the recompute runs the statistics' all-reduce again inside the
+backward, in the graph's order, which is the same on every rank.
+`DenseDepthNet` is the training-only depth head.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from ..ops.conv_fused import (
     bottleneck_down_fused_infer, bottleneck_fused_infer, conv3x3_bias_fused,
     fold_block_params, fold_bn, fold_downsample_params, maxpool_3x3_s2_fused,
 )
+from ..parallel.mesh import all_reduce_sum, is_initialized
 
 RESNET_STAGE_BLOCKS = {
     26: (1, 1, 1, 1),
@@ -75,10 +79,26 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
     batch statistics in fp32 or wider (mean and the biased E[x^2] -
     E[x]^2, floored at 0), `(x - mean) * (rsqrt(var + eps) * scale) +
     bias` in that type, returned in `dtype` with the (mean, var) of the
-    batch (detached)."""
+    batch (detached).
+
+    Under a process group the statistics are the global batch's, as
+    JAX's BatchNorm takes them over the whole array under `pjit`: the
+    ranks' sums of x, of x^2 and their element counts are all-reduced
+    (differentiably: their gradients are summed over the ranks too), so
+    every rank normalises alike and keeps equal running statistics."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    if is_initialized():
+        c = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+            torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                       device=xf.device)]))
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+    else:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
     mul = torch.rsqrt(var + BN_EPS) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
                                                                  None]

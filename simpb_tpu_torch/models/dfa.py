@@ -24,14 +24,17 @@ import torch.nn as nn
 from ..core import box3d
 from ..ops.format import SpatialShapes
 from ..ops.sampling import deformable_aggregation
+from ..parallel.mesh import batch_slice_draw
 from .det3d_blocks import SparseBox3DKeyPointsGenerator
 from .layers import Dense, MLPStack, current_dropout_generator
 
 
 def point_keep_draw(generator: torch.Generator, shape, device):
     """DFA's dropout draw: one uniform a (batch, anchor, camera, point),
-    shaped [bs, A, cams, 1, P, 1]."""
-    return torch.rand(tuple(shape), generator=generator, device=device)
+    shaped [bs, A, cams, 1, P, 1]; this rank's rows of the global
+    batch's (`batch_slice_draw`)."""
+    return batch_slice_draw(
+        lambda s: torch.rand(s, generator=generator, device=device), shape)
 
 
 class DeformableFeatureAggregation(nn.Module):

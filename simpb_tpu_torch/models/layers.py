@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import batch_slice_draw
+
 LN_EPS = 1e-5
 _DROPOUT_GEN: contextvars.ContextVar = contextvars.ContextVar(
     "dropout_generator", default=None)
@@ -50,9 +52,13 @@ def current_dropout_generator() -> Optional[torch.Generator]:
 def dropout_keep(generator: torch.Generator, shape, keep_prob: float,
                  device) -> torch.Tensor:
     """Bernoulli(keep_prob) keep mask (uniform < keep_prob, as
-    `jax.random.bernoulli`)."""
-    return torch.rand(tuple(shape), generator=generator,
-                      device=device) < keep_prob
+    `jax.random.bernoulli`). The leading axis is the local batch
+    (batch-major: [bs, ...] or [bs * cams, ...]); under a process group
+    the mask is this rank's rows of the global batch's
+    (`batch_slice_draw`)."""
+    return batch_slice_draw(
+        lambda s: torch.rand(s, generator=generator, device=device),
+        shape) < keep_prob
 
 
 def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:

@@ -6,7 +6,11 @@ Each source `simpb_tpu_torch/csrc/<name>.cu` compiles, at first use, into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-The hash covers the source, so an edited source builds anew. Functions
+The hash covers the source, so an edited source builds anew. Processes
+that start together (the ranks of a data-parallel run) build each
+library once: the build holds an exclusive `fcntl.flock` on
+`build/simpb_tpu_torch/lock` around `nvcc` and the rename, and a
+process that waited on it finds the library built. Functions
 have a plain C interface: every pointer and the stream pass as
 `ctypes.c_void_p`, every int as `ctypes.c_int`, and each returns the
 `cudaGetLastError()` code of its launch. Nothing here runs at import
@@ -14,7 +18,9 @@ time: the CPU tests import every module on a host without `nvcc`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -110,17 +116,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory (one build at a time
+    among the processes sharing it); released when the holder exits,
+    however it exits."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Sequence[str]) -> List[Path]:
     """Compile each `csrc/<name>.cu` whose library is not up to date, one
-    `nvcc` per source, all started together; keeps each `-Xptxas -v`
-    report beside its library. Raises with the compiler's output on
-    failure."""
+    `nvcc` per source, all started together, under the build lock; keeps
+    each `-Xptxas -v` report beside its library. Raises with the
+    compiler's output on failure."""
     outs = [library_path(n) for n in names]
+    if all(out.exists() for out in outs):
+        return outs
+    with _build_lock():
+        return _build_missing(names, outs)
+
+
+def _build_missing(names: Sequence[str], outs: List[Path]) -> List[Path]:
     procs = []
     for name, out in zip(names, outs):
-        if out.exists():
+        if out.exists():  # built by the process that held the lock
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         procs.append((name, out, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),

@@ -24,9 +24,19 @@ printing them, as the JAX CLI does.
 `--checkpoint` reads a checkpoint of the port's trainer
 (`python -m simpb_tpu_torch.tools.train`, `training/checkpoint.py`):
 the serving model takes the parameters and BatchNorm statistics it
-holds. `--torch-checkpoint` reads a reference (mmdet-named) `.pth`. Not
-ported (exit non-zero, naming the flag): `--cam-shards` > 1,
-`--show-dir`, `--multihost` and `--gather-dir`.
+holds. `--torch-checkpoint` reads a reference (mmdet-named) `.pth`.
+
+Several processes, one card each (`torchrun --nproc-per-node N -m
+simpb_tpu_torch.tools.test --multihost --gather-dir <shared dir> ...`,
+or `--multihost --coordinator host:port --num-processes N --process-id
+r` in each): each process streams one sequence shard
+(`distributed_streaming_eval`), writes it to `--gather-dir`, and rank 0
+scores the whole set, prints the metrics, writes `--out` and exits 3 on
+a guard violation; the other ranks return after writing their shard.
+One process with several cards and no `--device` streams one shard a
+card as the slots of a batch (`multidevice_streaming_eval`). Not ported
+(exit non-zero, naming the flag): `--cam-shards` > 1 (ROADMAP A.5) and
+`--show-dir` (A.6).
 """
 import argparse
 import dataclasses
@@ -68,9 +78,15 @@ def parse_args(argv=None):
                    help="run the decoder head in bfloat16 like bench.py "
                         "(default keeps the head fp32, the reference's "
                         "fp32-head policy for checkpoint-parity evals)")
-    p.add_argument("--gather-dir", default=None, help="not ported")
-    p.add_argument("--multihost", action="store_true", help="not ported")
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--gather-dir", default=None,
+                   help="shared directory of the shards' parts "
+                        "(multi-process eval)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group (torchrun's environment, "
+                        "or --coordinator) and evaluate one sequence "
+                        "shard a process")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for --multihost")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default=None,
@@ -82,14 +98,17 @@ def refused_flags(args):
     """The flags given that the port does not serve yet."""
     refused = []
     if args.cam_shards > 1:
-        refused.append("--cam-shards > 1")
+        refused.append("--cam-shards > 1 (one stream's cameras over "
+                       "several cards, ROADMAP A.5)")
     if args.show_dir:
         refused.append("--show-dir")
-    if args.multihost:
-        refused.append("--multihost")
-    if args.gather_dir:
-        refused.append("--gather-dir")
     return refused
+
+
+def _cards() -> int:
+    import torch
+
+    return torch.cuda.device_count()
 
 
 def build_config(args):
@@ -161,12 +180,30 @@ def main(argv=None):
     refused = refused_flags(args)
     if refused:
         raise SystemExit(f"not ported: {', '.join(refused)} (ROADMAP.md)")
+    if not args.multihost:
+        return evaluate(args)
+    from ..parallel import mesh
+
+    args.device = str(mesh.initialize_multihost(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device))
+    try:
+        return evaluate(args)
+    finally:
+        mesh.shutdown()
+
+
+def evaluate(args):
+    """The eval of a parsed command line, in this process's world (the
+    process group's, when one is initialised)."""
+    from ..parallel.mesh import process_count
+
     cfg = build_config(args)
 
     from ..data.dataset import NuScenesDataset
     from ..data.postprocess import format_nuscenes_submission
     from ..models.detector import check_serving_config
-    from ..training.evaluate import build_model, streaming_eval
+    from ..training import evaluate as ev
 
     try:
         check_serving_config(cfg)
@@ -177,7 +214,11 @@ def main(argv=None):
         data_aug_conf=eval_aug_conf(cfg, args.src_h, args.src_w),
         sequences_split_num=1, draft_decode=args.draft_decode,
     )
-    model = build_model(cfg, device=args.device, seed=0)
+    world = process_count()
+    if world > 1 and not args.gather_dir:
+        raise SystemExit("--gather-dir (a directory every process "
+                         "shares) is required for multi-process eval")
+    model = ev.build_model(cfg, device=args.device, seed=0)
     if args.checkpoint:
         from ..training.checkpoint import load_model_state
 
@@ -192,10 +233,20 @@ def main(argv=None):
             strict=True,
         )
 
-    metrics, preds, tokens = streaming_eval(
-        model, cfg, dataset, max_frames=args.max_frames, progress=True,
-        tracking=args.tracking,
-    )
+    kw = dict(max_frames=args.max_frames, progress=True,
+              tracking=args.tracking)
+    if world > 1:
+        result = ev.distributed_streaming_eval(model, cfg, dataset,
+                                               args.gather_dir, **kw)
+        if result is None:
+            return None  # this rank's shard is written; rank 0 reports
+        metrics, preds, tokens = result
+    elif args.device is None and _cards() > 1:
+        metrics, preds, tokens = ev.multidevice_streaming_eval(
+            model, cfg, dataset, **kw)
+    else:
+        metrics, preds, tokens = ev.streaming_eval(model, cfg, dataset,
+                                                   **kw)
     # NaN marks classes absent from the eval split; emit null so the
     # output stays strict JSON
     print(json.dumps(

@@ -23,11 +23,27 @@ bf16, the head in fp32. The step is `training/train_step.py::
 build_train_step`; its seed is `--seed`, and so are the photometric
 generator's and the sampler's (each its own generator, as in JAX).
 
-Refused with "not ported" (ROADMAP.md): `--multihost`, `--coordinator`,
-`--num-processes` and `--process-id` (data-parallel training, A.4);
-`--img-bf16` (a workaround of the TPU host link, not ported); the
-configs the port does not train yet (`r101`: ResNet-101, A.5;
-`r101-fast`: `stem_s2d`, A.5), before any model is built. `--config r50`
+Data parallel, one process a card: `torchrun --nproc-per-node N -m
+simpb_tpu_torch.tools.train --multihost ...`, or in each process
+`--multihost --coordinator host:port --num-processes N --process-id r`.
+`--batch-size` is a process's (the reference's per-GPU batch), so the
+global batch is N times it; the sampler gives each rank its slots of
+the global stream, every rank starts from the same seed (the
+parameters are checked equal on every rank after the build), and the
+step sums the gradients over the ranks (`training/train_step.py`). Rank
+0 logs, writes TensorBoard and the checkpoints (every rank gathers the
+stream state into them); a preemption signal on any rank stops every
+rank at the next check (every `min(--log-interval, 50)` iterations);
+the mid-training eval streams one sequence shard a rank through
+`distributed_streaming_eval` over `<work-dir>/eval_gather_<iter>`, and
+rank 0's score is broadcast before the `ckpt_best` decision. Each
+process arms its own watchdog. `run(args, ...)` takes its world from a
+process group the caller has already initialised.
+
+Refused with "not ported" (ROADMAP.md): `--img-bf16` (a workaround of
+the TPU host link, not ported); the configs the port does not train
+yet (`r101`: ResNet-101, A.5; `r101-fast`: `stem_s2d`, A.5), before any
+model is built. `--config r50`
 (the default) is the released recipe with exact MSDA, `r50-fast` the
 windowed one; `--config tiny` is JAX's tiny config, exact MSDA.
 
@@ -92,12 +108,13 @@ def parse_args(argv=None):
     p.add_argument("--eval-interval", type=int, default=20000)
     p.add_argument("--eval-frames", type=int, default=500,
                    help="cap on mid-training eval frames")
-    p.add_argument("--multihost", action="store_true", help="not ported")
-    p.add_argument("--coordinator", default=None, help="not ported")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="not ported")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="not ported")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group before training "
+                        "(torchrun's environment, or --coordinator)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for --multihost")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--watchdog-deadline", type=float, default=120.0,
                    help="seconds a termination signal may wait on a main "
                         "thread stuck in a native call before the "
@@ -110,13 +127,7 @@ def parse_args(argv=None):
 
 def refused_flags(args):
     """The flags given that the port does not serve yet."""
-    refused = [flag for flag, given in (
-        ("--multihost", args.multihost),
-        ("--coordinator", args.coordinator is not None),
-        ("--num-processes", args.num_processes is not None),
-        ("--process-id", args.process_id is not None),
-        ("--img-bf16", args.img_bf16),
-    ) if given]
+    refused = ["--img-bf16"] if args.img_bf16 else []
     if args.config in NOT_PORTED_CONFIGS:
         refused.append(f"--config {args.config} "
                        f"({NOT_PORTED_CONFIGS[args.config]}; use r50 or "
@@ -222,6 +233,7 @@ def run(args, dataset=None, eval_dataset=None):
     from ..data import transforms as T
     from ..data.dataset import NuScenesDataset
     from ..data.sampler import GroupStreamSampler
+    from ..parallel import mesh
     from ..training.checkpoint import (
         gather_stream_state, restore_checkpoint, save_checkpoint,
     )
@@ -248,8 +260,12 @@ def run(args, dataset=None, eval_dataset=None):
             strides=cfg.strides[: cfg.num_depth_layers],
             draft_decode=args.draft_decode,
         )
+    # `--batch-size` is this process's share of the global batch
+    world, rank = mesh.process_count(), mesh.process_index()
+    is_main = rank == 0
     bs = args.batch_size
-    sampler = GroupStreamSampler(dataset, batch_size=bs, seed=args.seed)
+    sampler = GroupStreamSampler(dataset, batch_size=bs, world_size=world,
+                                 rank=rank, seed=args.seed)
 
     model = build_train_model(cfg, device=device, seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -268,6 +284,9 @@ def run(args, dataset=None, eval_dataset=None):
 
         model.load_state_dict(load_torch_checkpoint(
             args.load_from, cfg, model), strict=True)
+    # the same seed and files on every rank: the same parameters
+    mesh.check_replicated(list(model.state_dict().values()),
+                          "the initial parameters")
 
     state = create_train_state(model, tc)
     temporal, dn_state = init_temporal(cfg, bs, device)
@@ -282,15 +301,16 @@ def run(args, dataset=None, eval_dataset=None):
          best_score) = restore_checkpoint(args.resume_from, state,
                                           temporal, dn_state)
         out["restore_ms"] = (time.perf_counter() - t0) * 1e3
-        print(f"resumed from {args.resume_from} at iter {start_iter}",
-              flush=True)
+        if is_main:
+            print(f"resumed from {args.resume_from} at iter {start_iter}",
+                  flush=True)
     step_fn = build_train_step(model, tc)
     os.makedirs(args.work_dir, exist_ok=True)
 
     # scalars to tensorboard when its package imports (reference
     # TensorboardLoggerHook, config:15-21); skipped otherwise
     tb_writer = None
-    if not os.environ.get("SIMPB_NO_TB"):
+    if is_main and not os.environ.get("SIMPB_NO_TB"):
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -302,9 +322,14 @@ def run(args, dataset=None, eval_dataset=None):
 
     def run_eval(step_no):
         """Mid-training eval (reference CustomDistEvalHook) in process, on
-        a serving model holding the live parameters and statistics."""
+        a serving model holding the live parameters and statistics; with
+        several processes one sequence shard a rank, gathered on disk
+        and scored on rank 0 (an empty dict on the other ranks). Every
+        rank must call it."""
         nonlocal eval_dataset, serve
-        from ..training.evaluate import streaming_eval
+        from ..training.evaluate import (
+            distributed_streaming_eval, streaming_eval,
+        )
 
         if eval_dataset is None:
             eval_dataset = NuScenesDataset(
@@ -316,11 +341,20 @@ def run(args, dataset=None, eval_dataset=None):
             )
         t0 = time.perf_counter()
         serve = serving_model(cfg, model, serve)
-        metrics, preds, _ = streaming_eval(serve, cfg, eval_dataset,
-                                           max_frames=args.eval_frames)
+        if world > 1:
+            result = distributed_streaming_eval(
+                serve, cfg, eval_dataset,
+                os.path.join(args.work_dir, f"eval_gather_{step_no}"),
+                max_frames=args.eval_frames)
+            metrics, preds = result[:2] if result else ({}, [])
+        else:
+            metrics, preds, _ = streaming_eval(serve, cfg, eval_dataset,
+                                               max_frames=args.eval_frames)
         out["evals"].append(dict(
             iter=step_no, metrics=metrics, frames=len(preds),
             ms=(time.perf_counter() - t0) * 1e3))
+        if not is_main:
+            return metrics
         print(f"eval @ iter {step_no}: {metrics}", flush=True)
         if tb_writer is not None:
             for k, v in metrics.items():
@@ -369,8 +403,18 @@ def run(args, dataset=None, eval_dataset=None):
             put(e)
 
     # preemption-safe save: SIGTERM / SIGUSR1 ask for a full-resume
-    # checkpoint at the next step boundary
+    # checkpoint at the next step boundary; with several processes the
+    # ranks OR their flags every `preempt_check` iterations
     preempted = []
+    preempt_check = max(1, min(args.log_interval, 50))
+
+    def should_stop(step_no):
+        if world == 1:
+            return bool(preempted)
+        if step_no % preempt_check:
+            return False
+        return mesh.any_flag(bool(preempted))
+
     old_handlers = {}
     for sig in (signal.SIGTERM, signal.SIGUSR1):
         try:
@@ -391,6 +435,8 @@ def run(args, dataset=None, eval_dataset=None):
         hang_iter, hang_secs = int(float(it_s)), float(secs)
 
     def save_ckpt(path, trained_pose):
+        """Every rank enters: the stream state's gather, then rank 0
+        writes and the others wait for the file."""
         t0 = time.perf_counter()
         t_host, d_host, pose_host = gather_stream_state(
             temporal, dn_state, trained_pose)
@@ -399,7 +445,8 @@ def run(args, dataset=None, eval_dataset=None):
         out["checkpoints"].append(dict(
             path=path, bytes=size, ms=(time.perf_counter() - t0) * 1e3))
         watchdog.record_checkpoint(path)
-        print(f"saved {path}", flush=True)
+        if is_main:
+            print(f"saved {path}", flush=True)
 
     worker = threading.Thread(target=producer, daemon=True)
     worker.start()
@@ -426,12 +473,16 @@ def run(args, dataset=None, eval_dataset=None):
                 state, batch, temporal, dn_state, args.seed)
             watchdog.heartbeat(step=i + 1)
             if (i + 1) % args.log_interval == 0:
+                # the global batch's losses, equal on every rank
                 losses = {k: float(v) for k, v in metrics.items()}
                 out["losses"][i + 1] = losses
                 dt = time.perf_counter() - t_log
-                print(f"iter {i + 1}/{max_iters} loss {losses['loss']:.4f} "
-                      f"({dt / args.log_interval:.2f}s/iter)", flush=True)
-                if i + 1 == start_iter + args.log_interval:
+                if is_main:
+                    print(f"iter {i + 1}/{max_iters} loss "
+                          f"{losses['loss']:.4f} "
+                          f"({dt / args.log_interval:.2f}s/iter)",
+                          flush=True)
+                if is_main and i + 1 == start_iter + args.log_interval:
                     peak = device_peak_memory(device)
                     if peak is not None:
                         print(f"peak device memory in use: "
@@ -445,14 +496,17 @@ def run(args, dataset=None, eval_dataset=None):
             # this is the step's time on the host clock
             out["step_ms"].append((time.perf_counter() - t_got) * 1e3)
 
-            if preempted:
+            if should_stop(i + 1):
                 # graceful preemption path engaged: the watchdog stands
                 # down; the checkpoint below owns the shutdown
                 watchdog.acknowledge()
                 save_ckpt(os.path.abspath(os.path.join(
                     args.work_dir, f"ckpt_preempt_{i + 1}")), trained_pose)
-                print(f"preemption signal: checkpointed at iter {i + 1}, "
-                      "exiting (resume with --resume-from)", flush=True)
+                out["preempted_at"] = i + 1
+                if is_main:
+                    print(f"preemption signal: checkpointed at iter "
+                          f"{i + 1}, exiting (resume with --resume-from)",
+                          flush=True)
                 break
             if (i + 1) % args.ckpt_interval == 0 or i + 1 == max_iters:
                 save_ckpt(os.path.abspath(os.path.join(
@@ -461,11 +515,16 @@ def run(args, dataset=None, eval_dataset=None):
                 # best checkpoint on the key score (reference
                 # CustomDistEvalHook save_best; NDS for nuScenes)
                 score = run_eval(i + 1).get("NDS", float("nan"))
+                # only rank 0 scored the gathered set: every rank takes
+                # its verdict, so that all enter the save below
+                score = mesh.broadcast_float(score)
+                out["evals"][-1]["score"] = score
                 if score == score and (best_score is None
                                        or score > best_score):
                     best_score = score
-                    print(f"new best NDS {score:.4f} @ iter {i + 1}",
-                          flush=True)
+                    if is_main:
+                        print(f"new best NDS {score:.4f} @ iter {i + 1}",
+                              flush=True)
                     save_ckpt(os.path.abspath(os.path.join(
                         args.work_dir, "ckpt_best")), trained_pose)
             t0 = time.perf_counter()
@@ -485,7 +544,21 @@ def run(args, dataset=None, eval_dataset=None):
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    if not args.multihost:
+        return run(args)
+    refused = refused_flags(args)
+    if refused:  # before joining the other processes
+        raise SystemExit(f"not ported: {', '.join(refused)} (ROADMAP.md)")
+    from ..parallel import mesh
+
+    args.device = str(mesh.initialize_multihost(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device))
+    try:
+        return run(args)
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -15,7 +15,15 @@ needs JAX), holding:
   that a resumed run cannot overwrite `ckpt_best` with a worse score.
 
 So a resumed run continues the exact stream the interrupted one was on
-(the reference restarts its temporal stream cold on resume). Every
+(the reference restarts its temporal stream cold on resume).
+
+Data parallel (`parallel/mesh.py`): `gather_stream_state` all-gathers
+every rank's stream slots in rank order (every rank calls it); rank 0
+alone writes the file, and every rank waits for it after; a restore
+reads the whole file on every rank and keeps the rank's slots
+`rank * bs_local:(rank + 1) * bs_local`, which is the sampler's
+rank-to-slot mapping. A checkpoint of another world size (its slot count
+not `bs_local * world`) raises. Every
 value is a tensor, a number or None, so `torch.load(weights_only=True)`
 reads it. A restore goes into the caller's templates on their devices,
 with `strict=True` for the model and every other entry checked by name,
@@ -31,6 +39,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import (
+    all_gather_rows, host_barrier, process_count, process_index,
+)
 
 FORMAT = "simpb_tpu_torch.checkpoint/1"
 
@@ -62,11 +74,23 @@ def _unpack_prev_pose(packed: Dict[str, torch.Tensor]) -> List:
 
 
 def gather_stream_state(temporal, dn_state, prev_pose: Optional[List]):
-    """The whole stream's state on this process: the identity on one
-    process, which is all the port runs (a data-parallel run would
-    gather the other ranks' slots here, ROADMAP A.4). Returns
-    (temporal, dn_state, prev_pose)."""
-    return temporal, dn_state, prev_pose
+    """The whole stream's state: every rank's slots of the temporal
+    state, the DN state and the host poses, all-gathered in rank order
+    (the identity on one process). Every rank must call it. Returns
+    (temporal, dn_state, prev_pose) over the global batch."""
+    if process_count() == 1:
+        return temporal, dn_state, prev_pose
+
+    def gather(obj):
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{
+            f.name: all_gather_rows(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+
+    packed = {k: all_gather_rows(v)
+              for k, v in _pack_prev_pose(prev_pose).items()}
+    return gather(temporal), gather(dn_state), _unpack_prev_pose(packed)
 
 
 def _fields(obj) -> Optional[Dict[str, torch.Tensor]]:
@@ -83,9 +107,23 @@ def _check(name: str, saved: torch.Tensor, like: torch.Tensor) -> None:
                          f"{like.dtype}")
 
 
+def _rank_slots(kind: str, saved: torch.Tensor, like: torch.Tensor):
+    """This rank's slots of a saved stream field (all of them at world
+    1); a slot count other than `bs_local * world` raises."""
+    world = process_count()
+    if world == 1:
+        return saved
+    n = like.shape[0]
+    if saved.shape[0] != n * world:
+        raise ValueError(f"checkpoint {kind}: {saved.shape[0]} stream "
+                         f"slots, expected {n} a rank x {world} ranks")
+    return saved[process_index() * n:(process_index() + 1) * n]
+
+
 def _restore_fields(kind: str, template, saved):
-    """`template` (a dataclass of tensors) with the saved fields, on the
-    template's devices; None where the checkpoint holds none."""
+    """`template` (a dataclass of tensors) with the saved fields (this
+    rank's slots), on the template's devices; None where the checkpoint
+    holds none."""
     if saved is None:  # the stream carried none
         return None
     if template is None:
@@ -97,8 +135,9 @@ def _restore_fields(kind: str, template, saved):
     out = {}
     for n in names:
         like = getattr(template, n)
-        _check(f"{kind}.{n}", saved[n], like)
-        out[n] = saved[n].to(like.device)
+        mine = _rank_slots(f"{kind}.{n}", saved[n], like)
+        _check(f"{kind}.{n}", mine, like)
+        out[n] = mine.to(like.device)
     return dataclasses.replace(template, **out)
 
 
@@ -112,8 +151,15 @@ def save_checkpoint(
 ) -> int:
     """Write `state` (a `TrainState`), the stream state, the host poses
     and the best score to the file `path` (written to a temporary name,
-    then renamed, so a reader never sees half a file). Returns the
-    file's size in bytes."""
+    then renamed, so a reader never sees half a file). Under a process
+    group rank 0 writes (the stream state gathered first, by
+    `gather_stream_state`) and every rank returns after the file is
+    there. Returns the file's size in bytes (None on the other
+    ranks)."""
+    path = os.path.abspath(path)
+    if process_index() != 0:
+        host_barrier(f"checkpoint {path}")
+        return None
     tree = {
         "format": FORMAT,
         "model": {k: v.detach().cpu()
@@ -127,11 +173,11 @@ def save_checkpoint(
         "best_score": float(best_score if best_score is not None
                             else math.nan),
     }
-    path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(tree, tmp)
     os.replace(tmp, path)
+    host_barrier(f"checkpoint {path}")
     return os.path.getsize(path)
 
 
@@ -153,8 +199,9 @@ def restore_checkpoint(
     place; the stream state as new tensors on the templates' devices).
 
     Returns (state, temporal, dn_state, prev_pose | None, start_iter,
-    best_score | None). A checkpoint of another configuration, batch
-    size or format raises."""
+    best_score | None), the stream state and poses this rank's slots.
+    A checkpoint of another configuration, batch size, world size or
+    format raises."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or ckpt.get("format") != FORMAT:
         raise ValueError(f"{path} is not a checkpoint of this package "
@@ -172,8 +219,13 @@ def restore_checkpoint(
     state.step = int(ckpt["step"])
     temporal = _restore_fields("temporal", temporal, ckpt["temporal"])
     dn_state = _restore_fields("dn_state", dn_state, ckpt["dn_state"])
-    prev_pose = (_unpack_prev_pose(ckpt["prev_pose"])
-                 if len(ckpt["prev_pose"]["has"]) else None)
+    prev_pose = None
+    if len(ckpt["prev_pose"]["has"]):
+        prev_pose = _unpack_prev_pose(ckpt["prev_pose"])
+        if process_count() > 1:
+            n = len(prev_pose) // process_count()
+            prev_pose = prev_pose[process_index() * n:
+                                  (process_index() + 1) * n]
     best = float(ckpt["best_score"])
     return (state, temporal, dn_state, prev_pose, state.step,
             None if math.isnan(best) else best)

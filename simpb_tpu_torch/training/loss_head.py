@@ -7,7 +7,12 @@ Per-decoder-layer 3D assignment losses (`loss3d`), per-camera 2D losses
 assembled by `total_loss` under the JAX package's key names
 (`loss_cls3d_0`, `loss_box3d_dn_0`, `loss_alpha2d_1`, ...). Everything is
 masked fixed-shape arithmetic; the positive counts are global over the
-batch, as in the JAX package.
+batch, as in the JAX package. Under a process group they are global over
+the ranks too (`_count`, the depth loss's denominator): each rank's loss
+is its local sum over the global count, so the ranks' losses sum to the
+loss of the global batch, JAX's under `pjit`. Every other reduction here
+and in `losses.py`, `targets3d.py`, `targets2d.py` and `dn.py` is within
+one sample (a matrix's costs, a row's targets) or a plain sum.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..configs.base import TrainConfig
+from ..parallel.mesh import all_reduce_sum
 from . import losses as L
 from .targets2d import Target2DConfig, cost2d, targets2d
 from .targets3d import (
@@ -24,7 +30,8 @@ from .targets3d import (
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(mask.sum().float(), min=1.0)
+    """The positives of the global batch (all ranks), at least 1."""
+    return torch.clamp(all_reduce_sum(mask.sum().float()), min=1.0)
 
 
 def loss3d(outputs: Dict, gt_boxes, gt_labels, gt_valid, tc: TrainConfig,
@@ -183,7 +190,8 @@ def dense_depth_loss(depth_preds: Sequence[torch.Tensor],
         fg = (gt > 0.0) & torch.isfinite(pred)
         pred = pred.clamp(0.0, max_depth)
         err = torch.where(fg, (pred - gt).abs(), torch.zeros_like(pred)).sum()
-        denom = torch.clamp(fg.sum().float() * num_levels, min=1.0)
+        denom = torch.clamp(all_reduce_sum(fg.sum().float()) * num_levels,
+                            min=1.0)
         total = total + err / denom * loss_weight
     return total
 

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..core import box3d
+from ..parallel.mesh import batch_slice_draw
 from .losses import focal_match_cost
 from .matching import batched_assignment
 
@@ -158,12 +159,22 @@ class DnBundle:
 
 
 def dn_draws(generator: torch.Generator, shape: Sequence[int],
-             add_neg_dn: bool = True, device=None):
+             add_neg_dn: bool = True, device=None, num_dn_groups: int = 1):
     """The uniforms of `get_dn_anchors`: positive noise, negative noise
-    and the negatives' sign flags, each [num_dn_groups * bs, g, 10]."""
+    and the negatives' sign flags, each [num_dn_groups * bs, g, 10]
+    (group-major); under a process group this rank's rows of the
+    global batch's (`batch_slice_draw` along the batch within each
+    group)."""
     n = 3 if add_neg_dn else 1
-    return tuple(torch.rand(tuple(shape), generator=generator,
-                            device=device) for _ in range(n))
+    gb, rest = shape[0], tuple(shape[1:])
+    grouped = (num_dn_groups, gb // num_dn_groups) + rest
+
+    def draw(s):
+        return torch.rand((s[0] * s[1],) + rest, generator=generator,
+                          device=device).reshape(s)
+
+    return tuple(batch_slice_draw(draw, grouped, axis=1).reshape(
+        (gb,) + rest) for _ in range(n))
 
 
 def get_dn_anchors(
@@ -224,7 +235,7 @@ def get_dn_anchors(
     labels_t = tile_g(gt_labels)
     scale = torch.tensor(noise_scale, device=dev)
     if isinstance(rng, torch.Generator):
-        rng = dn_draws(rng, enc_t.shape, add_neg_dn, dev)
+        rng = dn_draws(rng, enc_t.shape, add_neg_dn, dev, num_dn_groups)
     noise = (rng[0] * 2 - 1) * scale
     dn_anchor = enc_t + noise
     num_per = g

@@ -15,6 +15,21 @@ backward on `total_loss` and applies the optimizer in place. The batch
 is the JAX step's dict of tensors (`utils/synthetic.py::
 synthetic_train_batch` makes one).
 
+Data parallel (under a process group, `parallel/mesh.py`): each rank
+takes its rows of the global batch with the same seed, so its four
+generators are every other rank's; the draws whose axis is the batch
+keep this rank's rows of the global draw. Each rank's loss is its local
+sum over the global normalisers (`loss_head.py`), the BatchNorm
+statistics are the global batch's, and after the backward every
+gradient is summed over the ranks (one flat buffer, the parameters'
+order) before the optimizer, whose per-group clip then sees the global
+gradient, as optax's does under `pjit`. So N ranks at bs b take the
+step one process takes at bs N * b, and the parameters, statistics and
+moments stay equal on every rank. The reduction is explicit rather than
+`DistributedDataParallel`'s: the BatchNorm collectives run inside the
+backward under remat, some parameters take no gradient, and a fixed
+order keeps repeats deterministic.
+
 The optimizer is optax's `multi_transform` of the JAX package, written
 out: each label's chain is `clip_by_global_norm(grad_clip_norm)` (over
 that label's parameters only: "default" and "backbone" are clipped to
@@ -33,6 +48,7 @@ import torch
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..models.instance_bank import TemporalState
+from ..parallel.mesh import all_reduce_sum_
 from .dn import DnState
 from .loss_head import total_loss
 from .targets3d import TargetConfig, get_dn_anchors
@@ -183,8 +199,9 @@ def build_train_step(model, tc: TrainConfig,
                    temporal: Optional[TemporalState],
                    dn_state: Optional[DnState], seed: int, marks=None):
         """One step. `marks`, a list, gets (name, CUDA event) pairs
-        recorded at "start" and after the "forward", "backward" and
-        "optimizer" parts (on the card only)."""
+        recorded at "start" and after the "forward", "backward" (the
+        gradients summed over the ranks) and "optimizer" parts (on the
+        card only). The metrics are the global batch's."""
 
         def mark(name):
             if marks is not None:
@@ -202,11 +219,17 @@ def build_train_step(model, tc: TrainConfig,
         loss, loss_dict, outs = loss_fn(batch, temporal, dn_state, gens)
         mark("forward")
         loss.backward()
+        # every rank reduces the same list: a parameter without a
+        # gradient contributes zeros
+        grads = {n: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)) for n, p in params.items()}
+        all_reduce_sum_(list(grads.values()))
         mark("backward")
-        apply_optimizer(state, tc, {n: p.grad for n, p in params.items()})
+        apply_optimizer(state, tc, grads)
         mark("optimizer")
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in loss_dict.items()}}
+        metrics = {k: torch.as_tensor(v).detach().float().clone()
+                   for k, v in {"loss": loss, **loss_dict}.items()}
+        all_reduce_sum_(list(metrics.values()))
         return (state, outs["temporal_state"], outs.get("dn_state"),
                 metrics)
 

@@ -113,16 +113,27 @@ def test_native_preprocess_refuses_other_shapes(fake_set):
 
 
 def test_training_side_not_ported(fake_set):
-    """What of the training side is still not ported (ROADMAP A.4, the
-    training CLI's multi-process run) is refused as "not ported". The
-    training-mode dataset is ported (tests/test_torch_port_train_data.py
-    holds it to JAX): it builds, and without a generator its augmentation
-    is the fixed test-mode one."""
+    """What of the training side is still not ported is refused as "not
+    ported" (`--img-bf16`, ResNet-101: ROADMAP A.5); the multi-process
+    run is served since data-parallel training landed: `--multihost`
+    without a launcher's environment or a coordinator raises the
+    rendezvous's error, and never trains alone. The training-mode
+    dataset is ported (tests/test_torch_port_train_data.py holds it to
+    JAX): it builds, and without a generator its augmentation is the
+    fixed test-mode one."""
     pkl, aug = fake_set
-    for extra in (["--multihost"], ["--num-processes", "2"]):
+    for extra in (["--img-bf16"], ["--config", "r101"]):
         with pytest.raises(SystemExit, match="not ported"):
             train_cli.main(["--ann-file", pkl, "--config", "tiny",
                             "--device", "cpu"] + extra)
+    env = {k: os.environ.pop(k) for k in ("MASTER_ADDR", "RANK")
+           if k in os.environ}
+    try:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train_cli.main(["--ann-file", pkl, "--config", "tiny",
+                            "--device", "cpu", "--multihost"])
+    finally:
+        os.environ.update(env)
     train = NuScenesDataset(pkl, test_mode=False, data_aug_conf=aug)
     assert train.get_augmentation() == NuScenesDataset(
         pkl, test_mode=True, data_aug_conf=aug).get_augmentation()
@@ -231,7 +242,8 @@ def test_scorers_match_jax():
 # JAX configuration that `--config` selects
 NOT_PORTED_ARGS = [
     (["--cam-shards", "2"], None), (["--show-dir", "vis"], None),
-    (["--multihost"], None), (["--gather-dir", "gather"], None),
+    (["--multihost"], "simpb_r50_704x256"),
+    (["--gather-dir", "gather"], "simpb_r50_704x256"),
     (["--config", "r50"], "simpb_r50_704x256"),
     (["--config", "r50-guarded"], "simpb_r50_704x256_guarded"),
     (["--config", "r50-fast-guarded"], "simpb_r50_704x256_fast_guarded"),
@@ -257,26 +269,108 @@ def _fake_eval(monkeypatch, metrics):
 @pytest.mark.parametrize("extra,served", NOT_PORTED_ARGS,
                          ids=[" ".join(a) for a, _ in NOT_PORTED_ARGS])
 def test_test_cli_refuses(fake_set, monkeypatch, extra, served):
-    """Every flag the port does not serve exits with "not ported". The
+    """Every flag the port does not serve exits with "not ported"
+    (`--cam-shards` > 1 naming ROADMAP A.5, `--show-dir`). The
     configurations it serves run (no model built here): the config equals
     the JAX CLI's of that name, field by field, trunk bf16 and the fused
-    trunk, and `check_serving_config` accepts it."""
+    trunk, and `check_serving_config` accepts it. `--multihost` and
+    `--gather-dir` are served since the multi-process eval landed: with
+    `--multihost` the CLI joins the process group first and leaves it
+    after (no group is made here, so the world is 1 and the one stream
+    runs); `--gather-dir` at world 1 changes nothing."""
     from simpb_tpu_torch.models.detector import check_serving_config
+    from simpb_tpu_torch.parallel import mesh
 
     argv = ["--ann-file", fake_set[0], "--device", "cpu"] + extra
     if served is None:
         with pytest.raises(SystemExit) as exc:
             test_cli.main(argv)
         assert "not ported" in str(exc.value.code)
+        if extra[0] == "--cam-shards":
+            assert "ROADMAP A.5" in str(exc.value.code)
         return
+    joined, left = [], []
+    monkeypatch.setattr(mesh, "initialize_multihost",
+                        lambda *a, **k: joined.append((a, k))
+                        or torch.device("cpu"))
+    monkeypatch.setattr(mesh, "shutdown", lambda: left.append(1))
     configs = _fake_eval(monkeypatch, {"mAP": 0.0})
     assert test_cli.main(argv) == {"mAP": 0.0}
+    multihost = extra == ["--multihost"]
+    assert joined == ([((None, None, None), {"device": "cpu"})]
+                      if multihost else [])
+    assert left == ([1] if multihost else [])
     (cfg,) = configs
     want = dataclasses.replace(getattr(jax_base, served)(),
                                compute_dtype="bfloat16",
                                backbone_fused_infer=True)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
     check_serving_config(cfg)
+
+
+def test_test_cli_multi_process_dispatch(fake_set, monkeypatch, tmp_path,
+                                        capsys):
+    """With more than one process the CLI streams its shard through
+    `distributed_streaming_eval` into `--gather-dir` (required); rank 0
+    prints the metrics and exits 3 on a guard violation, the other ranks
+    return after writing their shard; `--cam-shards` stays refused. One
+    process with several cards and no `--device` takes one shard a card
+    (`multidevice_streaming_eval`). No model is built, no group made."""
+    from simpb_tpu_torch.parallel import mesh
+    from simpb_tpu_torch.training import evaluate
+
+    _fake_eval(monkeypatch, {"mAP": 0.0})
+    calls = []
+
+    def dist_eval(model, cfg, dataset, tmpdir, **kw):
+        calls.append(tmpdir)
+        return results.pop(0)
+
+    monkeypatch.setattr(evaluate, "distributed_streaming_eval", dist_eval)
+    monkeypatch.setattr(mesh, "process_count", lambda: 2)
+    argv = ["--ann-file", fake_set[0], "--device", "cpu"]
+    with pytest.raises(SystemExit, match="--gather-dir"):
+        test_cli.main(argv)
+    with pytest.raises(SystemExit, match="not ported"):
+        test_cli.main(argv + ["--cam-shards", "2"])
+    gather = str(tmp_path / "gather")
+    results = [None, ({"mAP": 0.5}, [], []),
+               ({"mAP": 0.5, "guard_dfa_overflow": 1.0}, [], [])]
+    assert test_cli.main(argv + ["--gather-dir", gather]) is None
+    capsys.readouterr()
+    assert test_cli.main(argv + ["--gather-dir", gather]) == {"mAP": 0.5}
+    assert '"mAP": 0.5' in capsys.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        test_cli.main(argv + ["--config", "r50-guarded", "--gather-dir",
+                              gather])
+    assert exc.value.code == 3 and calls == [gather] * 3
+
+    monkeypatch.setattr(mesh, "process_count", lambda: 1)
+    monkeypatch.setattr(test_cli, "_cards", lambda: 2)
+    monkeypatch.setattr(evaluate, "multidevice_streaming_eval",
+                        lambda model, cfg, dataset, **kw: ({"mAP": 0.25},
+                                                           [], []))
+    assert test_cli.main(argv) == {"mAP": 0.0}  # a device was named
+    assert test_cli.main(argv[:2]) == {"mAP": 0.25}
+
+
+def test_decode_to_host_takes_broadcast_guards():
+    """The one host copy of a decode: the first sample or the whole
+    batch, each value as it was, a guard maximum broadcast to [bs]
+    (stride 0) among them."""
+    from simpb_tpu_torch.training import evaluate
+
+    dec = {"boxes_3d": torch.arange(12.0).reshape(2, 3, 2),
+           "labels_3d": torch.tensor([[1, 2, 3], [4, 5, 6]],
+                                     dtype=torch.int32),
+           "valid": torch.tensor([[True, False, True], [False] * 3]),
+           "guard_dfa_overflow": torch.tensor(7.0).expand(2)}
+    batch = evaluate._decode_batch_to_host(dec)
+    first = evaluate._decode_to_host(dec)
+    for k, v in dec.items():
+        np.testing.assert_array_equal(batch[k], v.numpy())
+        np.testing.assert_array_equal(first[k], v[0].numpy())
+        assert batch[k].dtype == v.numpy().dtype
 
 
 def test_test_cli_exits_on_guard_violation(fake_set, monkeypatch, capsys):
@@ -331,17 +425,46 @@ def test_test_cli_runs_on_cpu(fake_set, tmp_path, capsys):
             assert {"tracking_id", "tracking_name", "tracking_score"} <= set(a)
 
 
-def test_streaming_eval_refuses():
+def test_streaming_eval_refuses(monkeypatch, tmp_path):
+    """`cam_shards > 1` (ROADMAP A.5) and `show_dir` are refused; the
+    multi-slot and distributed evals are served (held to the bs-1 stream
+    and to JAX in tests/test_torch_port_slice.py): one slot is the one
+    stream, and the disk gather merges the ranks' parts in rank order
+    with their guard maxima."""
     from simpb_tpu_torch.training import evaluate
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         evaluate.streaming_eval(None, None, None, cam_shards=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         evaluate.streaming_eval(None, None, None, show_dir="vis")
-    for fn in (evaluate.multidevice_streaming_eval,
-               evaluate.distributed_streaming_eval):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn()
+    streamed = []
+    monkeypatch.setattr(evaluate, "streaming_eval",
+                        lambda *a, **k: streamed.append(k) or "one")
+    assert evaluate.multidevice_streaming_eval(
+        None, None, None, max_frames=3, devices=["cpu"]) == "one"
+    assert streamed[0]["max_frames"] == 3
+
+    def fake_shard(model, cfg, dataset, shard, progress=False):
+        rank = shard[0]
+        return ([{"rank": rank}], [{"gt": rank}], [0], [f"tok{rank}"],
+                {"guard_x": float(rank + 1)})
+
+    scored = []
+    monkeypatch.setattr(evaluate, "_stream_shard", fake_shard)
+    monkeypatch.setattr(evaluate, "_score", lambda p, g, s, t: scored.append(
+        (p, g, s)) or {"mAP": 0.5})
+    monkeypatch.setattr(sampler, "sequence_eval_shards",
+                        lambda ds, n: [[r] for r in range(n)])
+    for rank in (1, 0):
+        got = evaluate.distributed_streaming_eval(
+            None, None, None, str(tmp_path), world_size=2, rank=rank)
+        assert (got is None) == (rank == 1)
+    metrics, preds, tokens = got
+    assert metrics == {"mAP": 0.5, "guard_x": 2.0}
+    assert preds == [{"rank": 0}, {"rank": 1}]
+    assert tokens == ["tok0", "tok1"]
+    assert scored[0][2] == [(0, 0), (1, 0)]
+    assert sorted(os.listdir(tmp_path)) == ["part_0.pkl", "part_1.pkl"]
 
 
 @pytest.fixture(scope="module")

@@ -408,3 +408,123 @@ def test_load_torch_checkpoint_matches_from_jax(slice_run, tmp_path):
     torch.save({"fc.weight": torch.ones(3, 3)}, pth)
     with pytest.raises(ValueError, match="no SimPB parameters"):
         load_torch_checkpoint(str(pth), run.tcfg, base)
+
+
+def _jax_steps_recording(run, jdecs):
+    """`_jitted_steps` of the JAX eval pointed at the fixture's compiled
+    steps, each decode recorded in `jdecs` (first sample)."""
+    cold_c, stream_c = run.jax_steps
+    kw = dict(num_output=run.jcfg.head.num_output,
+              score_threshold=run.jcfg.head.score_threshold)
+
+    def decoded(out):
+        dec = jax_decode(out["classification"][-1], out["prediction"][-1],
+                         instance_id=out["instance_id"],
+                         quality=out["quality"][-1], **kw)
+        jdecs.append({k: np.asarray(v)[0] for k, v in dec.items()})
+        return dec, out["temporal_state"]
+
+    def steps(model, cfg, cam_mesh=None):
+        return (lambda v, img, p: decoded(cold_c(v, img, p)),
+                lambda v, img, p, s, dt, t2c: decoded(
+                    stream_c(v, img, p, s, dt, t2c)))
+
+    return steps
+
+
+def _same_predictions(tp, jp):
+    assert len(tp) == len(jp)
+    for f, (j, t) in enumerate(zip(jp, tp)):
+        assert sorted(t) == sorted(j)
+        for key in ("labels", "track_ids", "ego_xy"):
+            np.testing.assert_array_equal(t[key], j[key])
+        for key in ("boxes", "scores"):
+            np.testing.assert_allclose(t[key], j[key], atol=ATOL, rtol=RTOL,
+                                       err_msg=f"frame {f} {key}")
+
+
+def _eval_set(run, directory):
+    from simpb_tpu.data.dataset import NuScenesDataset as JaxDataset
+    from simpb_tpu_torch.data.dataset import NuScenesDataset
+    from simpb_tpu_torch.tools.test import eval_aug_conf
+    from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
+
+    pkl = write_synthetic_infos(str(directory), n_frames=4, gap_at=(2,),
+                                src_hw=(60, 100), num_objects=8,
+                                write_images=True)
+    dkw = dict(test_mode=True, sequences_split_num=1,
+               data_aug_conf=eval_aug_conf(run.tcfg, 60, 100))
+    return JaxDataset(pkl, **dkw), NuScenesDataset(pkl, **dkw)
+
+
+def test_distributed_streaming_eval_matches_jax(slice_run, tmp_path,
+                                                monkeypatch):
+    """The disk-gather eval driven as ranks 1 then 0 of two in one
+    process, in both packages, over one fake set of two scenes (one
+    shard a rank), the JAX side on the fixture's compiled steps: the
+    same frames in the same order, each decode (valid mask, labels,
+    instance ids equal; boxes and scores within the slice tolerance),
+    the merged predictions, and every metric within 1e-3."""
+    import simpb_tpu.training.evaluate as jeval
+    from simpb_tpu_torch.training import evaluate as teval
+
+    run = slice_run
+    jdecs, tdecs = [], []
+    monkeypatch.setattr(jeval, "_jitted_steps",
+                        _jax_steps_recording(run, jdecs))
+    to_host = teval._decode_to_host
+    monkeypatch.setattr(teval, "_decode_to_host",
+                        lambda dec: tdecs.append(to_host(dec)) or tdecs[-1])
+    jds, tds = _eval_set(run, tmp_path / "set")
+    for r in (1, 0):
+        j = jeval.distributed_streaming_eval(
+            None, run.jcfg, run.variables, jds, str(tmp_path / "jax"),
+            world_size=2, rank=r, tracking=True)
+        t = teval.distributed_streaming_eval(
+            run.tmodel, run.tcfg, tds, str(tmp_path / "port"), world_size=2,
+            rank=r, tracking=True)
+        assert (j is None) == (t is None) == (r == 1)
+    (jm, jp, jt), (tm, tp, tt) = j, t
+    # rank 1's shard streamed first, then rank 0's
+    assert tt == jt == [f"tok{i}" for i in range(4)]
+    assert len(jdecs) == len(tdecs) == 4
+    for f, (jd, td) in enumerate(zip(jdecs, tdecs)):
+        for key in ("valid", "labels_3d", "instance_ids", "anchor_idx"):
+            np.testing.assert_array_equal(td[key], jd[key],
+                                          err_msg=f"frame {f} {key}")
+        for key in ("boxes_3d", "scores_3d"):
+            np.testing.assert_allclose(td[key], jd[key], atol=ATOL,
+                                       rtol=RTOL, err_msg=f"frame {f} {key}")
+    _same_predictions(tp, jp)
+    assert list(tm) == list(jm)
+    assert {"mAP", "NDS", "AMOTA", "AMOTP"} <= set(tm)
+    np.testing.assert_allclose([tm[k] for k in tm], [jm[k] for k in jm],
+                               atol=1e-3, rtol=0)
+
+
+def test_multidevice_streaming_eval_matches_bs1_streams(slice_run, tmp_path):
+    """`multidevice_streaming_eval(devices=["cpu"] * 2)`: the two scenes'
+    shards as the two slots of a bs-2 batch, each frame's prediction
+    that of streaming its shard alone at bs 1 (`streaming_eval` with
+    world_size 2 and its rank), shard-major, the same metrics; with
+    three slots and two scenes the slots shrink to two (the same
+    result), and `max_frames` is the total, split over the shards."""
+    from simpb_tpu_torch.training import evaluate as teval
+
+    run = slice_run
+    _, tds = _eval_set(run, tmp_path / "set")
+    multi = teval.multidevice_streaming_eval(
+        run.tmodel, run.tcfg, tds, devices=["cpu"] * 2, tracking=True)
+    singles = [teval.streaming_eval(run.tmodel, run.tcfg, tds, world_size=2,
+                                    rank=r, tracking=True) for r in (0, 1)]
+    assert multi[2] == singles[0][2] + singles[1][2] == [
+        f"tok{i}" for i in range(4)]
+    _same_predictions(multi[1], singles[0][1] + singles[1][1])
+    assert {"mAP", "NDS", "AMOTA", "AMOTP"} <= set(multi[0])
+    shrunk = teval.multidevice_streaming_eval(
+        run.tmodel, run.tcfg, tds, devices=["cpu"] * 3, tracking=True)
+    assert shrunk[2] == multi[2]
+    _same_predictions(shrunk[1], multi[1])
+    capped = teval.multidevice_streaming_eval(
+        run.tmodel, run.tcfg, tds, devices=["cpu"] * 2, max_frames=2)
+    assert capped[2] == ["tok0", "tok2"]

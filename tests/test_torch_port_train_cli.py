@@ -306,15 +306,41 @@ def _accepted(monkeypatch, argv):
     return cfg
 
 
+# the multi-process flags, served since data-parallel training landed:
+# what `initialize_multihost` is called with when each is given with
+# --multihost (coordinator, processes, process id)
+MULTIHOST = {"--multihost": (None, None, None),
+             "--coordinator": ("host:1234", None, None),
+             "--num-processes": (None, 2, None),
+             "--process-id": (None, None, 0)}
+
+
 @pytest.mark.parametrize("extra", NOT_PORTED,
                          ids=[" ".join(a) for a in NOT_PORTED])
 def test_train_cli_refuses(extra, monkeypatch):
-    """Every flag the port does not train exits with "not ported"; `--config
-    r50` is trained since the exact MSDA backward (kernel D) landed: the
-    CLI takes it (no run here), exact MSDA, the JAX CLI's config."""
+    """Every flag the port does not train exits with "not ported"
+    (`--img-bf16`, `r101`, `r101-fast`). Served: `--config r50` since
+    the exact MSDA backward (kernel D) landed (the CLI takes it, no run
+    here; exact MSDA, the JAX CLI's config), and the multi-process
+    flags since data-parallel training landed: with `--multihost` the
+    CLI joins the process group with them before it trains (no group is
+    made here), and leaves it after."""
+    from simpb_tpu_torch.parallel import mesh
+
     argv = ["--ann-file", "none.pkl", "--device", "cpu"]
     if "--config" not in extra:
         argv += ["--config", "tiny"]
+    if extra[0] in MULTIHOST:
+        joined, left = [], []
+        monkeypatch.setattr(mesh, "initialize_multihost",
+                            lambda *a, **k: joined.append((a, k))
+                            or torch.device("cpu"))
+        monkeypatch.setattr(mesh, "shutdown", lambda: left.append(1))
+        more = [] if extra == ["--multihost"] else ["--multihost"]
+        cfg = _accepted(monkeypatch, argv + extra + more)
+        assert joined == [(MULTIHOST[extra[0]], {"device": "cpu"})]
+        assert left == [1] and cfg.backbone_depth == 50
+        return
     if extra == ["--config", "r50"]:
         cfg = _accepted(monkeypatch, argv + extra)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(

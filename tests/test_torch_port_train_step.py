@@ -28,6 +28,20 @@ are evaluated in float64 (the port, layer3's downsample; 1e-5 on the
 synthetic batch). The head runs in fp32 on JAX's trunk outputs rounded
 to fp32, as on the synthetic batch.
 
+The two packages break ties between bit-identical query rows (with
+exact MSDA, queries 0 and 1 of a cold bank on the synthetic batch) each
+its own way, and a one-ulp difference of the head's inputs can move
+such a tie in one package alone, with a loss and gradients that then
+differ by more than rounding. So the port's loss takes JAX's
+assignments: each of its assignment calls (the DN anchors', all 3D
+layers', all 2D layers') returns the columns that JAX's matching chose
+on the same cost matrices, matrix by matrix in JAX's call order, after
+checking that the two packages' matrices agree (1e-2 of each matrix's
+largest cost: their roundings, never another matrix). The port's own
+assignments are held to JAX's separately (`test_assignments_match_jax`,
+which allows a permutation only among queries whose rows are
+bit-identical in both packages).
+
 The step is compared in its three parts, each on the same inputs: the
 trunk (with the depth branch) on the batch; the head and the loss on
 JAX's trunk outputs; the trunk's backward from JAX's gradients of those
@@ -233,9 +247,20 @@ def step_run(request, tmp_path_factory):
             method=JaxSimPB.extract_feat, mutable=["batch_stats"])
         return (col, depths), mut["batch_stats"]
 
+    # JAX's assignment calls, in order: (cost matrices, chosen columns)
+    jax_assign = []
+
+    def recording(fn):
+        def assign(cost, row_valid, pad_cost):
+            col = fn(cost, row_valid, pad_cost)
+            jax_assign.append((cost, col))
+            return col
+        return assign
+
     # the head and the loss as a function of the parameters and of the
     # trunk's outputs
     def head_loss(params, col, depths):
+        jax_assign.clear()
         dn = jt3.get_dn_anchors(
             key_dn, jbatch["gt_boxes3d"], jbatch["gt_labels3d"],
             jbatch["gt_valid3d"], gt_instance_id=jbatch["gt_instance_id"],
@@ -258,17 +283,23 @@ def step_run(request, tmp_path_factory):
         tgt = _targets(jt3.sample_targets3d,
                        lambda *a: jt2.sample_targets2d(*a[:7], image_wh=a[7]),
                        outs, jbatch, wh)
-        return loss, (ld, outs["temporal_state"], tgt, _rows(outs))
+        return loss, (ld, outs["temporal_state"], tgt, _rows(outs),
+                      tuple(jax_assign))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nn.Dropout, "__call__",
                    lambda self, x, deterministic=None, rng=None: x)
+        mp.setattr(jt3, "batched_assignment",
+                   recording(jt3.batched_assignment))
+        mp.setattr(jt2, "batched_assignment",
+                   recording(jt2.batched_assignment))
         with x64():
             (jcol, jdepths), jstats = jax.jit(
                 lambda p: trunk(p))(trunk_vars["params"])
             jcol = np.asarray(jcol)
             jstats = jax.tree_util.tree_map(np.asarray, jstats)
-        (jloss, (jld, jtemp, jtgt, jrows)), (jg_head, jg_col, jg_depths) = \
+        (jloss, (jld, jtemp, jtgt, jrows, jassign)), \
+            (jg_head, jg_col, jg_depths) = \
             jax.jit(jax.value_and_grad(head_loss, argnums=(0, 1, 2),
                                        has_aux=True))(
                 variables["params"], jcol.astype(np.float32), jdepths)
@@ -297,8 +328,26 @@ def step_run(request, tmp_path_factory):
     draws = tuple(torch.from_numpy(np.array(jax.random.uniform(k, (g, per,
                                                                    10))))
                   for k in (k1, k2, k3))
-    dn = tt3.get_dn_anchors(
-        draws, tb["gt_boxes3d"], tb["gt_labels3d"], tb["gt_valid3d"],
+    # JAX's assignments, one matrix at a time in its call order, returned
+    # for the port's calls on the same matrices (see the module docstring)
+    queue = [(np.nan_to_num(np.asarray(c), posinf=1e9, neginf=-1e9), x)
+             for cost, col in jassign
+             for c, x in zip(np.asarray(cost), np.asarray(col))]
+
+    def imposed(cost, row_valid, pad_cost=1e6):
+        take = [queue.pop(0) for _ in range(cost.shape[0])]
+        jcost = np.stack([c for c, _ in take])
+        got = torch.nan_to_num(cost, posinf=1e9, neginf=-1e9).numpy()
+        assert jcost.shape == got.shape, (jcost.shape, got.shape)
+        for jc, tc in zip(jcost, got):
+            assert np.abs(jc - tc).max() <= 1e-2 * np.abs(jc).max()
+        return torch.from_numpy(np.stack([x for _, x in take])).to(
+            torch.int32)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tt3, "batched_assignment", imposed)
+        dn = tt3.get_dn_anchors(
+            draws, tb["gt_boxes3d"], tb["gt_labels3d"], tb["gt_valid3d"],
         gt_instance_id=tb["gt_instance_id"], gt_vis2d=tb["gt_vis2d_per3d"],
         gt_boxes2d=tb["gt_boxes2d_per3d"], gt_labels2d=tb["gt_labels2d_per3d"],
         gt_alphas2d=tb["gt_alphas2d_per3d"], num_dn_groups=h.num_dn_groups,
@@ -313,7 +362,12 @@ def step_run(request, tmp_path_factory):
                        temp2cur=tb["temp2cur"], dn=dn, dn_state=tdn_state,
                        train=True)
     outs["depth_preds"] = hdepths
-    loss, ld = tlh.total_loss(outs, tb, TrainConfig(), image_wh=wh)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tt3, "batched_assignment", imposed)
+        loss, ld = tlh.total_loss(outs, tb, TrainConfig(), image_wh=wh)
+    # JAX's calls left over: those of `_targets`, one a layer
+    assert len(queue) == len(outs["prediction"]) * BS + len(
+        outs["prediction2d"]) * BS * h.num_cams
     loss.backward()
     torch.autograd.backward(
         [col] + list(depths),
@@ -327,7 +381,7 @@ def step_run(request, tmp_path_factory):
     jgrads = jax.tree_util.tree_map(
         lambda a, b: np.asarray(a, np.float64) + np.asarray(b, np.float64),
         jg_head, jg_trunk)
-    return dict(case=kind,
+    return dict(case=kind, msda=msda,
                 jloss=jloss, jld=jld, jstats=jstats, jtemp=jtemp, jtgt=jtgt,
                 jrows=jrows, jgrads=jgrads, jcol=jcol, jdepths=jdepths,
                 jg_col=jg_col, loss=loss, ld=ld, model=tmodel,
@@ -360,12 +414,14 @@ def _numpy(x):
 
 
 def test_assignments_match_jax(step_run):
-    """Each layer's assignment equal. On the pipeline batch alone, a
-    permutation among queries whose outputs are bit-identical in both
-    packages is allowed (the empty temporal instances of a cold bank
-    are such queries there: every assignment among them is optimal,
-    and each package breaks the tie its own way). The synthetic batch
-    is held to exact equality."""
+    """Each layer's assignment (the port's own, on its own cost
+    matrices) equal to JAX's, but for a permutation among queries whose
+    outputs are bit-identical in both packages: every assignment among
+    them is optimal, and each package breaks the tie its own way (the
+    empty temporal instances of a cold bank on the pipeline batch;
+    queries 0 and 1 on the synthetic batch with exact MSDA). Any other
+    difference fails. The windowed synthetic case is held to exact
+    equality."""
     r = step_run
     for kind, jt, tt, jrows, trows in (
             ("3d", r["jtgt"][0], r["ttgt"][0], r["jrows"][0], r["trows"][0]),
@@ -377,7 +433,7 @@ def test_assignments_match_jax(step_run):
             msg = (f"{kind} layer {layer}: assignment flips at "
                    f"{flips[:4]}; JAX labels {j[tuple(flips[:4].T)]}, "
                    f"port {t[tuple(flips[:4].T)]}")
-            if r["case"] == "synthetic":
+            if (r["case"], r["msda"]) == ("synthetic", "windowed"):
                 assert flips.size == 0, msg
                 continue
             for b in np.unique(flips[:, 0]):
