@@ -116,7 +116,10 @@ Phases, each printing one JSON line:
              each launched twice (bit-identical), timed as in phase 6,
              exact MSDA beside the grid_sample chain (mmcv's plain
              formulation, one `F.grid_sample` a level and the weighted
-             sum; timed, and held to `msda_plain` in fp32 once). (c) The
+             sum; timed, and held to `msda_plain` in fp32 once); on one
+             recorded call the kernel is timed beside its probes (one
+             sample's rows in flight instead of two, its loads alone,
+             its arithmetic alone: what bounds it). (c) The
              eval CLI: `tools/test.py --config r50-guarded --tracking`
              through its `main` over a synthetic 1600x900 pkl of
              EXACT_CLI_FRAMES frames (decoded frames served from memory),
@@ -165,8 +168,10 @@ Phases, each printing one JSON line:
              at GRAD_TOL on the last step's recorded calls and on the
              exact phase's synthetic cases in fp32 and bf16 with random
              sampled and wsum gradients, each launched twice
-             (bit-identical: no atomics), D1 and D2 (and D2 over each
-             level's tiles alone) timed apart on the device, beside the
+             (bit-identical: no atomics), its launches timed apart on
+             the device (D1, the bin pass, D2 over the tiles that fit a
+             chunk and over the crowded ones, and D2 over each level's
+             tiles and over its tile (0, 0) alone), beside the
              grid_sample chain's backward (timed only).
 15. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
              --config r50-fast --batch-size 4`, trunk bf16, head fp32)
@@ -1324,6 +1329,38 @@ def exact_cases(torch, dtype, gen, dev="cuda"):
     return cases
 
 
+def msda_probe_ms(torch, args):
+    """Device ms of the exact MSDA kernel on one call of bf16 values
+    beside its probes (`msda_kernel`'s U and MODE): the kernel, one
+    sample's corner rows in flight (`ahead1`), two samples' (`ahead2`),
+    its loads without the arithmetic (`loads_only`) and its arithmetic
+    without the loads (`math_only`). What the kernel's time tracks tells
+    what bounds it."""
+    import ctypes
+
+    from simpb_tpu_torch.ops import _kernels, sampling
+
+    value, ss, loc, attw = args[:4]
+    if value.dtype != torch.bfloat16:
+        raise AssertionError(f"the probes take bf16 values: {value.dtype}")
+    b, _, c = value.shape
+    q, heads, _, points = loc.shape[1:5]
+    plan = sampling.plan_msda(b, q, heads, points, c, ss.shapes)
+    sampled = torch.empty((b, q, heads, c), device=value.device)
+    wsum = torch.empty((b, q, heads), device=value.device)
+    fn = _kernels.load("sampling").simpb_msda_probe
+
+    def run(ahead, mode):
+        _kernels.check(fn(*map(_kernels.ptr, (value, loc, attw, sampled,
+                                              wsum)), plan.dims, ahead, mode,
+                          ctypes.c_void_p(_kernels.stream_ptr(value))),
+                       "msda_probe")
+
+    return {name: device_ms(lambda: run(*am)) for name, am in (
+        ("ahead1", (1, 0)), ("ahead2", (2, 0)), ("loads_only", (1, 1)),
+        ("math_only", (1, 2)))}
+
+
 def phase_exact_kernels(torch, calls, launches):
     """Exact MSDA against `msda_plain`, and DFA at the exact configs'
     capacities (4096, 2304) against its plain version: on each config's
@@ -1379,8 +1416,15 @@ def phase_exact_kernels(torch, calls, launches):
               plain_max=ref.abs().max().item()))
     if chain_err > 1e-4 * max(ref.abs().max().item(), 1.0):
         raise AssertionError(f"grid_sample chain differs by {chain_err}")
-    return kernel_row("msda", kernels["msda"][2], launches[main]["msda"],
-                      summary["msda"])
+    i, probe_args = next((i, a) for i, (n, a, _) in enumerate(calls[main])
+                         if n == "msda")
+    probes = msda_probe_ms(torch, probe_args)
+    emit(dict(phase="exact_probes", case=f"{main}_call_{i}",
+              dtype=str(probe_args[0].dtype).split(".")[-1],
+              device_ms=probes))
+    return dict(kernel_row("msda", kernels["msda"][2],
+                           launches[main]["msda"], summary["msda"]),
+                probes_device_ms=probes)
 
 
 def phase_exact_cli(torch):
@@ -2093,10 +2137,13 @@ def msda_exact_bwd_work(args):
 
 def msda_bwd_parts_ms(sampling, args):
     """Device ms of kernel D's launches apart: D1 (the per-query pass),
-    D2 over all tiles, and D2 over each level's tiles alone (`D2_<h>x<w>`;
-    the small levels' few tiles see as many records as the large ones'
-    many), each queued alone on one set of buffers (D2 reads the records
-    that D1 left)."""
+    the bin pass (count, scan, fill), D2 over the tiles whose lists fit a
+    chunk (`D2_tiles`), D2 over the crowded tiles, split over clusters
+    with their merge (`D2_split`), both D2 launches (`D2`), and both over
+    each level's tiles alone (`D2_<h>x<w>`) and over its tile (0, 0) alone
+    (`D2_<h>x<w>_tile00`, where every padded slot's samples land), each
+    queued alone on one set of buffers (each launch reads what the ones
+    before it left)."""
     value, ss, loc, attw, gs, gw = args
     b, _, c = value.shape
     q, heads, _, points = loc.shape[1:5]
@@ -2105,13 +2152,18 @@ def msda_bwd_parts_ms(sampling, args):
     gs, gw = gs.float().contiguous(), gw.float().contiguous()
     launch = lambda stages, tiles=None: sampling._msda_bwd_launch(
         value, loc, attw, gs, gw, plan, bufs, stages, tiles)
-    launch(3)
-    parts = {"D1": device_ms(lambda: launch(1), iters=3),
-             "D2": device_ms(lambda: launch(2), iters=3)}
+    launch(15)
+    stage = sampling.D_STAGES
+    parts = {name: device_ms(lambda: launch(stage[name]), iters=3)
+             for name in ("D1", "bin", "D2_tiles", "D2_split")}
+    d2 = stage["D2_tiles"] | stage["D2_split"]
+    parts["D2"] = device_ms(lambda: launch(d2), iters=3)
     for lvl, (h, w) in enumerate(ss.shapes):
         lo = plan.first[lvl]
         tiles = (lo, lo + -(-h // sampling.B2_TILE) * -(-w // sampling.B2_TILE))
-        parts[f"D2_{h}x{w}"] = device_ms(lambda: launch(2, tiles), iters=3)
+        parts[f"D2_{h}x{w}"] = device_ms(lambda: launch(d2, tiles), iters=3)
+        parts[f"D2_{h}x{w}_tile00"] = device_ms(
+            lambda: launch(d2, (lo, lo + 1)), iters=3)
     return parts
 
 

@@ -12,13 +12,19 @@
 //       (:611-715, raw_heads; the exact configurations' 2D sampling)
 // and compute what their plain PyTorch versions in ops/sampling.py compute.
 //
-// Exact MSDA: one warp per (camera row, query, head), a lane 8 channels
-// of the full-width value row, bound by bytes (four rows per sample, ten
-// operations per value read). Every bilinear sample rounds as the plain
-// version's (the corner weights, the x pairs and the y combine in the
-// value's type; the position in fp32, as the locations are); the
-// attention weighting and the sums are fp32, in another order than the
-// plain einsum's. The output is written once, with no atomics.
+// Exact MSDA: one half-warp per (camera row, query, head), two queries'
+// heads a block, a lane two packs of 8 channels of the full-width value
+// row, a sample's corner rows of its two packs in flight at once, bf16
+// pairs one native instruction an operation. Its time is its corner-row
+// loads (four rows a sample, 16 samples a head, through L1 and L2) plus
+// its arithmetic (ten operations per value read): timed apart on the
+// card, the two add up to it, and more rows in flight do not shorten it
+// (PERF.md).
+// Every bilinear sample rounds as the plain version's (the corner
+// weights, the x pairs and the y combine in the value's type; the
+// position in fp32, as the locations are); the attention weighting and
+// the sums are fp32, in another order than the plain einsum's. The output
+// is written once, with no atomics.
 //
 // DFA: bound by bytes (four feature rows per live sample, ten operations
 // per value read). `dfa_rank_kernel` (one block per camera row) finds
@@ -82,6 +88,7 @@
 // cudaErrorInvalidValue for a plan whose shared memory is short of what
 // the kernel lays out.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,6 +96,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 constexpr int MAX_LEVELS = 8;
 constexpr int MAX_HEADS = 16;
@@ -170,21 +178,22 @@ struct DfaArgs {
 
 // Inclusive block scan of one int a thread (blockDim.x a multiple of 32,
 // at most 1024); `tot` gets the block's total.
-__device__ __forceinline__ int block_scan(int v, int* warp_sum, int& tot) {
+template <typename I>
+__device__ __forceinline__ I block_scan(I v, I* warp_sum, I& tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    const I u = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += u;
   }
   if (lane == 31) warp_sum[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int t = lane < nw ? warp_sum[lane] : 0;
+    I t = lane < nw ? warp_sum[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, t, o);
+      const I u = __shfl_up_sync(0xffffffffu, t, o);
       if (lane >= o) t += u;
     }
     warp_sum[lane] = t;
@@ -1053,12 +1062,11 @@ struct DfaRec {
 };
 
 // B2's tiles: level l in B2_TILE x B2_TILE pixel tiles, numbered from
-// first[l] (row-major within the level); a launch takes tiles lo onwards.
+// first[l] (row-major within the level).
 constexpr int B2_TILE = 8;
 constexpr int B2_NT = 32 * B2_TILE;  // B2's threads: a warp a tile row
 struct DfaTiles {
   int first[MAX_LEVELS];
-  int lo;
 };
 
 template <typename T>
@@ -1332,13 +1340,7 @@ constexpr int B2_UNROLL = 4;  // hits whose g rows a B2 warp loads together
 // B2_NT * B2_RUN records, all loads issued before use, and lists the hits
 // in rank order with one block scan; B2_NT hits at a time are staged, and
 // each warp ballots its own list of them.
-//
-// EXACT: kernel D's D2 (see the exact MSDA backward below), the same
-// owner pass over D1's records: every camera row (cams = 1) has N records
-// a level, record r's row of g being r / P (its (query, head) of the
-// [A = Q x heads, C] grad_sampled), one group of weight 1 (the attention
-// is in the corner weights), and blockIdx.z the slice of 256 channels.
-template <typename T, bool EXACT>
+template <typename T>
 __global__ void __launch_bounds__(B2_NT, 2)
 dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
                     DfaRec rec, DfaTiles tl, T* __restrict__ gcol) {
@@ -1354,7 +1356,7 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
   const int bc = blockIdx.x, batch = bc / g.cams, tid = threadIdx.x;
   const int lane = tid & 31, yy = tid >> 5, L = lv.n, C = g.C, G = g.G;
   const int N = rec.N;
-  int t = blockIdx.y + tl.lo, l = 0;
+  int t = blockIdx.y, l = 0;
   for (; l < L; ++l) {
     const int n = (lv.h[l] + TS - 1) / TS * ((lv.w[l] + TS - 1) / TS);
     if (t >= tl.first[l] && t < tl.first[l] + n) break;
@@ -1362,7 +1364,7 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
   t -= tl.first[l];
   const int h = lv.h[l], w = lv.w[l], ntx = (w + TS - 1) / TS;
   const int tx0 = t % ntx * TS, ty0 = t / ntx * TS;
-  const int c0 = EXACT ? blockIdx.z * 256 + lane * 8 : lane * 8;
+  const int c0 = lane * 8;
   const bool chans = c0 < C;  // this lane has channels
   const int grp = c0 / (C / G);
   float acc[TS][8];
@@ -1371,7 +1373,7 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[p][c] = 0.f;
 
-  const int n = EXACT ? N : rec.cnt[bc];
+  const int n = rec.cnt[bc];
   const long long rl = ((long long)bc * L + l) * N;  // this level's records
   const float* gb = gout + (long long)batch * g.A * C + c0;
   for (int r0 = 0; r0 < n; r0 += NT * B2_RUN) {
@@ -1411,9 +1413,9 @@ dfa_bwd_gcol_kernel(const float* __restrict__ gout, DfaArgs g, Levels lv,
         const int r = lst[s0 + tid], q = rec.pos[rl + r];
         sPos[tid] = ((q & 0xffff) - tx0) | ((q >> 16) - ty0) << 8;
         sWk[tid] = rec.wk[rl + r];
-        sAnc[tid] = EXACT ? r / g.P : rec.anc[(long long)bc * N + r];
+        sAnc[tid] = rec.anc[(long long)bc * N + r];
         for (int k = 0; k < G; ++k)
-          sGw[tid * G + k] = EXACT ? 1.f : rec.gw[(rl + r) * G + k];
+          sGw[tid * G + k] = rec.gw[(rl + r) * G + k];
       }
       __syncthreads();
       // this warp's hits: a corner in tile row yy
@@ -1539,7 +1541,7 @@ int launch_dfa_bwd(const void* col, const void* pts, const void* wts,
     if (err) return err;
   }
   if (stages & 4)
-    dfa_bwd_gcol_kernel<T, false><<<dim3(rows, tiles), B2_NT, 0, st>>>(
+    dfa_bwd_gcol_kernel<T><<<dim3(rows, tiles), B2_NT, 0, st>>>(
         gout, g, lv, rec, tl, gcol);
   return (int)cudaGetLastError();
 }
@@ -2003,6 +2005,15 @@ struct MsdaExactArgs {
   int B, Q, heads, L, P, C, T;
 };
 
+// The exact kernels' items: one (camera row, query, head) a half-warp,
+// MX_ITEMS of them a block in (row, query, head) order, so that a block
+// holds two queries' heads (the L1 keeps the rows they share). A lane
+// takes MX_PACKS packs of 8 channels, 16 * MX_PACKS packs (256 channels)
+// a pass over the channels.
+constexpr int MX_NT = 256;
+constexpr int MX_ITEMS = MX_NT / 16;
+constexpr int MX_PACKS = 2;
+
 // One sample's corner weights (wx0, wx1, wy0, wy1; rounded to T as
 // _corner_weights rounds them, drop_out_of_range off) and the rows of its
 // four corners in the camera row's [T, C] table, indices clamped into the
@@ -2027,28 +2038,52 @@ __device__ __forceinline__ void msda_corners(float lx, float ly, int h, int w,
   rows = make_int4(r0 + xc0, r0 + xc1, r1 + xc0, r1 + xc1);
 }
 
+// bf16 pairs with one rounding each, written out so that nothing fuses:
+// a product of two bf16 values is exact in fp32, and a bf16 sum rounded
+// once equals torch's fp32 sum rounded to bf16 (double rounding through
+// a format of at least 2 x 8 + 2 significand bits is innocuous), so both
+// are the plain version's roundings, at one instruction a pair.
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bsplat(float v) {  // v is a bf16 value
+  const __nv_bfloat162 b = __float2bfloat162_rn(v);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+__device__ __forceinline__ float blo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bhi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
 // A sample's 8 channels from its four corner rows, each rounding as the
-// plain version's (_sample_rows: the x pairs, then y, in T).
+// plain version's (_sample_rows: the x pairs vx0, vx1, then y, in T).
 template <typename T>
-__device__ __forceinline__ void msda_bilinear(float (&s)[8], const float4 w,
+__device__ __forceinline__ void msda_bilinear(float (&s)[8], float (&vx0)[8],
+                                              float (&vx1)[8], const float4 w,
                                               const Row8<T> (&v)[4]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float vx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[0][i])),
-                                     R<T>(__fmul_rn(w.y, v[1][i]))));
-    const float vx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[2][i])),
-                                     R<T>(__fmul_rn(w.y, v[3][i]))));
-    s[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0)),
-                          R<T>(__fmul_rn(w.w, vx1))));
+    vx0[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[0][i])),
+                            R<T>(__fmul_rn(w.y, v[1][i]))));
+    vx1[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v[2][i])),
+                            R<T>(__fmul_rn(w.y, v[3][i]))));
+    s[i] = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0[i])),
+                          R<T>(__fmul_rn(w.w, vx1[i]))));
   }
 }
 template <>
 __device__ __forceinline__ void msda_bilinear<bf16>(
-    float (&s)[8], const float4 w, const Row8<bf16> (&v)[4]) {
-  const __nv_bfloat162 wx0 = __float2bfloat162_rn(w.x),
-                       wx1 = __float2bfloat162_rn(w.y),
-                       wy0 = __float2bfloat162_rn(w.z),
-                       wy1 = __float2bfloat162_rn(w.w);
+    float (&s)[8], float (&vx0)[8], float (&vx1)[8], const float4 w,
+    const Row8<bf16> (&v)[4]) {
+  const uint32_t wx0 = bsplat(w.x), wx1 = bsplat(w.y), wy0 = bsplat(w.z),
+                 wy1 = bsplat(w.w);
   const uint4 q0 = v[0].u[0], q1 = v[1].u[0], q2 = v[2].u[0], q3 = v[3].u[0];
   const uint32_t a00[4] = {q0.x, q0.y, q0.z, q0.w};
   const uint32_t a01[4] = {q1.x, q1.y, q1.z, q1.w};
@@ -2056,104 +2091,152 @@ __device__ __forceinline__ void msda_bilinear<bf16>(
   const uint32_t a11[4] = {q3.x, q3.y, q3.z, q3.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 vx0 =
-        add2_rn(__hmul2(wx0, bf2(a00[i])), __hmul2(wx1, bf2(a01[i])));
-    const __nv_bfloat162 vx1 =
-        add2_rn(__hmul2(wx0, bf2(a10[i])), __hmul2(wx1, bf2(a11[i])));
-    const float2 t =
-        __bfloat1622float2(add2_rn(__hmul2(wy0, vx0), __hmul2(wy1, vx1)));
-    s[2 * i] = t.x;
-    s[2 * i + 1] = t.y;
+    const uint32_t x0 = badd2(bmul2(wx0, a00[i]), bmul2(wx1, a01[i]));
+    const uint32_t x1 = badd2(bmul2(wx0, a10[i]), bmul2(wx1, a11[i]));
+    const uint32_t t = badd2(bmul2(wy0, x0), bmul2(wy1, x1));
+    s[2 * i] = blo(t);
+    s[2 * i + 1] = bhi(t);
+    vx0[2 * i] = blo(x0);
+    vx0[2 * i + 1] = bhi(x0);
+    vx1[2 * i] = blo(x1);
+    vx1[2 * i + 1] = bhi(x1);
   }
 }
 
-// One block per (camera row, query), one warp per head: value [B, T, C]
-// (T storage), loc [B, Q, heads, L, P, 2] and attw [B, Q, heads, L, P]
-// fp32; sampled [B, Q, heads, C] and wsum [B, Q, heads] fp32, each
-// written once. Lane j places sample j of the head's L x P (its corner
-// weights and rows, attention weight and in-image mass), and the warp
-// walks the samples in order with the data shuffled from that lane: a
-// lane sums 8 channels of each sample (one 16-byte load a corner for
-// bf16), per level in fp32, then the levels in order, as the plain
-// version does.
-template <typename T>
-__global__ void __launch_bounds__(256)
+// value [B, T, C] (T storage), loc [B, Q, heads, L, P, 2] and attw [B,
+// Q, heads, L, P] fp32; sampled [B, Q, heads, C] and wsum [B, Q, heads]
+// fp32, each written once. A half-warp per item: lane j places sample j
+// of each group of 16 of the head's L x P (its corner weights, rows and
+// attention weight, to shared memory), then the half-warp walks the
+// samples in order, a lane's corner rows of its two packs (eight 16-byte
+// loads for bf16) in flight before it uses them; a lane sums its packs
+// of each sample per level in fp32, then the levels in order, as the
+// plain version does. A spare half-warp of the last block repeats the
+// last item and writes nothing.
+// U: the samples whose corner rows a lane loads before it uses the
+// first. MODE 0 is the kernel; chip_smoke times probes of what bounds it
+// beside it (PERF.md): U 2 (more rows in flight: no faster), MODE 1
+// loads the corner rows and skips the arithmetic (each row word still
+// feeds the sums), MODE 2 does the arithmetic on rows it does not load.
+template <typename T, int U = 1, int MODE = 0>
+__global__ void __launch_bounds__(MX_NT, 2)
 msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-            const float* __restrict__ attw, MsdaExactArgs g, Levels lv,
-            float* __restrict__ sampled, float* __restrict__ wsum) {
-  const int lane = threadIdx.x & 31;
-  const long long bq = blockIdx.x;
-  const long long bqh = bq * g.heads + (threadIdx.x >> 5);
+            const float* __restrict__ attw,
+            const __grid_constant__ MsdaExactArgs g,
+            const __grid_constant__ Levels lv, float* __restrict__ sampled,
+            float* __restrict__ wsum) {
+  __shared__ float4 sCw[MX_ITEMS][16];
+  __shared__ int4 sRow[MX_ITEMS][16];
+  __shared__ float sA[MX_ITEMS][16];
+  const int hw = threadIdx.x >> 4, j = threadIdx.x & 15;
+  const long long items = (long long)g.B * g.Q * g.heads;
+  const long long item = (long long)blockIdx.x * MX_ITEMS + hw;
+  const long long bqh = item < items ? item : items - 1;
   const int S = g.L * g.P, packs = g.C / 8;
   const float* lq = loc + bqh * S * 2;
   const float* aq = attw + bqh * S;
-  const T* vrow = value + (bq / g.Q) * g.T * g.C;
+  const T* vrow = value + bqh / ((long long)g.Q * g.heads) * g.T * g.C;
   float wsum_h = 0.f;
-  for (int pk0 = 0; pk0 < packs; pk0 += 32) {
-    const bool on = pk0 + lane < packs;
-    const T* vlane = vrow + (pk0 + lane) * 8;
-    float acc[8], lacc[8];
+  for (int pk0 = 0; pk0 < packs; pk0 += 16 * MX_PACKS) {
+    bool on[MX_PACKS];
+    float acc[MX_PACKS][8], lacc[MX_PACKS][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = lacc[i] = 0.f;
+    for (int i = 0; i < MX_PACKS; ++i) {
+      on[i] = pk0 + j + 16 * i < packs;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = lacc[i][c] = 0.f;
+    }
     float lw = 0.f;
     int p = 0;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      float4 cw = make_float4(0.f, 0.f, 0.f, 0.f);
-      int4 cr = make_int4(0, 0, 0, 0);
-      float a = 0.f;
-      if (s0 + lane < S) {
-        const int s = s0 + lane, l = s / g.P;
-        a = aq[s];
+    for (int s0 = 0; s0 < S; s0 += 16) {
+      const int n = min(16, S - s0);
+      __syncwarp();  // the previous group is read
+      if (j < n) {
+        const int s = s0 + j, l = s / g.P;
+        float4 cw;
+        int4 cr;
         msda_corners<T>(lq[2 * s], lq[2 * s + 1], lv.h[l], lv.w[l],
                         lv.start[l], cw, cr);
+        sCw[hw][j] = cw;
+        sRow[hw][j] = cr;
+        sA[hw][j] = aq[s];
       }
-      const int n = min(32, S - s0);
-      for (int j = 0; j < n; ++j) {
-        const float4 w = make_float4(__shfl_sync(0xffffffffu, cw.x, j),
-                                     __shfl_sync(0xffffffffu, cw.y, j),
-                                     __shfl_sync(0xffffffffu, cw.z, j),
-                                     __shfl_sync(0xffffffffu, cw.w, j));
-        const int4 r = make_int4(__shfl_sync(0xffffffffu, cr.x, j),
-                                 __shfl_sync(0xffffffffu, cr.y, j),
-                                 __shfl_sync(0xffffffffu, cr.z, j),
-                                 __shfl_sync(0xffffffffu, cr.w, j));
-        const float aj = __shfl_sync(0xffffffffu, a, j);
-        Row8<T> corner[4];
-        if (on) {
-          dfa_corners(vlane, w, r, g.C, corner);
-        } else {
+      __syncwarp();
+      for (int t = 0; t < n; t += U) {
+        Row8<T> v[U][MX_PACKS][4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) corner[k].zero();
-        }
-        float smp[8];
-        msda_bilinear<T>(smp, w, corner);
+        for (int u = 0; u < U; ++u) {
+          const int k = min(t + u, n - 1);
+          const float4 w = sCw[hw][k];
+          const int4 r = sRow[hw][k];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          lacc[i] = __fadd_rn(lacc[i], __fmul_rn(smp[i], aj));
-        // in-image bilinear mass (wx0 + wx1)(wy0 + wy1), sums in T
-        const float mass = __fmul_rn(R<T>(__fadd_rn(w.x, w.y)),
-                                     R<T>(__fadd_rn(w.z, w.w)));
-        lw = __fadd_rn(lw, __fmul_rn(aj, mass));
-        if (++p == g.P) {  // a level ends
-          p = 0;
+          for (int i = 0; i < MX_PACKS; ++i) {
+            const T* vl = vrow + (pk0 + j + 16 * i) * 8;
+            const bool ld = MODE != 2 && on[i] && t + u < n;
+            if (ld) dfa_corners(vl, w, r, g.C, v[u][i]);
+            else {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[i] = __fadd_rn(acc[i], lacc[i]);
-            lacc[i] = 0.f;
+              for (int c = 0; c < 4; ++c) v[u][i][c].zero();
+            }
+            if (MODE == 2)  // rows the loads did not bring
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int q = 0; q < (int)(sizeof(T) / 2); ++q)
+                  v[u][i][c].u[q] = make_uint4(r.x, r.y, r.z, r.w);
           }
-          wsum_h = pk0 ? wsum_h : __fadd_rn(wsum_h, lw);
-          lw = 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (t + u >= n) break;
+          const float4 w = sCw[hw][t + u];
+          const float a = sA[hw][t + u];
+#pragma unroll
+          for (int i = 0; i < MX_PACKS; ++i) {
+            if (MODE == 1) {  // the loads alone
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                lacc[i][c] += __uint_as_float(v[u][i][c].u[0].x & 0x3f800000u);
+              continue;
+            }
+            float smp[8], vx0[8], vx1[8];
+            msda_bilinear<T>(smp, vx0, vx1, w, v[u][i]);
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              lacc[i][c] = __fadd_rn(lacc[i][c], __fmul_rn(smp[c], a));
+          }
+          // in-image bilinear mass (wx0 + wx1)(wy0 + wy1), sums in T
+          const float mass = __fmul_rn(R<T>(__fadd_rn(w.x, w.y)),
+                                       R<T>(__fadd_rn(w.z, w.w)));
+          lw = __fadd_rn(lw, __fmul_rn(a, mass));
+          if (++p == g.P) {  // a level ends
+            p = 0;
+#pragma unroll
+            for (int i = 0; i < MX_PACKS; ++i)
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                acc[i][c] = __fadd_rn(acc[i][c], lacc[i][c]);
+                lacc[i][c] = 0.f;
+              }
+            wsum_h = pk0 ? wsum_h : __fadd_rn(wsum_h, lw);
+            lw = 0.f;
+          }
         }
       }
     }
-    if (on) {
-      float4* o = reinterpret_cast<float4*>(sampled + bqh * g.C +
-                                            (pk0 + lane) * 8);
-      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    if (item < items) {
+#pragma unroll
+      for (int i = 0; i < MX_PACKS; ++i)
+        if (on[i]) store8(sampled + bqh * g.C + (pk0 + j + 16 * i) * 8,
+                          acc[i]);
     }
   }
-  if (lane == 0) wsum[bqh] = wsum_h;
+  if (j == 0 && item < items) wsum[bqh] = wsum_h;
+}
+
+int msda_blocks(const MsdaExactArgs& g) {
+  const long long items = (long long)g.B * g.Q * g.heads;
+  return (int)((items + MX_ITEMS - 1) / MX_ITEMS);
 }
 
 template <typename T>
@@ -2161,10 +2244,10 @@ int launch_msda(const void* value, const float* loc, const float* attw,
                 float* sampled, float* wsum, const MsdaExactArgs& g,
                 const Levels& lv, int threads, cudaStream_t st) {
   if (g.C % 8 || g.C < 8 || g.heads < 1 || g.heads > 8 || g.P < 1 ||
-      g.L != lv.n || threads != 32 * g.heads || g.B * g.Q < 1)
+      g.L != lv.n || threads != MX_NT || g.B * g.Q < 1)
     return (int)cudaErrorInvalidValue;
-  msda_kernel<T><<<g.B * g.Q, threads, 0, st>>>((const T*)value, loc, attw,
-                                                 g, lv, sampled, wsum);
+  msda_kernel<T><<<msda_blocks(g), MX_NT, 0, st>>>(
+      (const T*)value, loc, attw, g, lv, sampled, wsum);
   return (int)cudaGetLastError();
 }
 
@@ -2177,53 +2260,88 @@ int launch_msda(const void* value, const float* loc, const float* attw,
 // weights (the sample dotted with g_sampled[q, h], plus g_wsum[q, h]
 // times the in-image mass). It replaces the gradient of
 // simpb_tpu/ops/sampling.py::msda (:611; XLA's autodiff of gathers under
-// jax.checkpoint on the TPU). Two launches, no atomics: every output
-// element has one owner, sums in a fixed order and is written once, so
-// repeat launches are bit-identical.
+// jax.checkpoint on the TPU). No atomics: every output element has one
+// owner, sums in a fixed order and is written once, so repeat launches
+// are bit-identical.
 //
-// D1, `msda_bwd_kernel`: one block per (camera row, query), a warp per
-// head, as the forward. Lane j places sample j of the head's L x P (its
+// D1, `msda_bwd_kernel`: the forward's items (a half-warp per camera
+// row, query and head). Lane j places sample j of each group of 16 (its
 // corner weights, rounded as the forward rounds them, its corner rows
-// and which corners lie on the level) and the warp walks the samples in
-// order: a lane reads the four corners of its 8 channels (a corner off
-// the level reads as 0, a corner on it is read even where its weight
-// rounds to 0, since the location gradient needs it) and sums, in fp32,
-// g_sampled times the sample, the two x and the two y pair derivatives;
-// shuffles add the lanes in a fixed order, and the sample's lane writes
-// its location and weight gradients once. It recomputes the samples from
-// the inputs (the autograd Function saves only them) and writes each
-// sample's record at its natural index (q * heads + h) * P + p of its
-// (camera row, level) list: the four corner weights times the attention
-// weight, and the corner base (x0 + 1) | (y0 + 1) << 16, or -1 when no
-// corner weighs. Every exact-MSDA sample is live (samples outside (0, 1)
-// keep their in-border corners; a padded slot's location 0 samples pixel
-// (0, 0)), so no rank pass is needed.
+// and which corners lie on the level), and the half-warp walks the
+// samples in order: a lane reads the four corners of its packs (a
+// corner off the level reads as 0, a corner on it is read even where its
+// weight rounds to 0, since the location gradient needs it) and dots
+// g_sampled (read once an item) with them in fp32: with the four corner
+// rows (the x derivatives, and for fp32 values everything: the sample
+// and the y pairs are bilinear in them), and for bf16 values also with
+// the sample and the two x pairs as the forward rounds them. Shuffles
+// add the half-warp's lanes in a fixed order, and the sample's lane
+// writes its location and weight gradients once. It recomputes the
+// samples from the inputs (the autograd Function saves only them) and
+// writes each sample's record at its natural index (q * heads + h) * P
+// + p of its (camera row, level) list: the four corner weights times the
+// attention weight, and the corner base (x0 + 1) | (y0 + 1) << 16, or -1
+// when no corner weighs.
 //
-// D2 is kernel B's owner pass (dfa_bwd_gcol_kernel<T, true>): one block
-// per (camera row, 8x8 pixel tile of a level, 256 channels), smallest
-// level first, owns those value rows and writes each once in the value's
-// type, zeros included, walking its level's records in index order and
-// adding g_sampled[q, h, c] x corner weight for the record's one or two
-// corners in each of its rows into fp32 registers. Balance: every sample
-// reads every level, so the 8x22 level's 3 tiles of a camera row see as
-// many records as the 64x176 level's 176 (B2's imbalance).
+// The bin pass (`msda_bin_kernel` twice, `msda_bin_scan_kernel` between)
+// lists each (camera row, level)'s records under the 8x8 pixel tiles
+// that own their weighing corners (up to four tiles a record, once a
+// tile), each list in record order. A warp takes a segment of a level's
+// records, eight a step with a lane a (record, corner), so that lane
+// order is record order; __match_any_sync finds the lanes of one tile,
+// and the lowest of them bumps the segment's counter of that tile
+// (shared memory, or the count array when a level has too many tiles).
+// Counting first, then an exclusive scan of the counts by (tile,
+// segment), then the same walk writing each record at its tile's running
+// offset: the lists come out in record order with no atomics.
 //
-// What bounds it: bytes (the value rows the samples read, g_sampled, the
-// dense value gradient written once). A scatter of the value gradient by
-// D1's blocks (fp32 atomicAdd onto rows that neighbouring queries share)
-// would contend and sum in a different order on every run, into an fp32
-// copy of the value; D2's owners do neither and write its type directly.
+// D2: the value gradient, owner computes: a tile's 64 value rows over
+// 256 channels are summed by one block (or one cluster) and written once
+// in the value's type, zeros included, each sum in list order in fp32
+// (fused multiply-adds of g_sampled[q, h, c] and the corner weight).
+// `msda_bwd_gvalue_kernel` takes the tiles whose lists fit a chunk (the
+// plan's, D_CHUNK records): warp y its pixel row y, a lane 8 channels of
+// its 8 pixels in registers, adding the records with a corner in its
+// row. `msda_bwd_gsplit_kernel` takes the crowded ones: a thread-block
+// cluster of D2_CLUSTER blocks, block k summing the k-th of D2_CLUSTER
+// equal runs of the list, two channels a thread with the tile's 64
+// pixels in shared memory (so that no warp idles when the corners crowd
+// into one row: every level's tile (0, 0) holds every padded slot's
+// samples, on pixel (0, 0), and the small levels' few tiles hold every
+// sample's); block k then adds the blocks' sums of its 4 pixels in chunk
+// order through distributed shared memory and writes them. The two run
+// side by side on two streams (disjoint rows of the value gradient).
+//
+// What bounds it (PERF.md): D1 its operations (the dots of g with four
+// corner rows and, for bf16 values, the rounded sample and x pairs, a
+// sample and channel); D2 its operations and the g_sampled row it reads
+// for each record of a tile: in registers by rows where the corners
+// spread over the rows, in shared memory where they crowd (there every
+// corner's read and write of 256 sums through shared memory sets the
+// time); the bin pass a few bytes a record. A scatter of the value
+// gradient by D1's items (fp32 atomicAdd onto rows that neighbouring
+// queries share) would contend and sum in a different order on every
+// run, into an fp32 copy of the value; D2's owners do neither and write
+// its type directly.
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(MX_NT, 2)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ attw,
                 const float* __restrict__ gsamp,
-                const float* __restrict__ gwsum, MsdaExactArgs g, Levels lv,
-                float* __restrict__ gloc, float* __restrict__ gattw,
-                float4* __restrict__ rwk, int* __restrict__ rpos) {
-  const int lane = threadIdx.x & 31, head = threadIdx.x >> 5;
-  const long long bq = blockIdx.x, row = bq / g.Q;
-  const long long bqh = bq * g.heads + head;
+                const float* __restrict__ gwsum,
+                const __grid_constant__ MsdaExactArgs g,
+                const __grid_constant__ Levels lv, float* __restrict__ gloc,
+                float* __restrict__ gattw, float4* __restrict__ rwk,
+                int* __restrict__ rpos) {
+  constexpr int U = 1;  // samples whose corner rows a lane loads together
+  __shared__ float4 sCw[MX_ITEMS][16];
+  __shared__ int4 sRow[MX_ITEMS][16];
+  __shared__ int sM[MX_ITEMS][16];
+  const int hw = threadIdx.x >> 4, j = threadIdx.x & 15;
+  const long long items = (long long)g.B * g.Q * g.heads;
+  const long long item = (long long)blockIdx.x * MX_ITEMS + hw;
+  const long long bqh = item < items ? item : items - 1;
+  const long long qh = (long long)g.Q * g.heads, row = bqh / qh;
   const int S = g.L * g.P, packs = g.C / 8;
   const float* lq = loc + bqh * S * 2;
   const float* aq = attw + bqh * S;
@@ -2231,15 +2349,15 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   const T* vrow = value + row * g.T * g.C;
   const float gw = gwsum[bqh];
   // records: N a (camera row, level), this head's from its natural index
-  const long long N = (long long)g.Q * g.heads * g.P;
-  const long long rbase = row * g.L * N + (bq % g.Q * g.heads + head) * g.P;
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int s = s0 + lane;
+  const long long N = qh * g.P;
+  const long long rbase = row * g.L * N + bqh % qh * g.P;
+  for (int s0 = 0; s0 < S; s0 += 16) {
+    const int s = s0 + j, n = min(16, S - s0);
     float4 cw = make_float4(0.f, 0.f, 0.f, 0.f);
     int4 cr = make_int4(0, 0, 0, 0);
     float a = 0.f, x0f = 0.f, y0f = 0.f;
     int m = 0;  // bit k: corner k = 2 dy + dx on the level; 4-7: mx0..my1
-    if (s < S) {
+    if (j < n) {
       const int l = s / g.P, h = lv.h[l], w = lv.w[l];
       a = aq[s];
       msda_corners<T>(lq[2 * s], lq[2 * s + 1], h, w, lv.start[l], cw, cr);
@@ -2252,58 +2370,115 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       m = (mx0 & my0) | (mx1 & my0) << 1 | (mx0 & my1) << 2 |
           (mx1 & my1) << 3 | mx0 << 4 | mx1 << 5 | my0 << 6 | my1 << 7;
     }
+    __syncwarp();  // the previous group is read
+    sCw[hw][j] = cw;
+    sRow[hw][j] = cr;
+    sM[hw][j] = m;
+    __syncwarp();
     // this lane's sample: g.smp, then the derivatives to wx0, wx1, wy0,
     // wy1 of g.smp, all before the attention weight
     float mine[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    const int n = min(32, S - s0);
-    for (int j = 0; j < n; ++j) {
-      const float4 w = make_float4(__shfl_sync(0xffffffffu, cw.x, j),
-                                   __shfl_sync(0xffffffffu, cw.y, j),
-                                   __shfl_sync(0xffffffffu, cw.z, j),
-                                   __shfl_sync(0xffffffffu, cw.w, j));
-      const int rr[4] = {__shfl_sync(0xffffffffu, cr.x, j),
-                         __shfl_sync(0xffffffffu, cr.y, j),
-                         __shfl_sync(0xffffffffu, cr.z, j),
-                         __shfl_sync(0xffffffffu, cr.w, j)};
-      const int mj = __shfl_sync(0xffffffffu, m, j);
-      float part[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int pk = lane; pk < packs; pk += 32) {
-        const T* vl = vrow + pk * 8;
-        Row8<T> v[4];
+    for (int pk0 = 0; pk0 < packs; pk0 += 16 * MX_PACKS) {
+      bool on[MX_PACKS];
+      float gs[MX_PACKS][8];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          v[k].zero();
-          if ((mj >> k) & 1) v[k].load(vl + (long long)rr[k] * g.C);
-        }
-        const float4 g0 = *reinterpret_cast<const float4*>(gq + pk * 8);
-        const float4 g1 = *reinterpret_cast<const float4*>(gq + pk * 8 + 4);
-        const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float v00 = v[0][i], v01 = v[1][i], v10 = v[2][i],
-                      v11 = v[3][i];
-          const float vx0 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v00)),
-                                           R<T>(__fmul_rn(w.y, v01))));
-          const float vx1 = R<T>(__fadd_rn(R<T>(__fmul_rn(w.x, v10)),
-                                           R<T>(__fmul_rn(w.y, v11))));
-          const float smp = R<T>(__fadd_rn(R<T>(__fmul_rn(w.z, vx0)),
-                                           R<T>(__fmul_rn(w.w, vx1))));
-          part[0] += gs[i] * smp;
-          part[1] += gs[i] * (w.z * v00 + w.w * v10);
-          part[2] += gs[i] * (w.z * v01 + w.w * v11);
-          part[3] += gs[i] * vx0;
-          part[4] += gs[i] * vx1;
-        }
+      for (int i = 0; i < MX_PACKS; ++i) {
+        const int pk = pk0 + j + 16 * i;
+        on[i] = pk < packs;
+        const float4 g0 = on[i] ? *reinterpret_cast<const float4*>(gq + pk * 8)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 g1 = on[i]
+                              ? *reinterpret_cast<const float4*>(gq + pk * 8 + 4)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        gs[i][0] = g0.x; gs[i][1] = g0.y; gs[i][2] = g0.z; gs[i][3] = g0.w;
+        gs[i][4] = g1.x; gs[i][5] = g1.y; gs[i][6] = g1.z; gs[i][7] = g1.w;
       }
+      for (int t = 0; t < n; t += U) {
+        Row8<T> v[U][MX_PACKS][4];
 #pragma unroll
-      for (int k = 0; k < 5; ++k) {
+        for (int u = 0; u < U; ++u) {
+          const int k = min(t + u, n - 1);
+          const int4 r = sRow[hw][k];
+          const int rr[4] = {r.x, r.y, r.z, r.w};
+          const int mk = t + u < n ? sM[hw][k] : 0;
 #pragma unroll
-        for (int o = 16; o; o >>= 1)
-          part[k] += __shfl_xor_sync(0xffffffffu, part[k], o);
-        if (lane == j) mine[k] = part[k];
+          for (int i = 0; i < MX_PACKS; ++i) {
+            const T* vl = vrow + (pk0 + j + 16 * i) * 8;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              v[u][i][c].zero();
+              if (on[i] && (mk >> c) & 1)
+                v[u][i][c].load(vl + (long long)rr[c] * g.C);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (t + u >= n) break;
+          if constexpr (sizeof(T) == 4) {
+            // fp32: the four corner rows dotted with g; the five sums
+            // follow from them and the corner weights once reduced
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < MX_PACKS; ++i)
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) d[k] += gs[i][c] * v[u][i][k][c];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+#pragma unroll
+              for (int o = 8; o; o >>= 1)
+                d[k] += __shfl_xor_sync(0xffffffffu, d[k], o);
+              if (j == t + u) mine[k] += d[k];
+            }
+          } else {
+            // bf16: the sample and the x pairs round to bf16, so g.smp
+            // and the y derivatives sum per channel; the x derivatives
+            // follow from the four corner dots
+            const float4 w = sCw[hw][t + u];
+            float part[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < MX_PACKS; ++i) {
+              float smp[8], vx0[8], vx1[8];
+              msda_bilinear<T>(smp, vx0, vx1, w, v[u][i]);
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                part[0] += gs[i][c] * smp[c];
+                part[1] += gs[i][c] * vx0[c];
+                part[2] += gs[i][c] * vx1[c];
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  part[3 + k] += gs[i][c] * v[u][i][k][c];
+              }
+            }
+#pragma unroll
+            for (int k = 0; k < 7; ++k) {
+#pragma unroll
+              for (int o = 8; o; o >>= 1)
+                part[k] += __shfl_xor_sync(0xffffffffu, part[k], o);
+            }
+            if (j == t + u) {
+              mine[0] += part[0];
+              mine[1] += w.z * part[3] + w.w * part[5];
+              mine[2] += w.z * part[4] + w.w * part[6];
+              mine[3] += part[1];
+              mine[4] += part[2];
+            }
+          }
+        }
       }
     }
-    if (s >= S) continue;
+    if (j >= n || item >= items) continue;
+    if constexpr (sizeof(T) == 4) {
+      // d00, d01, d10, d11 (corners x0y0, x1y0, x0y1, x1y1) to the sums
+      const float d00 = mine[0], d01 = mine[1], d10 = mine[2], d11 = mine[3];
+      mine[3] = cw.x * d00 + cw.y * d01;
+      mine[4] = cw.x * d10 + cw.y * d11;
+      mine[1] = cw.z * d00 + cw.w * d10;
+      mine[2] = cw.z * d01 + cw.w * d11;
+      mine[0] = cw.z * mine[3] + cw.w * mine[4];
+    }
     const int l = s / g.P, p = s % g.P;
     const float sx = R<T>(__fadd_rn(cw.x, cw.y));
     const float sy = R<T>(__fadd_rn(cw.z, cw.w));
@@ -2329,45 +2504,539 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
-// stages: 1 D1, 2 D2 over the tiles [lo, hi) (the wrapper launches both
+// The bin pass's and D2's scratch (see simpb_msda_bwd) and plan.
+constexpr int TILE = 8;          // a D2 tile's side (pixels)
+constexpr int BIN_WARPS = 4;     // segments a bin block, a warp each
+constexpr int BIN_RUN = 8;       // steps of 8 records a lane loads at once
+constexpr int D2_CLUSTER = 16;   // blocks that share a crowded tile
+constexpr int D2_NT = 32 * TILE;  // D2's threads: a warp a tile row
+constexpr int D2_RUN = 4;         // records whose g rows a warp loads at once
+constexpr int D2_NT2 = 128;       // the split's threads: two channels each
+constexpr int D2_STAGE2 = 256;    // records the split stages at a time
+constexpr int D2_RUN2 = 16;       // records whose g values it loads at once
+struct MsdaBin {
+  const float4* rwk;  // D1's records [rows][L][N]: corner weights
+  const int* rpos;    // and corner bases
+  unsigned* cnt;     // [rows][tiles][nseg]: counts, then running offsets
+  unsigned* tstart;  // [rows][tiles]: a tile's start in its level's list
+  unsigned* tcnt;    // [rows][tiles]: its length
+  int* list;    // [rows][L][4N]: record indices, by tile, in record order
+  int N, tiles, nseg, seg, chunk, smem_tiles;
+  int first[MAX_LEVELS];  // each level's first tile (smallest level first)
+};
+
+// FILL false: count each tile's records in the warp's segment; true:
+// write each at its tile's running offset (the scan's).
+template <bool FILL>
+__global__ void __launch_bounds__(32 * BIN_WARPS)
+msda_bin_kernel(const __grid_constant__ MsdaExactArgs g,
+                const __grid_constant__ Levels lv,
+                const __grid_constant__ MsdaBin b) {
+  extern __shared__ unsigned bin_smem[];
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int seg = blockIdx.x * BIN_WARPS + wp, l = blockIdx.y,
+            row = blockIdx.z;
+  if (seg >= b.nseg) return;
+  const int ntx = (lv.w[l] + TILE - 1) / TILE;
+  const int nt = ntx * ((lv.h[l] + TILE - 1) / TILE);
+  const long long rl = ((long long)row * g.L + l) * b.N;
+  // the segment's column of the counts, a tile every nseg words
+  unsigned* col =
+      b.cnt + ((long long)row * b.tiles + b.first[l]) * b.nseg + seg;
+  unsigned* ctr = b.smem_tiles ? bin_smem + wp * b.smem_tiles : col;
+  const long long st = b.smem_tiles ? 1 : b.nseg;
+  if (b.smem_tiles || !FILL)
+    for (int t = lane; t < nt; t += 32)
+      ctr[t * st] = FILL ? col[(long long)t * b.nseg] : 0;
+  __syncwarp();
+  int* lst = b.list + 4 * rl;  // the level's list
+  const int k = lane & 3;
+  const unsigned below = (1u << lane) - 1;
+  const int end = min(b.N, (seg + 1) * b.seg);
+  for (int r0 = seg * b.seg; r0 < end; r0 += 8 * BIN_RUN) {
+    int pos[BIN_RUN];
+    float wkk[BIN_RUN];
+#pragma unroll
+    for (int v = 0; v < BIN_RUN; ++v) {
+      const int r = r0 + 8 * v + (lane >> 2);
+      pos[v] = r < end ? b.rpos[rl + r] : -1;
+      wkk[v] = r < end ? reinterpret_cast<const float*>(b.rwk + rl + r)[k]
+                       : 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < BIN_RUN; ++v) {
+      const int r = r0 + 8 * v + (lane >> 2);
+      int key0 = -1;  // the tile of this lane's corner k = 2 dy + dx
+      if (pos[v] >= 0 && wkk[v] != 0.f) {
+        const int px = (pos[v] & 0xffff) - 1 + (k & 1);
+        const int py = (pos[v] >> 16) - 1 + (k >> 1);
+        key0 = py / TILE * ntx + px / TILE;
+      }
+      // a tile that an earlier corner of the record holds lists it once
+      int key = key0;
+#pragma unroll
+      for (int d = 1; d < 4; ++d) {
+        const int other = __shfl_up_sync(0xffffffffu, key0, d);
+        if (k >= d && other == key0) key = -1;
+      }
+      const unsigned mm = __match_any_sync(0xffffffffu, key);
+      const int rank = __popc(mm & below);
+      if (FILL && key >= 0) lst[ctr[key * st] + rank] = r;
+      __syncwarp();
+      if (key >= 0 && rank == 0) ctr[key * st] += (unsigned)__popc(mm);
+      __syncwarp();
+    }
+  }
+  if (!FILL && b.smem_tiles)
+    for (int t = lane; t < nt; t += 32) col[(long long)t * b.nseg] = ctr[t];
+}
+
+// One block per (level, camera row): the level's counts by (tile,
+// segment) to exclusive offsets in its list (below 4N), and each of its
+// tiles' start and length.
+__global__ void __launch_bounds__(1024)
+msda_bin_scan_kernel(const __grid_constant__ Levels lv,
+                     const __grid_constant__ MsdaBin b) {
+  __shared__ unsigned warp_sum[32];
+  const int l = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
+  const int nt = (lv.h[l] + TILE - 1) / TILE * ((lv.w[l] + TILE - 1) / TILE);
+  unsigned* c = b.cnt + ((long long)row * b.tiles + b.first[l]) * b.nseg;
+  const int E = nt * b.nseg;
+  unsigned total = 0;  // 1024 counts a pass, neighbours on neighbours
+  for (int e0 = 0; e0 < E; e0 += 1024) {
+    const int e = e0 + tid;
+    const unsigned v = e < E ? c[e] : 0u;
+    unsigned tot;
+    const unsigned at = total + block_scan(v, warp_sum, tot) - v;
+    if (e < E) c[e] = at;
+    total += tot;
+    __syncthreads();  // warp_sum is rewritten by the next pass
+  }
+  unsigned* ts = b.tstart + (long long)row * b.tiles + b.first[l];
+  unsigned* tc = b.tcnt + (long long)row * b.tiles + b.first[l];
+  for (int t = tid; t < nt; t += 1024) {
+    const unsigned s = c[t * b.nseg];
+    const unsigned e = t + 1 < nt ? c[(t + 1) * b.nseg] : total;
+    ts[t] = s;
+    tc[t] = e - s;
+  }
+}
+
+// Tile t of a camera row: its level and corner.
+__device__ __forceinline__ int d2_tile(const Levels& lv, const MsdaBin& b,
+                                       int t, int& tx0, int& ty0) {
+  int l = 0;
+  for (; l < lv.n; ++l) {
+    const int n = (lv.h[l] + TILE - 1) / TILE * ((lv.w[l] + TILE - 1) / TILE);
+    if (t >= b.first[l] && t < b.first[l] + n) break;
+  }
+  const int ntx = (lv.w[l] + TILE - 1) / TILE;
+  tx0 = (t - b.first[l]) % ntx * TILE;
+  ty0 = (t - b.first[l]) / ntx * TILE;
+  return l;
+}
+
+// Two fp32 sums stored as T.
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// D2 over the tiles that fit a chunk: block x is tile lo + x of camera
+// row y, channel slice z of 256 (a crowded tile is left to
+// msda_bwd_gsplit_kernel). Warp y owns the tile's pixel row y, lane i
+// channels 8i..8i+7 of the slice: 8 pixels x 8 channels of sums in
+// registers. The block stages its list D2_NT records at a time (each
+// record's corner base in the tile's frame, its four corner weights and
+// its row of g); each warp lists, by ballot, the staged records with a
+// corner in its row, in list order, and adds g x corner weight for their
+// one or two corners in the row, the g rows of D2_RUN records loaded
+// together.
+template <typename T>
+__global__ void __launch_bounds__(D2_NT, 2)
+msda_bwd_gvalue_kernel(const float* __restrict__ gsamp,
+                       const __grid_constant__ MsdaExactArgs g,
+                       const __grid_constant__ Levels lv,
+                       const __grid_constant__ MsdaBin b, int lo,
+                       T* __restrict__ gvalue) {
+  __shared__ int sPos[D2_NT], sG[D2_NT];
+  __shared__ float4 sWk[D2_NT];
+  __shared__ uint16_t wl[TILE][D2_NT];  // each warp's records
+  const int tid = threadIdx.x, lane = tid & 31, yy = tid >> 5;
+  const int row = blockIdx.y, c0 = blockIdx.z * 256 + lane * 8;
+  const bool chans = c0 < g.C;
+  const float* gb = gsamp + (long long)row * g.Q * g.heads * g.C + c0;
+  const int tile = lo + blockIdx.x;
+  const unsigned n = b.tcnt[(long long)row * b.tiles + tile];
+  if (n > (unsigned)b.chunk) return;
+  const unsigned e0 = b.tstart[(long long)row * b.tiles + tile];
+  int tx0, ty0;
+  const int l = d2_tile(lv, b, tile, tx0, ty0);
+  const long long rl = ((long long)row * g.L + l) * b.N;
+  const int* lst = b.list + 4 * rl;  // the level's list
+  float acc[TILE][8];
+#pragma unroll
+  for (int p = 0; p < TILE; ++p)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[p][c] = 0.f;
+  for (unsigned s0 = e0; s0 < e0 + n; s0 += D2_NT) {
+    const int m = (int)min((unsigned)D2_NT, e0 + n - s0);
+    __syncthreads();  // the previous stage is read
+    if (tid < m) {
+      const int r = lst[s0 + tid], q = b.rpos[rl + r];
+      sPos[tid] = ((q & 0xffff) - tx0) | ((q >> 16) - ty0) << 8;
+      sWk[tid] = b.rwk[rl + r];
+      sG[tid] = r / g.P;
+    }
+    __syncthreads();
+    // this warp's records: a corner in tile row yy
+    int cnt = 0;
+    for (int b0 = 0; b0 < m; b0 += 32) {
+      const int i = b0 + lane;
+      const int y0 = i < m ? (sPos[i] >> 8) - 1 : -9;
+      const bool mine = y0 == yy || y0 + 1 == yy;
+      const unsigned bal = __ballot_sync(0xffffffffu, mine);
+      if (mine) wl[yy][cnt + __popc(bal & ((1u << lane) - 1))] = i;
+      cnt += __popc(bal);
+    }
+    __syncwarp();
+    for (int j0 = 0; j0 < cnt; j0 += D2_RUN) {
+      float4 gr[D2_RUN][2];
+#pragma unroll
+      for (int u = 0; u < D2_RUN; ++u)
+        if (j0 + u < cnt && chans) {
+          const float4* q = reinterpret_cast<const float4*>(
+              gb + (long long)sG[wl[yy][j0 + u]] * g.C);
+          gr[u][0] = q[0];
+          gr[u][1] = q[1];
+        } else {
+          gr[u][0] = gr[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int u = 0; u < D2_RUN; ++u) {
+        if (j0 + u >= cnt) break;
+        const int e = wl[yy][j0 + u], pe = sPos[e];
+        const int x0 = (pe & 0xff) - 1, dy = yy - ((pe >> 8) - 1);
+        const float4 w4 = sWk[e];
+        const float wa = dy ? w4.z : w4.x, wb = dy ? w4.w : w4.y;
+        const float gv[8] = {gr[u][0].x, gr[u][0].y, gr[u][0].z, gr[u][0].w,
+                             gr[u][1].x, gr[u][1].y, gr[u][1].z, gr[u][1].w};
+        // corner (x0, weight wa) and (x0 + 1, weight wb) of the row
+        auto add = [&](float (&a)[8], float wc) {
+          if (wc != 0.f)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) a[c] = fmaf(gv[c], wc, a[c]);
+        };
+        switch (x0) {
+          case -1: add(acc[0], wb); break;
+          case 0: add(acc[0], wa); add(acc[1], wb); break;
+          case 1: add(acc[1], wa); add(acc[2], wb); break;
+          case 2: add(acc[2], wa); add(acc[3], wb); break;
+          case 3: add(acc[3], wa); add(acc[4], wb); break;
+          case 4: add(acc[4], wa); add(acc[5], wb); break;
+          case 5: add(acc[5], wa); add(acc[6], wb); break;
+          case 6: add(acc[6], wa); add(acc[7], wb); break;
+          case 7: add(acc[7], wa); break;
+        }
+      }
+    }
+  }
+  // the warp's tile row, 8 pixels x 8 channels a lane
+  const int y = ty0 + yy, h = lv.h[l], w = lv.w[l];
+  if (y >= h || !chans) return;
+  T* out = gvalue + ((long long)row * g.T + lv.start[l] + (long long)y * w) *
+                        g.C + c0;
+#pragma unroll
+  for (int p = 0; p < TILE; ++p)
+    if (tx0 + p < w) store8(out + (long long)(tx0 + p) * g.C, acc[p]);
+}
+
+// Entries [e0, e1) of a crowded tile's list (level l, corner (tx0, ty0))
+// into this thread's column of the block's sums acc [64 pixels]
+// [blockDim] (two channels a thread), in list order. The block stages
+// each record's weighing corners in the tile, in corner order: their
+// number and pixels packed in one word (3 + 4 x 6 bits) and their
+// weights first in a float4. A record's corners lie on distinct pixels,
+// so their sums load together, add and store; a run of records that
+// weigh one and the same pixel (padded slots) adds in registers (`cur`,
+// pixel `cp`). The g values of the next D2_RUN2 records load while the
+// current ones add.
+__device__ __forceinline__ void d2_sum(float2* acc, const MsdaExactArgs& g,
+                                       const MsdaBin& b, int row, int l,
+                                       int tx0, int ty0, unsigned e0,
+                                       unsigned e1, const float* gsr,
+                                       bool has) {
+  __shared__ int sPix[D2_STAGE2], sG[D2_STAGE2];
+  __shared__ float4 sWk[D2_STAGE2];
+  const int t = threadIdx.x, nt = blockDim.x;
+  const long long rl = ((long long)row * g.L + l) * b.N;
+  const int* lst = b.list + 4 * rl;  // the level's list
+  const float2 zero = make_float2(0.f, 0.f);
+  auto fma2 = [](float2 a, float2 v, float w) {
+    return make_float2(fmaf(v.x, w, a.x), fmaf(v.y, w, a.y));
+  };
+  float2 cur = zero;
+  int cp = -1;
+  auto load = [&](float2 (&gv)[D2_RUN2], int i0, int m) {
+#pragma unroll
+    for (int u = 0; u < D2_RUN2; ++u)
+      gv[u] = has && i0 + u < m
+                  ? *reinterpret_cast<const float2*>(
+                        gsr + (long long)sG[i0 + u] * g.C)
+                  : zero;
+  };
+  auto add = [&](const float2 (&gv)[D2_RUN2], int i0, int m) {
+#pragma unroll
+    for (int u = 0; u < D2_RUN2; ++u) {
+      if (i0 + u >= m) break;
+      const int pix = sPix[i0 + u], n = pix & 7;
+      const float4 w = sWk[i0 + u];
+      const int p0 = pix >> 3 & 63;
+      if (n == 1 && p0 == cp) {
+        cur = fma2(cur, gv[u], w.x);
+        continue;
+      }
+      if (cp >= 0) acc[cp * nt + t] = cur;
+      if (n == 1) {
+        cur = fma2(acc[p0 * nt + t], gv[u], w.x);
+        cp = p0;
+        continue;
+      }
+      cp = -1;
+      const int p1 = pix >> 9 & 63;
+      const int p2 = n > 2 ? pix >> 15 & 63 : p1;
+      const int p3 = n > 3 ? pix >> 21 & 63 : p1;
+      const float2 v0 = fma2(acc[p0 * nt + t], gv[u], w.x);
+      const float2 v1 = fma2(acc[p1 * nt + t], gv[u], w.y);
+      const float2 v2 = fma2(acc[p2 * nt + t], gv[u], w.z);
+      const float2 v3 = fma2(acc[p3 * nt + t], gv[u], w.w);
+      acc[p0 * nt + t] = v0;
+      acc[p1 * nt + t] = v1;
+      if (n > 2) acc[p2 * nt + t] = v2;
+      if (n > 3) acc[p3 * nt + t] = v3;
+    }
+  };
+  for (unsigned s0 = e0; s0 < e1; s0 += D2_STAGE2) {
+    const int m = (int)min((unsigned)D2_STAGE2, e1 - s0);
+    __syncthreads();  // the previous stage is read
+    for (int i = t; i < m; i += nt) {
+      const int r = lst[s0 + i], q = b.rpos[rl + r];
+      const float4 wk = b.rwk[rl + r];
+      const float wc[4] = {wk.x, wk.y, wk.z, wk.w};
+      const int dx = (q & 0xffff) - 1 - tx0, dy = (q >> 16) - 1 - ty0;
+      int pix = 0;
+      float wv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int x = dx + (k & 1), y = dy + (k >> 1);
+        if (x >= 0 && x < TILE && y >= 0 && y < TILE && wc[k] != 0.f) {
+          const int c = pix & 7;
+          pix = (pix & ~7) | (y * TILE + x) << (3 + 6 * c) | (c + 1);
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            if (v == c) wv[v] = wc[k];
+        }
+      }
+      sPix[i] = pix;
+      sG[i] = r / g.P;
+      sWk[i] = make_float4(wv[0], wv[1], wv[2], wv[3]);
+    }
+    __syncthreads();
+    float2 ga[D2_RUN2], gb[D2_RUN2];
+    load(ga, 0, m);
+    for (int i0 = 0; i0 < m; i0 += 2 * D2_RUN2) {
+      load(gb, i0 + D2_RUN2, m);
+      add(ga, i0, m);
+      load(ga, i0 + 2 * D2_RUN2, m);
+      add(gb, i0 + D2_RUN2, m);
+    }
+  }
+  if (cp >= 0) acc[cp * nt + t] = cur;
+}
+
+// D2 over the crowded tiles (lists longer than a chunk): cluster x /
+// D2_CLUSTER of camera row y takes the crowded ones among tiles lo + x /
+// D2_CLUSTER, lo + x / D2_CLUSTER + gridDim.x / D2_CLUSTER, ... below hi
+// (the crowded tiles, the small levels' and every level's tile (0, 0),
+// fall to different clusters), block x % D2_CLUSTER summing its equal
+// run of the list, channel slice
+// z of 256, two channels a thread, the 64 pixels' sums in shared memory,
+// so that no warp idles however the corners fall (padded slots put all
+// of theirs on pixel (0, 0), so in one row). Then block k adds the
+// cluster's sums of its 4 pixels in chunk order through distributed
+// shared memory and writes them.
+template <typename T>
+__global__ void __launch_bounds__(D2_NT2)
+msda_bwd_gsplit_kernel(const float* __restrict__ gsamp,
+                       const __grid_constant__ MsdaExactArgs g,
+                       const __grid_constant__ Levels lv,
+                       const __grid_constant__ MsdaBin b, int lo, int hi,
+                       T* __restrict__ gvalue) {
+  constexpr int CL = D2_CLUSTER, PX = 64 / CL;  // pixels a block adds
+  extern __shared__ __align__(16) float2 d2_acc[];  // [64][blockDim]
+  const int t = threadIdx.x, nt = blockDim.x, row = blockIdx.y;
+  const int ch = blockIdx.z * 256 + 2 * t;
+  const bool has = ch < g.C;
+  const float* gsr = gsamp + (long long)row * g.Q * g.heads * g.C + ch;
+  const unsigned k = blockIdx.x % CL;
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int tile = lo + blockIdx.x / CL; tile < hi; tile += gridDim.x / CL) {
+    const unsigned n = b.tcnt[(long long)row * b.tiles + tile];
+    if (n <= (unsigned)b.chunk) continue;  // msda_bwd_gvalue_kernel's
+    int tx0, ty0;
+    const int l = d2_tile(lv, b, tile, tx0, ty0);
+    const unsigned s = b.tstart[(long long)row * b.tiles + tile];
+    const unsigned len = (n + CL - 1) / CL;
+#pragma unroll 8
+    for (int p = 0; p < 64; ++p) d2_acc[p * nt + t] = make_float2(0.f, 0.f);
+    d2_sum(d2_acc, g, b, row, l, tx0, ty0, s + min(n, k * len),
+           s + min(n, (k + 1) * len), gsr, has);
+    cluster.sync();
+    const int h = lv.h[l], w = lv.w[l];
+    T* out = gvalue + ((long long)row * g.T + lv.start[l]) * g.C + ch;
+#pragma unroll
+    for (int pp = 0; pp < PX; ++pp) {
+      const int p = k * PX + pp;
+      float2 v = cluster.map_shared_rank(d2_acc, 0)[p * nt + t];
+#pragma unroll
+      for (int r = 1; r < CL; ++r) {
+        const float2 u = cluster.map_shared_rank(d2_acc, r)[p * nt + t];
+        v = make_float2(__fadd_rn(v.x, u.x), __fadd_rn(v.y, u.y));
+      }
+      const int y = ty0 + p / TILE, x = tx0 + p % TILE;
+      if (has && y < h && x < w) store2(out + ((long long)y * w + x) * g.C, v);
+    }
+    cluster.sync();  // no block leaves or reuses its sums while read
+  }
+}
+
+// D2's launches over the tiles [lo, hi): stage 4 the tiles that fit a
+// chunk, stage 8 the crowded ones.
+template <typename T>
+int launch_gvalue(const float* gs, const MsdaExactArgs& g, const Levels& lv,
+                  const MsdaBin& b, int lo, int hi, T* gvalue, int slices,
+                  int clusters, int stages, cudaStream_t st) {
+  const int threads = min(D2_NT2, (g.C / 2 + 31) / 32 * 32);
+  const int smem = 64 * threads * 8;  // the split's sums
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(msda_bwd_gsplit_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // 16 blocks a cluster: Hopper's non-portable size
+    cudaFuncSetAttribute(msda_bwd_gsplit_kernel<T>,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    smem_set = smem;
+  }
+  const int rows = g.B;
+  // both launches: the crowded tiles' on a second stream of the device,
+  // so that the two kernels (they write disjoint rows) fill each other's
+  // idle SMs; the caller's stream waits for it
+  constexpr int DEVICES = 16;
+  static cudaStream_t side[DEVICES];
+  static cudaEvent_t ready[DEVICES], done[DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool both = (stages & 12) == 12 && hi > lo && dev < DEVICES;
+  if (both && !side[dev]) {
+    cudaStreamCreateWithFlags(&side[dev], cudaStreamNonBlocking);
+    cudaEventCreateWithFlags(&ready[dev], cudaEventDisableTiming);
+    cudaEventCreateWithFlags(&done[dev], cudaEventDisableTiming);
+  }
+  const cudaStream_t st8 = both ? side[dev] : st;
+  if (both) {
+    cudaEventRecord(ready[dev], st);
+    cudaStreamWaitEvent(side[dev], ready[dev], 0);
+  }
+  if ((stages & 4) && hi > lo) {
+    msda_bwd_gvalue_kernel<T><<<dim3(hi - lo, rows, slices), D2_NT, 0, st>>>(
+        gs, g, lv, b, lo, gvalue);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if ((stages & 8) && hi > lo) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(D2_CLUSTER * clusters, rows, slices);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st8;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = D2_CLUSTER;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    const int err = (int)cudaLaunchKernelEx(
+        &cfg, msda_bwd_gsplit_kernel<T>, gs, g, lv, b, lo, hi, gvalue);
+    if (err) return err;
+  }
+  if (both) {
+    cudaEventRecord(done[dev], side[dev]);
+    cudaStreamWaitEvent(st, done[dev], 0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// stages: 1 D1, 2 the bin pass, 4 D2 over the tiles of [lo, hi) that
+// fit a chunk, 8 D2 over the crowded ones (the wrapper launches all four
 // over all tiles; chip_smoke times them apart, D2 level by level).
 template <typename T>
 int launch_msda_bwd(const T* value, const float* loc, const float* attw,
                     const float* gs, const float* gw, T* gvalue, float* gloc,
                     float* gattw, void* scratch, const MsdaExactArgs& g,
-                    const Levels& lv, int threads, int tiles, int slices,
-                    DfaTiles tl, int stages, int lo, int hi,
+                    const Levels& lv, int threads, MsdaBin b, int slices,
+                    int clusters, int stages, int lo, int hi,
                     cudaStream_t st) {
   int want = 0;
   for (int l = 0; l < lv.n; ++l)
-    want += (lv.h[l] + B2_TILE - 1) / B2_TILE *
-            ((lv.w[l] + B2_TILE - 1) / B2_TILE);
+    want += (lv.h[l] + TILE - 1) / TILE * ((lv.w[l] + TILE - 1) / TILE);
   const long long N = (long long)g.Q * g.heads * g.P;
+  const int rows = g.B;
+  const int bin_smem = BIN_WARPS * b.smem_tiles * 4;
   if (g.C % 8 || g.C < 8 || g.heads < 1 || g.heads > 8 || g.P < 1 ||
-      g.L != lv.n || threads != 32 * g.heads || g.B * g.Q < 1 ||
-      tiles != want || slices != (g.C + 255) / 256 || lo < 0 || lo > hi ||
-      hi > tiles || stages & ~3 || N > (1LL << 30))
+      g.L != lv.n || threads != MX_NT || g.B * g.Q < 1 || b.tiles != want ||
+      slices != (g.C + 255) / 256 || lo < 0 || lo > hi || hi > b.tiles ||
+      stages & ~15 || N > (1LL << 30) || b.N != N ||
+      b.seg < 1 || b.nseg != (int)((N + b.seg - 1) / b.seg) || b.chunk < 1 ||
+      clusters < 1 || bin_smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
+  const long long R = (long long)rows * g.L * N;
   float4* rwk = reinterpret_cast<float4*>(scratch);
-  int* rpos = reinterpret_cast<int*>(rwk + (long long)g.B * g.L * N);
+  int* rpos = reinterpret_cast<int*>(rwk + R);
+  b.rwk = rwk;
+  b.rpos = rpos;
+  b.cnt = reinterpret_cast<unsigned*>(rpos + R);
+  b.tstart = b.cnt + (long long)rows * b.tiles * b.nseg;
+  b.tcnt = b.tstart + (long long)rows * b.tiles;
+  b.list = reinterpret_cast<int*>(b.tcnt + (long long)rows * b.tiles);
   if (stages & 1) {
-    msda_bwd_kernel<T><<<g.B * g.Q, threads, 0, st>>>(
+    msda_bwd_kernel<T><<<msda_blocks(g), MX_NT, 0, st>>>(
         value, loc, attw, gs, gw, g, lv, gloc, gattw, rwk, rpos);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  if ((stages & 2) && hi > lo) {
-    DfaArgs d = {};
-    d.bs = g.B; d.cams = 1; d.A = g.Q * g.heads; d.P = g.P; d.G = 1;
-    d.C = g.C; d.T = g.T; d.M = -1;
-    DfaRec rec = {};
-    rec.wk = rwk;
-    rec.pos = rpos;
-    rec.N = (int)N;
-    tl.lo = lo;
-    dfa_bwd_gcol_kernel<T, true><<<dim3(g.B, hi - lo, slices), B2_NT, 0,
-                                   st>>>(gs, d, lv, rec, tl, gvalue);
+  if (stages & 2) {
+    static int smem_set = 0;  // the attribute only grows (one card)
+    if (bin_smem > 48 * 1024 && bin_smem > smem_set) {
+      cudaFuncSetAttribute(msda_bin_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bin_smem);
+      cudaFuncSetAttribute(msda_bin_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bin_smem);
+      smem_set = bin_smem;
+    }
+    const dim3 grid((b.nseg + BIN_WARPS - 1) / BIN_WARPS, g.L, rows);
+    msda_bin_kernel<false><<<grid, 32 * BIN_WARPS, bin_smem, st>>>(g, lv, b);
+    msda_bin_scan_kernel<<<dim3(g.L, rows), 1024, 0, st>>>(lv, b);
+    msda_bin_kernel<true><<<grid, 32 * BIN_WARPS, bin_smem, st>>>(g, lv, b);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
   }
+  return launch_gvalue<T>(gs, g, lv, b, lo, hi, gvalue, slices, clusters,
+                          stages, st);
   return (int)cudaGetLastError();
 }
 
@@ -2437,8 +3106,9 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
                                             threads, smem, st);
 }
 
-// dims: B, Q, heads, L, P, C, T, threads (32 a head), then the L level
-// heights, widths and start rows. One block per (camera row, query).
+// dims: B, Q, heads, L, P, C, T, threads (MX_NT), then the L level
+// heights, widths and start rows. A half-warp per (camera row, query,
+// head), MX_ITEMS of them a block.
 int simpb_msda(const void* value, const void* loc, const void* attw,
                void* sampled, void* wsum, const int* dims, int dtype,
                void* stream) {
@@ -2453,6 +3123,34 @@ int simpb_msda(const void* value, const void* loc, const void* attw,
                                    (float*)wsum, g, lv, dims[7], st)
                : launch_msda<float>(value, l, a, (float*)sampled,
                                     (float*)wsum, g, lv, dims[7], st);
+}
+
+// The exact MSDA kernel's probes (bf16 values only; see msda_kernel):
+// ahead 1 (the kernel's) or 2 samples' rows in flight, mode 0 the
+// kernel, 1 loads only, 2 arithmetic only; dims as simpb_msda's.
+int simpb_msda_probe(const void* value, const void* loc, const void* attw,
+                     void* sampled, void* wsum, const int* dims, int ahead,
+                     int mode, void* stream) {
+  MsdaExactArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.C = dims[5]; g.T = dims[6];
+  const Levels lv = read_levels(dims[3], dims + 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16* v = (const bf16*)value;
+  const float *l = (const float*)loc, *a = (const float*)attw;
+  float *sp = (float*)sampled, *ws = (float*)wsum;
+  const int blocks = msda_blocks(g);
+  if (ahead == 1 && mode == 0)
+    msda_kernel<bf16, 1, 0><<<blocks, MX_NT, 0, st>>>(v, l, a, g, lv, sp, ws);
+  else if (ahead == 2 && mode == 0)
+    msda_kernel<bf16, 2, 0><<<blocks, MX_NT, 0, st>>>(v, l, a, g, lv, sp, ws);
+  else if (ahead == 1 && mode == 1)
+    msda_kernel<bf16, 1, 1><<<blocks, MX_NT, 0, st>>>(v, l, a, g, lv, sp, ws);
+  else if (ahead == 1 && mode == 2)
+    msda_kernel<bf16, 1, 2><<<blocks, MX_NT, 0, st>>>(v, l, a, g, lv, sp, ws);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // The backward passes (kernels B and C). Kernel B: dims as simpb_dfa's
@@ -2479,7 +3177,6 @@ int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
   const int* d2 = dims + 11 + 3 * L;
   DfaTiles tl;
   for (int l = 0; l < L; ++l) tl.first[l] = d2[1 + l];
-  tl.lo = 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int* t = (const int*)thr;
   const float* go = (const float*)gout;
@@ -2493,13 +3190,20 @@ int simpb_dfa_bwd(const void* col, const void* pts, const void* wts,
                                        stages, st);
 }
 
-// Kernel D: dims B, Q, heads, L, P, C, T, D1's threads (32 a head), D2's
-// tile count and channel slices (of 256), then the L level heights,
-// widths and start rows, then the L levels' first tiles; gsamp [B, Q,
-// heads, C] and gwsum [B, Q, heads] fp32; gvalue [B, T, C] in the value's
-// type, gloc [B, Q, heads, L, P, 2] and gattw [B, Q, heads, L, P] fp32,
-// every element written; scratch: D1's records, 5 words each, B * L * Q
-// * heads * P of them; stages: 1 D1, 2 D2 over the tiles [lo, hi).
+// Kernel D: dims B, Q, heads, L, P, C, T, D1's threads (MX_NT), D2's
+// tile count and channel slices (of 256), the bin pass's segments and
+// segment length (records), the chunk length (a longer tile list is
+// split over a cluster), the tiles a bin warp counts in shared memory (0:
+// in the count array), D2's clusters a camera row, then the L level
+// heights, widths and start rows, then the L levels' first tiles; gsamp
+// [B, Q, heads, C] and gwsum [B, Q, heads] fp32; gvalue [B, T, C] in the
+// value's type, gloc [B, Q, heads, L, P, 2] and gattw [B, Q, heads, L, P]
+// fp32, every element written; scratch (int32 words, R = B * L * Q *
+// heads * P records): D1's records (5 R), the counts (B * tiles *
+// segments), the tiles' starts and lengths (2 B * tiles), the lists (4
+// R); stages: 1 D1, 2 the bin pass,
+// 4 D2 over the tiles [lo, hi) that fit a chunk, 8 D2 over the crowded
+// ones.
 int simpb_msda_bwd(const void* value, const void* loc, const void* attw,
                    const void* gsamp, const void* gwsum, void* gvalue,
                    void* gloc, void* gattw, void* scratch, const int* dims,
@@ -2507,22 +3211,24 @@ int simpb_msda_bwd(const void* value, const void* loc, const void* attw,
   MsdaExactArgs g;
   g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
   g.P = dims[4]; g.C = dims[5]; g.T = dims[6];
-  const int threads = dims[7], tiles = dims[8], slices = dims[9];
-  const Levels lv = read_levels(g.L, dims + 10);
-  DfaTiles tl;
-  for (int l = 0; l < g.L; ++l) tl.first[l] = dims[10 + 3 * g.L + l];
-  tl.lo = 0;
+  const int threads = dims[7], slices = dims[9], clusters = dims[14];
+  MsdaBin b = {};
+  b.tiles = dims[8]; b.nseg = dims[10]; b.seg = dims[11];
+  b.chunk = dims[12]; b.smem_tiles = dims[13];
+  b.N = (int)((long long)g.Q * g.heads * g.P);
+  const Levels lv = read_levels(g.L, dims + 15);
+  for (int l = 0; l < g.L; ++l) b.first[l] = dims[15 + 3 * g.L + l];
   cudaStream_t st = (cudaStream_t)stream;
   const float *l = (const float*)loc, *a = (const float*)attw;
   const float *gs = (const float*)gsamp, *gw = (const float*)gwsum;
   float *gl = (float*)gloc, *ga = (float*)gattw;
   return dtype ? launch_msda_bwd<bf16>((const bf16*)value, l, a, gs, gw,
                                        (bf16*)gvalue, gl, ga, scratch, g, lv,
-                                       threads, tiles, slices, tl, stages, lo,
-                                       hi, st)
+                                       threads, b, slices, clusters, stages,
+                                       lo, hi, st)
                : launch_msda_bwd<float>((const float*)value, l, a, gs, gw,
                                         (float*)gvalue, gl, ga, scratch, g,
-                                        lv, threads, tiles, slices, tl,
+                                        lv, threads, b, slices, clusters,
                                         stages, lo, hi, st);
 }
 

@@ -83,6 +83,8 @@ SIGNATURES = {
         "simpb_msda_sel": ((P,) * 6 + (I, P), I),
         # value, loc, attw, sampled, wsum, dims (host int[]), dtype, stream
         "simpb_msda": ((P,) * 6 + (I, P), I),
+        # the same, then samples in flight, probe mode, stream (bf16)
+        "simpb_msda_probe": ((P,) * 6 + (I, I, P), I),
         # col, points, weights, thresholds, grad out, grad col, grad
         # points, grad weights, scratch, dims, strides, dtype, stages,
         # stream

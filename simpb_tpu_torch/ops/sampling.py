@@ -46,9 +46,10 @@ forward's capacity thresholds, so the backward keeps exactly the slots
 the forward kept; `msda_patch_sel_backward`, kernel C, and
 `msda_backward`, kernel D: the Function saves only its inputs and the
 kernel recomputes the windows or the samples). None uses atomics: each
-feature or value gradient element has one owner block, which sums it in
-fp32 in a fixed order, rounds it once to the features' dtype and writes
-it once, so repeat launches give the same bits.
+feature or value gradient element has one owner block (for kernel D's
+crowded tiles, one thread-block cluster), which sums it in fp32 in a
+fixed order, rounds it once to the features' dtype and writes it once,
+so repeat launches give the same bits.
 """
 from __future__ import annotations
 
@@ -736,32 +737,40 @@ def msda_plain(
     return torch.einsum("bqhc,hc->bqc", acc, head_mask)
 
 
-MSDA_HEADS = 8  # heads of an exact-MSDA block, a warp each
+MSDA_HEADS = 8  # most heads of the exact kernels
+# the exact kernels' block: a half-warp per (camera row, query, head)
+MSDA_THREADS_EXACT = 256
+MSDA_ITEMS = MSDA_THREADS_EXACT // 16
+
+
+def _check_exact_shape(what, heads, c, shapes, num_points, num_rows,
+                       num_queries):
+    """Raise ValueError unless the exact kernels take these widths."""
+    if (not 0 < heads <= MSDA_HEADS or c % 8 or not c
+            or not 0 < len(shapes) <= MAX_LEVELS or num_points < 1
+            or num_rows * num_queries < 1):
+        raise ValueError(f"{what} 1 to {MSDA_HEADS} heads, C a multiple "
+                         f"of 8, 1 to {MAX_LEVELS} levels and at least one "
+                         f"query, got {heads} heads, C = {c}, {len(shapes)} "
+                         f"levels, {num_rows} x {num_queries} queries")
 
 
 @functools.lru_cache(maxsize=None)
 def plan_msda(num_rows: int, num_queries: int, heads: int, num_points: int,
               c: int, shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
     """The exact MSDA kernel's launch for [num_rows, ΣHW, c] values over
-    the levels `shapes`: one block per (camera row, query), a warp per
-    head, a lane 8 channels. Raises ValueError on a shape the kernel does
-    not take: more than MSDA_HEADS heads, C not a multiple of 8, more
-    than MAX_LEVELS levels, no query."""
-    what = "msda"
-    num_levels = len(shapes)
-    if (not 0 < heads <= MSDA_HEADS or c % 8 or not c
-            or not 0 < num_levels <= MAX_LEVELS or num_points < 1
-            or num_rows * num_queries < 1):
-        raise ValueError(f"{what}: the kernel takes 1 to {MSDA_HEADS} heads, "
-                         "C a multiple of 8, 1 to "
-                         f"{MAX_LEVELS} levels and at least one query, got "
-                         f"{heads} heads, C = {c}, {num_levels} levels, "
-                         f"{num_rows} x {num_queries} queries")
-    threads = 32 * heads
-    dims = [num_rows, num_queries, heads, num_levels, num_points, c,
-            sum(h * w for h, w in shapes), threads]
-    return SamplingPlan((num_rows * num_queries, 1), threads, 0, 0,
-                        _kernels.int_array(dims + _level_table(shapes)))
+    the levels `shapes`: a half-warp per (camera row, query, head),
+    MSDA_ITEMS of them a block of MSDA_THREADS_EXACT threads, a lane 16
+    channels a pass. Raises ValueError on a shape the kernel does not
+    take: more than MSDA_HEADS heads, C not a multiple of 8, more than
+    MAX_LEVELS levels, no query."""
+    _check_exact_shape("msda: the kernel takes", heads, c, shapes,
+                       num_points, num_rows, num_queries)
+    items = num_rows * num_queries * heads
+    dims = [num_rows, num_queries, heads, len(shapes), num_points, c,
+            sum(h * w for h, w in shapes), MSDA_THREADS_EXACT]
+    return SamplingPlan((-(-items // MSDA_ITEMS), 1), MSDA_THREADS_EXACT, 0,
+                        0, _kernels.int_array(dims + _level_table(shapes)))
 
 
 def _check_msda(value, spatial_shapes, sampling_locations,
@@ -852,10 +861,12 @@ def msda(
                                         attention_weights, spatial_shapes)
     if raw_heads:
         return sampled, wsum
-    heads, c = sampled.shape[2:]
-    head_mask = torch.repeat_interleave(
-        torch.eye(heads, device=value.device), c // heads, dim=1)
-    return torch.einsum("bqhc,hc->bqc", sampled, head_mask)
+    # each channel from its own head: the diagonal blocks of [heads,
+    # heads, C / heads], whose gradient reaches kernel D as a contiguous
+    # g_sampled (a head mask's einsum would hand it a transposed one)
+    b, q, heads, c = sampled.shape
+    return torch.diagonal(sampled.view(b, q, heads, heads, c // heads),
+                          dim1=2, dim2=3).transpose(2, 3).reshape(b, q, c)
 
 
 def _window_base(px, py, keep, ph, pw, hlim, wlim):
@@ -1388,16 +1399,38 @@ class _MsdaSelFunction(torch.autograd.Function):
         return grads + (None,) * 5
 
 
+# kernel D's bin pass and D2 (csrc/sampling.cu): records a segment (a
+# bin warp's share of a level), a bin block's segments, the longest tile
+# list one block sums (longer ones are split over a cluster of
+# D2_CLUSTER blocks), and the clusters a camera row
+D_SEGMENT = 256
+D_BIN_WARPS = 4
+D_CHUNK = 1024
+D2_CLUSTER = 16
+D2_CLUSTERS = 16
+
+
 class MsdaExactBwdPlan(NamedTuple):
-    """Kernel D's two launches. D1: one block per (camera row, query),
-    `grid` blocks of `threads` (a warp a head). D2: `gvalue_grid`
-    (camera rows, B2_TILE x B2_TILE pixel tiles of all levels, channel
-    slices of 256), the tiles numbered smallest level first from
-    `first[l]`. `scratch`: the int32 words of D1's records. `dims`: the
+    """Kernel D's launches. D1: `grid` blocks of `threads` (the forward's
+    items, a half-warp each). The bin pass: `bin_grid` (blocks of
+    D_BIN_WARPS segments of D_SEGMENT records, levels, camera rows),
+    twice, with one scan block a (level, camera row) between;
+    `bin_smem_tiles`, the tiles a bin warp counts in shared memory (0:
+    in the count array). D2: `gvalue_grid` (B2_TILE x B2_TILE pixel
+    tiles of all levels, camera rows, channel slices of 256), the tiles
+    numbered smallest level first from `first[l]`, a block each when its
+    list holds at most `chunk` records; `cluster_grid` the crowded
+    tiles', D2_CLUSTERS clusters of D2_CLUSTER blocks a camera row, on a
+    second stream beside the first launch. `scratch`: the int32 words of
+    D1's records, the counts, the tile tables and the lists. `dims`: the
     host int array the C entry reads."""
     grid: int
     threads: int
+    bin_grid: Tuple[int, int, int]
+    bin_smem_tiles: int
     gvalue_grid: Tuple[int, int, int]
+    cluster_grid: Tuple[int, int, int]
+    chunk: int
     first: Tuple[int, ...]
     scratch: int
     dims: ctypes.Array
@@ -1409,35 +1442,36 @@ def plan_msda_backward(num_rows: int, num_queries: int, heads: int,
                        shapes: Tuple[Tuple[int, int], ...]
                        ) -> MsdaExactBwdPlan:
     """Kernel D's launches for `msda` at [num_rows, ΣHW, c] values over
-    the levels `shapes`: D1 as the forward (one block per (camera row,
-    query), a warp per head, a lane 8 channels), D2 one block per (camera
-    row, 8x8 pixel tile, 256 channels). Raises ValueError on a shape the
-    kernels do not take: the forward's limits (1 to MSDA_HEADS heads, C a
-    multiple of 8, 1 to MAX_LEVELS levels), and levels of at most
+    the levels `shapes` (see MsdaExactBwdPlan). Raises ValueError on a
+    shape the kernels do not take: the forward's limits (1 to MSDA_HEADS
+    heads, C a multiple of 8, 1 to MAX_LEVELS levels), levels of at most
     MAX_LEVEL_SIDE pixels a side (D1 packs a corner base in 16 bits an
     axis)."""
     what = "msda_backward"
     num_levels = len(shapes)
-    if (not 0 < heads <= MSDA_HEADS or c % 8 or not c
-            or not 0 < num_levels <= MAX_LEVELS or num_points < 1
-            or num_rows * num_queries < 1):
-        raise ValueError(f"{what}: the kernels take 1 to {MSDA_HEADS} "
-                         "heads, C a multiple of 8, 1 to "
-                         f"{MAX_LEVELS} levels and at least one query, got "
-                         f"{heads} heads, C = {c}, {num_levels} levels, "
-                         f"{num_rows} x {num_queries} queries")
+    _check_exact_shape(f"{what}: the kernels take", heads, c, shapes,
+                       num_points, num_rows, num_queries)
     if any(max(h, w) > MAX_LEVEL_SIDE for h, w in shapes):
         raise ValueError(f"{what}: levels {shapes} exceed "
                          f"{MAX_LEVEL_SIDE} pixels a side")
+    n = num_queries * heads * num_points  # records a (camera row, level)
     tiles, first = _tile_plan(shapes)
     slices = -(-c // 256)
-    records = num_rows * num_levels * num_queries * heads * num_points
+    nseg = -(-n // D_SEGMENT)
+    level_tiles = max(-(-h // B2_TILE) * -(-w // B2_TILE) for h, w in shapes)
+    smem_tiles = (level_tiles if D_BIN_WARPS * level_tiles * 4
+                  <= _kernels.MAX_SMEM else 0)
+    records = num_rows * num_levels * n
+    scratch = 5 * records + num_rows * tiles * (nseg + 2) + 4 * records
     dims = [num_rows, num_queries, heads, num_levels, num_points, c,
-            sum(h * w for h, w in shapes), 32 * heads, tiles, slices]
+            sum(h * w for h, w in shapes), MSDA_THREADS_EXACT, tiles, slices,
+            nseg, D_SEGMENT, D_CHUNK, smem_tiles, D2_CLUSTERS]
     return MsdaExactBwdPlan(
-        num_rows * num_queries, 32 * heads, (num_rows, tiles, slices),
-        tuple(first), 5 * records,
-        _kernels.int_array(dims + _level_table(shapes) + first))
+        -(-num_rows * num_queries * heads // MSDA_ITEMS), MSDA_THREADS_EXACT,
+        (-(-nseg // D_BIN_WARPS), num_levels, num_rows), smem_tiles,
+        (tiles, num_rows, slices),
+        (D2_CLUSTER * D2_CLUSTERS, num_rows, slices), D_CHUNK, tuple(first),
+        scratch, _kernels.int_array(dims + _level_table(shapes) + first))
 
 
 def _msda_bwd_buffers(value, loc, attw, plan):
@@ -1450,11 +1484,16 @@ def _msda_bwd_buffers(value, loc, attw, plan):
             torch.empty(plan.scratch, dtype=torch.int32, device=dev))
 
 
-def _msda_bwd_launch(value, loc, attw, gs, gw, plan, buffers, stages=3,
+# kernel D's stages: D1, the bin pass, D2 over the tiles whose lists fit
+# a chunk, D2 over the crowded tiles (chunks and their merge)
+D_STAGES = {"D1": 1, "bin": 2, "D2_tiles": 4, "D2_split": 8}
+
+
+def _msda_bwd_launch(value, loc, attw, gs, gw, plan, buffers, stages=15,
                      tiles=None):
-    """Launch kernel D's stages (1 D1, 2 D2; D2 over the tile range
-    `tiles`, all tiles when None) into `buffers`."""
-    lo, hi = tiles or (0, plan.gvalue_grid[1])
+    """Launch kernel D's `stages` (a sum of D_STAGES; D2 over the tile
+    range `tiles`, all tiles when None) into `buffers`."""
+    lo, hi = tiles or (0, plan.gvalue_grid[0])
     _kernels.check(_kernels.load("sampling").simpb_msda_bwd(
         *map(_kernels.ptr, (value, loc, attw, gs, gw) + tuple(buffers)),
         plan.dims, _kernels.DTYPE_CODE[value.dtype], stages, lo, hi,

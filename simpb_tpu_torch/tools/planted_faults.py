@@ -5,25 +5,24 @@ of the exact MSDA forward.
 
 `chip_smoke.grad_check` holds the DFA, MSDA-sel and exact MSDA backward
 kernels to their plain versions element by element; the exact phase holds
-the exact
-MSDA kernel to `msda_plain` (`chip_smoke.within`, at EXACT_TOL). To show
-that they see a fault that drops a small part of a result, the tool
-copies the checkout into `build/planted_faults/<fault>/`, edits one line
-of `csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
-accumulation in B2, the same owner pass's accumulation in kernel D's D2,
+the exact MSDA kernel to `msda_plain` (`chip_smoke.within`, at
+EXACT_TOL). To show that they see a fault that drops a small part of a
+result, the tool copies the checkout into `build/planted_faults/<fault>/`,
+edits one line of `csrc/sampling.cu` there (`FAULTS`: kernel B's
+feature-gradient accumulation in B2, kernel D's records as D1 writes
+them, kernel D's bin pass (a tile list that loses its last record),
 kernel C's value-gradient accumulation in C3, or the exact MSDA kernel's
-bilinear sample), builds that copy and runs
-chip_smoke's synthetic gradient cases and exact MSDA cases (fp32 and
-bf16) on it. It prints one JSON line per (fault, case): whether the
-check passes, whether the bound it replaced (`MAX_SCALED`: a share of
-the plain gradient's largest value; for exact MSDA the check itself)
-passes, and each gradient's worst share of the check's bound; then one
-summary line per fault. It exits 1 when the unchanged copy fails a case,
-or when a fault passes the check on any case of the kernel it edits
-(every case has live entries for each fault to hit: the dead-anchor
-cases keep anchor 0 live, and query 0 of every exact case samples the
-interior, for the forward and for D). The copies are removed at the end.
-Needs the card.
+corner rows), builds that copy and runs chip_smoke's synthetic gradient
+cases and exact MSDA cases (fp32 and bf16) on it. It prints one JSON
+line per (fault, case): whether the check passes, whether the bound it
+replaced (`MAX_SCALED`: a share of the plain gradient's largest value;
+for exact MSDA the check itself) passes, and each gradient's worst share
+of the check's bound; then one summary line per fault. It exits 1 when
+the unchanged copy fails a case, or when a fault passes the check on any
+case of the kernel it edits (every case has live entries for each fault
+to hit: the dead-anchor cases keep anchor 0 live, and query 0 of every
+exact case samples the interior, for the forward and for D). The copies
+are removed at the end. Needs the card.
 """
 from __future__ import annotations
 
@@ -37,7 +36,9 @@ ROOT = Path(__file__).resolve().parents[2]
 WORK = ROOT / "build" / "planted_faults"
 _B_ACCUMULATE = "              if (wc != 0.f)\n"
 _C_ACCUMULATE = "              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"
-_EXACT_SAMPLE = "        msda_bilinear<T>(smp, w, corner);\n"
+_D_RECORD = "    rwk[ri] = wk;\n"
+_D_LIST = "    tc[t] = e - s;\n"
+_EXACT_CORNERS = "            if (ld) dfa_corners(vl, w, r, g.C, v[u][i]);\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
 FAULTS = {
     "none": (None, None, None),
@@ -50,13 +51,18 @@ FAULTS = {
     "dfa_small_contributions": (
         "deformable_aggregation_backward", _B_ACCUMULATE,
         "              if (wc != 0.f && fabsf(gg[c] * wc) >= 1e-4f)\n"),
-    # kernel D: in D2 (B2's pass over D1's records, EXACT) every sample of
-    # query 0, head 0 (its g_sampled row, staged in sAnc[e], is 0) drops
-    # its fourth corner
+    # kernel D: D1 writes every sample record of query 0, head 0 (item
+    # bqh % (Q heads) == 0 of each camera row) with its fourth corner's
+    # weight 0, so D2 drops that corner
     "msda_exact_bwd_corner3_of_query0": (
-        "msda_backward", _B_ACCUMULATE,
-        "              if (wc != 0.f && !(EXACT && k == 3 && "
-        "sAnc[e] == 0))\n"),
+        "msda_backward", _D_RECORD,
+        "    if (bqh % qh) rwk[ri] = wk; "
+        "else rwk[ri] = make_float4(wk.x, wk.y, wk.z, 0.f);\n"),
+    # kernel D: the bin pass's scan shortens every tile's list by one,
+    # so D2 never sums the last record of a tile
+    "msda_exact_bwd_list_loses_last_record": (
+        "msda_backward", _D_LIST,
+        "    if (e > s) tc[t] = e - s - 1; else tc[t] = 0;\n"),
     # kernel C: window pixel 0 of query 0 adds nothing to the value
     # gradient (C3 walks window e = query * K + k; its pixel 0 is the
     # window's base)
@@ -69,11 +75,12 @@ FAULTS = {
         "msda_patch_sel_backward", _C_ACCUMULATE,
         "              if (fabsf(wp[p] * gv[c]) >= 1e-4f) "
         "acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"),
-    # exact MSDA: query 0 of camera row 0 drops the fourth bilinear
-    # corner (x1, y1) of every sample (the block bq = 0)
+    # exact MSDA: query 0 of camera row 0 (its heads' items, bqh < heads)
+    # drops the fourth bilinear corner (x1, y1) of every sample
     "msda_exact_corner3_of_query0": (
-        "msda", _EXACT_SAMPLE,
-        "        if (bq == 0) corner[3].zero();\n" + _EXACT_SAMPLE),
+        "msda", _EXACT_CORNERS,
+        "            if (ld) { dfa_corners(vl, w, r, g.C, v[u][i]); "
+        "if (bqh < g.heads) v[u][i][3].zero(); }\n"),
 }
 MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
 

@@ -130,8 +130,10 @@ def test_msda_wrapper_on_cpu():
     (8, 260, 4, False), (8, 256, 9, False)],
     ids=["r50", "tiny", "heads9", "c260", "levels9"])
 def test_msda_planner(heads, c, levels, ok):
-    """The kernel's launch at the configs' widths; more than 8 heads, C
-    not a multiple of 8 and more than MAX_LEVELS levels are refused."""
+    """The kernel's launch at the configs' widths (a half-warp per camera
+    row, query and head, 16 of them a block of 256 threads: 768 blocks
+    at the released config); more than 8 heads, C not a multiple of 8
+    and more than MAX_LEVELS levels are refused."""
     shapes = ((64, 176), (32, 88), (16, 44), (8, 22), (4, 11), (2, 6),
               (1, 3), (1, 2), (1, 1))[:levels]
     if not ok:
@@ -139,9 +141,11 @@ def test_msda_planner(heads, c, levels, ok):
             tsmp.plan_msda(6, 256, heads, 4, c, shapes)
         return
     plan = tsmp.plan_msda(6, 256, heads, 4, c, shapes)
-    assert plan.grid == (6 * 256, 1) and plan.threads == 32 * heads
+    assert plan.grid == (6 * 256 * heads // 16, 1) and plan.threads == 256
     assert list(plan.dims)[:8] == [6, 256, heads, levels, 4, c,
-                                   sum(h * w for h, w in shapes), 32 * heads]
+                                   sum(h * w for h, w in shapes), 256]
+    # a ragged query count leaves a spare half-warp in the last block
+    assert tsmp.plan_msda(1, 207, 8, 4, c, shapes).grid == (104, 1)
 
 
 @pytest.mark.parametrize("shapes,sel", [

@@ -3,16 +3,20 @@ against JAX's, the exact 2D cross-attention layer in training order
 against JAX's, kernel D's planner, and a plain mirror of its
 deterministic design.
 
-Kernel D runs on the card only (`csrc/sampling.cu`): D1 (a block per
-camera row and query) writes the location and weight gradients and each
-sample's record at its natural index (q * heads + h) * P + p of its
-(camera row, level) list; D2 (kernel B's owner pass, a block per camera
-row and pixel tile of a level) owns those value-gradient rows and sums
-every record whose 2x2 footprint reaches its tile, in index order. The
-mirror here repeats that bookkeeping in PyTorch: every corner of nonzero
-weight must be summed by exactly one tile, and the tiles' sums must give
-the plain backward's value gradient. The kernel against its plain
-version is chip_smoke's `train_grad` phase.
+Kernel D runs on the card only (`csrc/sampling.cu`): D1 (a half-warp
+per camera row, query and head) writes the location and weight
+gradients and each sample's record at its natural index (q * heads + h)
+* P + p of its (camera row, level) list; the bin pass lists each
+record under the 8x8 pixel tiles that own its weighing corners, each
+list in record order (counts by tile and segment, their scan, a fill);
+D2 (a block per tile, or a cluster of D2_CLUSTER blocks for a tile whose
+list passes D_CHUNK records) owns those value-gradient rows and sums
+its list in order, the chunks added in chunk order. The mirror here
+repeats that bookkeeping in PyTorch and numpy: every weighing corner's
+record must sit once in its owner tile's list, the lists in record
+order, and the tiles' sums (fp32, in the kernel's order) must give the
+plain backward's value gradient. The kernel against its plain version
+is chip_smoke's `train_grad` phase.
 
 Inputs come from numpy seeds; the JAX side is jitted, one trace per
 (dtype, width). Tolerances: the gradients in fp32 within 1e-5 of each
@@ -225,7 +229,7 @@ def _train_call(cfg, bs):
 
 
 def _tile_index(plan, shapes):
-    """D2's tile numbering from the plan: [(level, ty0, tx0)] in block
+    """D2's tile numbering from the plan: [(level, ty0, tx0)] in tile
     order."""
     out = {}
     for lvl, (h, w) in enumerate(shapes):
@@ -238,32 +242,46 @@ def _tile_index(plan, shapes):
 @pytest.mark.parametrize("cfg,bs", [(R50, 4), (simpb_tiny(), 1)],
                          ids=["r50_bs4", "tiny_bs1"])
 def test_plan_msda_backward_at_training_shapes(cfg, bs):
-    """D1 one block per (camera row, query), a warp a head; D2 one block
-    per (camera row, tile, 256 channels) with every pixel of every level
-    in one tile, the smallest level's tiles first; the records' scratch
-    and the dims the C entry reads."""
+    """D1 the forward's items (a half-warp per camera row, query and
+    head, 16 a block); the bin pass a warp per segment of D_SEGMENT
+    records of a level; D2 one block per (tile, camera row, 256
+    channels) with every pixel of every level in one tile, the smallest
+    level's tiles first, and D2_CLUSTERS clusters of D2_CLUSTER blocks a
+    camera row for the crowded tiles; the scratch and the dims the C
+    entry reads."""
     rows, q, heads, points, c, shapes = _train_call(cfg, bs)
     plan = tsmp.plan_msda_backward(rows, q, heads, points, c, shapes)
-    assert (plan.grid, plan.threads) == (rows * q, 32 * heads)
+    assert plan.threads == 256 and plan.grid == -(-rows * q * heads // 16)
+    n = q * heads * points  # records a (camera row, level)
+    nseg = -(-n // tsmp.D_SEGMENT)
+    assert plan.bin_grid == (-(-nseg // tsmp.D_BIN_WARPS), len(shapes), rows)
     tiles = _tile_index(plan, shapes)
-    assert plan.gvalue_grid == (rows, len(tiles), -(-c // 256))
+    slices = -(-c // 256)
+    assert plan.gvalue_grid == (len(tiles), rows, slices)
+    assert plan.cluster_grid == (tsmp.D2_CLUSTER * tsmp.D2_CLUSTERS, rows,
+                                 slices)
     cover = [np.zeros(s, int) for s in shapes]
     for lvl, ty0, tx0 in tiles:
         cover[lvl][ty0:ty0 + TS, tx0:tx0 + TS] += 1
     assert all((m == 1).all() for m in cover)
     sizes = [shapes[lvl][0] * shapes[lvl][1] for lvl, _, _ in tiles]
     assert sizes == sorted(sizes)  # crowded (small) levels first
-    records = rows * len(shapes) * q * heads * points
-    assert plan.scratch == 5 * records
+    # every level's tiles fit a bin warp's counters in shared memory
+    level_tiles = max(-(-h // TS) * -(-w // TS) for h, w in shapes)
+    assert plan.bin_smem_tiles == level_tiles
+    records = rows * len(shapes) * n
+    assert plan.chunk == tsmp.D_CHUNK
+    assert plan.scratch == 9 * records + rows * len(tiles) * (nseg + 2)
     dims = list(plan.dims)
-    assert dims[:10] == [rows, q, heads, len(shapes), points, c,
-                         sum(h * w for h, w in shapes), 32 * heads,
-                         len(tiles), -(-c // 256)]
-    assert dims[10 + 3 * len(shapes):] == list(plan.first)
+    assert dims[:15] == [rows, q, heads, len(shapes), points, c,
+                         sum(h * w for h, w in shapes), 256, len(tiles),
+                         slices, nseg, tsmp.D_SEGMENT, tsmp.D_CHUNK,
+                         level_tiles, tsmp.D2_CLUSTERS]
+    assert dims[15 + 3 * len(shapes):] == list(plan.first)
     if cfg is R50:  # 24 camera rows of 384 queries (256 + 128 DN slots)
         assert (rows, q) == (24, 384)
-        assert len(tiles) == 176 + 44 + 12 + 3
-        assert plan.scratch * 4 < 25e6
+        assert len(tiles) == 176 + 44 + 12 + 3 and nseg == 48
+        assert plan.scratch * 4 < 48e6  # 43.6 MB
 
 
 def test_plan_msda_backward_refuses_what_the_kernels_do_not_take():
@@ -304,85 +322,205 @@ def _d_records(value, loc, attw, shapes):
     return recs
 
 
-def _d2_mirror(recs, shapes, gs):
-    """D2's owner tiles over the records: (the number of tiles that sum
-    each corner of nonzero weight, the value gradient in float64 [rows,
-    ΣHW, C])."""
+CORNER_DX, CORNER_DY = torch.tensor([0, 1, 0, 1]), torch.tensor([0, 0, 1, 1])
+
+
+def _bin(x0, y0, wk, shape):
+    """The bin pass over one level's records of one camera row, as the
+    kernels run it: each record's weighing corners' tiles, a tile once a
+    record (a later corner in a tile an earlier one holds is dropped);
+    counts by (tile, segment of D_SEGMENT records); their exclusive scan
+    in (tile, segment) order; each entry written at its (tile,
+    segment)'s offset plus its rank there in (record, corner) order.
+    Returns (list of record indices, each tile's start, each tile's
+    length, the (record, tile) entries)."""
+    h, w = shape
+    ntx, nt = -(-w // TS), -(-h // TS) * -(-w // TS)
+    n = wk.shape[0]
+    px, py = x0[:, None] + CORNER_DX, y0[:, None] + CORNER_DY
+    key0 = torch.where(wk != 0, py.div(TS, rounding_mode="floor") * ntx
+                       + px.div(TS, rounding_mode="floor"), -1)
+    key = key0.clone()
+    for k in range(1, 4):
+        for d in range(k):
+            key[:, k] = torch.where(key0[:, d] == key0[:, k], -1, key[:, k])
+    rec = torch.arange(n)[:, None].expand(n, 4)
+    live = key >= 0
+    e_key, e_rec = key[live], rec[live]  # (record, corner) order
+    nseg = -(-n // tsmp.D_SEGMENT)
+    group = e_key * nseg + e_rec // tsmp.D_SEGMENT
+    counts = torch.bincount(group, minlength=nt * nseg)
+    offsets = torch.cumsum(counts, 0) - counts
+    order = torch.sort(group, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(order)) - offsets[group[order]]
+    lst = torch.empty(len(e_rec), dtype=torch.int64)
+    lst[offsets[group] + rank] = e_rec
+    start = offsets.reshape(nt, nseg)[:, 0]
+    length = counts.reshape(nt, nseg).sum(1)
+    return lst, start, length, (e_rec, e_key)
+
+
+def _chunks(start, length):
+    """D2's work on a tile: one block over its whole list, or, above
+    D_CHUNK records, D2_CLUSTER chunks of ceil(n / D2_CLUSTER), in list
+    order."""
+    n, k = int(length), tsmp.D2_CLUSTER
+    if n <= tsmp.D_CHUNK:
+        return [(int(start), int(start) + n)]
+    size = -(-n // k)
+    return [(int(start) + min(n, i * size), int(start) + min(n, (i + 1) * size))
+            for i in range(k)]
+
+
+def _d2_mirror(recs, shapes, gs, dtype):
+    """D2 over the bin pass's lists: each chunk sums its records in list
+    order into fp32 (a fused multiply-add for each weighing corner in the
+    tile), the chunks add in chunk order, and each row rounds once to
+    `dtype`. Returns (the value gradient [rows, ΣHW, C], the number of
+    chunks of each (camera row, level)'s tile (0, 0))."""
     starts = [0]
     for h, w in shapes:
         starts.append(starts[-1] + h * w)
     rows, c = gs.shape[0], gs.shape[-1]
-    gvalue = torch.zeros(rows, starts[-1], c, dtype=torch.float64)
-    owners = []
+    g = gs.reshape(rows, -1, c).numpy()
+    gvalue = np.zeros((rows, starts[-1], c), np.float32)
+    tile00 = []
     for lvl, (x0, y0, wk, g_row) in enumerate(recs):
         h, w = shapes[lvl]
-        live = (wk != 0).any(-1)  # D1 writes the base -1 for the rest
-        px = x0[..., None] + torch.tensor([0, 1, 0, 1])
-        py = y0[..., None] + torch.tensor([0, 0, 1, 1])
-        count = torch.zeros(wk.shape, dtype=torch.int64)
-        for ty0 in range(0, h, TS):
-            for tx0 in range(0, w, TS):
-                hit = (live & (x0 - tx0 >= -1) & (x0 - tx0 < TS)
-                       & (y0 - ty0 >= -1) & (y0 - ty0 < TS))
-                own = (hit[..., None] & (wk != 0) & (px >= tx0)
-                       & (px < tx0 + TS) & (py >= ty0) & (py < ty0 + TS))
-                count += own.long()
-                for row in range(rows):
-                    r, k = own[row].nonzero(as_tuple=True)
-                    g = gs[row].reshape(-1, c)[g_row[r]].double()
-                    gvalue[row].index_add_(
-                        0, starts[lvl] + py[row, r, k] * w + px[row, r, k],
-                        g * wk[row, r, k].double()[:, None])
-        owners.append(count[wk != 0])
-    return torch.cat(owners), gvalue
+        ntx = -(-w // TS)
+        for row in range(rows):
+            lst, start, length, _ = _bin(x0[row], y0[row], wk[row], (h, w))
+            tile00.append(len(_chunks(start[0], length[0])))
+            for t in range(len(start)):
+                ty0, tx0 = t // ntx * TS, t % ntx * TS
+                parts = []
+                for e0, e1 in _chunks(start[t], length[t]):
+                    acc = np.zeros((TS, TS, c), np.float32)
+                    for r in lst[e0:e1].tolist():
+                        gv = g[row, g_row[r]]
+                        for k in range(4):
+                            wt = np.float32(wk[row, r, k])
+                            yy = int(y0[row, r]) + k // 2 - ty0
+                            xx = int(x0[row, r]) + k % 2 - tx0
+                            if wt != 0 and 0 <= yy < TS and 0 <= xx < TS:
+                                # a fused multiply-add: exact product,
+                                # one rounding to fp32
+                                acc[yy, xx] = (acc[yy, xx].astype(np.float64)
+                                               + gv.astype(np.float64)
+                                               * np.float64(wt))
+                    parts.append(acc)
+                tot = parts[0]
+                for part in parts[1:]:
+                    tot = tot + part
+                for yy in range(min(TS, h - ty0)):
+                    at = starts[lvl] + (ty0 + yy) * w + tx0
+                    gvalue[row, at:at + min(TS, w - tx0)] = \
+                        tot[yy, :min(TS, w - tx0)]
+    return torch.from_numpy(gvalue).to(dtype), tile00
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_d2_owners_sum_the_plain_value_gradient(dtype):
-    """Every corner of nonzero weight has exactly one owner tile, and the
-    owners' sums in record order are the plain backward's value gradient:
-    fp32 against float64 sums at 1e-6 of its largest value; bf16 rounds
-    each sum once, so the two may also land one bf16 step apart (2^-7 of
-    the value, as chip_smoke's GRAD_TOL)."""
-    rng = np.random.default_rng(23)
-    value, loc, attw = (_t(a) for a in _inputs(rng, 4, 16, WIDE_SHAPES))
-    value = value.to(dtype)
-    gs = _t(rng.normal(size=loc.shape[:3] + (16,)).astype(np.float32))
-    gw = _t(rng.normal(size=loc.shape[:3]).astype(np.float32))
-    owners, gvalue = _d2_mirror(_d_records(value, loc, attw, WIDE_SHAPES),
-                                WIDE_SHAPES, gs)
-    assert owners.numel() > 100 and (owners == 1).all()
-    ref = tsmp.msda_backward_plain(value, SpatialShapes(WIDE_SHAPES), loc,
-                                   attw, gs, gw)[0]
-    assert ref.dtype == dtype
-    got, ref = gvalue.to(dtype).double(), ref.double()
+def _hold_to_plain(got, ref, dtype):
+    """fp32 within 1e-6 of the plain gradient's largest value (fp32 sums
+    in another order); bf16 rounds each sum once, so the two may also
+    land one bf16 step apart (2^-7 of the value, as chip_smoke's
+    GRAD_TOL)."""
+    got, ref = got.double(), ref.double()
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     assert ((got - ref).abs() <= rel * ref.abs()
             + 1e-6 * ref.abs().max()).all()
     assert (ref != 0).sum() > 100
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d2_owners_sum_the_plain_value_gradient(dtype):
+    """The bin pass lists every weighing corner's record under its owner
+    tile exactly once, each list in record order; D2's chunks summed in
+    list order and added in chunk order are the plain backward's value
+    gradient."""
+    rng = np.random.default_rng(23)
+    value, loc, attw = (_t(a) for a in _inputs(rng, 4, 16, WIDE_SHAPES))
+    value = value.to(dtype)
+    gs = _t(rng.normal(size=loc.shape[:3] + (16,)).astype(np.float32))
+    gw = _t(rng.normal(size=loc.shape[:3]).astype(np.float32))
+    recs = _d_records(value, loc, attw, WIDE_SHAPES)
+    for (x0, y0, wk, _), shape in zip(recs, WIDE_SHAPES):
+        ntx = -(-shape[1] // TS)
+        for row in range(wk.shape[0]):
+            lst, start, length, (e_rec, e_key) = _bin(x0[row], y0[row],
+                                                      wk[row], shape)
+            for t in range(len(start)):
+                mine = lst[start[t]:start[t] + length[t]]
+                assert (mine[1:] > mine[:-1]).all()  # record order
+                assert torch.equal(mine, e_rec[e_key == t])
+            # each weighing corner's owner lists its record
+            live = wk[row] != 0
+            px = (x0[row][:, None] + CORNER_DX)[live]
+            py = (y0[row][:, None] + CORNER_DY)[live]
+            owner = py // TS * ntx + px // TS
+            r = torch.arange(len(wk[row]))[:, None].expand(-1, 4)[live]
+            listed = set(zip(e_rec.tolist(), e_key.tolist()))
+            assert all((a, b) in listed for a, b in zip(r.tolist(),
+                                                        owner.tolist()))
+            assert len(listed) == len(e_rec) > 0
+    gvalue, _ = _d2_mirror(recs, WIDE_SHAPES, gs, dtype)
+    ref = tsmp.msda_backward_plain(value, SpatialShapes(WIDE_SHAPES), loc,
+                                   attw, gs, gw)[0]
+    assert ref.dtype == dtype
+    _hold_to_plain(gvalue, ref, dtype)
+
+
+def test_d2_splits_the_padded_slots_tile():
+    """Padded slots (every location 0) put all their samples on pixel
+    (0, 0) of every level: tile (0, 0)'s list passes a chunk, so a
+    cluster of D2_CLUSTER blocks splits it, and the chunks' sums, added in
+    chunk order, are the plain backward's value gradient."""
+    rng = np.random.default_rng(25)
+    value, loc, attw = (_t(a) for a in _inputs(rng, 4, 8, WIDE_SHAPES, b=1,
+                                               q=70))
+    loc[:, 4:] = 0.0  # 66 padded slots: 1056 records a level at (0, 0)
+    gs = _t(rng.normal(size=loc.shape[:3] + (8,)).astype(np.float32))
+    gw = _t(rng.normal(size=loc.shape[:3]).astype(np.float32))
+    recs = _d_records(value, loc, attw, WIDE_SHAPES)
+    gvalue, tile00 = _d2_mirror(recs, WIDE_SHAPES, gs, torch.float32)
+    assert all(n >= 2 for n in tile00)
+    ref = tsmp.msda_backward_plain(value, SpatialShapes(WIDE_SHAPES), loc,
+                                   attw, gs, gw)[0]
+    _hold_to_plain(gvalue, ref, torch.float32)
+
+
 def test_d2_owners_at_the_step_shapes():
     """At the training step's widths (one batch row of `simpb_r50_704x256`:
     6 camera rows of 384 queries x 8 heads x 4 points, the 4 levels and
-    their tiles), every corner of nonzero weight lies on its level and its
-    owner tile's hit test sees its record."""
+    their tiles, the 128 DN slots padded), the bin pass lists every
+    weighing corner's record under its owner tile once and in record
+    order, and each level's tile (0, 0) holds the padded slots and splits
+    into D2_CLUSTER chunks."""
     rows, q, heads, points, _, shapes = _train_call(R50, 1)
     rng = np.random.default_rng(24)
     loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (
         rows, q, heads, len(shapes), points, 2)).astype(np.float32))
+    loc[:, 256:] = 0.0
     attw = torch.ones(loc.shape[:-1])
-    for x0, y0, wk, _ in _d_records(torch.zeros(1, dtype=torch.bfloat16),
-                                    loc, attw, shapes):
-        live = wk != 0
-        px = x0[..., None] + torch.tensor([0, 1, 0, 1])
-        py = y0[..., None] + torch.tensor([0, 0, 1, 1])
-        ty0, tx0 = py // TS * TS, px // TS * TS
-        seen = ((x0[..., None] - tx0 >= -1) & (x0[..., None] - tx0 < TS)
-                & (y0[..., None] - ty0 >= -1) & (y0[..., None] - ty0 < TS))
-        assert seen[live].all() and live.sum() > 1000
-        assert ((x0[live.any(-1)] >= -1).all()
-                and (y0[live.any(-1)] >= -1).all())
+    for (x0, y0, wk, _), shape in zip(
+            _d_records(torch.zeros(1, dtype=torch.bfloat16), loc, attw,
+                       shapes), shapes):
+        ntx = -(-shape[1] // TS)
+        for row in range(rows):
+            lst, start, length, (e_rec, e_key) = _bin(x0[row], y0[row],
+                                                      wk[row], shape)
+            live = wk[row] != 0
+            assert live.sum() > 1000
+            px = (x0[row][:, None] + CORNER_DX)[live]
+            py = (y0[row][:, None] + CORNER_DY)[live]
+            r = torch.arange(len(wk[row]))[:, None].expand(-1, 4)[live]
+            owner = py // TS * ntx + px // TS
+            # the (record, owner) pairs are the listed entries, once each
+            pairs = torch.unique(r * 1000003 + owner)
+            assert torch.equal(pairs, torch.sort(e_rec * 1000003 + e_key)[0])
+            assert torch.equal(lst, e_rec[torch.sort(e_key, stable=True)[1]])
+            assert len(_chunks(start[0], length[0])) == tsmp.D2_CLUSTER
+            assert int(length[0]) >= 128 * heads * points
 
 
 def test_the_trainer_trains_the_exact_configs():
