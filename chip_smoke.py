@@ -101,14 +101,20 @@ Phases, each printing one JSON line:
              SIMPB_GUARDED (`_guarded`: exact MSDA, capacities 208 and
              2304, guard counters) and SIMPB_FAST_GUARDED
              (`_fast_guarded`: the flagship and its counters, windowed
-             ones among them), trunk and head bf16: a cold frame and
-             FRAMES stream frames each, the launch counts set to 0 just
-             before and read just after; 1/4/12/4/3 trunk and DFA
-             launches a frame, and 3 of exact MSDA (0 of MSDA-sel), or
-             the reverse for `_fast_guarded`; finite, sorted decodes;
-             frame ms, and each guard counter's maximum. The last
-             frame's sampling calls are recorded. (b) Kernels: the exact
-             MSDA kernel against `msda_plain` within EXACT_TOL, and DFA
+             ones among them) and SIMPB_HYBRID (`_hybrid`: windowed MSDA
+             over every level with an exact correction lane of 256
+             entries a camera, capacities 208 and 2304, guard counters),
+             trunk and head bf16: a cold frame and FRAMES stream frames
+             each, the launch counts set to 0 just before and read just
+             after; 1/4/12/4/3 trunk and DFA launches a frame, and 3 of
+             exact MSDA (0 of MSDA-sel), or the reverse for
+             `_fast_guarded`, or for the hybrid H1 3, H2 3 and H3 6 (3 in
+             the op, 3 in the guards' demand) and neither MSDA-sel nor
+             exact MSDA; finite, sorted decodes; frame ms, peak memory,
+             and each guard counter's maximum (the hybrid's
+             `msda_clamp_demand` and `msda_clamp_overflow` among them).
+             The last frame's sampling calls are recorded. (b) Kernels:
+             the exact MSDA kernel against `msda_plain` within EXACT_TOL, and DFA
              at capacities 4096 and 2304 against its plain version, on
              the recorded calls and on synthetic full-width cases in fp32
              and bf16 (Q 256 and 208, locations at and past every
@@ -119,12 +125,36 @@ Phases, each printing one JSON line:
              sum; timed, and held to `msda_plain` in fp32 once); on one
              recorded call the kernel is timed beside its probes (one
              sample's rows in flight instead of two, its loads alone,
-             its arithmetic alone: what bounds it). (c) The
-             eval CLI: `tools/test.py --config r50-guarded --tracking`
-             through its `main` over a synthetic 1600x900 pkl of
-             EXACT_CLI_FRAMES frames (decoded frames served from memory),
-             launches counted; it prints the guard maxima and must exit 3
-             exactly when one is nonzero.
+             its arithmetic alone: what bounds it). (b') The hybrid's
+             kernels: H1 (`_msda_patch_levels`, the MSDA-sel kernels with
+             every level in level order) within SAMPLING_TOL's fp32
+             share, H2 (`msda_hybrid_exact`, the exact lane added in
+             place) within EXACT_TOL and H3 (`clamp_priority`) bit for bit
+             against their plain versions, on the hybrid frame's recorded
+             calls and on synthetic full-width cases in fp32 and bf16
+             (demand under, at and over the capacity, samples past the
+             windows and at and beyond the borders, padded slots among
+             the corrected entries, the guards' 256 slots without
+             weights, 207 queries), each launched twice (bit-identical),
+             timed as in phase 6 (H2 in place), H2 beside the
+             grid_sample chain over its entries, H3 beside one empty
+             launch (its latency floor); `msda_hybrid` on the card
+             against `msda_hybrid_plain` at demand under, at and over the
+             capacity and at a tie on its boundary (the corrected entries
+             equal); and on the recorded calls, at a capacity of every
+             entry, against the exact MSDA kernel in bf16 and fp32 (the
+             largest error printed, held at HYBRID_EXACT_TOL). (c) The
+             eval CLI: `tools/test.py --config r50-guarded --tracking`,
+             then `--config r50-hybrid --tracking`, through its `main`
+             over a synthetic 1600x900 pkl of EXACT_CLI_FRAMES frames
+             (decoded frames served from memory), launches counted; it
+             prints the guard maxima and must exit 3 exactly when one is
+             nonzero (with random weights the hybrid's correction lane,
+             like the slot and DFA capacities, overflows: exit 3, taken
+             only with guard_msda_clamp_overflow > 0). (d)
+             The bench's lines under SIMPB_HYBRID and SIMPB_HYBRID with
+             SIMPB_CLAMP_CAP=832 (`run_benchmark`, a BENCH_WINDOW-frame
+             window, launches counted).
 12. train  — the training step of `simpb_r50_704x256_fast` as
              tools/train.py trains it (trunk bf16 with remat, head fp32,
              grid mask and dropout on, `TrainConfig()`), at full width
@@ -288,9 +318,11 @@ SLICE_ATOL, SLICE_RTOL = 2e-3, 2e-3
 # MSDA computes in fp32 whatever the value dtype.
 SAMPLING_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 FRAMES = 8  # stream frames after the cold frame (bf16 head)
-# the exact phase's configs: the bench's switches, in bench.py's order
-EXACT_SWITCHES = ("SIMPB_EXACT", "SIMPB_GUARDED", "SIMPB_FAST_GUARDED")
-EXACT_CLI_FRAMES = 6  # the eval CLI's frames under r50-guarded
+# the exact phase's configs: the bench's switches, in bench.py's order,
+# then the hybrid
+EXACT_SWITCHES = ("SIMPB_EXACT", "SIMPB_GUARDED", "SIMPB_FAST_GUARDED",
+                  "SIMPB_HYBRID")
+EXACT_CLI_FRAMES = 6  # the eval CLI's frames under r50-guarded, r50-hybrid
 # exact MSDA against msda_plain, relative to max(|plain|, 1): every
 # bilinear sample rounds as the plain version's in both value types (the
 # corner weights, the x pairs and the y combine in the value's type), so
@@ -694,14 +726,17 @@ def rebound(*sites):
 
 def recording(calls):
     """Append (name, args, kwargs) of every sampling-wrapper call to
-    `calls`, then run the wrapper itself."""
+    `calls`, then run the wrapper itself; the hybrid's exact lane, which
+    adds into its inputs, is recorded with copies of them taken before."""
     from simpb_tpu_torch.models import dfa, group_attn
     from simpb_tpu_torch.ops import sampling
 
-    def recorder(name):
+    def recorder(name, copied=()):
         def make(fn):
             def call(*args, **kwargs):
-                calls.append((name, args, kwargs))
+                kept = tuple(a.clone() if i in copied else a
+                             for i, a in enumerate(args))
+                calls.append((name, kept, kwargs))
                 return fn(*args, **kwargs)
             return call
         return make
@@ -709,7 +744,12 @@ def recording(calls):
     return rebound(
         (dfa, "deformable_aggregation", recorder("deformable_aggregation")),
         (sampling, "_msda_patch_sel", recorder("msda_patch_sel")),
-        (group_attn, "msda", recorder("msda")))
+        (group_attn, "msda", recorder("msda")),
+        (group_attn, "msda_hybrid", recorder("msda_hybrid")),
+        (sampling, "_msda_patch_levels", recorder("msda_patch_levels")),
+        (sampling, "msda_hybrid_exact",
+         recorder("msda_hybrid_exact", copied=(5, 6))),
+        (sampling, "clamp_priority", recorder("clamp_priority")))
 
 
 def run_stream(torch, model, cfg, frames, calls=None):
@@ -1026,7 +1066,8 @@ def sampling_bound(name, dname, byts, ops):
     a weight on the tensor cores)."""
     if name == "deformable_aggregation":
         o_ms = ops / PEAK_OPS[dname] * 1e3
-    elif name == "msda_patch_sel" and dname == "bfloat16":
+    elif (name in ("msda_patch_sel", "msda_patch_levels")
+          and dname == "bfloat16"):
         o_ms = 3 * ops / PEAK_OPS["bfloat16"] * 1e3
     else:
         o_ms = ops / PEAK_OPS["float32"] * 1e3
@@ -1043,14 +1084,14 @@ def within(got, ref, tol):
 
 
 def hold_case(torch, label, name, wrapper, plain, args, kwargs, tol, work,
-              library=None):
+              library=None, timed=None):
     """One sampling call through its kernel against its plain version:
     one launch (the count rises by one), a second launch with the same
-    bits, every output within `tol` of max(|plain|, 1). Timed through the
-    wrapper back to back (`ms`), on the device alone (`device_ms`), the
-    plain version and `library` (a PyTorch call of the same function,
-    timed only); `work` is (bytes, operations). Emits the case's line and
-    returns it; raises on a failure."""
+    bits, every output within `tol` of max(|plain|, 1). Timed through the wrapper
+    back to back (`ms`; or through `timed`), on the device alone
+    (`device_ms`), the plain version and `library` (a PyTorch call of the
+    same function, timed only); `work` is (bytes, operations). Emits the
+    case's line and returns it; raises on a failure."""
     from simpb_tpu_torch.ops import sampling
 
     before = sampling.launch_counts()[name]
@@ -1067,15 +1108,16 @@ def hold_case(torch, label, name, wrapper, plain, args, kwargs, tol, work,
         if g_.shape != r_.shape or g_.dtype != r_.dtype:
             raise AssertionError(f"{label}: {g_.shape}/{g_.dtype} vs "
                                  f"{r_.shape}/{r_.dtype}")
+    dname = str(next(a for a in args if hasattr(a, "dtype")).dtype
+                ).split(".")[-1]
     ok, errs = within(got, ref, tol)
     ok = ok and launched == 1 and same
-    dname = str(args[0].dtype).split(".")[-1]
     bound, bound_by = sampling_bound(name, dname, *work)
+    timed = timed or (lambda: wrapper(*args, **kwargs))
     line = dict(phase="sampling", case=label, name=name, dtype=dname,
                 max_abs_err=errs, tol_share=tol, ok=ok, launches=launched,
                 deterministic=same,
-                ms=cuda_ms(lambda: wrapper(*args, **kwargs)),
-                device_ms=device_ms(lambda: wrapper(*args, **kwargs)),
+                ms=cuda_ms(timed), device_ms=device_ms(timed),
                 plain_ms=cuda_ms(lambda: plain(*args, **kwargs)),
                 library_ms=cuda_ms(library) if library else None,
                 bound_ms=bound, bound_by=bound_by, bytes=work[0],
@@ -1153,32 +1195,53 @@ def phase_sampling(torch, calls, slice_launches):
             for name, s in summary.items()}
 
 
-def exact_config(switch):
+@contextlib.contextmanager
+def environment(**env):
+    """The environment variables `env` set for the duration."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def exact_config(switch, **env):
     """The config `python -m simpb_tpu_torch.bench` serves under the
-    environment switch `switch` (trunk and head bf16, the fused trunk)."""
+    environment switch `switch` (and `env`; trunk and head bf16, the fused
+    trunk)."""
     from simpb_tpu_torch import bench
 
-    saved = os.environ.get(switch)
-    os.environ[switch] = "1"
-    try:
+    with environment(**{switch: "1"}, **env):
         return bench.config_name(), bench.config()
-    finally:
-        if saved is None:
-            del os.environ[switch]
-        else:
-            os.environ[switch] = saved
+
+
+# the hybrid's launches a frame: H1 and H2 once a 2D layer, H3 once in
+# the op and once in the guards' demand
+HYBRID_LAUNCHES = {"msda_patch_levels": 3, "msda_hybrid_exact": 3,
+                   "clamp_priority": 6}
 
 
 def exact_launches(cfg):
     """Launches a frame of a served config: the trunk's and DFA's as the
-    flagship's, then exact MSDA or MSDA-sel for the 2D cross-attention."""
+    flagship's, then exact MSDA, MSDA-sel or the hybrid's H1-H3 for the 2D
+    cross-attention (H3 in the guards too when they are on)."""
     want = {k: v for k, v in WANT_LAUNCHES.items() if k != "msda_patch_sel"}
-    want["msda_patch_sel" if cfg.head.msda_patch_mode else "msda"] = 3
+    if cfg.head.msda_hybrid_mode:
+        want.update(HYBRID_LAUNCHES)
+        if not cfg.head.guard_sampling:
+            want["clamp_priority"] = 3
+    else:
+        want["msda_patch_sel" if cfg.head.msda_patch_mode else "msda"] = 3
     return want
 
 
 def phase_exact_frames(torch):
-    """The three configs of EXACT_SWITCHES as the bench serves them: cold
+    """The configs of EXACT_SWITCHES as the bench serves them: cold
     frame + FRAMES stream frames each, the launch counts set to 0 just
     before and read just after; the last frame's sampling calls
     recorded. Returns ({config: launches}, {config: calls})."""
@@ -1202,6 +1265,8 @@ def phase_exact_frames(torch):
         stream_ms = sorted(times[1:])
         emit(dict(phase="exact_frames", config=name, switch=switch,
                   msda_patch_mode=cfg.head.msda_patch_mode,
+                  msda_hybrid_mode=cfg.head.msda_hybrid_mode,
+                  msda_clamp_capacity=cfg.head.msda_clamp_capacity,
                   msda_gather_capacity=cfg.head.msda_gather_capacity,
                   dfa_gather_capacity=cfg.head.dfa_gather_capacity,
                   guard_sampling=cfg.head.guard_sampling, trunk="bfloat16",
@@ -1378,7 +1443,9 @@ def phase_exact_kernels(torch, calls, launches):
     cases = []
     for name, rec in calls.items():
         cases += [(f"{name}_call_{i}", n, args, kw)
-                  for i, (n, args, kw) in enumerate(rec)]
+                  for i, (n, args, kw) in enumerate(rec)
+                  if n in ("msda", "deformable_aggregation",
+                           "msda_patch_sel")]
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(label, "msda", args, {"raw_heads": True})
                   for label, args in exact_cases(torch, dtype, gen)]
@@ -1427,13 +1494,22 @@ def phase_exact_kernels(torch, calls, launches):
                 probes_device_ms=probes)
 
 
-def phase_exact_cli(torch):
-    """`python -m simpb_tpu_torch.tools.test --config r50-guarded` through
+CLI_GUARDS = ["guard_dfa_overflow", "guard_msda_overflow"]
+HYBRID_GUARDS = sorted(CLI_GUARDS + [
+    "guard_msda_clamp_overflow", "guard_msda_clamp_demand",
+    "guard_msda_percam_clamp_demand"])
+
+
+def phase_exact_cli(torch, config="r50-guarded", switch="SIMPB_GUARDED",
+                    guards_want=CLI_GUARDS):
+    """`python -m simpb_tpu_torch.tools.test --config <config>` through
     its `main` over a synthetic 1600x900 infos pkl of EXACT_CLI_FRAMES
     frames (decoded frames served from memory by a dataset subclass: no
     Pillow on the card's machine), the launch counts set to 0 just before
-    and read just after. The CLI prints the metrics with the guard
-    maxima; it must exit 3 exactly when one is nonzero."""
+    and read just after (a frame's: those of the bench's config under
+    `switch`). The CLI prints the metrics with the guard maxima; it must
+    exit 3 exactly when one (not a `*_demand`) is nonzero, and under the
+    hybrid only when `guard_msda_clamp_overflow` is."""
     import io
     import tempfile
 
@@ -1467,7 +1543,7 @@ def phase_exact_cli(torch):
                       lambda _: MemoryImages)), \
                 contextlib.redirect_stdout(out):
             try:
-                test_cli.main(["--ann-file", pkl, "--config", "r50-guarded",
+                test_cli.main(["--ann-file", pkl, "--config", config,
                                "--tracking"])
                 code = 0
             except SystemExit as e:
@@ -1479,31 +1555,357 @@ def phase_exact_cli(torch):
     guards = {k: v for k, v in metrics.items() if k.startswith("guard_")}
     violated = check_guard_violations(metrics)
     want = {k: EXACT_CLI_FRAMES * n for k, n in exact_launches(
-        exact_config("SIMPB_GUARDED")[1]).items()}
-    emit(dict(phase="exact_cli", argv="--config r50-guarded --tracking",
+        exact_config(switch)[1]).items()}
+    emit(dict(phase="exact_cli", argv=f"--config {config} --tracking",
               frames=EXACT_CLI_FRAMES, source_hw=[src_h, src_w],
               seconds=seconds, exit_code=code, guard_maxima=guards,
               violated=violated, launches=launches,
               metrics={k: metrics[k] for k in ("mAP", "NDS", "AMOTA")}))
-    if sorted(guards) != ["guard_dfa_overflow", "guard_msda_overflow"]:
+    if sorted(guards) != guards_want:
         raise AssertionError(f"exact_cli: guard maxima {guards}")
     if code != (3 if violated else 0):
         raise AssertionError(f"exact_cli: exit {code}, violations "
                              f"{violated}")
+    # the hybrid exits 3 only for an overflowing correction lane
+    if code == 3 and not guards.get("guard_msda_clamp_overflow", 1) > 0:
+        raise AssertionError(f"exact_cli: exit 3 under {config} with "
+                             f"guard_msda_clamp_overflow 0: {guards}")
     if launches != want:
         raise AssertionError(f"exact_cli: launches {launches}, want {want}")
     free_cuda(torch)
 
 
+# the hybrid's kernels against their plain versions, relative to
+# max(|plain|, 1): H1 is MSDA-sel over every level (SAMPLING_TOL's fp32
+# share: the fp32 sums of up to 4 x 64 weighted pixels a head in another
+# order), H2 exact MSDA's lane (EXACT_TOL), H3 bit for bit (a fixed-order
+# sum: one ulp at the capacity's boundary would swap a corrected entry)
+HYBRID_TOL = {"msda_patch_levels": SAMPLING_TOL["float32"],
+              "msda_hybrid_exact": EXACT_TOL["float32"], "clamp_priority": 0.0}
+HYBRID_KERNELS = tuple(HYBRID_TOL)
+# the hybrid at a capacity covering every entry against the exact MSDA
+# kernel, relative to max(|exact|, 1): fp32 values within the windowed
+# lane's taper clamp (a sample within 1e-4 px of its window's edge moves
+# by up to 1e-4 px, JAX's ~1e-4) and fp32 sums; bf16 values as served,
+# where exact MSDA rounds its corner weights and pairs to bf16 and the
+# windowed lane weighs in fp32 (a bf16 ulp, 2^-8, a sample)
+HYBRID_EXACT_TOL = {"float32": 2e-4, "bfloat16": 1.5e-2}
+# the bench's hybrid lines: the config's capacity, and SIMPB_CLAMP_CAP's
+HYBRID_CAPS = (256, 832)
+
+
+def hybrid_wrappers():
+    """{name: (wrapper, plain version)} of H1-H3 with the arguments chip_smoke
+    records and makes; the exact lane's wrapper adds into copies of its
+    inputs, so that a case can be launched twice."""
+    from simpb_tpu_torch.ops import sampling
+
+    def h2(value, ss, loc, attw, sel, sampled, wsum):
+        return sampling.msda_hybrid_exact(value, ss, loc, attw, sel,
+                                          sampled.clone(), wsum.clone())
+
+    kernels = {n: (w, p) for n, w, p, _ in sampling.KERNELS}
+    return {"msda_patch_levels": kernels["msda_patch_levels"],
+            "msda_hybrid_exact": (h2, sampling.msda_hybrid_exact_plain),
+            "clamp_priority": kernels["clamp_priority"]}
+
+
+def hybrid_inputs(torch, gen, q, spread, dev="cuda", heads=8):
+    """Full-width hybrid inputs over the r50 levels: 6 camera rows x q
+    queries, heads x 4 levels x 4 points, locations at a query's point plus
+    `spread` x a normal (so that wider spreads clamp more entries),
+    softmax weights. Query 0 samples the interior, its level-0 samples 20
+    pixels apart (every case clamps entry 0), query 1 a copy of query 0
+    (its entries tie with query 0's)."""
+    ref = 0.15 + 0.7 * torch.rand(6, q, 1, 1, 1, 2, generator=gen,
+                                  device=dev)
+    loc = ref + spread * torch.randn(6, q, heads, 4, 4, 2, generator=gen,
+                                     device=dev)
+    loc[:, 0] = 0.5 + 0.02 * torch.randn(heads, 4, 4, 2, generator=gen,
+                                         device=dev)
+    loc[:, 0, :, 0, :, 0] = 0.45 + 0.1 * torch.rand(
+        heads, 4, generator=gen, device=dev)
+    logits = torch.randn(6, q, heads, 16, generator=gen, device=dev)
+    attw = logits.softmax(-1).reshape(6, q, heads, 4, 4)
+    loc[:, 1], attw[:, 1] = loc[:, 0], attw[:, 0]
+    return loc.contiguous(), attw.contiguous()
+
+
+def hybrid_cases(torch, dtype, gen, dev="cuda"):
+    """Synthetic full-width cases of H1-H3 in the value type `dtype`:
+    (label, name, args). Demand under, at and over the capacity (the
+    corrected entries as the op selects them at 256), samples past the
+    windows and at and beyond the borders, padded slots (location 0)
+    among the corrected entries, a tie at the capacity's boundary; H3 on
+    the guards' 256 slots without weights too. Query 0 of every case has
+    a clamped level 0, a corrected entry and weight on its last level, so
+    that a fault planted on it shows on each case."""
+    from simpb_tpu_torch.ops import sampling
+    from simpb_tpu_torch.ops.format import SpatialShapes
+
+    ss = SpatialShapes(((64, 176), (32, 88), (16, 44), (8, 22)))
+    value = torch.randn(6, ss.total, 256, generator=gen,
+                        device=dev).to(dtype)
+    edges = torch.tensor([0.0, 1.0, -0.1, 1.1, 2 ** -9, 1 - 2 ** -8, 0.5],
+                         device=dev)
+    cases = []
+    for label, q, spread, cap in (("under", 208, 0.004, 832),
+                                  ("over", 208, 0.02, 256),
+                                  ("at", 208, 0.01, None),
+                                  ("border", 208, 0.01, 256)):
+        loc, attw = hybrid_inputs(torch, gen, q, spread, dev)
+        if label == "border":  # borders, and padded slots (location 0)
+            pick = (torch.rand(loc[:, 2:100].shape, generator=gen,
+                               device=dev) * len(edges)).long()
+            loc[:, 2:100] = edges[pick]
+            loc[:, 100:140] = 0.0
+        prio = sampling.clamp_priority(ss, loc, attw, 8, 8)
+        demand = int((prio > 0).sum(-1).max().item())
+        cap = demand if cap is None else cap  # "at": the capacity is it
+        sel = sampling._hybrid_selection(prio, min(cap, q * 4)).reshape(
+            6, q, 4)
+        if label == "border":
+            sel[:, 100:140] = True  # padded slots corrected too
+        sel[0, 0, 0] = True
+        cases.append((f"clamp_{label}", "clamp_priority",
+                      (ss, loc, attw, 8, 8)))
+        attw_win = attw * (~sel)[:, :, None, :, None].float()
+        n = 32
+        cases.append((f"levels_{label}", "msda_patch_levels", (
+            value, ss,
+            loc.permute(0, 1, 3, 2, 4, 5).reshape(6, q, 4, n, 2).contiguous(),
+            attw_win.permute(0, 1, 3, 2, 4).reshape(6, q, 4, n).contiguous(),
+            8, 8, 8)))
+        sampled = torch.randn(6, q, 8, 256, generator=gen, device=dev)
+        wsum = torch.rand(6, q, 8, generator=gen, device=dev)
+        cases.append((f"exact_lane_{label}", "msda_hybrid_exact",
+                      (value, ss, loc, attw, sel.contiguous(), sampled,
+                       wsum)))
+    # the guards' call: 256 uncompacted slots, no weights
+    loc, attw = hybrid_inputs(torch, gen, 256, 0.01, dev)
+    loc[:, 200:] = 0.0  # padded slots
+    cases.append(("clamp_guard_slots", "clamp_priority",
+                  (ss, loc, None, 8, 8)))
+    # 207 queries: a ragged last block
+    loc, attw = hybrid_inputs(torch, gen, 207, 0.01, dev)
+    cases.append(("clamp_ragged", "clamp_priority", (ss, loc, attw, 8, 8)))
+    return cases
+
+
+def hybrid_work(name, args):
+    """(bytes, operations) an H1-H3 call must move and do at least. H1:
+    MSDA-sel's over every level. H2: the distinct value rows its
+    corrected entries' samples read at a corner of nonzero weight, their
+    locations and weights, the mask, and the corrected queries' sampled
+    and wsum read and written; 10 operations per (corrected entry, head,
+    point, channel). H3: the locations, weights and priorities once; 40
+    operations a sample."""
+    import torch
+
+    from simpb_tpu_torch.ops import sampling
+
+    if name == "msda_patch_levels":
+        return msda_work(sampling, args + (args[1].num_levels,))
+    if name == "clamp_priority":
+        ss, loc, attw = args[:3]
+        prio = loc.shape[0] * loc.shape[1] * ss.num_levels * 4
+        return (loc.numel() * 4 + (attw.numel() * 4 if attw is not None
+                                   else 0) + prio, 40 * loc.numel() // 2)
+    value, ss, loc, attw, sel = args[:5]
+    b, total, c = value.shape
+    q, heads, levels, points = loc.shape[1:5]
+    base = torch.arange(b, device=value.device)[:, None, None] * total
+    rows = []
+    for lvl, (h, w) in enumerate(ss.shapes):
+        l_ = loc[:, :, :, lvl].reshape(b, q, -1, 2)
+        wx0, wx1, wy0, wy1, x0, y0, y1 = sampling._corner_weights(
+            l_, h, w, value.dtype, False)
+        start = base + ss.start_indices[lvl]
+        marked = sel[:, :, lvl][:, :, None]
+        for wy, yy in ((wy0, y0), (wy1, y1)):
+            for wx, xx in ((wx0, x0), (wx1, x0 + 1)):
+                r = start + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+                rows.append(r[marked & (wx != 0) & (wy != 0)])
+    n_rows = torch.cat(rows).unique().numel()
+    entries = int(sel.sum().item())
+    queries = int(sel.any(-1).sum().item())
+    byts = (n_rows * c * value.element_size()
+            + entries * heads * points * 3 * 4 + sel.numel()
+            + 2 * queries * heads * (c + 1) * 4)
+    return byts, 10 * entries * heads * points * c
+
+
+def hybrid_library(name, args):
+    """H2's yardstick: the grid_sample chain over every entry with the
+    uncorrected ones' weights zeroed (one call of PyTorch's that computes
+    the exact lane's sums); none for H1 and H3."""
+    if name != "msda_hybrid_exact":
+        return None
+    value, ss, loc, attw, sel = args[:5]
+    return grid_sample_chain(value, ss, loc,
+                             attw * sel[:, :, None, :, None].float())
+
+
+def launch_floor_ms(torch):
+    """Device ms of one launch that does nothing (`torch.cuda._sleep(0)`):
+    the floor a latency-bound launch cannot go below."""
+    return device_ms(lambda: torch.cuda._sleep(0), iters=50)
+
+
+def phase_hybrid_kernels(torch, calls, launches):
+    """H1, H2 and H3 against their plain versions on the hybrid config's
+    recorded last-frame calls and on `hybrid_cases` in fp32 and bf16,
+    each launched twice (the repeats bit-identical), timed as in phase 6
+    (H2 in place on scratch copies); then `msda_hybrid` on the card
+    against `msda_hybrid_plain` at demand under, at and over the capacity
+    and at a tie on its boundary (the corrected entries equal), and on
+    the recorded calls at a capacity covering every entry against the
+    exact MSDA kernel (the largest error printed, held at
+    HYBRID_EXACT_TOL). Returns the three kernels' entries of the kernels
+    line: launches of the hybrid's frames, ms / device / plain / bound
+    summed over one frame's calls."""
+    from simpb_tpu_torch.ops import sampling
+
+    main = "simpb_r50_704x256_hybrid"
+    wrappers = hybrid_wrappers()
+    tpu = {n: t for n, _, _, t in sampling.KERNELS}
+    summary = {n: new_summary() for n in HYBRID_KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(f"{main}_call_{i}", n, args)
+             for i, (n, args, _) in enumerate(calls[main])
+             if n in HYBRID_KERNELS]
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += hybrid_cases(torch, dtype, gen)
+    for label, name, args in cases:
+        wrapper, plain = wrappers[name]
+        timed = None
+        if name == "msda_hybrid_exact":  # in place, on scratch copies
+            scratch = (args[5].clone(), args[6].clone())
+            timed = lambda: sampling.msda_hybrid_exact(*args[:5], *scratch)
+        line = hold_case(torch, label, name, wrapper, plain, args, {},
+                         HYBRID_TOL[name], hybrid_work(name, args),
+                         library=hybrid_library(name, args), timed=timed)
+        s = summary[name]
+        s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
+        if label.startswith(main + "_call"):
+            add_frame_call(summary, line)
+    floor = launch_floor_ms(torch)
+    emit(dict(phase="hybrid_floor", launch_floor_device_ms=floor))
+
+    # the op on the card against its plain version, the selection equal
+    from simpb_tpu_torch.ops.format import SpatialShapes
+
+    ss = SpatialShapes(((64, 176), (32, 88), (16, 44), (8, 22)))
+    value = torch.randn(6, ss.total, 256, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        v = value.to(dtype)
+        for label, spread, cap in (("under", 0.004, 256), ("at", 0.01, None),
+                                   ("over", 0.02, 256), ("tie", 0.02, None)):
+            loc, attw = hybrid_inputs(torch, gen, 208, spread)
+            prio = sampling.clamp_priority(ss, loc, attw, 8, 8)
+            demand = int((prio > 0).sum(-1).max().item())
+            if label == "at":
+                cap = demand
+            elif label == "tie":  # the capacity splits queries 0 and 1
+                order = torch.sort(prio[0], descending=True, stable=True)[1]
+                cap = int((order == 4 * 1 + 0).nonzero()[0, 0].item())
+            got = sampling.msda_hybrid(v, ss, loc, attw, clamp_capacity=cap,
+                                       raw_heads=True)
+            ref = sampling.msda_hybrid_plain(v, ss, loc, attw,
+                                             clamp_capacity=cap,
+                                             raw_heads=True)
+            sel = sampling._hybrid_selection(prio, min(cap, 832))
+            sel_ref = sampling._hybrid_selection(
+                sampling.clamp_priority_plain(ss, loc, attw, 8, 8),
+                min(cap, 832))
+            ok, errs = within(got, ref, SAMPLING_TOL["float32"])
+            same_sel = torch.equal(sel, sel_ref)
+            emit(dict(phase="hybrid_op", case=label,
+                      dtype=str(dtype).split(".")[-1], capacity=cap,
+                      demand=demand, corrected=int(sel.sum().item()),
+                      max_abs_err=errs, same_selection=same_sel, ok=ok))
+            if not (ok and same_sel):
+                raise AssertionError(f"hybrid op {label}: errors {errs}, "
+                                     f"selection equal {same_sel}")
+
+    # exactness on the recorded calls: capacity = every entry
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (n, args, kw) in enumerate(calls[main]):
+        if n != "msda_hybrid":
+            continue
+        v, ss_, loc, attw = args
+        q = loc.shape[1]
+        demand = int((sampling.clamp_priority(ss_, loc, attw, 8, 8) > 0)
+                     .sum(-1).max().item())
+        for vt in (v, v.float()):
+            dname = str(vt.dtype).split(".")[-1]
+            got = sampling.msda_hybrid(vt, ss_, loc, attw, patch_h=8,
+                                       patch_w=8, clamp_capacity=q * 4,
+                                       raw_heads=True)
+            ref = sampling.msda(vt, ss_, loc, attw, raw_heads=True)
+            ok, errs = within(got, ref, HYBRID_EXACT_TOL[dname])
+            rel = [e / max(r.abs().max().item(), 1.0)
+                   for e, r in zip(errs, ref)]
+            worst[dname] = max([worst[dname]] + rel)
+            emit(dict(phase="hybrid_exactness", case=f"{main}_call_{i}",
+                      dtype=dname, demand=demand, capacity=q * 4,
+                      max_abs_err=errs, share_of_max=rel,
+                      tol_share=HYBRID_EXACT_TOL[dname], ok=ok))
+            if not ok:
+                raise AssertionError(f"hybrid against exact MSDA: {errs}")
+    rows = {}
+    for name in HYBRID_KERNELS:
+        rows[name] = kernel_row(name, tpu[name], launches[main][name],
+                                summary[name])
+    rows["clamp_priority"]["launch_floor_device_ms"] = floor
+    rows["msda_hybrid_exact"]["hybrid_vs_exact_max_share"] = worst
+    return rows
+
+
+def phase_hybrid_bench(torch):
+    """The bench's lines under SIMPB_HYBRID (capacity 256) and with
+    SIMPB_CLAMP_CAP=832 (every entry of the 208 slots), each through
+    `run_benchmark` at BENCH_WINDOW frames with the launch counts set to 0
+    just before and read just after."""
+    from simpb_tpu_torch import bench
+    from simpb_tpu_torch.utils.benchmark import run_benchmark
+
+    for cap in HYBRID_CAPS:
+        env = {} if cap == 256 else {"SIMPB_CLAMP_CAP": str(cap)}
+        _, cfg = exact_config("SIMPB_HYBRID", **env)
+        if cfg.head.msda_clamp_capacity != cap:
+            raise AssertionError(f"hybrid bench: capacity "
+                                 f"{cfg.head.msda_clamp_capacity}")
+        reset_launch_counts()
+        fps, stats = run_benchmark(cfg, window=BENCH_WINDOW, batch_size=1,
+                                   return_stats=True)
+        launches = {k: n for k, n in launch_counts().items() if n}
+        free_cuda(torch)
+        emit(bench.result(fps, stats))
+        want = {k: 2 * BENCH_WINDOW * n
+                for k, n in exact_launches(cfg).items()}
+        emit(dict(phase="hybrid_bench", config="simpb_r50_704x256_hybrid",
+                  env=dict(SIMPB_HYBRID="1", **env), clamp_capacity=cap,
+                  window=BENCH_WINDOW, fps=fps,
+                  peak_hbm_bytes=stats["peak_hbm_bytes"], launches=launches))
+        if not fps > 0 or launches != want:
+            raise AssertionError(f"hybrid bench: fps {fps}, launches "
+                                 f"{launches}, want {want}")
+
+
 def phase_exact(torch):
     """The exact-sampling serving path (see the module docstring); returns
-    the exact MSDA kernel's entry of the kernels line."""
+    the exact MSDA kernel's entry of the kernels line and the hybrid's
+    three."""
     launches, calls = phase_exact_frames(torch)
     row = phase_exact_kernels(torch, calls, launches)
+    rows = phase_hybrid_kernels(torch, calls, launches)
     del calls
     free_cuda(torch)
     phase_exact_cli(torch)
-    return row
+    phase_exact_cli(torch, "r50-hybrid", "SIMPB_HYBRID", HYBRID_GUARDS)
+    phase_hybrid_bench(torch)
+    return [row] + [rows[n] for n in HYBRID_KERNELS]
 
 
 def phase_parity(torch):
@@ -3616,7 +4018,7 @@ def main() -> int:
     phase_trunk(torch)
     phase_eval(torch)
     phase_bench(torch)
-    exact = phase_exact(torch)
+    exact = phase_exact(torch)  # exact MSDA, then the hybrid's H1-H3
     train_launches, train_calls = phase_train(torch)
     train = phase_train_kernels(torch, train_calls, train_launches)
     del train_calls
@@ -3643,10 +4045,10 @@ def main() -> int:
             **({"cudnn_chain_ms": s["cudnn_chain_ms"]}
                if s["cudnn_chain_ms"] is not None else {}),
         ))
-    kernels += (list(sampling.values()) + [exact] + list(train.values())
+    kernels += (list(sampling.values()) + exact + list(train.values())
                 + list(probes.values()))
-    if len(kernels) != 18:
-        raise AssertionError(f"{len(kernels)} kernels, want 18")
+    if len(kernels) != 21:
+        raise AssertionError(f"{len(kernels)} kernels, want 21")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

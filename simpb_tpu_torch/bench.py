@@ -17,15 +17,16 @@ a TPU v5e target, which is not a number of this port.
 
 Environment switches, as in `bench.py` and with its precedence: the
 configuration is `simpb_r50_704x256_guarded` under `SIMPB_GUARDED`, else
-`simpb_r50_704x256_fast_guarded` under `SIMPB_FAST_GUARDED`, else the
-hybrid under `SIMPB_HYBRID` (not ported), else `simpb_r50_704x256`
-(exact MSDA) under `SIMPB_EXACT`, else the default; then
-`SIMPB_MSDA_PATCH`, `SIMPB_DFA_CAP`, `SIMPB_MSDA_CAP` and
-`SIMPB_FUSED_TRUNK=1` are taken. The hybrid, `SIMPB_CLAMP_CAP` and
-`SIMPB_FUSED_TRUNK` of another value select settings the port does not
-serve yet: the bench exits non-zero and names them, and never falls
-back to the default. Under a guarded configuration the guard counters
-are computed every frame and charged against the number
+`simpb_r50_704x256_fast_guarded` under `SIMPB_FAST_GUARDED`, else
+`simpb_r50_704x256_hybrid` (windowed MSDA with an exact correction lane,
+guarded) under `SIMPB_HYBRID`, else `simpb_r50_704x256` (exact MSDA)
+under `SIMPB_EXACT`, else the default; then `SIMPB_MSDA_PATCH`,
+`SIMPB_DFA_CAP`, `SIMPB_MSDA_CAP`, `SIMPB_CLAMP_CAP` (the hybrid's
+correction capacity) and `SIMPB_FUSED_TRUNK=1` are taken.
+`SIMPB_FUSED_TRUNK` of another value selects the module trunk, which the
+port does not serve yet: the bench exits non-zero and names it, and never
+falls back to the default. Under a guarded configuration the guard
+counters are computed every frame and charged against the number
 (`utils/benchmark.py`).
 """
 import dataclasses
@@ -36,7 +37,6 @@ from .configs import base
 from .utils.benchmark import run_benchmark
 
 BASELINE_FPS = 12.0  # nuScenes camera rate, frames a second
-NOT_PORTED = ("SIMPB_HYBRID", "SIMPB_CLAMP_CAP")
 # the configuration switches, highest precedence first (bench.py:29-48)
 CONFIG_SWITCHES = (
     ("SIMPB_GUARDED", "simpb_r50_704x256_guarded"),
@@ -56,18 +56,13 @@ def config_name() -> str:
 
 def config():
     """The served config, from the environment switches; SystemExit
-    naming every switch the port does not serve yet."""
+    naming a switch the port does not serve yet."""
     env = os.environ
     name = config_name()
-    refused = [k for k in NOT_PORTED if env.get(k)]
-    if "SIMPB_HYBRID" in refused and name != "simpb_r50_704x256_hybrid":
-        refused.remove("SIMPB_HYBRID")  # a guarded switch takes precedence
     if env.get("SIMPB_FUSED_TRUNK") and env["SIMPB_FUSED_TRUNK"] != "1":
-        refused.append("SIMPB_FUSED_TRUNK=" + env["SIMPB_FUSED_TRUNK"])
-    if refused:
         raise SystemExit(
-            f"not ported: {', '.join(refused)} (the port serves the r50 "
-            "configurations but the hybrid, with the fused trunk; see "
+            f"not ported: SIMPB_FUSED_TRUNK={env['SIMPB_FUSED_TRUNK']} (the "
+            "port serves the r50 configurations with the fused trunk; see "
             "ROADMAP.md)"
         )
     cfg = dataclasses.replace(
@@ -84,6 +79,10 @@ def config():
     if env.get("SIMPB_MSDA_CAP"):
         head = dataclasses.replace(
             head, msda_gather_capacity=int(env["SIMPB_MSDA_CAP"])
+        )
+    if env.get("SIMPB_CLAMP_CAP"):
+        head = dataclasses.replace(
+            head, msda_clamp_capacity=int(env["SIMPB_CLAMP_CAP"])
         )
     return dataclasses.replace(cfg, head=head)
 

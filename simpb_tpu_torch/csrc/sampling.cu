@@ -10,6 +10,14 @@
 //       _msda_patch_sel (:892-1007, window placement _window_base :168)
 //   msda_kernel                  <- simpb_tpu/ops/sampling.py::msda
 //       (:611-715, raw_heads; the exact configurations' 2D sampling)
+// and, for the hybrid configuration's msda_hybrid (:1032-1209),
+//   msda_sel_tc_kernel / msda_sel_kernel with every level (H1)
+//                                <- msda_patch's all-level loop (:718,
+//       called at :1125 with sel_levels=None)
+//   msda_kernel<..., HYB> (H2)   <- msda_hybrid's exact lane and its
+//       scatter back (:1132-1209)
+//   clamp_prio_kernel (H3)       <- _lost_weights (:208) as msda_hybrid's
+//       priority (:1100-1108) and msda_clamp_demand (:1008)
 // and compute what their plain PyTorch versions in ops/sampling.py compute.
 //
 // Exact MSDA: one half-warp per (camera row, query, head), two queries'
@@ -565,7 +573,8 @@ __global__ void msda_sel_kernel(const float* __restrict__ value,
   int* ix = (int*)(ak + K * n);         // [K][n] floor(ax) - base_x
   int* iy = ix + K * n;                 // [K][n]
 
-  // 1. attention mass of each level; the top-K levels
+  // 1. attention mass of each level; the top-K levels (every level, in
+  // level order, when K == L: msda_patch's all-level loop)
   if (tid < L) {
     float m = 0.f;
     for (int i = 0; i < n; ++i) m = __fadd_rn(m, aq[tid * n + i]);
@@ -575,6 +584,10 @@ __global__ void msda_sel_kernel(const float* __restrict__ value,
   if (tid == 0) {
     bool taken[MAX_LEVELS] = {};
     for (int j = 0; j < K; ++j) {
+      if (K == L) {
+        lsel[j] = j;
+        continue;
+      }
       int best = -1;
       for (int l = 0; l < L; ++l)  // strict >: the lower index wins a tie
         if (!taken[l] && (best < 0 || mass[l] > mass[best])) best = l;
@@ -677,11 +690,13 @@ __global__ void msda_sel_kernel(const float* __restrict__ value,
   }
 }
 
-// The bf16 tensor-core kernel's fixed head shape: 8x8 windows at the top
-// 2 levels, 4 points a head, at most 8 heads (every configuration of the
-// repo); channels, levels and queries are the launch's.
+// The bf16 tensor-core kernel's fixed head shape: 8x8 windows, 4 points
+// a head, at most 8 heads (every configuration of the repo), its levels
+// staged SEL_K at a time: the top 2 (the flagship's MSDA-sel) or every
+// level in groups of 2 (H1, the hybrid's windowed lane); channels, levels
+// and queries are the launch's.
 constexpr int SEL_K = 2, WIN_H = 8, WIN_W = 8, PTS = 4, TC_HEADS = 8;
-constexpr int WIN = WIN_H * WIN_W, KW = SEL_K * WIN;  // K of the product
+constexpr int WIN = WIN_H * WIN_W, KW = SEL_K * WIN;  // a group's K
 constexpr int AL = KW + 8;  // bf16 a row of the weight parts A
 
 // Shared memory of one MSDA-sel tensor-core block (offsets in bytes): the
@@ -689,7 +704,7 @@ constexpr int AL = KW + 8;  // bf16 a row of the weight parts A
 // the row (chunk c of row r at c ^ (r % 8), so the 8 rows of an ldmatrix
 // fall on 8 bank groups); the weight parts A [25][AL] bf16: 8 rows a part,
 // then a zero row; the query's loc [L][n][2], attw [L][n] and its levels
-// and window bases [SEL_K].
+// and window bases [K].
 struct MsdaSmem {
   static constexpr int a_rows = 3 * TC_HEADS + 1;
   int a, loc, attw, lsel, bx, by, total;
@@ -698,22 +713,27 @@ struct MsdaSmem {
     loc = a + a_rows * AL * 2;
     attw = loc + L * g.n * 2 * 4;
     lsel = attw + L * g.n * 4;
-    bx = lsel + SEL_K * 4;
-    by = bx + SEL_K * 4;
-    total = by + SEL_K * 4;
+    bx = lsel + g.K * 4;
+    by = bx + g.K * 4;
+    total = by + g.K * 4;
   }
 };
 
 // bf16 values: the same function with the contraction on the tensor
 // cores. Block bq takes query bq of the B * Q: the prologue (level masses,
-// top-2, window bases; the window copies start; the weights W, split into
-// their three bf16 parts; wsum) and the product out[h, c] = sum_k W[h, k]
-// V[k, c] over the KW window pixels. A is two m16 tiles: part p of head h
-// sits in row 8 p + h, row (p % 2) * 8 + h of tile p / 2, and the second
-// tile's last 8 rows read the zero row; so the thread holding row h of a
-// tile's accumulator holds all three parts of its head. GPW: 16-channel
-// groups a warp takes (C <= GPW * 128).
-template <int GPW>
+// the top K levels, or every level in order when K == L; the window bases)
+// and then, for each group of SEL_K levels in turn, the window copies, the
+// weights W, split into their three bf16 parts, wsum's part and the
+// product out[h, c] += sum_k W[h, k] V[k, c] over the group's KW window
+// pixels, summed in the mma registers across the groups (so that the
+// shared memory a block holds, and three blocks an SM, do not grow with
+// K). A is two m16 tiles: part p of head h sits in row 8 p + h, row
+// (p % 2) * 8 + h of tile p / 2, and the second tile's last 8 rows read
+// the zero row; so the thread holding row h of a tile's accumulator holds
+// all three parts of its head. GPW: 16-channel groups a warp takes (C <=
+// GPW * 128). ONE: K == SEL_K, one group known at compile time (the
+// flagship's MSDA-sel, with no loop around its group).
+template <int GPW, bool ONE>
 __global__ void __launch_bounds__(MSDA_NT, 3)
 msda_sel_tc_kernel(const bf16* __restrict__ value,
                    const float* __restrict__ loc,
@@ -740,26 +760,28 @@ msda_sel_tc_kernel(const bf16* __restrict__ value,
   for (int i = tid; i < L * n * 2; i += MSDA_NT) sl[i] = lq[i];
   for (int i = tid; i < L * n; i += MSDA_NT) sa[i] = aq[i];
   __syncthreads();
-  if (warp < SEL_K) {  // warp j: the j-th level by mass, its window base
-    float m = 0.f;  // lane l < L: level l's mass, summed in plain order
-    if (lane < L) {
+  if (warp < g.K) {  // warp j: the j-th level, its window base
+    int l = warp;    // every level: level j
+    if (g.K < L) {   // the j-th by mass
+      float m = 0.f;  // lane l < L: level l's mass, summed in plain order
+      if (lane < L) {
 #pragma unroll 8
-      for (int i = 0; i < n; ++i) m = __fadd_rn(m, sa[lane * n + i]);
-    }
-    unsigned taken = 0;
-    int l = 0;
-    for (int jj = 0; jj <= warp; ++jj) {
-      int best = -1;
-      float bm = 0.f;
-      for (int ll = 0; ll < L; ++ll) {  // strict >: the lower index wins
-        const float ml = __shfl_sync(0xffffffffu, m, ll);
-        if (!((taken >> ll) & 1u) && (best < 0 || ml > bm)) {
-          best = ll;
-          bm = ml;
-        }
+        for (int i = 0; i < n; ++i) m = __fadd_rn(m, sa[lane * n + i]);
       }
-      taken |= 1u << best;
-      l = best;
+      unsigned taken = 0;
+      for (int jj = 0; jj <= warp; ++jj) {
+        int best = -1;
+        float bm = 0.f;
+        for (int ll = 0; ll < L; ++ll) {  // strict >: the lower index wins
+          const float ml = __shfl_sync(0xffffffffu, m, ll);
+          if (!((taken >> ll) & 1u) && (best < 0 || ml > bm)) {
+            best = ll;
+            bm = ml;
+          }
+        }
+        taken |= 1u << best;
+        l = best;
+      }
     }
     const int h = lv.h[l], w = lv.w[l];
     float mnx = 1e9f, mxx = -1e9f, mny = 1e9f, mxy = -1e9f;
@@ -789,113 +811,9 @@ msda_sel_tc_kernel(const bf16* __restrict__ value,
     }
   }
   __syncthreads();
-  // the windows into shared memory: a window row (8 pixels) is 8 C
-  // contiguous values; a thread copies its 16-byte chunk i of each
-  const bf16* vb = value + (long long)b * g.T * C;
-  for (int i = tid; i < WIN_W * cch; i += MSDA_NT) {
-    const int ex = i / cch, c = i - ex * cch;
-#pragma unroll
-    for (int j = 0; j < SEL_K; ++j) {
-      const int l = lsel[j], w = lv.w[l];
-      const bf16* src = vb + ((long long)lv.start[l] +
-                              (long long)bys[j] * w + bxs[j]) * C + i * 8;
-#pragma unroll
-      for (int ey = 0; ey < WIN_H; ++ey) {
-        const int r = (j * WIN_H + ey) * WIN_W + ex;
-        cp_async16(sv + r * C + ((c ^ (r & 7)) << 3),
-                   src + (long long)ey * w * C);
-      }
-    }
-  }
-  cp_commit();
-  // the weights: warp w takes the (level j, head h) rows jh = w, w + 8,
-  // ...; lanes p < 4 taper-clamp the row's points into [base - 1 +
-  // 1e-4, base + 8 - 1e-4], then every lane weighs pixels lane and
-  // lane + 32 of the window (separable bilinear one-hots, a corner
-  // outside the window adds nothing, times the attention, summed over
-  // the points) and writes their three bf16 parts into A's rows
-  // 8 part + h
-  const int eya = lane >> 3, eyb = eya + 4, ex = lane & 7;
-  for (int jh = warp; jh < SEL_K * H; jh += MSDA_NT / 32) {
-    const int j = jh / H, hh = jh - j * H;
-    float fxp = 0.f, fyp = 0.f, ap = 0.f;
-    int ixp = 0, iyp = 0;
-    if (lane < PTS) {
-      const int l = lsel[j], h = lv.h[l], w = lv.w[l], i = hh * PTS + lane;
-      const float px = pix(sl[(l * n + i) * 2], w);
-      const float py = pix(sl[(l * n + i) * 2 + 1], h);
-      const bool keep =
-          px > -1.f && px < (float)w && py > -1.f && py < (float)h;
-      const int bx = bxs[j], by = bys[j];
-      const float ax =
-          fmaxf(fminf(px, __fsub_rn((float)(bx + WIN_W), 1e-4f)),
-                __fadd_rn((float)(bx - 1), 1e-4f));
-      const float ay =
-          fmaxf(fminf(py, __fsub_rn((float)(by + WIN_H), 1e-4f)),
-                __fadd_rn((float)(by - 1), 1e-4f));
-      const float x0 = floorf(ax), y0 = floorf(ay);
-      fxp = __fsub_rn(ax, x0);
-      fyp = __fsub_rn(ay, y0);
-      ixp = (int)x0 - bx;
-      iyp = (int)y0 - by;
-      ap = __fmul_rn(sa[l * n + i], keep ? 1.f : 0.f);
-    }
-    float acca = 0.f, accb = 0.f;
-#pragma unroll
-    for (int p = 0; p < PTS; ++p) {
-      const float fy = __shfl_sync(0xffffffffu, fyp, p);
-      const float fx = __shfl_sync(0xffffffffu, fxp, p);
-      const float a = __shfl_sync(0xffffffffu, ap, p);
-      const int yi = __shfl_sync(0xffffffffu, iyp, p);
-      const int xi = __shfl_sync(0xffffffffu, ixp, p);
-      const float wx = ex == xi ? __fsub_rn(1.f, fx) : (ex == xi + 1 ? fx : 0.f);
-      const float wya = eya == yi ? __fsub_rn(1.f, fy)
-                                  : (eya == yi + 1 ? fy : 0.f);
-      const float wyb = eyb == yi ? __fsub_rn(1.f, fy)
-                                  : (eyb == yi + 1 ? fy : 0.f);
-      acca = __fadd_rn(acca, __fmul_rn(__fmul_rn(wya, wx), a));
-      accb = __fadd_rn(accb, __fmul_rn(__fmul_rn(wyb, wx), a));
-    }
-    bf16* row = A + hh * AL + j * WIN + lane;
-    const float accs[2] = {acca, accb};
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const bf16 hi = __float2bfloat16_rn(accs[t]);
-      const float r = __fsub_rn(accs[t], __bfloat162float(hi));
-      const bf16 mid = __float2bfloat16_rn(r);
-      row[32 * t] = hi;
-      row[32 * t + 8 * AL] = mid;
-      row[32 * t + 16 * AL] =
-          __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
-    }
-  }
-  __syncthreads();
-  if (tid < H) {  // wsum: each head's total window weight, plain order
-    const bf16* a = A + tid * AL;
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < KW; k += 8) {  // 8 a load; hi + mid + lo is W
-      const uint4 h4 = *reinterpret_cast<const uint4*>(a + k);
-      const uint4 m4 = *reinterpret_cast<const uint4*>(a + k + 8 * AL);
-      const uint4 l4 = *reinterpret_cast<const uint4*>(a + k + 16 * AL);
-      const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w},
-                     mw[4] = {m4.x, m4.y, m4.z, m4.w},
-                     lw[4] = {l4.x, l4.y, l4.z, l4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 hf = __bfloat1622float2(bf2(hw[i])),
-                     mf = __bfloat1622float2(bf2(mw[i])),
-                     lf = __bfloat1622float2(bf2(lw[i]));
-        t += __fadd_rn(__fadd_rn(hf.x, mf.x), lf.x);
-        t += __fadd_rn(__fadd_rn(hf.y, mf.y), lf.y);
-      }
-    }
-    wsum[(long long)bq * H + tid] = t;
-  }
-  cp_wait_all();
-  __syncthreads();
 
-  // the product on the tensor cores
+  const bf16* vb = value + (long long)b * g.T * C;
+  const int eya = lane >> 3, eyb = eya + 4, ex = lane & 7;
   const int gid = lane >> 2, tig = lane & 3;
   // this lane's ldmatrix row of each A tile: part 2 m + (lane & 15) / 8
   int arow[2];
@@ -914,25 +832,138 @@ msda_sel_tc_kernel(const bf16* __restrict__ value,
       for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[gi][m][nn][e] = 0.f;
+  float wsum_t = 0.f;  // thread h < H: head h's weight, in plain order
+  const int K = ONE ? SEL_K : g.K;
+  for (int j0 = 0; j0 < K; j0 += SEL_K) {
+    if (j0) __syncthreads();  // the previous group's V and A are read
+    // the group's windows into shared memory: a window row (8 pixels) is
+    // 8 C contiguous values; a thread copies its 16-byte chunk i of each
+    for (int i = tid; i < WIN_W * cch; i += MSDA_NT) {
+      const int ex_ = i / cch, c = i - ex_ * cch;
 #pragma unroll
-  for (int ks = 0; ks < KW / 16; ++ks) {
-    uint32_t af[2][4];
+      for (int j = 0; j < SEL_K; ++j) {
+        const int l = lsel[j0 + j], w = lv.w[l];
+        const bf16* src = vb + ((long long)lv.start[l] +
+                                (long long)bys[j0 + j] * w + bxs[j0 + j]) *
+                                   C + i * 8;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) ldsm_x4(af[m], A + arow[m] + ks * 16);
-    const int r = ks * 16 + (lane & 15);
+        for (int ey = 0; ey < WIN_H; ++ey) {
+          const int r = (j * WIN_H + ey) * WIN_W + ex_;
+          cp_async16(sv + r * C + ((c ^ (r & 7)) << 3),
+                     src + (long long)ey * w * C);
+        }
+      }
+    }
+    cp_commit();
+    // the weights: warp w takes the (level j, head h) rows jh = w, w + 8,
+    // ...; lanes p < 4 taper-clamp the row's points into [base - 1 +
+    // 1e-4, base + 8 - 1e-4], then every lane weighs pixels lane and
+    // lane + 32 of the window (separable bilinear one-hots, a corner
+    // outside the window adds nothing, times the attention, summed over
+    // the points) and writes their three bf16 parts into A's rows
+    // 8 part + h
+    for (int jh = warp; jh < SEL_K * H; jh += MSDA_NT / 32) {
+      const int j = jh / H, hh = jh - j * H;
+      float fxp = 0.f, fyp = 0.f, ap = 0.f;
+      int ixp = 0, iyp = 0;
+      if (lane < PTS) {
+        const int l = lsel[j0 + j], h = lv.h[l], w = lv.w[l],
+                  i = hh * PTS + lane;
+        const float px = pix(sl[(l * n + i) * 2], w);
+        const float py = pix(sl[(l * n + i) * 2 + 1], h);
+        const bool keep =
+            px > -1.f && px < (float)w && py > -1.f && py < (float)h;
+        const int bx = bxs[j0 + j], by = bys[j0 + j];
+        const float ax =
+            fmaxf(fminf(px, __fsub_rn((float)(bx + WIN_W), 1e-4f)),
+                  __fadd_rn((float)(bx - 1), 1e-4f));
+        const float ay =
+            fmaxf(fminf(py, __fsub_rn((float)(by + WIN_H), 1e-4f)),
+                  __fadd_rn((float)(by - 1), 1e-4f));
+        const float x0 = floorf(ax), y0 = floorf(ay);
+        fxp = __fsub_rn(ax, x0);
+        fyp = __fsub_rn(ay, y0);
+        ixp = (int)x0 - bx;
+        iyp = (int)y0 - by;
+        ap = __fmul_rn(sa[l * n + i], keep ? 1.f : 0.f);
+      }
+      float acca = 0.f, accb = 0.f;
 #pragma unroll
-    for (int gi = 0; gi < GPW; ++gi) {
-      const int grp = warp + 8 * gi;
-      if (grp * 16 >= C) continue;
-      uint32_t bfr[4];
-      ldsm_x4_t(bfr, sv + r * C + (((2 * grp + (lane >> 4)) ^ (r & 7)) << 3));
+      for (int p = 0; p < PTS; ++p) {
+        const float fy = __shfl_sync(0xffffffffu, fyp, p);
+        const float fx = __shfl_sync(0xffffffffu, fxp, p);
+        const float a = __shfl_sync(0xffffffffu, ap, p);
+        const int yi = __shfl_sync(0xffffffffu, iyp, p);
+        const int xi = __shfl_sync(0xffffffffu, ixp, p);
+        const float wx =
+            ex == xi ? __fsub_rn(1.f, fx) : (ex == xi + 1 ? fx : 0.f);
+        const float wya = eya == yi ? __fsub_rn(1.f, fy)
+                                    : (eya == yi + 1 ? fy : 0.f);
+        const float wyb = eyb == yi ? __fsub_rn(1.f, fy)
+                                    : (eyb == yi + 1 ? fy : 0.f);
+        acca = __fadd_rn(acca, __fmul_rn(__fmul_rn(wya, wx), a));
+        accb = __fadd_rn(accb, __fmul_rn(__fmul_rn(wyb, wx), a));
+      }
+      bf16* row = A + hh * AL + j * WIN + lane;
+      const float accs[2] = {acca, accb};
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        mma_bf16(acc[gi][m][0], af[m], bfr[0], bfr[1]);
-        mma_bf16(acc[gi][m][1], af[m], bfr[2], bfr[3]);
+      for (int t = 0; t < 2; ++t) {
+        const bf16 hi = __float2bfloat16_rn(accs[t]);
+        const float r = __fsub_rn(accs[t], __bfloat162float(hi));
+        const bf16 mid = __float2bfloat16_rn(r);
+        row[32 * t] = hi;
+        row[32 * t + 8 * AL] = mid;
+        row[32 * t + 16 * AL] =
+            __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+      }
+    }
+    __syncthreads();
+    if (tid < H) {  // wsum: each head's total window weight, plain order
+      const bf16* a = A + tid * AL;
+#pragma unroll
+      for (int k = 0; k < KW; k += 8) {  // 8 a load; hi + mid + lo is W
+        const uint4 h4 = *reinterpret_cast<const uint4*>(a + k);
+        const uint4 m4 = *reinterpret_cast<const uint4*>(a + k + 8 * AL);
+        const uint4 l4 = *reinterpret_cast<const uint4*>(a + k + 16 * AL);
+        const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w},
+                       mw[4] = {m4.x, m4.y, m4.z, m4.w},
+                       lw[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 hf = __bfloat1622float2(bf2(hw[i])),
+                       mf = __bfloat1622float2(bf2(mw[i])),
+                       lf = __bfloat1622float2(bf2(lw[i]));
+          wsum_t += __fadd_rn(__fadd_rn(hf.x, mf.x), lf.x);
+          wsum_t += __fadd_rn(__fadd_rn(hf.y, mf.y), lf.y);
+        }
+      }
+    }
+    cp_wait_all();
+    __syncthreads();
+
+    // the group's product on the tensor cores, into the running sums
+#pragma unroll
+    for (int ks = 0; ks < KW / 16; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) ldsm_x4(af[m], A + arow[m] + ks * 16);
+      const int r = ks * 16 + (lane & 15);
+#pragma unroll
+      for (int gi = 0; gi < GPW; ++gi) {
+        const int grp = warp + 8 * gi;
+        if (grp * 16 >= C) continue;
+        uint32_t bfr[4];
+        ldsm_x4_t(bfr,
+                  sv + r * C + (((2 * grp + (lane >> 4)) ^ (r & 7)) << 3));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16(acc[gi][m][0], af[m], bfr[0], bfr[1]);
+          mma_bf16(acc[gi][m][1], af[m], bfr[2], bfr[3]);
+        }
       }
     }
   }
+  if (tid < H) wsum[(long long)bq * H + tid] = wsum_t;
   // epilogue: out[h, c] = hi + mid + lo
 #pragma unroll
   for (int gi = 0; gi < GPW; ++gi) {
@@ -967,26 +998,27 @@ int launch_msda_sel_fp32(const float* value, const float* loc,
   return (int)cudaGetLastError();
 }
 
-template <int GPW>
+template <int GPW, bool ONE>
 int launch_msda_sel_tc(const void* value, const float* loc, const float* attw,
                        float* sampled, float* wsum, const MsdaArgs& g,
                        const Levels& lv, int threads, int smem,
                        cudaStream_t st) {
   if (threads != MSDA_NT || MsdaSmem(g, lv.n).total > smem ||
-      g.K != SEL_K || g.ph != WIN_H || g.pw != WIN_W ||
+      g.K % SEL_K || g.K > lv.n || g.K > MSDA_NT / 32 || g.ph != WIN_H ||
+      g.pw != WIN_W ||
       g.n != g.heads * PTS || g.C % 64 || g.C > GPW * 128 ||
       g.heads > TC_HEADS)
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the attribute only grows (one card)
   if (smem > smem_set) {
-    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW>,
+    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW, ONE>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW>,
+    cudaFuncSetAttribute(msda_sel_tc_kernel<GPW, ONE>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
     smem_set = smem;
   }
-  msda_sel_tc_kernel<GPW><<<g.B * g.Q, MSDA_NT, smem, st>>>(
+  msda_sel_tc_kernel<GPW, ONE><<<g.B * g.Q, MSDA_NT, smem, st>>>(
       (const bf16*)value, loc, attw, g, lv, sampled, wsum);
   return (int)cudaGetLastError();
 }
@@ -2038,6 +2070,14 @@ __device__ __forceinline__ void msda_corners(float lx, float ly, int h, int w,
   rows = make_int4(r0 + xc0, r0 + xc1, r1 + xc0, r1 + xc1);
 }
 
+// The exact kernel's warp barrier: the warp's, or (HYB, whose half-warps
+// walk different counts of samples) this half-warp's.
+template <bool HALF>
+__device__ __forceinline__ void half_sync() {
+  if (HALF) __syncwarp(0xffffu << (threadIdx.x & 16));
+  else __syncwarp();
+}
+
 // bf16 pairs with one rounding each, written out so that nothing fuses:
 // a product of two bf16 values is exact in fp32, and a bf16 sum rounded
 // once equals torch's fp32 sum rounded to bf16 (double rounding through
@@ -2118,13 +2158,27 @@ __device__ __forceinline__ void msda_bilinear<bf16>(
 // beside it (PERF.md): U 2 (more rows in flight: no faster), MODE 1
 // loads the corner rows and skips the arithmetic (each row word still
 // feeds the sums), MODE 2 does the arithmetic on rows it does not load.
-template <typename T, int U = 1, int MODE = 0>
-__global__ void __launch_bounds__(MX_NT, 2)
+//
+// HYB: kernel H2, msda_hybrid's exact correction lane (it replaces the
+// exact lane of simpb_tpu/ops/sampling.py::msda_hybrid, :1132-1185, and
+// its one-hot scatter back, :1189-1209). `sel` [B, Q, L] marks the
+// (camera row, query, level) entries the selection corrects; an item
+// walks the samples of its query's marked levels only, level by level in
+// level order, and adds each level's exact sum (its points' weighted
+// samples, and attention x mass) into H1's sampled and wsum in place.
+// An item with no marked level returns at once: the windowed lane's
+// sums stand. Each item owns its row of sampled and wsum, so there are
+// no atomics and repeats are bit-identical; the half-warps of a warp
+// may walk different counts of samples, so they synchronise apart. (Its
+// fp32 instance takes one block an SM: at two it spills.)
+template <typename T, int U = 1, int MODE = 0, bool HYB = false>
+__global__ void __launch_bounds__(MX_NT, HYB && sizeof(T) == 4 ? 1 : 2)
 msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
             const float* __restrict__ attw,
             const __grid_constant__ MsdaExactArgs g,
             const __grid_constant__ Levels lv, float* __restrict__ sampled,
-            float* __restrict__ wsum) {
+            float* __restrict__ wsum,
+            const unsigned char* __restrict__ sel = nullptr) {
   __shared__ float4 sCw[MX_ITEMS][16];
   __shared__ int4 sRow[MX_ITEMS][16];
   __shared__ float sA[MX_ITEMS][16];
@@ -2132,11 +2186,19 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   const long long items = (long long)g.B * g.Q * g.heads;
   const long long item = (long long)blockIdx.x * MX_ITEMS + hw;
   const long long bqh = item < items ? item : items - 1;
-  const int S = g.L * g.P, packs = g.C / 8;
-  const float* lq = loc + bqh * S * 2;
-  const float* aq = attw + bqh * S;
+  const int packs = g.C / 8;
+  int S = g.L * g.P;
+  unsigned marked = 0;  // HYB: the levels to correct, a bit a level
+  if (HYB) {
+    const unsigned char* sq = sel + bqh / g.heads * g.L;
+    for (int l = 0; l < g.L; ++l) marked |= (sq[l] ? 1u : 0u) << l;
+    S = __popc(marked) * g.P;
+    if (!S) return;
+  }
+  const float* lq = loc + bqh * g.L * g.P * 2;
+  const float* aq = attw + bqh * g.L * g.P;
   const T* vrow = value + bqh / ((long long)g.Q * g.heads) * g.T * g.C;
-  float wsum_h = 0.f;
+  float wsum_h = HYB ? wsum[bqh] : 0.f;
   for (int pk0 = 0; pk0 < packs; pk0 += 16 * MX_PACKS) {
     bool on[MX_PACKS];
     float acc[MX_PACKS][8], lacc[MX_PACKS][8];
@@ -2145,14 +2207,28 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       on[i] = pk0 + j + 16 * i < packs;
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[i][c] = lacc[i][c] = 0.f;
+      if (HYB && on[i]) {
+        const float4* src = reinterpret_cast<const float4*>(
+            sampled + bqh * g.C + (pk0 + j + 16 * i) * 8);
+        const float4 a0 = src[0], a1 = src[1];
+        acc[i][0] = a0.x; acc[i][1] = a0.y; acc[i][2] = a0.z;
+        acc[i][3] = a0.w; acc[i][4] = a1.x; acc[i][5] = a1.y;
+        acc[i][6] = a1.z; acc[i][7] = a1.w;
+      }
     }
     float lw = 0.f;
     int p = 0;
     for (int s0 = 0; s0 < S; s0 += 16) {
       const int n = min(16, S - s0);
-      __syncwarp();  // the previous group is read
+      half_sync<HYB>();  // the previous group is read
       if (j < n) {
-        const int s = s0 + j, l = s / g.P;
+        int s = s0 + j, l = s / g.P;
+        if (HYB) {  // the (s / P)-th marked level, its point s % P
+          int k = l;
+          for (l = 0; l < g.L; ++l)
+            if (((marked >> l) & 1u) && k-- == 0) break;
+          s = l * g.P + s % g.P;
+        }
         float4 cw;
         int4 cr;
         msda_corners<T>(lq[2 * s], lq[2 * s + 1], lv.h[l], lv.w[l],
@@ -2161,7 +2237,7 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         sRow[hw][j] = cr;
         sA[hw][j] = aq[s];
       }
-      __syncwarp();
+      half_sync<HYB>();
       for (int t = 0; t < n; t += U) {
         Row8<T> v[U][MX_PACKS][4];
 #pragma unroll
@@ -2239,15 +2315,136 @@ int msda_blocks(const MsdaExactArgs& g) {
   return (int)((items + MX_ITEMS - 1) / MX_ITEMS);
 }
 
+bool msda_takes(const MsdaExactArgs& g, const Levels& lv, int threads) {
+  return g.C % 8 == 0 && g.C >= 8 && g.heads >= 1 && g.heads <= 8 &&
+         g.P >= 1 && g.L == lv.n && threads == MX_NT && g.B * g.Q >= 1;
+}
+
+template <typename T>
+int launch_msda_hybrid(const void* value, const float* loc,
+                       const float* attw, const unsigned char* sel,
+                       float* sampled, float* wsum, const MsdaExactArgs& g,
+                       const Levels& lv, int threads, cudaStream_t st) {
+  if (!msda_takes(g, lv, threads)) return (int)cudaErrorInvalidValue;
+  msda_kernel<T, 1, 0, true><<<msda_blocks(g), MX_NT, 0, st>>>(
+      (const T*)value, loc, attw, g, lv, sampled, wsum, sel);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_msda(const void* value, const float* loc, const float* attw,
                 float* sampled, float* wsum, const MsdaExactArgs& g,
                 const Levels& lv, int threads, cudaStream_t st) {
-  if (g.C % 8 || g.C < 8 || g.heads < 1 || g.heads > 8 || g.P < 1 ||
-      g.L != lv.n || threads != MX_NT || g.B * g.Q < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!msda_takes(g, lv, threads)) return (int)cudaErrorInvalidValue;
   msda_kernel<T><<<msda_blocks(g), MX_NT, 0, st>>>(
       (const T*)value, loc, attw, g, lv, sampled, wsum);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- clamp priority
+// Kernel H3: msda_hybrid's clamp priority. It replaces
+// simpb_tpu/ops/sampling.py::_lost_weights (:208-257) with the priority
+// msda_hybrid makes of it (:1100-1108) and msda_clamp_demand's count
+// (:1008-1029). Per (camera row, query, level) entry of loc [B, Q, heads,
+// L, P, 2] (fp32): the level's window (shrink_patch's size, placed at the
+// midrange of the entry's in-image samples as _window_base places it),
+// each sample's lost bilinear weight (its corners inside the image but
+// outside the window, the four in _lost_weights' order: x0 then x0 + 1,
+// y0 then y0 + 1 within each), and
+//   prio = sum(lost > 0 ? attw : 0) + 1e-6   if any sample loses weight,
+//          0                                 else,
+// fp32, written once into prio [B, Q * L]. With attw NULL a lost sample
+// weighs 1 (the guard's demand reads locations alone). A warp per entry,
+// a lane per sample (heads x points <= 32); the window's min and max
+// reduce with shuffles (exact in any order), and the sum is a fixed tree,
+// lane l + 16 onto lane l, then + 8, + 4, + 2, + 1, read from lane 0, so
+// that the plain version (ops/sampling.py::clamp_priority_plain) repeats
+// it bit for bit: one ulp at the capacity's boundary would swap which
+// entry the hybrid corrects. It reads 12 bytes a sample and writes 4 an
+// entry (about 2 MB a layer of the hybrid): bound by its latency, the
+// loads, the shuffles and one launch.
+struct ClampArgs {
+  int B, Q, heads, L, P, ph, pw;
+};
+constexpr int CP_NT = 256;  // eight entries a block
+
+__global__ void __launch_bounds__(CP_NT)
+clamp_prio_kernel(const float* __restrict__ loc,
+                  const float* __restrict__ attw, ClampArgs g, Levels lv,
+                  float* __restrict__ prio) {
+  const int lane = threadIdx.x & 31;
+  const long long e =
+      (long long)blockIdx.x * (CP_NT / 32) + (threadIdx.x >> 5);
+  if (e >= (long long)g.B * g.Q * g.L) return;  // a whole warp
+  const int l = (int)(e % g.L), n = g.heads * g.P;
+  const long long bq = e / g.L;
+  const int h = lv.h[l], w = lv.w[l];
+  const int ph = min(g.ph, h);  // shrink_patch: at most the level, even
+  int pw = min(g.pw, w);
+  pw = max(2, pw - pw % 2);
+  float px = 0.f, py = 0.f, a = 0.f;
+  bool keep = false;
+  if (lane < n) {
+    const int hh = lane / g.P, pt = lane - hh * g.P;
+    const long long s = ((bq * g.heads + hh) * g.L + l) * g.P + pt;
+    px = pix(loc[2 * s], w);
+    py = pix(loc[2 * s + 1], h);
+    a = attw ? attw[s] : 1.f;
+    keep = px > -1.f && px < (float)w && py > -1.f && py < (float)h;
+  }
+  float mnx = keep ? px : 1e9f, mxx = keep ? px : -1e9f;
+  float mny = keep ? py : 1e9f, mxy = keep ? py : -1e9f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mnx = fminf(mnx, __shfl_xor_sync(0xffffffffu, mnx, o));
+    mxx = fmaxf(mxx, __shfl_xor_sync(0xffffffffu, mxx, o));
+    mny = fminf(mny, __shfl_xor_sync(0xffffffffu, mny, o));
+    mxy = fmaxf(mxy, __shfl_xor_sync(0xffffffffu, mxy, o));
+  }
+  const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
+  const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
+  const int bx = min(max((int)rintf(__fsub_rn(midx, (pw - 1) / 2.0f)), 0),
+                     w - pw);
+  const int by = min(max((int)rintf(__fsub_rn(midy, (ph - 1) / 2.0f)), 0),
+                     h - ph);
+  const float x0f = floorf(px), y0f = floorf(py);
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const float fx = __fsub_rn(px, x0f), fy = __fsub_rn(py, y0f);
+  float lost = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int cx = x0 + i;
+    const float wx = i ? fx : __fsub_rn(1.f, fx);
+    const bool in_x = cx >= 0 && cx <= w - 1;
+    const bool out_x = cx < bx || cx > bx + pw - 1;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int cy = y0 + k;
+      const float wy = k ? fy : __fsub_rn(1.f, fy);
+      const bool in_y = cy >= 0 && cy <= h - 1;
+      const bool out_y = cy < by || cy > by + ph - 1;
+      const float c = in_x && in_y && (out_x || out_y) ? 1.f : 0.f;
+      lost = __fadd_rn(lost, __fmul_rn(__fmul_rn(c, wx), wy));
+    }
+  }
+  const bool flag = lane < n && __fmul_rn(lost, keep ? 1.f : 0.f) > 0.f;
+  float t = __fmul_rn(flag ? 1.f : 0.f, a);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, o));
+  const bool any = __any_sync(0xffffffffu, flag);
+  if (lane == 0) prio[e] = any ? __fadd_rn(t, 1e-6f) : 0.f;
+}
+
+int launch_clamp_prio(const float* loc, const float* attw, float* prio,
+                      const ClampArgs& g, const Levels& lv, int threads,
+                      cudaStream_t st) {
+  const long long entries = (long long)g.B * g.Q * g.L;
+  if (threads != CP_NT || g.heads * g.P > 32 || g.heads < 1 || g.P < 1 ||
+      g.L != lv.n || g.ph < 1 || g.pw < 1 || entries < 1)
+    return (int)cudaErrorInvalidValue;
+  clamp_prio_kernel<<<(int)((entries + CP_NT / 32 - 1) / (CP_NT / 32)),
+                      CP_NT, 0, st>>>(loc, attw, g, lv, prio);
   return (int)cudaGetLastError();
 }
 
@@ -3100,10 +3297,15 @@ int simpb_msda_sel(const void* value, const void* loc, const void* attw,
   if (!dtype)
     return launch_msda_sel_fp32((const float*)value, l, a, sp, ws, g, lv,
                                 threads, smem, st);
-  return g.C <= 128 ? launch_msda_sel_tc<1>(value, l, a, sp, ws, g, lv,
-                                            threads, smem, st)
-                    : launch_msda_sel_tc<2>(value, l, a, sp, ws, g, lv,
-                                            threads, smem, st);
+  if (g.K == SEL_K)
+    return g.C <= 128 ? launch_msda_sel_tc<1, true>(value, l, a, sp, ws, g,
+                                                    lv, threads, smem, st)
+                      : launch_msda_sel_tc<2, true>(value, l, a, sp, ws, g,
+                                                    lv, threads, smem, st);
+  return g.C <= 128 ? launch_msda_sel_tc<1, false>(value, l, a, sp, ws, g, lv,
+                                                   threads, smem, st)
+                    : launch_msda_sel_tc<2, false>(value, l, a, sp, ws, g, lv,
+                                                   threads, smem, st);
 }
 
 // dims: B, Q, heads, L, P, C, T, threads (MX_NT), then the L level
@@ -3123,6 +3325,41 @@ int simpb_msda(const void* value, const void* loc, const void* attw,
                                    (float*)wsum, g, lv, dims[7], st)
                : launch_msda<float>(value, l, a, (float*)sampled,
                                     (float*)wsum, g, lv, dims[7], st);
+}
+
+// Kernel H2, msda_hybrid's exact lane: adds the exact samples of the
+// (row, query, level) entries `sel` [B, Q, L] (uint8) marks into sampled
+// and wsum in place; dims as simpb_msda's.
+int simpb_msda_hybrid(const void* value, const void* loc, const void* attw,
+                      const void* sel, void* sampled, void* wsum,
+                      const int* dims, int dtype, void* stream) {
+  MsdaExactArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.C = dims[5]; g.T = dims[6];
+  const Levels lv = read_levels(dims[3], dims + 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)loc;
+  const float* a = (const float*)attw;
+  const unsigned char* m = (const unsigned char*)sel;
+  return dtype ? launch_msda_hybrid<bf16>(value, l, a, m, (float*)sampled,
+                                          (float*)wsum, g, lv, dims[7], st)
+               : launch_msda_hybrid<float>(value, l, a, m, (float*)sampled,
+                                           (float*)wsum, g, lv, dims[7],
+                                           st);
+}
+
+// Kernel H3, the clamp priority: dims B, Q, heads, L, P, ph, pw, threads
+// (CP_NT), then the L level heights, widths and start rows; attw may be
+// NULL (a lost sample weighs 1).
+int simpb_clamp_priority(const void* loc, const void* attw, void* prio,
+                         const int* dims, void* stream) {
+  ClampArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.ph = dims[5]; g.pw = dims[6];
+  const Levels lv = read_levels(dims[3], dims + 8);
+  return launch_clamp_prio((const float*)loc, (const float*)attw,
+                           (float*)prio, g, lv, dims[7],
+                           (cudaStream_t)stream);
 }
 
 // The exact MSDA kernel's probes (bf16 values only; see msda_kernel):

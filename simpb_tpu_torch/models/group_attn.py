@@ -5,7 +5,10 @@
   cameras folded into the batch; padded slots are masked as keys.
 * `QueryGroupMSDA` — per-camera multi-scale deformable cross-attention
   on the serving path of the JAX package: windowed (`patch_mode`, with
-  top-k level selection) or exact (`msda`), with valid-slot compaction,
+  top-k level selection), exact (`msda`) or hybrid (`hybrid_mode`,
+  `msda_hybrid`: windowed over every level with an exact correction
+  lane of `clamp_capacity` entries a camera; it overrides `patch_mode`
+  and is served only), with valid-slot compaction,
   sampling the RAW feature column and applying the value projection to
   the sampled rows afterwards, with the `(wsum - 1) * bias` border
   correction (the order the JAX serving head computes in). In training
@@ -13,7 +16,8 @@
   feature column before sampling, as the JAX training head computes it
   (JAX's head passes no pair table in training).
   With a `guards` collector it records the guard counters JAX sows
-  (`utils/guards.py`). The hybrid mode is not ported.
+  (`utils/guards.py`); in the hybrid mode the correction lane's demand
+  in place of the window counters.
 
 Both compute in `dtype`. In bf16 the offsets and attention weights come
 out of bf16 layers; the locations are float32 (float32 reference points
@@ -29,7 +33,10 @@ import torch
 import torch.nn as nn
 
 from ..ops.format import SpatialShapes
-from ..ops.sampling import msda, msda_patch, msda_window_stats, topk_stable
+from ..ops.sampling import (
+    HYBRID_SERVED_ONLY, msda, msda_clamp_demand, msda_hybrid, msda_patch,
+    msda_window_stats, topk_stable,
+)
 from .layers import Dense, MultiheadAttention, dropout
 
 
@@ -72,7 +79,8 @@ def msda_offset_bias_init(num_heads: int, num_levels: int,
 
 class QueryGroupMSDA(nn.Module):
     """Per-camera MSDA for 2D queries, residual_mode='cat': windowed with
-    `patch_mode` (the default here; JAX's default is exact), else exact.
+    `patch_mode` (the default here; JAX's default is exact), else exact;
+    `hybrid_mode` overrides both.
     Slots without an allocated depth get zero locations (the padded
     slots), and with `gather_capacity` only the first `cap` valid slots
     of each camera are sampled."""
@@ -83,10 +91,13 @@ class QueryGroupMSDA(nn.Module):
                  sel_levels: Optional[int] = None,
                  patch_hw: Tuple[int, int] = (8, 8),
                  dtype: torch.dtype = torch.float32, drop: float = 0.0,
-                 patch_mode: bool = True):
+                 patch_mode: bool = True, hybrid_mode: bool = False,
+                 clamp_capacity: int = 128):
         super().__init__()
         self.drop = drop
         self.patch_mode = patch_mode
+        self.hybrid_mode = hybrid_mode
+        self.clamp_capacity = clamp_capacity
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.num_levels = num_levels
@@ -113,9 +124,11 @@ class QueryGroupMSDA(nn.Module):
 
     def _guards(self, guards, loc, attn, ref_depth, spatial_shapes, cap):
         """The counters JAX's layer sows, on the device: `msda_overflow`
-        (the most valid slots of a camera beyond the capacity) and, when
-        windowed, the window and level-selection counters of
-        `msda_window_stats`."""
+        (the most valid slots of a camera beyond the capacity); in the
+        hybrid mode the correction lane's demand (`msda_clamp_demand`
+        over each camera's valid slots: its most beyond `clamp_capacity`,
+        its maximum, and each camera's); else, when windowed, the window
+        and level-selection counters of `msda_window_stats`."""
         bs, q_total = ref_depth.shape[:2]
         k = q_total // self.num_cams
         valid = ref_depth[..., 0] > 0  # [bs, cams*K]
@@ -123,7 +136,17 @@ class QueryGroupMSDA(nn.Module):
         cap_eff = cap if cap is not None and cap < k else k
         add = lambda name, v: guards.setdefault(name, []).append(v)
         add("msda_overflow", (counts.max() - cap_eff).clamp(min=0).float())
-        if self.patch_mode:
+        if self.hybrid_mode:
+            demand = msda_clamp_demand(
+                spatial_shapes, loc.reshape((bs * self.num_cams, k)
+                                            + loc.shape[2:]),
+                self.patch_hw[0], self.patch_hw[1],
+                valid=valid.reshape(bs * self.num_cams, k))
+            add("msda_clamp_overflow",
+                (demand.max() - self.clamp_capacity).clamp(min=0.0))
+            add("msda_clamp_demand", demand.max())
+            add("msda_percam_clamp_demand", demand)
+        elif self.patch_mode:
             stats = msda_window_stats(
                 spatial_shapes, loc, attn, self.patch_hw[0],
                 self.patch_hw[1], sel_levels=self.sel_levels, valid=valid)
@@ -159,6 +182,8 @@ class QueryGroupMSDA(nn.Module):
         value column before sampling (the training order);
         `capacity_override` replaces `gather_capacity`; `guards`, a
         collector dict, gets this call's guard counters appended."""
+        if self.hybrid_mode and project_first:
+            raise NotImplementedError(HYBRID_SERVED_ONLY)
         bs, q_total, _ = query.shape
         heads, levels, points = (self.num_heads, self.num_levels,
                                  self.num_points)
@@ -196,6 +221,11 @@ class QueryGroupMSDA(nn.Module):
         w = attn.reshape(b2, k, heads, levels, points).float()
 
         def sample(loc_, w_):
+            if self.hybrid_mode:
+                return self._project(*msda_hybrid(
+                    v, spatial_shapes, loc_, w_, patch_h=self.patch_hw[0],
+                    patch_w=self.patch_hw[1],
+                    clamp_capacity=self.clamp_capacity, raw_heads=True))
             if not self.patch_mode:
                 if project_first:
                     return msda(v, spatial_shapes, loc_, w_)

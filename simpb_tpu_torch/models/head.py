@@ -55,7 +55,6 @@ def check_head_config(c: HeadConfig) -> None:
     unsupported = {
         "decouple_attn": not c.decouple_attn,
         "decouple_attn2d": not c.decouple_attn2d,
-        "msda_hybrid_mode": c.msda_hybrid_mode,
         "dfa_sel_levels": bool(c.dfa_sel_levels),
         "dfa_level_capacity": bool(c.dfa_level_capacity),
         "encoder2d_layers": bool(c.encoder2d_layers),
@@ -163,6 +162,8 @@ class SimPBHead(nn.Module):
                     sel_levels=c.msda_sel_levels or None,
                     patch_hw=c.msda_patch_hw, dtype=dtype, drop=c.drop_out,
                     patch_mode=c.msda_patch_mode,
+                    hybrid_mode=c.msda_hybrid_mode,
+                    clamp_capacity=c.msda_clamp_capacity,
                 )
             elif op == "aggregation":
                 self.add_module(f"op{i}_reweight", ReWeight(e, dtype))

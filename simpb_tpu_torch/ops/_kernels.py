@@ -85,6 +85,11 @@ SIGNATURES = {
         "simpb_msda": ((P,) * 6 + (I, P), I),
         # the same, then samples in flight, probe mode, stream (bf16)
         "simpb_msda_probe": ((P,) * 6 + (I, I, P), I),
+        # value, loc, attw, sel, sampled, wsum (in place), dims, dtype,
+        # stream
+        "simpb_msda_hybrid": ((P,) * 7 + (I, P), I),
+        # loc, attw (or NULL), prio, dims, stream
+        "simpb_clamp_priority": ((P,) * 4 + (P,), I),
         # col, points, weights, thresholds, grad out, grad col, grad
         # points, grad weights, scratch, dims, strides, dtype, stages,
         # stream

@@ -10,7 +10,11 @@ Port of the serving path of `simpb_tpu/ops/sampling.py`:
   output (the value projection is applied after sampling by the
   caller);
 * `msda` — exact multi-scale deformable attention (the exact configs'
-  2D cross-attention).
+  2D cross-attention);
+* `msda_hybrid` — the hybrid config's: windowed MSDA over every level
+  with the entries whose samples leave their windows (`clamp_priority`,
+  `msda_clamp_demand`) zeroed there and sampled exactly instead, added
+  back (`msda_hybrid_exact`). Served only.
 
 Sampling semantics, as in the JAX package: pixel position is
 `loc * size - 0.5`; out-of-border bilinear corners weigh zero; DFA drops
@@ -23,16 +27,22 @@ explicitly: unlike JAX gathers, torch indexing does not clamp.
 
 On the TPU these ops were XLA gathers, not Pallas kernels. On Hopper
 the forward of each is a hand-written CUDA kernel in `csrc/sampling.cu`:
-`deformable_aggregation` and `_msda_patch_sel` are the wrappers, and
-`deformable_aggregation_plain` / `_msda_patch_sel_plain` their plain
-versions. A wrapper checks its arguments, runs the plain version only
+`deformable_aggregation`, `_msda_patch_sel` and `msda` are the
+wrappers, and `deformable_aggregation_plain` / `_msda_patch_sel_plain` /
+`msda_plain` their plain versions; the hybrid's three are
+`_msda_patch_levels` (H1, the MSDA-sel kernels with every level),
+`msda_hybrid_exact` (H2, the exact kernel over the corrected entries)
+and `clamp_priority` (H3), beside `_msda_patch_levels_plain`,
+`msda_hybrid_exact_plain` and `clamp_priority_plain` (`KERNELS`). A
+wrapper checks its arguments, runs the plain version only
 for tensors on the CPU, and for CUDA tensors launches the kernel or
 raises. Each wrapper counts its launches (`launch_counts()`); the count
 lives in this module, so it holds even while a caller has rebound a
 wrapper's name to record or reroute its calls.
 
-The launch of each comes from a cached planner, `plan_dfa` and
-`plan_msda_sel`: grid, threads, shared memory and the host int array
+The launch of each comes from a cached planner, `plan_dfa`,
+`plan_msda_sel`, `plan_msda` and `plan_clamp_priority`: grid, threads,
+shared memory and the host int array
 the C entry reads, built once per shape; a shape the kernels do not take
 raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
 fp32 on the CUDA cores (the wrapper picks by dtype alone); DFA is one
@@ -69,13 +79,35 @@ DFA_THREADS = 256  # most threads of a DFA block
 # C1 packs a window's base in 14 bits an axis, B1 a corner's in 16
 MAX_LEVEL_SIDE = 1 << 14
 MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
-# the bf16 MSDA-sel kernel's head shape (csrc/sampling.cu): top-2 levels,
-# 8x8 windows, 4 points a head (and at most 8 heads), as in every
-# configuration of the repo
+# the bf16 MSDA-sel kernel's head shape (csrc/sampling.cu): its levels
+# staged 2 at a time (the top 2, or every level in pairs), 8x8 windows, 4
+# points a head (and at most 8 heads), as in every configuration of the
+# repo
 MSDA_TC_SHAPE = (2, 8, 8, 4)
 _LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
+             "msda_patch_levels": 0, "msda_hybrid_exact": 0,
+             "clamp_priority": 0,
              "deformable_aggregation_backward": 0,
              "msda_patch_sel_backward": 0, "msda_backward": 0}
+def hybrid_window_refusal(spatial_shapes, patch_h: int, patch_w: int):
+    """The message of `msda_hybrid`'s refusal on the card where a level is
+    smaller than the window (or its width odd): kernel H1 takes every
+    level through the full window, and the shrinking branch is not
+    ported (ROADMAP B.5)."""
+    return (f"msda_hybrid on the card needs the {patch_h}x{patch_w} window "
+            f"to fit every level (levels {list(spatial_shapes.shapes)}): the "
+            "windowed lane's shrinking branch for smaller levels has no "
+            "kernel yet (ROADMAP B.5); run this configuration on the CPU")
+
+
+HYBRID_SERVED_ONLY = (
+    "msda_hybrid is served only: no trainer configuration sets "
+    "msda_hybrid_mode (JAX's trainer has no hybrid config), and its lanes "
+    "(kernels H1, H2, H3) have no backward")
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -691,6 +723,15 @@ def _msda_level(table, base, h, w, loc, dtype):
     return sample, r(wx0 + wx1) * r(wy0 + wy1)
 
 
+def _split_heads(sampled: torch.Tensor) -> torch.Tensor:
+    """Raw heads [B, Q, heads, C] -> [B, Q, C] float32: channel c takes
+    its head's (c // (C / heads)) sum, JAX's head-mask einsum."""
+    heads, c = sampled.shape[2:]
+    head_mask = torch.repeat_interleave(
+        torch.eye(heads, device=sampled.device), c // heads, dim=1)
+    return torch.einsum("bqhc,hc->bqc", sampled, head_mask)
+
+
 def msda_plain(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -730,11 +771,7 @@ def msda_plain(
             w_l)
         acc_w = acc_w + torch.einsum(
             "bqhp,bqhp->bqh", w_l, mass.reshape(b, q, heads, num_points))
-    if raw_heads:
-        return acc, acc_w
-    head_mask = torch.repeat_interleave(
-        torch.eye(heads, device=dev), c // heads, dim=1)
-    return torch.einsum("bqhc,hc->bqc", acc, head_mask)
+    return (acc, acc_w) if raw_heads else _split_heads(acc)
 
 
 MSDA_HEADS = 8  # most heads of the exact kernels
@@ -924,6 +961,62 @@ def _window_weights(px, py, keep, a, base_x, base_y, ph, pw):
     return wpix * (a * keep)[..., None]
 
 
+def _patch_fits_all(spatial_shapes: SpatialShapes, patch_h: int,
+                    patch_w: int) -> bool:
+    """The window fits every level (and its width is even): the
+    condition of the level-uniform windowed kernels."""
+    return all(h_ >= patch_h and w_ >= patch_w and patch_w % 2 == 0
+               for h_, w_ in spatial_shapes.shapes)
+
+
+def _msda_patch_levels_plain(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    attw: torch.Tensor,  # [B, Q, L, n]
+    heads: int,
+    patch_h: int,
+    patch_w: int,
+):
+    """`msda_patch` over every level, plain PyTorch, as JAX's all-level
+    loop (simpb_tpu/ops/sampling.py:796-866): each level in order, its
+    window shrunk to a level smaller than it (`shrink_patch`), the
+    level's sums added to the running ones. Returns (sampled [B, Q,
+    heads, C], wsum [B, Q, heads]) float32."""
+    b, total_hw, c = value.shape
+    q, num_levels, n = loc.shape[1:4]
+    num_points = n // heads
+    dev = value.device
+    table = value.reshape(b * total_hw, c)
+    batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
+    acc = torch.zeros((b, q, heads, c), dtype=torch.float32, device=dev)
+    acc_w = torch.zeros((b, q, heads), dtype=torch.float32, device=dev)
+    for lvl in range(num_levels):
+        h_, w_ = spatial_shapes.shapes[lvl]
+        start = spatial_shapes.start_indices[lvl]
+        ph, pw = shrink_patch(patch_h, patch_w, h_, w_)
+        l = loc[:, :, lvl]
+        px = l[..., 0] * w_ - 0.5
+        py = l[..., 1] * h_ - 0.5
+        keep = ((px > -1.0) & (px < w_) & (py > -1.0) & (py < h_)).float()
+        base_x, base_y = _window_base(px, py, keep, ph, pw, h_, w_)
+        dy = torch.arange(ph, device=dev)
+        dx = torch.arange(pw, device=dev)
+        rows = (
+            batch_base[:, :, None, None] + start
+            + (base_y[:, :, None, None] + dy[:, None]) * w_
+            + base_x[:, :, None, None] + dx
+        )  # [B, Q, ph, pw]
+        patch = _take_rows(table, rows).reshape(b, q, ph * pw, c)
+        wpix = _window_weights(
+            px, py, keep, attw[:, :, lvl].float(), base_x, base_y, ph, pw
+        )  # [B, Q, n, ph*pw]
+        wpix = wpix.reshape(b, q, heads, num_points, ph * pw).sum(3)
+        acc = acc + torch.einsum("bqhe,bqec->bqhc", wpix, patch.float())
+        acc_w = acc_w + wpix.sum(-1)
+    return acc, acc_w
+
+
 def msda_patch(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
@@ -940,67 +1033,37 @@ def msda_patch(
     patch_w window placed at the samples' midrange. With `sel_levels`
     and a patch that fits every level, each query samples only its
     `sel_levels` highest-attention-mass levels (`_msda_patch_sel`);
-    otherwise every level, with the window shrunk to small levels.
+    otherwise every level, in level order: `_msda_patch_levels` (kernel
+    H1 on the card) where the window fits every level, else the plain
+    loop with the window shrunk to small levels (on every device).
 
     raw_heads: return (sampled [B, Q, heads, C], wsum [B, Q, heads])
     before the per-head channel split, where wsum is each head's
     total effective sampling weight; otherwise [B, Q, C] float32.
     """
-    b, total_hw, c = value.shape
+    b = value.shape[0]
     q = sampling_locations.shape[1]
     heads, num_levels, num_points = sampling_locations.shape[2:5]
     n = heads * num_points
-    dev = value.device
     loc = sampling_locations.permute(0, 1, 3, 2, 4, 5).reshape(
         b, q, num_levels, n, 2
     )
     attw = attention_weights.permute(0, 1, 3, 2, 4).reshape(
         b, q, num_levels, n
     )
-    patch_fits_all = all(
-        h_ >= patch_h and w_ >= patch_w and patch_w % 2 == 0
-        for h_, w_ in spatial_shapes.shapes
-    )
+    patch_fits_all = _patch_fits_all(spatial_shapes, patch_h, patch_w)
     if sel_levels is not None and sel_levels < num_levels and patch_fits_all:
         acc, acc_w = _msda_patch_sel(
             value, spatial_shapes, loc, attw, heads, patch_h, patch_w,
             sel_levels,
         )
-    else:
-        table = value.reshape(b * total_hw, c)
-        batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
-        acc = torch.zeros((b, q, heads, c), dtype=torch.float32, device=dev)
-        acc_w = torch.zeros((b, q, heads), dtype=torch.float32, device=dev)
-        for lvl in range(num_levels):
-            h_, w_ = spatial_shapes.shapes[lvl]
-            start = spatial_shapes.start_indices[lvl]
-            ph, pw = shrink_patch(patch_h, patch_w, h_, w_)
-            l = loc[:, :, lvl]
-            px = l[..., 0] * w_ - 0.5
-            py = l[..., 1] * h_ - 0.5
-            keep = ((px > -1.0) & (px < w_) & (py > -1.0)
-                    & (py < h_)).float()
-            base_x, base_y = _window_base(px, py, keep, ph, pw, h_, w_)
-            dy = torch.arange(ph, device=dev)
-            dx = torch.arange(pw, device=dev)
-            rows = (
-                batch_base[:, :, None, None] + start
-                + (base_y[:, :, None, None] + dy[:, None]) * w_
-                + base_x[:, :, None, None] + dx
-            )  # [B, Q, ph, pw]
-            patch = _take_rows(table, rows).reshape(b, q, ph * pw, c)
-            wpix = _window_weights(
-                px, py, keep, attw[:, :, lvl].float(), base_x, base_y, ph, pw
-            )  # [B, Q, n, ph*pw]
-            wpix = wpix.reshape(b, q, heads, num_points, ph * pw).sum(3)
-            acc = acc + torch.einsum("bqhe,bqec->bqhc", wpix, patch.float())
-            acc_w = acc_w + wpix.sum(-1)
-    if raw_heads:
-        return acc, acc_w
-    head_mask = torch.repeat_interleave(
-        torch.eye(heads, device=dev), c // heads, dim=1
-    )
-    return torch.einsum("bqhc,hc->bqc", acc, head_mask)
+    elif patch_fits_all:
+        acc, acc_w = _msda_patch_levels(value, spatial_shapes, loc, attw,
+                                        heads, patch_h, patch_w)
+    else:  # levels smaller than the window: plain on every device (B.5)
+        acc, acc_w = _msda_patch_levels_plain(value, spatial_shapes, loc,
+                                              attw, heads, patch_h, patch_w)
+    return (acc, acc_w) if raw_heads else _split_heads(acc)
 
 
 def _lost_weights(spatial_shapes: SpatialShapes, loc: torch.Tensor,
@@ -1168,14 +1231,14 @@ def _msda_patch_sel_plain(
     return weighted, wpix.sum(-1).sum(2)
 
 
-def _msda_tc_smem(num_levels: int, n: int, c: int) -> int:
+def _msda_tc_smem(num_levels: int, n: int, c: int, k: int) -> int:
     """Shared memory of an MSDA-sel tensor-core block (csrc/sampling.cu
-    `MsdaSmem`): the windows' 128 pixel rows (C bf16), the weights' three
-    bf16 parts (8 rows each, and a zero row, of 136), then the query's
-    locations, weights, levels and window bases."""
+    `MsdaSmem`): a group's windows, 128 pixel rows (C bf16), the weights'
+    three bf16 parts (8 rows each, and a zero row, of 136), then the
+    query's locations, weights, and its k levels and window bases."""
     kw = MSDA_TC_SHAPE[0] * MSDA_TC_SHAPE[1] * MSDA_TC_SHAPE[2]
     return (kw * c * 2 + 25 * (kw + 8) * 2
-            + 4 * (3 * num_levels * n + 3 * MSDA_TC_SHAPE[0]))
+            + 4 * (3 * num_levels * n + 3 * k))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1184,10 +1247,11 @@ def plan_msda_sel(num_rows: int, num_queries: int, n: int, heads: int,
                   shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
     """MSDA-sel's launch for [num_rows, ΣHW, c] values over the levels
     `shapes`, num_queries queries a row with n samples (heads x points)
-    a level, the top `k` levels and a ph x pw window: fp32 one block per
+    a level, the top `k` levels (every level, in level order, when k is
+    the number of levels: H1) and a ph x pw window: fp32 one block per
     (query, camera row); bf16 (tensor cores) one block per query, three
-    an SM at the main shapes. Raises ValueError on a shape the kernels do
-    not take."""
+    an SM at the main shapes, its levels staged MSDA_TC_SHAPE[0] at a
+    time. Raises ValueError on a shape the kernels do not take."""
     what = "_msda_patch_sel"
     num_levels = len(shapes)
     win = ph * pw
@@ -1202,16 +1266,17 @@ def plan_msda_sel(num_rows: int, num_queries: int, n: int, heads: int,
         threads = min(256, -(-c // 32) * 32)
         smem = (k * heads * win + 5 * k * n) * 4
     else:
-        if (c % 64 or c > 256 or heads > 8
-                or (k, ph, pw, n // heads) != MSDA_TC_SHAPE):
+        if (c % 64 or c > 256 or heads > 8 or k % MSDA_TC_SHAPE[0]
+                or (ph, pw, n // heads) != MSDA_TC_SHAPE[1:]):
             raise ValueError(f"{what}: the bf16 kernel takes C a multiple of "
-                             "64 up to 256, at most 8 heads and (levels, "
-                             f"window, points a head) = {MSDA_TC_SHAPE}, got "
-                             f"C = {c}, {heads} heads, "
-                             f"{(k, ph, pw, n // heads)}")
+                             "64 up to 256, at most 8 heads, levels a "
+                             f"multiple of {MSDA_TC_SHAPE[0]} and (window, "
+                             f"points a head) = {MSDA_TC_SHAPE[1:]}, got "
+                             f"C = {c}, {heads} heads, {k} levels, "
+                             f"{(ph, pw, n // heads)}")
         grid = (num_rows * num_queries, 1)
         threads = MSDA_THREADS
-        smem = _msda_tc_smem(num_levels, n, c)
+        smem = _msda_tc_smem(num_levels, n, c, k)
     if smem > _kernels.MAX_SMEM:
         raise ValueError(f"{what}: {smem} bytes of shared memory a block do "
                          "not fit")
@@ -1251,7 +1316,7 @@ def _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
 
 
 def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
-                     patch_w, sel_levels):
+                     patch_w, sel_levels, count="msda_patch_sel"):
     what = "_msda_patch_sel"
     b, _, c = value.shape
     q, _, n = loc.shape[1:4]
@@ -1265,7 +1330,7 @@ def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
         *map(_kernels.ptr, (value, loc, attw, sampled, wsum)), plan.dims,
         _kernels.DTYPE_CODE[value.dtype],
         ctypes.c_void_p(_kernels.stream_ptr(value))), what)
-    _LAUNCHES["msda_patch_sel"] += 1
+    _LAUNCHES[count] += 1
     return sampled, wsum
 
 
@@ -1560,6 +1625,331 @@ def _msda_patch_sel(
                                   patch_h, patch_w, sel_levels)
 
 
+def _msda_patch_levels(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
+    attw: torch.Tensor,  # [B, Q, L, n]
+    heads: int,
+    patch_h: int,
+    patch_w: int,
+):
+    """Kernel H1: windowed MSDA over every level, in level order (see
+    `_msda_patch_levels_plain`, its plain version) -> (sampled [B, Q,
+    heads, C], wsum [B, Q, heads]) float32. The MSDA-sel kernels with k =
+    L: bf16 on the tensor cores, two levels' windows at a time, fp32 on
+    the CUDA cores. Every level must hold the window. Served only: on the
+    card it raises where a gradient is needed."""
+    num_levels = spatial_shapes.num_levels
+    _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
+                    patch_w, num_levels)
+    if value.device.type == "cpu":
+        return _msda_patch_levels_plain(value, spatial_shapes, loc, attw,
+                                        heads, patch_h, patch_w)
+    if _needs_grad(value, loc, attw):
+        raise NotImplementedError(
+            "msda_patch over every level on the card is served only (kernel "
+            "H1 has no backward; no trainer configuration samples every "
+            "level through the window)")
+    return _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
+                            patch_w, num_levels, count="msda_patch_levels")
+
+
+def msda_hybrid_exact_plain(value, spatial_shapes, sampling_locations,
+                            attention_weights, sel, sampled, wsum):
+    """The hybrid's exact correction lane, plain PyTorch: for each level in
+    order, the exact samples (`_msda_level`, the value's type's
+    roundings) of the (camera row, query) entries `sel` [B, Q, L] (bool)
+    marks, weighted by attention over the points, added to the windowed
+    lane's sampled [B, Q, heads, C] and wsum [B, Q, heads] (attention x
+    in-image mass). Returns new (sampled, wsum); the unmarked entries'
+    values pass unchanged. JAX gathers the marked entries, sums their
+    points and adds them back with one-hot einsums
+    (simpb_tpu/ops/sampling.py:1132-1209): the same terms, summed in
+    another order."""
+    b, total_hw, c = value.shape
+    q, heads, num_levels, num_points = sampling_locations.shape[1:5]
+    dev = value.device
+    table = value.reshape(b * total_hw, c).float()
+    batch_base = (torch.arange(b, device=dev) * total_hw)[:, None]
+    out, out_w = sampled.float(), wsum.float()
+    for lvl in range(num_levels):
+        h_, w_ = spatial_shapes.shapes[lvl]
+        start = spatial_shapes.start_indices[lvl]
+        loc = sampling_locations[:, :, :, lvl].reshape(b, -1, 2)
+        smp, mass = _msda_level(table, batch_base + start, h_, w_, loc,
+                                value.dtype)
+        w_l = attention_weights[:, :, :, lvl].float()  # [B, Q, heads, P]
+        contrib = torch.einsum(
+            "bqhpc,bqhp->bqhc", smp.reshape(b, q, heads, num_points, c), w_l)
+        cw = torch.einsum("bqhp,bqhp->bqh", w_l,
+                          mass.reshape(b, q, heads, num_points))
+        m = sel[:, :, lvl]
+        out = torch.where(m[:, :, None, None], out + contrib, out)
+        out_w = torch.where(m[:, :, None], out_w + cw, out_w)
+    return out, out_w
+
+
+def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
+                      attention_weights, sel, sampled, wsum):
+    """Kernel H2: adds the exact samples of the entries `sel` [B, Q, L]
+    (bool) marks into sampled [B, Q, heads, C] and wsum [B, Q, heads]
+    (float32, contiguous) in place and returns them (see
+    `msda_hybrid_exact_plain`). On the card a half-warp per (camera row,
+    query, head), as the exact MSDA kernel, walking only its query's
+    marked levels; a query with none returns at once. Served only."""
+    _check_msda(value, spatial_shapes, sampling_locations,
+                attention_weights)
+    what = "msda_hybrid_exact"
+    b, _, c = value.shape
+    q, heads, num_levels, num_points = sampling_locations.shape[1:5]
+    if (sel.dtype != torch.bool or tuple(sel.shape) != (b, q, num_levels)
+            or tuple(sampled.shape) != (b, q, heads, c)
+            or tuple(wsum.shape) != (b, q, heads)
+            or sampled.dtype != torch.float32 or wsum.dtype != torch.float32
+            or not (sel.is_contiguous() and sampled.is_contiguous()
+                    and wsum.is_contiguous())):
+        raise ValueError(f"{what}: sel {tuple(sel.shape)} {sel.dtype}, "
+                         f"sampled {tuple(sampled.shape)} {sampled.dtype}, "
+                         f"wsum {tuple(wsum.shape)} {wsum.dtype}: want a "
+                         f"contiguous bool [{b}, {q}, {num_levels}] and "
+                         "float32 outputs of the exact lane's shapes")
+    _check_devices(what, value, sel, sampled, wsum)
+    if value.device.type == "cpu":
+        got, got_w = msda_hybrid_exact_plain(
+            value, spatial_shapes, sampling_locations, attention_weights,
+            sel, sampled, wsum)
+        sampled.copy_(got)
+        wsum.copy_(got_w)
+        return sampled, wsum
+    if _needs_grad(value, sampling_locations, attention_weights, sampled):
+        raise NotImplementedError(HYBRID_SERVED_ONLY)
+    plan = plan_msda(b, q, heads, num_points, c, spatial_shapes.shapes)
+    _check_aligned(what, value, "value")
+    _kernels.check(_kernels.load("sampling").simpb_msda_hybrid(
+        *map(_kernels.ptr, (value, sampling_locations, attention_weights,
+                            sel, sampled, wsum)), plan.dims,
+        _kernels.DTYPE_CODE[value.dtype],
+        ctypes.c_void_p(_kernels.stream_ptr(value))), what)
+    _LAUNCHES["msda_hybrid_exact"] += 1
+    return sampled, wsum
+
+
+CLAMP_THREADS = 256  # threads of an H3 block: a warp an entry
+CLAMP_LANES = 32  # samples of an entry (heads x points) at most
+
+
+def _tree_sum32(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (at most 32) in H3's fixed order: zero-padded
+    to 32, then the upper half added onto the lower, 16, 8, 4, 2, 1."""
+    x = torch.nn.functional.pad(x, (0, CLAMP_LANES - x.shape[-1]))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def clamp_priority_plain(spatial_shapes: SpatialShapes,
+                         sampling_locations: torch.Tensor,
+                         attention_weights: Optional[torch.Tensor],
+                         patch_h: int, patch_w: int) -> torch.Tensor:
+    """The hybrid's clamp priority, plain PyTorch: per (camera row, query,
+    level) entry, the attention of its samples that lose bilinear weight
+    to the window (`_lost_weights`), summed in H3's tree order, plus 1e-6
+    where any sample loses weight, else 0 (simpb_tpu/ops/sampling.py:
+    1097-1108). `attention_weights` None: a lost sample weighs 1.
+    Returns [B, Q * L] float32, H3's bits."""
+    b, q, heads, num_levels, num_points = sampling_locations.shape[:5]
+    n = heads * num_points
+    if n > CLAMP_LANES:
+        raise ValueError(f"clamp_priority: {n} samples an entry, at most "
+                         f"{CLAMP_LANES}")
+    loc = sampling_locations.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, q, num_levels, n, 2)
+    lost_w, _ = _lost_weights(spatial_shapes, loc, patch_h, patch_w)
+    flag = lost_w > 0
+    a = (torch.ones_like(lost_w) if attention_weights is None
+         else attention_weights.permute(0, 1, 3, 2, 4).reshape(
+             b, q, num_levels, n).float())
+    total = _tree_sum32(flag.float() * a)
+    eps = torch.tensor(1e-6, dtype=torch.float32, device=loc.device)
+    prio = torch.where(flag.any(-1), total + eps, torch.zeros_like(total))
+    return prio.reshape(b, q * num_levels)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_clamp_priority(num_rows: int, num_queries: int, heads: int,
+                        num_points: int, ph: int, pw: int,
+                        shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """H3's launch: a warp per (camera row, query, level) entry, a lane a
+    sample, CLAMP_THREADS // 32 entries a block. Raises ValueError on a
+    shape the kernel does not take: more than CLAMP_LANES samples an
+    entry, more than MAX_LEVELS levels, no entry."""
+    num_levels = len(shapes)
+    if (not 0 < heads * num_points <= CLAMP_LANES or heads < 1
+            or not 0 < num_levels <= MAX_LEVELS or ph < 1 or pw < 1
+            or num_rows * num_queries < 1):
+        raise ValueError(f"clamp_priority: the kernel takes 1 to "
+                         f"{CLAMP_LANES} samples (heads x points) an entry, "
+                         f"1 to {MAX_LEVELS} levels and at least one query, "
+                         f"got {heads} x {num_points} samples, {num_levels} "
+                         f"levels, {num_rows} x {num_queries} queries")
+    entries = num_rows * num_queries * num_levels
+    per_block = CLAMP_THREADS // 32
+    dims = [num_rows, num_queries, heads, num_levels, num_points, ph, pw,
+            CLAMP_THREADS]
+    return SamplingPlan((-(-entries // per_block), 1), CLAMP_THREADS, 0, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
+def clamp_priority(spatial_shapes: SpatialShapes,
+                   sampling_locations: torch.Tensor,
+                   attention_weights: Optional[torch.Tensor],
+                   patch_h: int, patch_w: int) -> torch.Tensor:
+    """Kernel H3: the clamp priority [B, Q * L] float32 of every entry (see
+    `clamp_priority_plain`, whose bits it gives). Locations [B, Q, heads,
+    L, P, 2] and weights [B, Q, heads, L, P] (or None) float32,
+    contiguous; on the CPU the plain version."""
+    what = "clamp_priority"
+    tensors = [sampling_locations] + (
+        [] if attention_weights is None else [attention_weights])
+    _check_devices(what, *tensors)
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: locations and weights must be "
+                             f"contiguous float32, got {t.dtype}")
+    b, q, heads, num_levels, num_points = sampling_locations.shape[:5]
+    if (sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2
+            or num_levels != spatial_shapes.num_levels
+            or (attention_weights is not None
+                and tuple(attention_weights.shape)
+                != tuple(sampling_locations.shape[:5]))):
+        raise ValueError(f"{what}: locations "
+                         f"{tuple(sampling_locations.shape)} and weights do "
+                         f"not fit {spatial_shapes.num_levels} levels")
+    if sampling_locations.device.type == "cpu":
+        return clamp_priority_plain(spatial_shapes, sampling_locations,
+                                    attention_weights, patch_h, patch_w)
+    plan = plan_clamp_priority(b, q, heads, num_points, patch_h, patch_w,
+                               spatial_shapes.shapes)
+    prio = torch.empty((b, q * num_levels), dtype=torch.float32,
+                       device=sampling_locations.device)
+    _kernels.check(_kernels.load("sampling").simpb_clamp_priority(
+        _kernels.ptr(sampling_locations), _kernels.ptr(attention_weights),
+        _kernels.ptr(prio), plan.dims,
+        ctypes.c_void_p(_kernels.stream_ptr(prio))), what)
+    _LAUNCHES["clamp_priority"] += 1
+    return prio
+
+
+def msda_clamp_demand(
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    patch_h: int,
+    patch_w: int,
+    valid: Optional[torch.Tensor] = None,  # [B, Q] bool
+) -> torch.Tensor:
+    """Per batch row, the (query, level) entries the hybrid must correct:
+    those with a sample that loses bilinear weight to its window (H3's
+    priority above 0, from the locations alone), counted over the `valid`
+    queries; float32 [B]. `max(demand - clamp_capacity, 0)` is the guard
+    counter."""
+    b, q = sampling_locations.shape[:2]
+    num_levels = sampling_locations.shape[3]
+    clamped = clamp_priority(spatial_shapes, sampling_locations, None,
+                             patch_h, patch_w).reshape(b, q, num_levels) > 0
+    if valid is not None:
+        clamped = clamped & valid[:, :, None]
+    return clamped.sum((1, 2)).float()
+
+
+def _hybrid_selection(prio: torch.Tensor, k_cap: int) -> torch.Tensor:
+    """The corrected entries [B, Q * L] (bool): the top k_cap priorities
+    (`jax.lax.top_k`'s order, the lower index first on ties), gated to
+    those above 0 (fewer than k_cap entries may clamp)."""
+    vals, idx = topk_stable(prio, k_cap)
+    return torch.zeros_like(prio, dtype=torch.bool).scatter_(1, idx, vals > 0)
+
+
+def _hybrid(lanes, value, spatial_shapes, sampling_locations,
+            attention_weights, patch_h, patch_w, clamp_capacity, raw_heads):
+    """`msda_hybrid` in JAX's order (simpb_tpu/ops/sampling.py:1032-1209)
+    through `lanes`, (clamp priority, windowed lane over every level,
+    exact lane): the priorities, the top `clamp_capacity` of each batch
+    row gated to those that clamp, the windowed lane with their weights
+    zeroed (their windows still placed by their locations), and the exact
+    lane over them added back."""
+    priority, windowed, exact = lanes
+    b = value.shape[0]
+    q, heads, num_levels, num_points = sampling_locations.shape[1:5]
+    n = heads * num_points
+    k_cap = min(clamp_capacity, q * num_levels)
+    sel = _hybrid_selection(priority(
+        spatial_shapes, sampling_locations, attention_weights, patch_h,
+        patch_w), k_cap).reshape(b, q, num_levels)
+    attw_win = attention_weights * (~sel)[:, :, None, :, None].to(
+        attention_weights.dtype)
+    sampled, wsum = windowed(
+        value, spatial_shapes,
+        sampling_locations.permute(0, 1, 3, 2, 4, 5).reshape(
+            b, q, num_levels, n, 2),
+        attw_win.permute(0, 1, 3, 2, 4).reshape(b, q, num_levels, n),
+        heads, patch_h, patch_w)
+    sampled, wsum = exact(value, spatial_shapes, sampling_locations,
+                          attention_weights, sel, sampled, wsum)
+    return (sampled, wsum) if raw_heads else _split_heads(sampled)
+
+
+def msda_hybrid_plain(value, spatial_shapes, sampling_locations,
+                      attention_weights, patch_h=8, patch_w=8,
+                      clamp_capacity=128, raw_heads=False):
+    """`msda_hybrid`, plain PyTorch (`_hybrid` through the plain versions
+    of H3, H1 and H2)."""
+    return _hybrid(
+        (clamp_priority_plain, _msda_patch_levels_plain,
+         msda_hybrid_exact_plain), value, spatial_shapes, sampling_locations,
+        attention_weights, patch_h, patch_w, clamp_capacity, raw_heads)
+
+
+def msda_hybrid(
+    value: torch.Tensor,  # [B, ΣHW, C]
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    attention_weights: torch.Tensor,  # [B, Q, heads, L, P]
+    patch_h: int = 8,
+    patch_w: int = 8,
+    clamp_capacity: int = 128,
+    raw_heads: bool = False,
+):
+    """Windowed MSDA with an exact correction lane (JAX's `msda_hybrid`
+    without `pair_table`): per batch row the `clamp_capacity` (query,
+    level) entries that lose the most attention to their windows are
+    zeroed in the windowed lane and sampled exactly instead. While the
+    demand (`msda_clamp_demand`) fits the capacity the result is exact
+    `msda` up to the order of the sums (and the windowed lane's fp32
+    weights, which bf16 exact MSDA rounds). Same outputs as `msda`. On
+    the card: H3 (`clamp_priority`), the selection, H1
+    (`_msda_patch_levels`) and H2 (`msda_hybrid_exact`); on the CPU
+    `msda_hybrid_plain`. On the card it raises where a gradient is
+    needed (served only) and where a level is smaller than the window
+    (`hybrid_window_refusal`)."""
+    _check_msda(value, spatial_shapes, sampling_locations,
+                attention_weights)
+    if value.device.type == "cpu":
+        return msda_hybrid_plain(value, spatial_shapes, sampling_locations,
+                                 attention_weights, patch_h, patch_w,
+                                 clamp_capacity, raw_heads)
+    if not _patch_fits_all(spatial_shapes, patch_h, patch_w):
+        raise NotImplementedError(hybrid_window_refusal(
+            spatial_shapes, patch_h, patch_w))
+    if _needs_grad(value, sampling_locations, attention_weights):
+        raise NotImplementedError(HYBRID_SERVED_ONLY)
+    return _hybrid(
+        (clamp_priority, _msda_patch_levels, msda_hybrid_exact), value,
+        spatial_shapes, sampling_locations, attention_weights, patch_h,
+        patch_w, clamp_capacity, raw_heads)
+
+
 # the kernels of this module: (name, wrapper, plain version, the TPU op
 # it replaces, an XLA gather there)
 KERNELS = (
@@ -1568,6 +1958,16 @@ KERNELS = (
     ("msda_patch_sel", _msda_patch_sel, _msda_patch_sel_plain,
      "simpb_tpu/ops/sampling.py:892"),
     ("msda", msda, msda_plain, "simpb_tpu/ops/sampling.py:611"),
+    # the hybrid's three: H1, the windowed lane over every level
+    # (msda_patch's loop, called at :1125 with sel_levels=None); H2, the
+    # exact lane (:1032, its exact core :1156); H3, the clamp priority
+    # (_lost_weights :208, msda_clamp_demand :1008)
+    ("msda_patch_levels", _msda_patch_levels, _msda_patch_levels_plain,
+     "simpb_tpu/ops/sampling.py:718"),
+    ("msda_hybrid_exact", msda_hybrid_exact, msda_hybrid_exact_plain,
+     "simpb_tpu/ops/sampling.py:1032"),
+    ("clamp_priority", clamp_priority, clamp_priority_plain,
+     "simpb_tpu/ops/sampling.py:208"),
 )
 # the backward kernels: (name, wrapper, plain version, the JAX op whose
 # gradient it computes)

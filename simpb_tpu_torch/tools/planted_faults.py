@@ -1,28 +1,34 @@
-"""Planted faults against chip_smoke's checks of kernels B, C and D and
-of the exact MSDA forward.
+"""Planted faults against chip_smoke's checks of kernels B, C and D, of
+the exact MSDA forward and of the hybrid's kernels H1, H2 and H3.
 
     python -m simpb_tpu_torch.tools.planted_faults
 
 `chip_smoke.grad_check` holds the DFA, MSDA-sel and exact MSDA backward
 kernels to their plain versions element by element; the exact phase holds
 the exact MSDA kernel to `msda_plain` (`chip_smoke.within`, at
-EXACT_TOL). To show that they see a fault that drops a small part of a
-result, the tool copies the checkout into `build/planted_faults/<fault>/`,
-edits one line of `csrc/sampling.cu` there (`FAULTS`: kernel B's
-feature-gradient accumulation in B2, kernel D's records as D1 writes
-them, kernel D's bin pass (a tile list that loses its last record),
-kernel C's value-gradient accumulation in C3, or the exact MSDA kernel's
-corner rows), builds that copy and runs chip_smoke's synthetic gradient
-cases and exact MSDA cases (fp32 and bf16) on it. It prints one JSON
+EXACT_TOL); the hybrid phase holds H1 to its plain version at MSDA-sel's
+tolerance, H2 at EXACT_TOL and H3 bit for bit (`chip_smoke.within` at
+`HYBRID_TOL`).
+To show that they see a fault that drops a small part of a result, the
+tool copies the checkout into `build/planted_faults/<fault>/`, edits a
+line of `csrc/sampling.cu` there (`FAULTS`: kernel B's feature-gradient
+accumulation in B2, kernel D's records as D1 writes them, kernel D's bin
+pass (a tile list that loses its last record), kernel C's value-gradient
+accumulation in C3, the exact MSDA kernel's corner rows, H1's last level
+of query 0 (one line in each of its two kernels, fp32 and bf16), H2's
+last corrected level of query 0, or H3's priority of entry 0), builds
+that copy and runs chip_smoke's synthetic gradient cases, exact MSDA
+cases and hybrid cases (fp32 and bf16) on it. It prints one JSON
 line per (fault, case): whether the check passes, whether the bound it
 replaced (`MAX_SCALED`: a share of the plain gradient's largest value;
 for exact MSDA the check itself) passes, and each gradient's worst share
 of the check's bound; then one summary line per fault. It exits 1 when
 the unchanged copy fails a case, or when a fault passes the check on any
 case of the kernel it edits (every case has live entries for each fault
-to hit: the dead-anchor cases keep anchor 0 live, and query 0 of every
-exact case samples the interior, for the forward and for D). The copies
-are removed at the end. Needs the card.
+to hit: the dead-anchor cases keep anchor 0 live, query 0 of every
+exact case samples the interior, for the forward and for D, and query 0
+of every hybrid case has a clamped level 0 and a corrected entry). The
+copies are removed at the end. Needs the card.
 """
 from __future__ import annotations
 
@@ -39,7 +45,13 @@ _C_ACCUMULATE = "              acc[p][c] = fmaf(wp[p], gv[c], acc[p][c]);\n"
 _D_RECORD = "    rwk[ri] = wk;\n"
 _D_LIST = "    tc[t] = e - s;\n"
 _EXACT_CORNERS = "            if (ld) dfa_corners(vl, w, r, g.C, v[u][i]);\n"
-# fault -> (kernel edited, text in csrc/sampling.cu, its replacement)
+_H1_FP32 = ("          if (hh < g.heads) "
+            "acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n")
+_H1_TC = "        if (grp * 16 >= C) continue;\n"
+_H2_LEVELS = "    S = __popc(marked) * g.P;\n"
+_H3_PRIO = "  if (lane == 0) prio[e] = any ? __fadd_rn(t, 1e-6f) : 0.f;\n"
+# fault -> (kernel edited, text in csrc/sampling.cu, its replacement); a
+# fault of a kernel with two instances edits a tuple of lines, one each
 FAULTS = {
     "none": (None, None, None),
     # kernel B: every entry of anchor 0 drops its fourth corner (B2's
@@ -81,8 +93,32 @@ FAULTS = {
         "msda", _EXACT_CORNERS,
         "            if (ld) { dfa_corners(vl, w, r, g.C, v[u][i]); "
         "if (bqh < g.heads) v[u][i][3].zero(); }\n"),
+    # H1: query 0 of camera row 0 leaves its last level (fp32, block (0,
+    # 0)) or its last pair of levels (bf16, block 0) out of the windowed
+    # sums
+    "msda_patch_levels_last_level_of_query0": (
+        "msda_patch_levels", (_H1_FP32, _H1_TC), (
+            "          if (hh < g.heads && !(K == L && q == 0 && b == 0 && "
+            "j == K - 1)) acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n",
+            "        if (grp * 16 >= C || (bq == 0 && g.K == L && "
+            "j0 + SEL_K == g.K)) continue;\n")),
+    # H2: query 0 of camera row 0 (its heads' items) corrects one marked
+    # level fewer
+    "msda_hybrid_exact_drops_last_level_of_query0": (
+        "msda_hybrid_exact", _H2_LEVELS,
+        "    if (bqh < g.heads) S = (__popc(marked) - 1) * g.P; "
+        "else S = __popc(marked) * g.P;\n"),
+    # H3: entry 0 (camera row 0, query 0, level 0) never clamps
+    "clamp_priority_entry0_never_clamps": (
+        "clamp_priority", _H3_PRIO,
+        "  if (lane == 0) prio[e] = any && e ? __fadd_rn(t, 1e-6f) : 0.f;\n"),
 }
 MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def edits(old, new):
+    """A fault's (line, replacement) pairs: one, or a tuple of each."""
+    return list(zip(old, new)) if isinstance(old, tuple) else [(old, new)]
 
 
 def run_cases() -> None:
@@ -104,6 +140,16 @@ def run_cases() -> None:
             ok, errs = chip_smoke.within(got, ref, chip_smoke.EXACT_TOL[dname])
             print(json.dumps(dict(
                 case=label, kernel="msda", dtype=dname, passes_check=ok,
+                passes_max_scaled=ok, max_abs_err=errs)), flush=True)
+        for label, name, args in chip_smoke.hybrid_cases(torch, dtype, gen):
+            wrapper, plain = chip_smoke.hybrid_wrappers()[name]
+            got, ref = wrapper(*args), plain(*args)
+            ok, errs = chip_smoke.within(
+                got if isinstance(got, tuple) else (got,),
+                ref if isinstance(ref, tuple) else (ref,),
+                chip_smoke.HYBRID_TOL[name])
+            print(json.dumps(dict(
+                case=label, kernel=name, dtype=dname, passes_check=ok,
                 passes_max_scaled=ok, max_abs_err=errs)), flush=True)
     bwd = {n: (w, p) for n, w, p, _ in sampling.BACKWARD_KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -138,10 +184,12 @@ def main() -> int:
             if old is not None:
                 src = copy / "simpb_tpu_torch" / "csrc" / "sampling.cu"
                 text = src.read_text()
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{fault}: the line to edit is not "
-                                       "in csrc/sampling.cu once")
-                src.write_text(text.replace(old, new))
+                for o, n in edits(old, new):
+                    if text.count(o) != 1:
+                        raise RuntimeError(f"{fault}: a line to edit is not "
+                                           "in csrc/sampling.cu once")
+                    text = text.replace(o, n)
+                src.write_text(text)
             out = subprocess.run(
                 [sys.executable, "-c", "from simpb_tpu_torch.tools."
                  "planted_faults import run_cases; run_cases()"],

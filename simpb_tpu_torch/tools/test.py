@@ -15,12 +15,14 @@ Usage:
 The trunk is always the fused inference trunk (`models/detector.py`), so
 `--fused-trunk` changes nothing. The configs are the JAX CLI's: `r50`
 (the default) and `r50-guarded` sample with exact MSDA, `r50-fast`,
-`r50-fast-guarded` and `--msda-patch` with the windowed one; a config
-the head or detector refuses (`r50-hybrid`, `r101`, `r101-fast`) exits
-with their "not ported" message. Under a guarded config the metrics
+`r50-fast-guarded` and `--msda-patch` with the windowed one, and
+`r50-hybrid` with the windowed one and an exact correction lane
+(`msda_hybrid`, capacity 256 entries a camera); a config the detector
+refuses (`r101`, `r101-fast`) exits with its "not ported" message. Under a guarded config the metrics
 hold each `guard_*` counter's maximum over the frames, and a nonzero
-one (a frame that left the exact semantics) makes the CLI exit 3 after
-printing them, as the JAX CLI does.
+one (a frame that left the exact semantics: for the hybrid,
+`guard_msda_clamp_overflow`, a demand beyond the correction capacity)
+makes the CLI exit 3 after printing them, as the JAX CLI does.
 `--checkpoint` reads a checkpoint of the port's trainer
 (`python -m simpb_tpu_torch.tools.train`, `training/checkpoint.py`):
 the serving model takes the parameters and BatchNorm statistics it

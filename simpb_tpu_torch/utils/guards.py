@@ -17,6 +17,12 @@ frame's sampling was exactly the uncapped, unwindowed semantics:
                             window does not serve whole
   msda_window_clamped_mass  attention mass on those samples
   msda_level_dropped_mass   attention mass on levels the top-k drops
+  msda_clamp_overflow       (hybrid) window-clamped (query, level) entries
+                            a camera holds beyond `msda_clamp_capacity`
+  msda_clamp_demand         (hybrid) the most such entries of a camera: a
+                            headroom statistic, not a violation
+  msda_percam_clamp_demand  (hybrid) each camera's such entries (its
+                            maximum is the demand; not a violation)
 """
 from __future__ import annotations
 

@@ -247,7 +247,8 @@ NOT_PORTED_ARGS = [
     (["--config", "r50"], "simpb_r50_704x256"),
     (["--config", "r50-guarded"], "simpb_r50_704x256_guarded"),
     (["--config", "r50-fast-guarded"], "simpb_r50_704x256_fast_guarded"),
-    (["--config", "r50-hybrid"], None), (["--config", "r101-fast"], None),
+    (["--config", "r50-hybrid"], "simpb_r50_704x256_hybrid"),
+    (["--config", "r101-fast"], None),
     (["--config", "r101"], None),
 ]
 
@@ -553,8 +554,8 @@ def _jax_bench_config(monkeypatch):
 # config is bench.py's under the same switch, with the fused trunk
 BENCH_REFUSED = [("SIMPB_GUARDED", "1", True),
                  ("SIMPB_FAST_GUARDED", "1", True),
-                 ("SIMPB_HYBRID", "1", False), ("SIMPB_EXACT", "1", True),
-                 ("SIMPB_CLAMP_CAP", "64", False),
+                 ("SIMPB_HYBRID", "1", True), ("SIMPB_EXACT", "1", True),
+                 ("SIMPB_CLAMP_CAP", "64", True),
                  ("SIMPB_FUSED_TRUNK", "0", False)]
 
 
@@ -582,15 +583,18 @@ def test_bench_refuses(monkeypatch, name, value, served):
 
 
 def test_bench_switch_precedence(monkeypatch):
-    """bench.py's precedence: a guarded switch wins over the hybrid one,
-    which the port serves only where bench.py would not select it; the
-    hybrid wins over `SIMPB_EXACT`, so that pair is refused."""
+    """bench.py's precedence: the hybrid wins over `SIMPB_EXACT`, and a
+    guarded switch wins over the hybrid; each pair serves bench.py's
+    config, field by field, with the fused trunk."""
     from simpb_tpu_torch import bench
 
     monkeypatch.setenv("SIMPB_HYBRID", "1")
     monkeypatch.setenv("SIMPB_EXACT", "1")
-    with pytest.raises(SystemExit, match="not ported: SIMPB_HYBRID"):
-        bench.config()
+    assert bench.config_name() == "simpb_r50_704x256_hybrid"
+    want = dataclasses.replace(_jax_bench_config(monkeypatch),
+                               backbone_fused_infer=True)
+    assert dataclasses.asdict(bench.config()) == dataclasses.asdict(want)
+    assert want.head.msda_hybrid_mode
     monkeypatch.setenv("SIMPB_FAST_GUARDED", "1")
     assert bench.config_name() == "simpb_r50_704x256_fast_guarded"
     cfg = bench.config()

@@ -288,7 +288,8 @@ def exact_run():
     tests/test_torch_port_slice.py) and the port (fused trunk): one cold
     frame and two stream frames, both taking JAX's incoming state each
     frame. Returns (jcfg, JAX outputs, JAX guard maxima, port outputs,
-    port guard maxima, the port's cold-step decode)."""
+    port guard maxima, the port's cold-step decode, the inputs: JAX's
+    variables, images, projections, the stream frames' port keywords)."""
     jcfg = _guarded_exact(jax_tiny(), fused=False)
     tcfg = _guarded_exact(simpb_tiny(), fused=True)
     bs, w, h = 1, 64, 32
@@ -314,7 +315,7 @@ def exact_run():
     cold = jax.jit(japply)
     stream = jax.jit(lambda v, img, p, s, dt, t2c: japply(
         v, img, p, temporal=s, time_interval=dt, temp2cur=t2c))
-    jouts, jguards, touts, tguard = [], [], [], []
+    jouts, jguards, touts, tguard, tkws = [], [], [], [], []
     jstate = None
     for f in range(3):
         tkw = {}
@@ -342,12 +343,14 @@ def exact_run():
             to = tmodel(torch.from_numpy(imgs[f]), torch.from_numpy(proj),
                         **tkw)
         touts.append(to)
+        tkws.append(tkw)
         tguard.append({k: float(v) for k, v in
                        tguards.summarize_guards(to["guards"]).items()})
         jstate = jo["temporal_state"]
     cold_dec, _ = make_stream_steps(tmodel, tcfg)[0](
         torch.from_numpy(imgs[0]), torch.from_numpy(proj))
-    return jcfg, jouts, jguards, touts, tguard, cold_dec
+    return (jcfg, jouts, jguards, touts, tguard, cold_dec,
+            (variables, imgs, proj, tkws))
 
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
@@ -355,7 +358,7 @@ def test_exact_slice_matches_jax(exact_run, frame):
     """(e) Head outputs within the slice tolerance, allocations, decode
     and instance ids equal, and every guard maximum equal to JAX's, the
     capacity overflows nonzero."""
-    jcfg, jouts, jguards, touts, tguard, _ = exact_run
+    jcfg, jouts, jguards, touts, tguard = exact_run[:5]
     jo, to = jouts[frame], touts[frame]
     close = lambda t, j, msg: np.testing.assert_allclose(
         t.detach().float().numpy(), np.asarray(j), atol=SLICE_ATOL,
@@ -392,11 +395,56 @@ def test_exact_slice_matches_jax(exact_run, frame):
 def test_exact_stream_step_attaches_guards(exact_run):
     """`make_stream_steps` puts each guard maximum into the decode as a
     [bs] `guard_*` entry, left on the model's device."""
-    _, _, jguards, _, _, dec = exact_run
+    _, _, jguards, _, _, dec = exact_run[:6]
     got = {k[len("guard_"):]: v for k, v in dec.items()
            if k.startswith("guard_")}
     assert {k: float(v[0]) for k, v in got.items()} == jguards[0]
     assert all(tuple(v.shape) == (1,) for v in got.values())
+
+
+def test_hybrid_slice_matches_exact_jax(exact_run):
+    """The hybrid tiny slice (ROADMAP A.5): the guarded exact config with
+    `msda_hybrid_mode` and a correction capacity of every (slot, level)
+    entry, on the same weights and inputs, held to JAX's guarded exact
+    outputs at the slice tolerance every frame (the port's incoming
+    state JAX's, as in the exact slice); `dfa_overflow` and
+    `msda_overflow` equal to JAX's, the correction lane's overflow 0 and
+    its demand within the entries and above 0 (entries are corrected in
+    every frame). No JAX compile: the exact run's
+    outputs serve."""
+    jcfg, jouts, jguards = exact_run[:3]
+    variables, imgs, proj, tkws = exact_run[6]
+    base = _guarded_exact(simpb_tiny(), fused=True)
+    entries = base.head.msda_gather_capacity * base.head.num_levels
+    cfg = dataclasses.replace(base, head=dataclasses.replace(
+        base.head, msda_hybrid_mode=True, msda_clamp_capacity=entries))
+    model = SimPB(cfg)
+    model.load_state_dict(from_jax_variables(variables, cfg), strict=True)
+    model.eval()
+    for f, (jo, tkw) in enumerate(zip(jouts, tkws)):
+        with torch.inference_mode():
+            to = model(torch.from_numpy(imgs[f]), torch.from_numpy(proj),
+                       **tkw)
+        for key in ("prediction", "classification", "prediction2d",
+                    "classification2d"):
+            for lyr, (j, t) in enumerate(zip(jo[key], to[key])):
+                if t is not None:
+                    np.testing.assert_allclose(
+                        t.float().numpy(), np.asarray(j), atol=SLICE_ATOL,
+                        rtol=SLICE_RTOL,
+                        err_msg=f"frame {f} {key} layer {lyr}")
+        np.testing.assert_array_equal(to["instance_id"].numpy(),
+                                      np.asarray(jo["instance_id"]))
+        got = {k: float(v) for k, v in
+               tguards.summarize_guards(to["guards"]).items()}
+        assert sorted(got) == sorted(
+            ["dfa_overflow", "msda_overflow", "msda_clamp_overflow",
+             "msda_clamp_demand", "msda_percam_clamp_demand"])
+        for k in ("dfa_overflow", "msda_overflow"):
+            assert got[k] == jguards[f][k], k
+        assert got["msda_clamp_overflow"] == 0.0
+        assert 0.0 < got["msda_clamp_demand"] <= entries  # lane in use
+        assert got["msda_percam_clamp_demand"] == got["msda_clamp_demand"]
 
 
 def test_training_an_exact_config_is_refused():

@@ -245,20 +245,22 @@ def test_backward_wrappers_refuse_cpu_tensors():
 
 
 def test_planted_faults_each_edit_one_scatter():
-    """Each planted fault of the tool finds the line it edits once in
-    the kernel source (a backward's scatter, or the exact MSDA forward's
-    sample), and the edit keeps the line's indentation."""
+    """Each planted fault of the tool finds each line it edits once in
+    the kernel source (a backward's scatter, the exact MSDA forward's
+    sample, or a line of each of H1's two kernels, H2 or H3), and each
+    edit keeps the line's indentation."""
     from simpb_tpu_torch.tools import planted_faults as pf
 
     src = (pf.ROOT / "simpb_tpu_torch" / "csrc" / "sampling.cu").read_text()
     kernels = {n for n, *_ in tsmp.BACKWARD_KERNELS + tsmp.KERNELS}
-    for fault, (kernel, old, new) in pf.FAULTS.items():
+    for fault, (kernel, olds, news) in pf.FAULTS.items():
         if kernel is None:
             continue
         assert kernel in kernels, fault
-        assert src.count(old) == 1, fault
-        assert new != old and new.startswith(old[:len(old) - len(
-            old.lstrip())] + "if ("), fault
+        for old, new in pf.edits(olds, news):
+            assert src.count(old) == 1, fault
+            assert new != old and new.startswith(old[:len(old) - len(
+                old.lstrip())] + "if ("), fault
 
 
 # --------------------------------------------------------------- losses

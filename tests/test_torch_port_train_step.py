@@ -42,6 +42,14 @@ assignments are held to JAX's separately (`test_assignments_match_jax`,
 which allows a permutation only among queries whose rows are
 bit-identical in both packages).
 
+For the same reason the port's last refine3d layer takes JAX's ReLU
+masks in its class branch (`cls_layers`): on the pipeline batch with
+exact MSDA one of its ReLU inputs is -1.17e-6 in the port and positive
+in JAX, within the forward's rounding, so that the port's gradient stops
+where JAX's passes (ROADMAP C.2). The mask of each ReLU there is JAX's
+(its Dense outputs above 0, captured from the same step); a rounding
+anywhere else still counts.
+
 The step is compared in its three parts, each on the same inputs: the
 trunk (with the depth branch) on the batch; the head and the loss on
 JAX's trunk outputs; the trunk's backward from JAX's gradients of those
@@ -257,6 +265,18 @@ def step_run(request, tmp_path_factory):
             return col
         return assign
 
+    # the last refine3d layer's class branch: its ReLU inputs (the Dense
+    # outputs) are captured on JAX's side and their masks imposed on the
+    # port's (see the module docstring)
+    order = h.operation_order
+    cls_op = f"op{len(order) - 1 - order[::-1].index('refine3d')}_refine3d"
+
+    def cls_relu_inputs(mdl, method_name):
+        path = mdl.scope.path
+        return (len(path) >= 2 and path[-2] == "cls_layers"
+                and path[-1].startswith("fc") and cls_op in path
+                and method_name == "__call__")
+
     # the head and the loss as a function of the parameters and of the
     # trunk's outputs
     def head_loss(params, col, depths):
@@ -271,20 +291,23 @@ def step_run(request, tmp_path_factory):
             num_dn_groups=h.num_dn_groups, max_dn_gt=h.max_dn_gt,
             add_neg_dn=h.add_neg_dn, noise_scale=h.dn_noise_scale,
             num_cams=h.num_cams)
-        outs = model.apply(
+        outs, inter = model.apply(
             {"params": params, "batch_stats": variables["batch_stats"]},
             col, ss, jbatch["projection_mat"], wh, temporal=temporal,
             time_interval=jbatch["time_interval"],
             temp2cur=jbatch["temp2cur"], dn=dn, dn_state=dn_state,
             train=True, rngs={"dropout": jax.random.PRNGKey(6)},
-            method=lambda m, *a, **k: m.head(*a, **k))
+            method=lambda m, *a, **k: m.head(*a, **k),
+            capture_intermediates=cls_relu_inputs, mutable=["intermediates"])
+        cls_in = inter["intermediates"]["head"][cls_op]["cls_layers"]
+        relu_in = {k: v["__call__"][0] for k, v in cls_in.items()}
         outs["depth_preds"] = depths
         loss, ld = jlh.total_loss(outs, jbatch, JTrainConfig(), image_wh=wh)
         tgt = _targets(jt3.sample_targets3d,
                        lambda *a: jt2.sample_targets2d(*a[:7], image_wh=a[7]),
                        outs, jbatch, wh)
         return loss, (ld, outs["temporal_state"], tgt, _rows(outs),
-                      tuple(jax_assign))
+                      tuple(jax_assign), relu_in)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nn.Dropout, "__call__",
@@ -298,7 +321,7 @@ def step_run(request, tmp_path_factory):
                 lambda p: trunk(p))(trunk_vars["params"])
             jcol = np.asarray(jcol)
             jstats = jax.tree_util.tree_map(np.asarray, jstats)
-        (jloss, (jld, jtemp, jtgt, jrows, jassign)), \
+        (jloss, (jld, jtemp, jtgt, jrows, jassign, jrelu_in)), \
             (jg_head, jg_col, jg_depths) = \
             jax.jit(jax.value_and_grad(head_loss, argnums=(0, 1, 2),
                                        has_aux=True))(
@@ -354,6 +377,20 @@ def step_run(request, tmp_path_factory):
         max_dn_gt=h.max_dn_gt, add_neg_dn=h.add_neg_dn,
         noise_scale=h.dn_noise_scale, num_cams=h.num_cams)
     ttemp, tdn_state = init_temporal(tcfg, BS, "cpu")
+    mlp = getattr(tmodel.head, cls_op).cls_layers
+    assert sorted(jrelu_in) == [n for n in mlp.order if n.startswith("fc")]
+    relu_masks = {k: torch.from_numpy(np.asarray(v) > 0)
+                  for k, v in jrelu_in.items()}
+
+    def imposed_relus(x):  # MLPStack.forward with JAX's ReLU masks
+        for name in mlp.order:
+            x = getattr(mlp, name)(x)
+            if name.startswith("fc"):
+                assert x.shape == relu_masks[name].shape
+                x = torch.where(relu_masks[name], x, torch.zeros_like(x))
+        return x
+
+    mlp.forward = imposed_relus
     hcol = torch.from_numpy(jcol.astype(np.float32)).requires_grad_(True)
     hdepths = [torch.from_numpy(np.array(d)).requires_grad_(True)
                for d in jdepths]
