@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
              spills.
 3. kernels — each trunk kernel (K1 max-pool, K2 downsample bottleneck,
              K3 bottleneck, K4 3x3 conv) against its plain PyTorch
-             version at every full-width shape of the main path, at the
+             version at every full-width shape of the main path and of
+             an r101 frame (`simpb_r101_1408x512`: ResNet-101 at
+             1408x512, six images; summed a frame apart), at the
              tiny config's smallest maps and, for K1, at odd H and W and
              at channels that take no 16-byte packs, fp32 and bf16 (bf16
              K2-K4 are the tensor-core kernels of conv_tc.cu, fp32 the
@@ -73,6 +75,27 @@ Phases, each printing one JSON line:
              each held against the fp32 plain trunk per FPN level; the
              stem timed as it runs and, as a yardstick, as the bf16 conv
              it replaced.
+8a. r101  — both ResNet-101 configs at 1408x512 as `python -m
+             simpb_tpu_torch.tools.test --config r101|r101-fast
+             --head-bf16` serves them (trunk and head bf16, bs 1): a
+             cold frame and FRAMES stream frames each, the launch counts
+             set to 0 just before and read just after; every frame's
+             launches must be R101_LAUNCHES' (`simpb_r101_1408x512` on
+             the fused trunk: K1 1, K2 4, K3 29, K4 4, DFA 3, exact MSDA
+             3; `simpb_r101_1408x512_fast`, `stem_s2d`, on the module
+             trunk by JAX's rule: K1 1, DFA 3, MSDA-sel 3), then day
+             0's demand pass at r101 (`tools/day0.py --config r101`'s
+             config: the hybrid on the fused trunk at a capacity of
+             every entry, guards on, head fp32; K1-K4 as r101's, DFA 3,
+             H1 3, H2 3, H3 6); the stream's checks; frame ms, median
+             and range, trunk ms, peak memory. Then H1-H3 against their
+             plain versions on the demand pass's last-frame calls at
+             the 59,840-row column, as phase 11 holds them.
+8b. trunk_r101 — phase 8 for the r101 fused trunk, and on the same
+             weights the module trunk with the s2d stem: through K1
+             equal to its plain route bit for bit, in fp32 and bf16
+             within MODULE_TRUNK_FP32_REL / MODULE_TRUNK_BF16_REL of the
+             fp32 fused trunk; the stems timed.
 9. eval    — the evaluation path as `python -m simpb_tpu_torch.tools.test
              --config r50-fast --head-bf16 --tracking` runs it, on a
              synthetic nuScenes-format infos pkl (EVAL_FRAMES frames of
@@ -95,6 +118,8 @@ Phases, each printing one JSON line:
              `run_benchmark` with a window of BENCH_WINDOW frames, the
              launch counts set to 0 just before and read just after;
              prints the bench's JSON line; fps > 0 and a peak are set.
+             Then the same under SIMPB_FUSED_TRUNK=0, on the module
+             trunk (launches K1 1, DFA 3, MSDA-sel 3 a frame).
 11. exact  — the exact-sampling serving path. (a) Frames: the configs
              the bench serves under SIMPB_EXACT (`simpb_r50_704x256`:
              exact MSDA, no slot capacity, DFA capacity 4096),
@@ -203,6 +228,17 @@ Phases, each printing one JSON line:
              chunk and over the crowded ones, and D2 over each level's
              tiles and over its tile (0, 0) alone), beside the
              grid_sample chain's backward (timed only).
+14a. train_r101 — phase 12 for `simpb_r101_1408x512_fast` as
+             `tools/train.py --config r101-fast` trains it (the module
+             trunk in training with the s2d stem, remat), a warm step
+             and R101_TRAIN_STEPS (2) more at the trainer's bs 4 (out
+             of memory fails the run): finite losses, the launches a
+             step (DFA, MSDA-sel, B, C 3 each, A 3), peak memory. Then
+             train_r101_exact: phase 12 for `simpb_r101_1408x512`
+             (`--config r101`, exact MSDA), a warm step and one more
+             (DFA, B, exact MSDA, D 3 each, A 3), and kernel D against
+             `msda_backward_plain` on that step's recorded calls, as
+             phase 14 holds it.
 15. train_cli — the training CLI (`python -m simpb_tpu_torch.tools.train
              --config r50-fast --batch-size 4`, trunk bf16, head fp32)
              through `tools/train.py::run`, TRAIN_CLI_ITERS (6) iterations
@@ -282,7 +318,8 @@ Phases, each printing one JSON line:
              The kernels are built once, before any process starts; each
              of these phases' seconds is printed.
 
-Then the kernels' summary line, the card line, and as the last line
+Then the run's seconds, the kernels' summary line, the card line, and
+as the last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0). With
 no CUDA device, or outside the repository, it exits 2 and prints no
 result.
@@ -356,10 +393,45 @@ TRUNK_SOURCE = {"maxpool_3x3_s2": "conv_fused", "bottleneck_down": "conv_tc",
 # a bf16 ulp (2^-8), covers a level whose plain error happens to be small.
 TRUNK_RATIO, TRUNK_FLOOR = 1.5, 4e-4
 
-# ResNet-50 stages at 704x256: (mid channels, out channels, output H, W,
-# stride of the stage head, blocks)
-STAGES = ((64, 256, 64, 176, 1, 3), (128, 512, 32, 88, 2, 4),
-          (256, 1024, 16, 44, 2, 6), (512, 2048, 8, 22, 2, 3))
+
+
+def resnet_stages(w, h, blocks):
+    """(mid channels, out channels, output H, W, stride of the stage head,
+    blocks) of each ResNet stage at a W x H input."""
+    return tuple((64 << i, 256 << i, h // (4 << i), w // (4 << i),
+                  1 if i == 0 else 2, n) for i, n in enumerate(blocks))
+
+
+# ResNet-50 at 704x256 (the main path) and ResNet-101 at 1408x512
+STAGES = resnet_stages(704, 256, (3, 4, 6, 3))
+R101_STAGES = resnet_stages(1408, 512, (3, 4, 23, 3))
+# the r101 phase: the eval CLI's `--config` names, and each one's launches
+# a frame as the CLI serves it (`--head-bf16`): simpb_r101_1408x512 on the
+# fused trunk with exact MSDA; simpb_r101_1408x512_fast (stem_s2d) on the
+# module trunk, whose only kernel is K1, with MSDA-sel
+R101_TRUNK = {"maxpool_3x3_s2": 1, "bottleneck_down": 4, "bottleneck": 29,
+              "conv3x3_bias": 4}
+R101_LAUNCHES = {
+    "r101": {**R101_TRUNK, "deformable_aggregation": 3, "msda": 3},
+    "r101-fast": {"maxpool_3x3_s2": 1, "deformable_aggregation": 3,
+                  "msda_patch_sel": 3},
+    # day 0's demand pass at r101 (`tools/day0.py --config r101`): the
+    # hybrid on the fused trunk, guards on, so H3 twice a layer
+    "day0-r101": {**R101_TRUNK, "deformable_aggregation": 3,
+                  "msda_patch_levels": 3, "msda_hybrid_exact": 3,
+                  "clamp_priority": 6}}
+R101_TRAIN_STEPS = 2  # r101-fast training steps after the warm step
+# the module trunk in bf16 against the fused trunk in fp32 (same weights,
+# r101), relative L2 per FPN level: the module route rounds every conv's
+# output to bf16 before its BatchNorm and every BatchNorm's output after,
+# some 200 roundings on an activation's way through 33 blocks and the
+# FPN. Measured 0.0109 (level 2) to 0.0123 (level 0) on the H100; 0.03
+# is 2.4 times the largest, and a BatchNorm computed in bf16 or a
+# rounding point moved shows as several percent
+MODULE_TRUNK_BF16_REL = 0.03
+# the module trunk in fp32 against the fused trunk in fp32: the same
+# function (BatchNorm unfolded, the stem's s2d sum) in other fp32 orders
+MODULE_TRUNK_FP32_REL = 1e-4
 
 
 def emit(obj) -> None:
@@ -473,16 +545,13 @@ def device_ms(fn, iters: int = 10) -> float:
     raise AssertionError("device_ms: the spin never covered the enqueueing")
 
 
-def kernel_cases():
-    """(name, calls per frame, shapes) for every distinct full-width
-    call of the main path, an odd-sized max-pool, one whose channels
-    take no 16-byte packs, and the tiny config's smallest maps (no call
-    a frame)."""
-    cases = [("maxpool_3x3_s2", 1, dict(x=(6, 128, 352, 64))),
-             ("maxpool_3x3_s2", 0, dict(x=(6, 127, 351, 64))),
-             ("maxpool_3x3_s2", 0, dict(x=(2, 33, 47, 30)))]
+def frame_cases(stages):
+    """(name, calls per frame, shapes) of every distinct call of a bs-1
+    frame's fused trunk (six images) over `stages`."""
+    h0, w0 = stages[0][2:4]
+    cases = [("maxpool_3x3_s2", 1, dict(x=(6, 2 * h0, 2 * w0, 64)))]
     cin = 64
-    for cm, co, h, w, s, n in STAGES:
+    for cm, co, h, w, s, n in stages:
         hin, win = h * s, w * s
         cases.append(("bottleneck_down", 1, dict(
             x=(6, hin, win, cin), c=cin, cm=cm, co=co, stride=s)))
@@ -491,6 +560,17 @@ def kernel_cases():
         cases.append(("conv3x3_bias", 1, dict(x=(6, h, w, 256), c=256,
                                               co=256)))
         cin = co
+    return cases
+
+
+def kernel_cases():
+    """(name, calls per frame, shapes) for every distinct full-width
+    call of the main path, an odd-sized max-pool, one whose channels
+    take no 16-byte packs, and the tiny config's smallest maps (no call
+    a frame)."""
+    cases = frame_cases(STAGES)
+    cases[1:1] = [("maxpool_3x3_s2", 0, dict(x=(6, 127, 351, 64))),
+                  ("maxpool_3x3_s2", 0, dict(x=(2, 33, 47, 30)))]
     # no call a frame: the stage heads and the last two stages of
     # simpb_tiny (64x32 input), maps smaller than one tile
     cin, hin, win = 64, 8, 16
@@ -605,15 +685,23 @@ def cudnn_chain(case, args):
 
 
 def phase_kernels(torch, conv_fused):
+    """The trunk kernels against their plain versions at the main path's
+    shapes (r50 at 704x256) and at simpb_r101_1408x512's; returns the
+    per-frame sums of each (`summary` for the main path, `summary_r101`
+    for an r101 frame) and the wrappers."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     wrappers = {n: (w, p, tpu) for n, w, p, tpu in conv_fused.KERNELS}
-    # per kernel, over a frame's calls at bf16 (the main path's type);
+    # per kernel, over a frame's calls at bf16 (the frame's type);
     # `bound` sums each call's bound by what bounds that call
-    summary = {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-                       library_ms=0.0, cudnn_chain_ms=0.0,
-                       bound={"bytes": 0.0, "operations": 0.0})
-               for n in wrappers}
-    for case in kernel_cases():
+    new = lambda: {n: dict(max_abs_err=0.0, ms=0.0, device_ms=0.0,
+                           plain_ms=0.0, library_ms=0.0, cudnn_chain_ms=0.0,
+                           bound={"bytes": 0.0, "operations": 0.0})
+                   for n in wrappers}
+    summary, summary_r101 = new(), new()
+    for config, case, summ in (
+            [("simpb_r50_704x256_fast", c, summary) for c in kernel_cases()]
+            + [("simpb_r101_1408x512", c, summary_r101)
+               for c in frame_cases(R101_STAGES)]):
         name, count, a = case
         wrapper, plain, _ = wrappers[name]
         for dtype in (torch.float32, torch.bfloat16):
@@ -646,7 +734,7 @@ def phase_kernels(torch, conv_fused):
             o_ms = ops / PEAK_OPS[dname] * 1e3
             bound_by = "bytes" if b_ms >= o_ms else "operations"
             emit(dict(phase="kernel", name=name, dtype=dname,
-                      shape=list(a["x"]), per_frame=count,
+                      config=config, shape=list(a["x"]), per_frame=count,
                       max_abs_err=err, tol=TOL[dname] * scale, ok=ok,
                       exact=exact, deterministic=same,
                       ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -658,7 +746,7 @@ def phase_kernels(torch, conv_fused):
                                      f"{err} (tol {TOL[dname] * scale}, "
                                      f"exact {exact}), or a second launch "
                                      "gave other bits")
-            s = summary[name]
+            s = summ[name]
             s["max_abs_err"] = max(s["max_abs_err"], err)
             if dtype == torch.bfloat16:  # the main path's type
                 s["ms"] += count * ms
@@ -671,7 +759,7 @@ def phase_kernels(torch, conv_fused):
                 s["cudnn_chain_ms"] = (None if chain_ms is None else
                                        s["cudnn_chain_ms"] + count * chain_ms)
             del args, got, again, ref
-    return summary, wrappers
+    return summary, summary_r101, wrappers
 
 
 def stream_inputs(torch, cfg, frames, seed=0):
@@ -1752,6 +1840,30 @@ def launch_floor_ms(torch):
     return device_ms(lambda: torch.cuda._sleep(0), iters=50)
 
 
+def hold_hybrid(torch, cases, summary, frame_label):
+    """H1, H2 and H3 on `cases` ((label, name, args)) through
+    `hold_case` at HYBRID_TOL (H2 timed in place on scratch copies);
+    each kernel's largest error into `summary`, and the times and bounds
+    of the cases whose label starts with `frame_label` (one frame's
+    calls)."""
+    from simpb_tpu_torch.ops import sampling
+
+    wrappers = hybrid_wrappers()
+    for label, name, args in cases:
+        wrapper, plain = wrappers[name]
+        timed = None
+        if name == "msda_hybrid_exact":  # in place, on scratch copies
+            scratch = (args[5].clone(), args[6].clone())
+            timed = lambda: sampling.msda_hybrid_exact(*args[:5], *scratch)
+        line = hold_case(torch, label, name, wrapper, plain, args, {},
+                         HYBRID_TOL[name], hybrid_work(name, args),
+                         library=hybrid_library(name, args), timed=timed)
+        s = summary[name]
+        s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
+        if label.startswith(frame_label):
+            add_frame_call(summary, line)
+
+
 def phase_hybrid_kernels(torch, calls, launches):
     """H1, H2 and H3 against their plain versions on the hybrid config's
     recorded last-frame calls and on `hybrid_cases` in fp32 and bf16,
@@ -1767,7 +1879,6 @@ def phase_hybrid_kernels(torch, calls, launches):
     from simpb_tpu_torch.ops import sampling
 
     main = "simpb_r50_704x256_hybrid"
-    wrappers = hybrid_wrappers()
     tpu = {n: t for n, _, _, t in sampling.KERNELS}
     summary = {n: new_summary() for n in HYBRID_KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1776,19 +1887,7 @@ def phase_hybrid_kernels(torch, calls, launches):
              if n in HYBRID_KERNELS]
     for dtype in (torch.float32, torch.bfloat16):
         cases += hybrid_cases(torch, dtype, gen)
-    for label, name, args in cases:
-        wrapper, plain = wrappers[name]
-        timed = None
-        if name == "msda_hybrid_exact":  # in place, on scratch copies
-            scratch = (args[5].clone(), args[6].clone())
-            timed = lambda: sampling.msda_hybrid_exact(*args[:5], *scratch)
-        line = hold_case(torch, label, name, wrapper, plain, args, {},
-                         HYBRID_TOL[name], hybrid_work(name, args),
-                         library=hybrid_library(name, args), timed=timed)
-        s = summary[name]
-        s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
-        if label.startswith(main + "_call"):
-            add_frame_call(summary, line)
+    hold_hybrid(torch, cases, summary, main + "_call")
     floor = launch_floor_ms(torch)
     emit(dict(phase="hybrid_floor", launch_floor_device_ms=floor))
 
@@ -1962,37 +2061,134 @@ def phase_parity(torch):
         raise AssertionError(f"bf16 slice parity failed: {bad}")
 
 
-def phase_trunk(torch):
-    """ResNet-50 + FPN at the main path's input in bf16 through the
-    kernels and through their plain versions, each against the fp32
-    plain trunk: per FPN level the kernels' relative L2 error may be at
-    most TRUNK_RATIO times the plain route's plus TRUNK_FLOOR. The
-    kernel phase's checks use random activations; this one the trunk's
-    own."""
+def r101_config(name):
+    """The config `python -m simpb_tpu_torch.tools.test --config <name>
+    --head-bf16` serves: trunk and head bf16, `backbone_fused_infer` set
+    (the detector takes the module trunk under `stem_s2d`). `day0-r101`:
+    the config of `tools/day0.py --config r101`'s demand pass (the hybrid
+    at a capacity of every entry, guards on, trunk bf16, head fp32)."""
+    from simpb_tpu_torch.tools import day0
+    from simpb_tpu_torch.tools import test as test_cli
+
+    if name == "day0-r101":
+        return day0.measurement_config("r101")[0]
+    return test_cli.build_config(test_cli.parse_args(
+        ["--ann-file", "unused", "--config", name, "--head-bf16"]))
+
+
+def phase_r101(torch):
+    """Both ResNet-101 configs at 1408x512 as the eval CLI serves them,
+    and day 0's demand pass at r101 (R101_LAUNCHES), bs 1: a cold frame
+    and FRAMES stream frames each, the launch counts set to 0 just before
+    and read just after, checked every frame; the stream's checks; frame
+    ms, their median and range, the trunk's ms alone and the peak device
+    memory. Then H1-H3 against their plain versions on the demand pass's
+    last-frame calls (`hold_hybrid`). Returns ({config: launches}, the
+    hybrid kernels' r101 entries: launches of its frames, ms / device /
+    plain / bound summed over one frame's calls)."""
+    from simpb_tpu_torch.models.detector import uses_fused_trunk
+    from simpb_tpu_torch.ops import sampling
+    from simpb_tpu_torch.training.evaluate import build_model
+
+    out, rec = {}, []
+    for name, want in R101_LAUNCHES.items():
+        cfg = r101_config(name)
+        model = build_model(cfg, device="cuda", seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        decs, times, counts = run_stream(
+            torch, model, cfg, FRAMES,
+            rec if cfg.head.msda_hybrid_mode else None)
+        out[name] = launch_counts()
+        for f, c in enumerate(counts):
+            if c != want:
+                raise AssertionError(f"{name}, frame {f}: launches {c}, "
+                                     f"want {want}")
+        carried = check_stream(torch, decs)
+        peak = torch.cuda.max_memory_allocated()
+        w, h = cfg.input_size
+        img = torch.randn(1, 6, h, w, 3, device="cuda")
+        with torch.inference_mode():
+            trunk_ms = cuda_ms(lambda: model.extract_feat(img), iters=5)
+        stream_ms = sorted(times[1:])
+        emit(dict(phase="r101", cli_config=name,
+                  config=("simpb_r101_1408x512_fast" if cfg.stem_s2d else
+                          "simpb_r101_1408x512"),
+                  msda_hybrid_mode=cfg.head.msda_hybrid_mode,
+                  msda_clamp_capacity=cfg.head.msda_clamp_capacity,
+                  trunk_route=("fused" if uses_fused_trunk(cfg) else
+                               "module"), stem_s2d=cfg.stem_s2d,
+                  input_size=list(cfg.input_size), dtype=cfg.compute_dtype,
+                  head=cfg.head_dtype, frames=len(decs), frame_ms=times,
+                  stream_ms_median=statistics.median(stream_ms),
+                  stream_ms_range=[stream_ms[0], stream_ms[-1]],
+                  trunk_ms=trunk_ms, max_memory_allocated=peak,
+                  launches=out[name], launches_per_frame=counts[-1],
+                  ids_carried_last_frame=carried,
+                  valid_last_frame=int(decs[-1]["valid"].sum().item())))
+        del model, decs
+        free_cuda(torch)
+    tpu = {n: t for n, _, _, t in sampling.KERNELS}
+    summary = {n: new_summary() for n in HYBRID_KERNELS}
+    hold_hybrid(torch, [(f"day0-r101_call_{i}", n, args)
+                        for i, (n, args, _) in enumerate(rec)
+                        if n in HYBRID_KERNELS], summary, "day0-r101_call")
+    del rec
+    free_cuda(torch)
+    return out, {n: r101_entry(kernel_row(n, tpu[n], out["day0-r101"][n],
+                                          summary[n]))
+                 for n in HYBRID_KERNELS}
+
+
+def r101_entry(row):
+    """A kernels-line entry's measurements, for the `r101` dict of the
+    kernel's entry."""
+    return {k: v for k, v in row.items()
+            if k not in ("name", "route", "source", "replaces")}
+
+
+def phase_trunk(torch, name="r50", module=False):
+    """ResNet + FPN at the input of `name` (r50: the main path's
+    simpb_r50_704x256_fast; r101: simpb_r101_1408x512) in bf16 through
+    the fused trunk's kernels and through their plain versions, each
+    against the fp32 plain fused trunk: per FPN level the kernels'
+    relative L2 error may be at most TRUNK_RATIO times the plain route's
+    plus TRUNK_FLOOR. The kernel phase's checks use random activations;
+    this one the trunk's own. With `module`, on the same weights the
+    module trunk with the s2d stem (simpb_r101_1408x512_fast's): through
+    K1 equal to its plain route bit for bit (K1 is exact and the rest is
+    cuDNN either way); in fp32 within MODULE_TRUNK_FP32_REL and in bf16
+    within MODULE_TRUNK_BF16_REL (relative L2 per level) of the fp32
+    fused trunk. The stem timed as each trunk runs it and, as a
+    yardstick, as the bf16 conv the fused stem replaced."""
     import dataclasses
 
     from simpb_tpu_torch.configs.base import simpb_r50_704x256_fast
     from simpb_tpu_torch.training.evaluate import build_model
 
-    cfg = dataclasses.replace(simpb_r50_704x256_fast(),
-                              backbone_fused_infer=True)
+    cfg = (r101_config("r101") if name == "r101" else dataclasses.replace(
+        simpb_r50_704x256_fast(), backbone_fused_infer=True))
     model = build_model(cfg, device="cuda", seed=0)
     w, h = cfg.input_size
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(6, h, w, 3, generator=gen, device="cuda")
+    net, fpn = model.img_backbone, model.img_neck
 
-    def trunk(dtype):
+    def fused(dtype):
         with torch.inference_mode():
-            return [f.float() for f in model.img_neck(
-                model.img_backbone(x, dtype), dtype)]
+            return [f.float() for f in fpn(net(x, dtype), dtype)]
+
+    def module_trunk(dtype):
+        with torch.inference_mode():
+            return [f.float() for f in fpn.forward_train(
+                net.forward_module(x, dtype), dtype)]
 
     with plain_route():
-        ref = trunk(torch.float32)
-        plain = trunk(torch.bfloat16)
-    kern = trunk(torch.bfloat16)
+        ref = fused(torch.float32)
+        plain = fused(torch.bfloat16)
+    kern = fused(torch.bfloat16)
     # the stem as the trunk runs it (fp32 sum of the bf16-rounded image
     # and kernel into the BN) and, timed only, the bf16 conv it replaced
-    net = model.img_backbone
     stem_w, stem_f, stem_b, _ = net.folded(x.device, torch.bfloat16)
     w16 = stem_w.bfloat16()
     xc = x.bfloat16().permute(0, 3, 1, 2)
@@ -2003,24 +2199,52 @@ def phase_trunk(torch):
                           .bfloat16())
 
     with torch.inference_mode():
-        stem_ms = cuda_ms(lambda: net.stem(x, torch.bfloat16))
-        bf16_stem_ms = cuda_ms(bf16_conv_stem)
+        stems = dict(stem_ms=cuda_ms(lambda: net.stem(x, torch.bfloat16)),
+                     bf16_conv_stem_ms=cuda_ms(bf16_conv_stem))
+    mods = [{}] * len(ref)
     rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    if module:
+        net.stem_s2d = True
+        mod32 = module_trunk(torch.float32)
+        mod16 = module_trunk(torch.bfloat16)
+        with plain_route():
+            mod16_plain = module_trunk(torch.bfloat16)
+        with torch.inference_mode():
+            stems["module_s2d_stem_ms"] = cuda_ms(
+                lambda: net._stem_module(x, torch.bfloat16))
+            net.stem_s2d = False
+            stems["module_7x7_stem_ms"] = cuda_ms(
+                lambda: net._stem_module(x, torch.bfloat16))
+        mods = [dict(module_fp32=rel(m32, r), module_bf16=rel(m16, r),
+                     module_k1_equals_plain=torch.equal(m16, m16p),
+                     module_finite=bool(torch.isfinite(m16).all()),
+                     module_shape=m16.shape == r.shape)
+                for m32, m16, m16p, r in zip(mod32, mod16, mod16_plain, ref)]
     levels = []
-    for lvl, (k, p, r) in enumerate(zip(kern, plain, ref)):
+    for lvl, (k, p, r, m) in enumerate(zip(kern, plain, ref, mods)):
         ek, ep = rel(k, r), rel(p, r)
         ok = bool(torch.isfinite(k).all()) and k.shape == r.shape and \
             ek <= TRUNK_RATIO * ep + TRUNK_FLOOR
+        if m:
+            ok = (ok and m.pop("module_finite") and m.pop("module_shape")
+                  and m["module_k1_equals_plain"]
+                  and m["module_fp32"] <= MODULE_TRUNK_FP32_REL
+                  and m["module_bf16"] <= MODULE_TRUNK_BF16_REL)
         levels.append(dict(level=lvl, shape=list(k.shape), kernels=ek,
-                           plain_bf16=ep, ok=ok))
-    emit(dict(phase="trunk", config="simpb_r50_704x256_fast",
+                           plain_bf16=ep, **m, ok=ok))
+    emit(dict(phase="trunk" if name == "r50" else f"trunk_{name}",
+              config=("simpb_r101_1408x512" if name == "r101" else
+                      "simpb_r50_704x256_fast"),
+              **(dict(module_config="simpb_r101_1408x512_fast",
+                      module_fp32_rel=MODULE_TRUNK_FP32_REL,
+                      module_bf16_rel=MODULE_TRUNK_BF16_REL)
+                 if module else {}),
               dtype="bfloat16", ratio=TRUNK_RATIO, floor=TRUNK_FLOOR,
-              rel_l2_vs_fp32_plain=levels, stem_ms=stem_ms,
-              bf16_conv_stem_ms=bf16_stem_ms))
+              rel_l2_vs_fp32_plain=levels, **stems))
     bad = [lv for lv in levels if not lv["ok"]]
     if bad:
-        raise AssertionError(f"bf16 trunk check failed: {bad}")
-    del model
+        raise AssertionError(f"{name} bf16 trunk check failed: {bad}")
+    del model, net, fpn
     free_cuda(torch)
 
 
@@ -2207,28 +2431,44 @@ def phase_eval(torch, device="cuda"):
     free_cuda(torch)
 
 
+# the bench's launches a frame under SIMPB_FUSED_TRUNK=0: the module
+# trunk, whose only kernel is K1
+MODULE_TRUNK_LAUNCHES = {"maxpool_3x3_s2": 1, "deformable_aggregation": 3,
+                         "msda_patch_sel": 3}
+
+
 def phase_bench(torch):
-    """The port's bench with a short window; prints its JSON line."""
+    """The port's bench with a short window, as it serves by default (the
+    fused trunk) and under SIMPB_FUSED_TRUNK=0 (the module trunk), the
+    launch counts set to 0 just before and read just after each; prints
+    each JSON line."""
     from simpb_tpu_torch import bench
+    from simpb_tpu_torch.models.detector import uses_fused_trunk
     from simpb_tpu_torch.utils.benchmark import run_benchmark
 
-    cfg = bench.config()
-    reset_launch_counts()
-    fps, stats = run_benchmark(cfg, window=BENCH_WINDOW, batch_size=1,
-                               return_stats=True)
-    launches = launch_counts()
-    free_cuda(torch)
-    emit(bench.result(fps, stats))
-    want = {k: 2 * BENCH_WINDOW * n for k, n in WANT_LAUNCHES.items()}
-    got = {k: n for k, n in launches.items() if n}
-    emit(dict(phase="bench", config="simpb_r50_704x256_fast",
-              trunk=cfg.compute_dtype, head=cfg.head_dtype,
-              window=BENCH_WINDOW, fps=fps,
-              peak_hbm_bytes=stats["peak_hbm_bytes"], launches=got))
-    if not fps > 0 or not stats["peak_hbm_bytes"]:
-        raise AssertionError(f"bench: fps {fps}, stats {stats}")
-    if got != want:
-        raise AssertionError(f"bench: launches {got}, want {want}")
+    for env, want in (({}, WANT_LAUNCHES),
+                      ({"SIMPB_FUSED_TRUNK": "0"}, MODULE_TRUNK_LAUNCHES)):
+        with environment(**env):
+            cfg = bench.config()
+        reset_launch_counts()
+        fps, stats = run_benchmark(cfg, window=BENCH_WINDOW, batch_size=1,
+                                   return_stats=True)
+        launches = launch_counts()
+        free_cuda(torch)
+        emit(bench.result(fps, stats))
+        want = {k: 2 * BENCH_WINDOW * n for k, n in want.items()}
+        got = {k: n for k, n in launches.items() if n}
+        emit(dict(phase="bench", config="simpb_r50_704x256_fast", env=env,
+                  trunk_route=("fused" if uses_fused_trunk(cfg) else
+                               "module"),
+                  trunk=cfg.compute_dtype, head=cfg.head_dtype,
+                  window=BENCH_WINDOW, fps=fps,
+                  peak_hbm_bytes=stats["peak_hbm_bytes"], launches=got))
+        if not fps > 0 or not stats["peak_hbm_bytes"]:
+            raise AssertionError(f"bench {env}: fps {fps}, stats {stats}")
+        if got != want:
+            raise AssertionError(f"bench {env}: launches {got}, want "
+                                 f"{want}")
 
 
 TRAIN_STEPS = 4  # timed training steps after one warm step
@@ -2269,7 +2509,9 @@ def grad_check(got, ref):
 
 # the training CLI's configs the train phases run, by `--config`
 TRAIN_CONFIGS = {"r50-fast": "simpb_r50_704x256_fast",
-                 "r50": "simpb_r50_704x256"}
+                 "r50": "simpb_r50_704x256",
+                 "r101-fast": "simpb_r101_1408x512_fast",
+                 "r101": "simpb_r101_1408x512"}
 
 
 def train_config(config="r50-fast"):
@@ -2338,12 +2580,12 @@ def train_recording(calls):
         (targets3d, "batched_assignment", recorder("assignment")))
 
 
-def phase_train(torch, config="r50-fast", phase="train"):
+def phase_train(torch, config="r50-fast", phase="train", steps=TRAIN_STEPS):
     """The training step of `tools/train.py --config <config>` at full
-    width: bs 4 x 6 cameras, one warm step, then TRAIN_STEPS steps
-    carrying the temporal and DN state, the launch counts set to 0 just
-    before and read just after. Returns (launches, recorded calls of the
-    last step)."""
+    width: bs 4 x 6 cameras, one warm step, then `steps` steps carrying
+    the temporal and DN state, the launch counts set to 0 just before
+    and read just after. Returns (launches, recorded calls of the last
+    step)."""
     from simpb_tpu_torch.configs.base import TrainConfig
     from simpb_tpu_torch.training.train_step import (
         build_train_model, build_train_step, create_train_state,
@@ -2376,8 +2618,8 @@ def phase_train(torch, config="r50-fast", phase="train"):
     keys = train_loss_keys(cfg)
     calls, times, parts, losses, counts = [], [], [], [], []
     reset_launch_counts()
-    for i in range(TRAIN_STEPS):
-        last = i == TRAIN_STEPS - 1
+    for i in range(steps):
+        last = i == steps - 1
         marks = []
         before_c = launch_counts()
         torch.cuda.synchronize()
@@ -2422,9 +2664,11 @@ def phase_train(torch, config="r50-fast", phase="train"):
               dfa_gather_capacity=cfg.head.dfa_gather_capacity,
               msda_gather_capacity=cfg.head.msda_gather_capacity,
               trunk="bfloat16", head="float32", batch_size=TRAIN_BS,
+              input_size=list(cfg.input_size),
+              backbone_depth=cfg.backbone_depth, stem_s2d=cfg.stem_s2d,
               backbone_remat=cfg.backbone_remat,
               grid_mask=cfg.use_grid_mask, drop_out=cfg.head.drop_out,
-              steps=TRAIN_STEPS, warm_step_ms=warm_ms, step_ms=times,
+              steps=steps, warm_step_ms=warm_ms, step_ms=times,
               step_ms_median=statistics.median(times),
               step_ms_range=[srt[0], srt[-1]],
               forward_ms_median=med("forward"),
@@ -2586,17 +2830,17 @@ def grid_sample_chain_backward(value, ss, loc, attw, gs):
 
 def grad_cases(torch, sampling, calls, gen, names=(
         "deformable_aggregation_backward", "msda_patch_sel_backward",
-        "msda_backward")):
+        "msda_backward"), synthetic=True):
     """(label, name, args) of the gradient checks of the backward kernels
-    `names`: their recorded calls of the last step, then synthetic
-    full-width cases in fp32 and bf16 (B and C: phase 6's inputs with a
-    random output gradient; D: the exact phase's with random sampled and
-    wsum gradients)."""
+    `names`: their recorded calls of the last step, then (`synthetic`)
+    synthetic full-width cases in fp32 and bf16 (B and C: phase 6's
+    inputs with a random output gradient; D: the exact phase's with
+    random sampled and wsum gradients)."""
     cases = [(f"step_call_{i}", name, args + tuple(
         kwargs.get(k) for k in ("gather_capacity", "thresholds")
         if name == "deformable_aggregation_backward" and k in kwargs))
         for i, (name, args, kwargs) in enumerate(calls) if name in names]
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if synthetic else ():
         if "msda_backward" in names:
             for label, args in exact_cases(torch, dtype, gen):
                 value, ss, loc, attw = args
@@ -2638,9 +2882,10 @@ EXACT_TRAIN_KERNELS = ("msda_backward",)
 
 
 def phase_train_kernels(torch, calls, train_launches,
-                        names=FAST_TRAIN_KERNELS):
+                        names=FAST_TRAIN_KERNELS, synthetic=True):
     """The kernels `names` against their plain versions. The backwards
-    (B, C, D) on the last step's recorded calls and on synthetic cases,
+    (B, C, D) on the last step's recorded calls and (`synthetic`) on
+    synthetic cases,
     each launched twice (both must repeat bit for bit; B's three
     launches and D's two, D2 also level by level, are also timed apart;
     D beside the grid_sample chain's backward); A on every problem of
@@ -2665,7 +2910,7 @@ def phase_train_kernels(torch, calls, train_launches,
     gen = torch.Generator(device="cuda").manual_seed(2)
     backwards = tuple(n for n in names if n != "assignment")
     for label, name, args in grad_cases(torch, sampling, calls, gen,
-                                        backwards):
+                                        backwards, synthetic):
         wrapper, plain, _ = bwd[name]
         dname = str(args[0].dtype).split(".")[-1]
         before = sampling.launch_counts()[name]
@@ -3974,6 +4219,7 @@ def phase_ddp(torch):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4005,7 +4251,7 @@ def main() -> int:
     if spills:
         raise AssertionError(f"sampling or max-pool kernels spill: {spills}")
 
-    summary, wrappers = phase_kernels(torch, conv_fused)
+    summary, summary_r101, wrappers = phase_kernels(torch, conv_fused)
     probes = phase_probes(torch)
     phase_slice(torch, "float32", FP32_HEAD_FRAMES)
     # the main path: the flagship as bench.py serves it, bf16 head (run
@@ -4016,9 +4262,15 @@ def main() -> int:
     del calls
     phase_parity(torch)
     phase_trunk(torch)
+    r101_launches, r101_hybrid = phase_r101(torch)
+    r101_launches = r101_launches["r101"]
+    phase_trunk(torch, "r101", module=True)
     phase_eval(torch)
     phase_bench(torch)
     exact = phase_exact(torch)  # exact MSDA, then the hybrid's H1-H3
+    for row in exact:  # day 0's r101 demand pass
+        if row["name"] in r101_hybrid:
+            row["r101"] = r101_hybrid[row["name"]]
     train_launches, train_calls = phase_train(torch)
     train = phase_train_kernels(torch, train_calls, train_launches)
     del train_calls
@@ -4027,12 +4279,22 @@ def main() -> int:
     train.update(phase_train_kernels(torch, train_calls, train_launches,
                                      EXACT_TRAIN_KERNELS))
     del train_calls
+    phase_train(torch, "r101-fast", "train_r101", R101_TRAIN_STEPS)
+    # `--config r101`: exact MSDA, kernel D at the r101 column, on the
+    # step's recorded calls
+    train_launches, train_calls = phase_train(torch, "r101",
+                                              "train_r101_exact", 1)
+    d101 = phase_train_kernels(torch, train_calls, train_launches,
+                               EXACT_TRAIN_KERNELS, synthetic=False)
+    del train_calls
+    train["msda_backward"]["r101"] = r101_entry(d101["msda_backward"])
     phase_train_cli(torch)
     phase_train_cli_exact(torch)
     phase_ddp(torch)
 
     kernels = []
     for name, s in summary.items():
+        r = summary_r101[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"simpb_tpu_torch/csrc/{TRUNK_SOURCE[name]}.cu",
@@ -4044,11 +4306,19 @@ def main() -> int:
             library_ms=s["library_ms"],
             **({"cudnn_chain_ms": s["cudnn_chain_ms"]}
                if s["cudnn_chain_ms"] is not None else {}),
+            # an r101 frame (simpb_r101_1408x512, the fused trunk)
+            r101=dict(launches=r101_launches[name], ms=r["ms"],
+                      device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+                      bound_ms=sum(r["bound"].values()),
+                      bound_by=max(r["bound"], key=r["bound"].get),
+                      library_ms=r["library_ms"],
+                      cudnn_chain_ms=r["cudnn_chain_ms"]),
         ))
     kernels += (list(sampling.values()) + exact + list(train.values())
                 + list(probes.values()))
     if len(kernels) != 21:
         raise AssertionError(f"{len(kernels)} kernels, want 21")
+    emit(dict(phase="seconds", total=time.perf_counter() - start))
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {

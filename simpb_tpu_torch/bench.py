@@ -7,9 +7,9 @@ Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
 "peak_hbm_gib"}, the keys of `bench.py`. It serves the same default,
 `simpb_r50_704x256_fast` with trunk and head in bfloat16, window 128,
 bs 1, through `utils/benchmark.py::run_benchmark` on the card. The
-port's trunk is always the fused inference trunk (`models/detector.py`),
+port's default trunk is the fused inference trunk (`models/detector.py`),
 where `bench.py`'s default is the JAX module trunk; both compute the
-same function.
+same function up to roundings.
 
 `vs_baseline` divides by 12 frames a second, the nuScenes camera rate:
 one card must keep up with one car (PERF.md §2). `bench.py` divides by
@@ -22,12 +22,11 @@ configuration is `simpb_r50_704x256_guarded` under `SIMPB_GUARDED`, else
 guarded) under `SIMPB_HYBRID`, else `simpb_r50_704x256` (exact MSDA)
 under `SIMPB_EXACT`, else the default; then `SIMPB_MSDA_PATCH`,
 `SIMPB_DFA_CAP`, `SIMPB_MSDA_CAP`, `SIMPB_CLAMP_CAP` (the hybrid's
-correction capacity) and `SIMPB_FUSED_TRUNK=1` are taken.
-`SIMPB_FUSED_TRUNK` of another value selects the module trunk, which the
-port does not serve yet: the bench exits non-zero and names it, and never
-falls back to the default. Under a guarded configuration the guard
-counters are computed every frame and charged against the number
-(`utils/benchmark.py`).
+correction capacity) and `SIMPB_FUSED_TRUNK` (1: the fused trunk, the
+port's default; another value: the module trunk at inference, as
+`bench.py` sets `backbone_fused_infer`). Under a guarded configuration
+the guard counters are computed every frame and charged against the
+number (`utils/benchmark.py`).
 """
 import dataclasses
 import json
@@ -55,19 +54,13 @@ def config_name() -> str:
 
 
 def config():
-    """The served config, from the environment switches; SystemExit
-    naming a switch the port does not serve yet."""
+    """The served config, from the environment switches."""
     env = os.environ
     name = config_name()
-    if env.get("SIMPB_FUSED_TRUNK") and env["SIMPB_FUSED_TRUNK"] != "1":
-        raise SystemExit(
-            f"not ported: SIMPB_FUSED_TRUNK={env['SIMPB_FUSED_TRUNK']} (the "
-            "port serves the r50 configurations with the fused trunk; see "
-            "ROADMAP.md)"
-        )
     cfg = dataclasses.replace(
         getattr(base, name)(), compute_dtype="bfloat16",
-        head_dtype="bfloat16", backbone_fused_infer=True,
+        head_dtype="bfloat16",
+        backbone_fused_infer=env.get("SIMPB_FUSED_TRUNK", "1") == "1",
     )
     head = cfg.head
     if env.get("SIMPB_MSDA_PATCH"):

@@ -1,10 +1,13 @@
 """Declarative model/data/schedule configuration.
 
 The port's own copy of `simpb_tpu/configs/base.py` (the port imports
-nothing of the JAX package). Field comments that cite TPU measurements
-describe the JAX package; in the port, `backbone_fused_infer` and
-`backbone_fused_interpret` are ignored: inference always runs the
-fused trunk (`models/backbone.py`).
+nothing of the JAX package). Field comments and docstrings that cite
+TPU measurements (the r101 frames a second among them) describe the JAX
+package, not the port. In the port, `backbone_fused_infer` picks the
+serving trunk by JAX's rule: the fused trunk (K1-K4) when it is set and
+`stem_s2d` is not, else the module trunk at inference
+(`models/detector.py::uses_fused_trunk`); `backbone_fused_interpret` is
+ignored (the kernels' plain versions run for tensors on the CPU).
 
 Dataclass equivalent of the reference's executable-python mmcv configs
 (projects/configs/simpb_nus_r50_img_704x256.py). The decoder is still a

@@ -2,11 +2,12 @@
 
 Port of `simpb_tpu/models/backbone.py`. The modules hold the parameters
 under the JAX tree's names (`img_backbone.layer1_0.conv1`,
-`img_neck.fpn_0`, ...) as `nn.Conv2d` / `nn.BatchNorm2d`. Two trunks
-compute over them:
+`img_neck.fpn_0`, ...) as `nn.Conv2d` / `nn.BatchNorm2d`. Three trunks
+compute over them; `models/detector.py` picks one by JAX's rule.
 
-Inference (`forward`) always runs the fused path (`fused_resnet_infer`,
-`fused_fpn_infer` in JAX):
+The fused inference trunk (`forward`; `fused_resnet_infer`,
+`fused_fpn_infer` in JAX, taken when `backbone_fused_infer` is set and
+`stem_s2d` is not):
 
 * the 7x7/s2 stem is `F.conv2d`, its folded BN and ReLU plain torch.
   In bf16 the conv's operands are rounded to bf16 but its sum stays in
@@ -14,12 +15,25 @@ Inference (`forward`) always runs the fused path (`fused_resnet_infer`,
   result rounds to bf16, then the ReLU. That is what JAX computes: the
   JAX source rounds the conv to bf16 first, but XLA's excess precision
   (on by default) drops that rounding;
-* the stem max-pool, all 16 bottlenecks and the four FPN 3x3 convs go
-  through the CUDA kernels of `ops/conv_fused.py` (their plain versions
-  on the CPU);
+* the stem max-pool, all 16 or 33 bottlenecks and the four FPN 3x3
+  convs go through the CUDA kernels of `ops/conv_fused.py` (their plain
+  versions on the CPU);
 * the FPN laterals (1x1 matmuls) and the nearest-upsample adds are plain
   torch. BatchNorm is folded once per (device, dtype) and cached;
   loading a state dict drops the cache.
+
+The module trunk at inference (`forward_module`; JAX's
+`ResNet.__call__(train=False)`, then the module FPN): the stem
+(`stem_conv`: the 7x7/s2 conv, or with `stem_s2d` and even H and W the
+space-to-depth conv of `StemConv`), every conv on `F.conv2d` in the
+compute dtype, BatchNorm unfolded on the running statistics in flax's
+arithmetic (`batch_norm_infer`), the stem max-pool on kernel K1 (JAX's
+`maxpool_3x3_s2` has its values), and the module FPN
+(`FPN.forward_train`). Each conv's output rounds to the compute dtype
+before its BatchNorm, as the JAX source says; XLA on the CPU drops that
+rounding too (tests/test_torch_port_r101.py shows it on one bottleneck
+bit for bit), so the bf16 module trunk agrees with JAX's on the CPU to
+bf16 roundings, not bit for bit.
 
 Training (`forward_train`) runs the module trunk, as the JAX train path
 does (it never runs the fused kernels): plain convs in the compute
@@ -74,6 +88,24 @@ BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
+def _bn_affine(xf, mean, var, bn: nn.BatchNorm2d, dtype):
+    """flax's normalisation of an NCHW map `xf` (fp32 or wider):
+    `(x - mean) * (rsqrt(var + eps) * scale) + bias`, then `dtype`."""
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
+                                                                 None]
+    return y.to(dtype)
+
+
+def batch_norm_infer(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
+    """flax `nn.BatchNorm(use_running_average=True, dtype=dtype)` on an
+    NCHW map: the running statistics in fp32, x promoted to fp32 (or
+    wider), the result in `dtype`."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    return _bn_affine(xf, bn.running_mean.to(xf.dtype),
+                      bn.running_var.to(xf.dtype), bn, dtype)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
     """flax `nn.BatchNorm(use_running_average=False)` on an NCHW map:
     batch statistics in fp32 or wider (mean and the biased E[x^2] -
@@ -99,10 +131,8 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                           min=0.0)
-    mul = torch.rsqrt(var + BN_EPS) * bn.weight
-    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
-                                                                 None]
-    return y.to(dtype), (mean.detach(), var.detach())
+    return _bn_affine(xf, mean, var, bn, dtype), (mean.detach(),
+                                                  var.detach())
 
 
 def update_running_stats(bn: nn.BatchNorm2d, stats) -> None:
@@ -119,6 +149,34 @@ def _conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     b = mod.bias.to(dtype) if mod.bias is not None else None
     return F.conv2d(x.to(dtype), mod.weight.to(dtype), b, mod.stride,
                     mod.padding)
+
+
+def s2d_stem_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The 7x7/s2 stem kernel [O, C, 7, 7] as the 4x4/s1 kernel [O, 4C, 4,
+    4] of the space-to-depth image (JAX `StemConv`): tap ty lands in
+    cell ay = (ty - 3) // 2 + 2 at parity by = (ty - 3) % 2, channel
+    block (by * 2 + bx) * C; the one position of no tap (cell 0, parity
+    0) is zero. A padding and a reshape, so gradients reach `w`."""
+    o, c = w.shape[:2]
+    # padded by one at the top and left, tap ty sits at row ty + 1 =
+    # 2 * ay + by
+    wp = F.pad(w, (1, 0, 1, 0)).reshape(o, c, 4, 2, 4, 2)
+    return wp.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+
+
+def stem_conv(x: torch.Tensor, w: torch.Tensor, s2d: bool) -> torch.Tensor:
+    """JAX `StemConv` on an NCHW image `x` and the 7x7 kernel `w` (OIHW),
+    both already in the compute type: with `s2d` and even H and W the
+    image rearranged to 4C channels at half resolution (channel (py * 2 +
+    px) * C + c) and the 4x4 kernel of `s2d_stem_kernel` at stride 1,
+    padded (2, 1) on each axis; else the 7x7 conv at stride 2, padding
+    3. The two compute the same function, summed in other orders."""
+    n, c, h, wd = x.shape
+    if not s2d or h % 2 or wd % 2:
+        return F.conv2d(x, w, stride=2, padding=3)
+    xs = x.reshape(n, c, h // 2, 2, wd // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = xs.reshape(n, 4 * c, h // 2, wd // 2)
+    return F.conv2d(F.pad(xs, (2, 1, 2, 1)), s2d_stem_kernel(w))
 
 
 class Bottleneck(nn.Module):
@@ -141,6 +199,17 @@ class Bottleneck(nn.Module):
             )
             self.downsample_bn = nn.BatchNorm2d(planes * 4)
 
+    def _forward(self, x: torch.Tensor, dtype, bn):
+        """NCHW x -> y, each BatchNorm by bn(name, map)."""
+        out = torch.relu(bn("bn1", _conv(self.conv1, x, dtype)))
+        out = torch.relu(bn("bn2", _conv(self.conv2, out, dtype)))
+        out = bn("bn3", _conv(self.conv3, out, dtype))
+        identity = x
+        if self.has_downsample:
+            identity = bn("downsample_bn",
+                          _conv(self.downsample_conv, x, dtype))
+        return torch.relu(out + identity)
+
     def forward_train(self, x: torch.Tensor, dtype):
         """NCHW x -> (y, the batch statistics of bn1, bn2, bn3[,
         downsample_bn])."""
@@ -151,14 +220,14 @@ class Bottleneck(nn.Module):
             stats.append(st)
             return y
 
-        out = torch.relu(bn("bn1", _conv(self.conv1, x, dtype)))
-        out = torch.relu(bn("bn2", _conv(self.conv2, out, dtype)))
-        out = bn("bn3", _conv(self.conv3, out, dtype))
-        identity = x
-        if self.has_downsample:
-            identity = bn("downsample_bn",
-                          _conv(self.downsample_conv, x, dtype))
-        return torch.relu(out + identity), tuple(stats)
+        return self._forward(x, dtype, bn), tuple(stats)
+
+    def forward_module(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """NCHW x -> y at inference, BatchNorm on the running
+        statistics."""
+        return self._forward(
+            x, dtype,
+            lambda name, t: batch_norm_infer(t, getattr(self, name), dtype))
 
     def bn_names(self) -> Tuple[str, ...]:
         return ("bn1", "bn2", "bn3") + (
@@ -186,11 +255,14 @@ class _FoldCache(nn.Module):
 
 
 class ResNet(_FoldCache):
-    """ResNet-50/101 trunk returning C2..C5 maps (NHWC)."""
+    """ResNet-50/101 trunk returning C2..C5 maps (NHWC). `stem_s2d` is
+    JAX's: the module trunks' stem takes the space-to-depth conv (the
+    fused trunk is never served with it)."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, stem_s2d: bool = False):
         super().__init__()
         self.depth = depth
+        self.stem_s2d = stem_s2d
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         self.block_names: List[str] = []
@@ -257,30 +329,54 @@ class ResNet(_FoldCache):
         return outs
 
 
-    def forward_train(self, x: torch.Tensor, dtype=torch.float32,
-                      remat: bool = False) -> List[torch.Tensor]:
-        """Training trunk: x [N, H, W, 3] -> four NHWC maps in `dtype`,
-        the running statistics updated from this batch."""
-        x = x.to(dtype).permute(0, 3, 1, 2)
-        y, st = batch_norm_train(_conv(self.conv1, x, dtype), self.bn1,
-                                 dtype)
-        update_running_stats(self.bn1, st)
-        x = F.max_pool2d(torch.relu(y), 3, 2, 1)
+    def _stem_module(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """NHWC image -> the NCHW stem conv in `dtype` (JAX `StemConv`)."""
+        return stem_conv(x.to(dtype).permute(0, 3, 1, 2),
+                         self.conv1.weight.to(dtype), self.stem_s2d)
+
+    def _blocks(self, x: torch.Tensor, run) -> List[torch.Tensor]:
+        """The bottlenecks from the pooled NCHW stem map, each through
+        run(block, x); the four stage outputs, NHWC."""
         outs = []
         idx = 0
         for num_blocks in RESNET_STAGE_BLOCKS[self.depth]:
             for _ in range(num_blocks):
-                blk = getattr(self, self.block_names[idx])
+                x = run(getattr(self, self.block_names[idx]), x)
                 idx += 1
-                if remat and torch.is_grad_enabled():
-                    x, stats = checkpoint.checkpoint(
-                        blk.forward_train, x, dtype, use_reentrant=False)
-                else:
-                    x, stats = blk.forward_train(x, dtype)
-                for name, st in zip(blk.bn_names(), stats):
-                    update_running_stats(getattr(blk, name), st)
             outs.append(x.permute(0, 2, 3, 1))
         return outs
+
+    def forward_module(self, x: torch.Tensor,
+                       dtype=torch.float32) -> List[torch.Tensor]:
+        """The module trunk at inference (JAX `ResNet.__call__(train=
+        False)`): x [N, H, W, 3] -> four NHWC maps in `dtype`. The maps
+        stay channels-last in memory (cuDNN's layout for NHWC)."""
+        y = torch.relu(batch_norm_infer(self._stem_module(x, dtype),
+                                        self.bn1, dtype))
+        x = maxpool_3x3_s2_fused(y.permute(0, 2, 3, 1).contiguous())
+        return self._blocks(x.permute(0, 3, 1, 2),
+                            lambda blk, t: blk.forward_module(t, dtype))
+
+    def forward_train(self, x: torch.Tensor, dtype=torch.float32,
+                      remat: bool = False) -> List[torch.Tensor]:
+        """Training trunk: x [N, H, W, 3] -> four NHWC maps in `dtype`,
+        the running statistics updated from this batch."""
+        y, st = batch_norm_train(self._stem_module(x, dtype), self.bn1,
+                                 dtype)
+        update_running_stats(self.bn1, st)
+        x = F.max_pool2d(torch.relu(y), 3, 2, 1)
+
+        def run(blk, t):
+            if remat and torch.is_grad_enabled():
+                t, stats = checkpoint.checkpoint(
+                    blk.forward_train, t, dtype, use_reentrant=False)
+            else:
+                t, stats = blk.forward_train(t, dtype)
+            for name, st in zip(blk.bn_names(), stats):
+                update_running_stats(getattr(blk, name), st)
+            return t
+
+        return self._blocks(x, run)
 
 
 def upsample2x_nearest(x: torch.Tensor, tgt_hw) -> torch.Tensor:

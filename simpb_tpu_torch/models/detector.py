@@ -2,17 +2,19 @@
 (port of `simpb_tpu/models/detector.py`).
 
 The six cameras fold into the batch for the trunk. Serving
-(`train=False`, under `torch.no_grad`) always runs the fused inference
-trunk of `models/backbone.py` in `compute_dtype` (in the JAX package
-`backbone_fused_infer` picks between two trunks that compute the same
-function). Training (`train=True`) runs the JAX training path: the grid
-mask on the folded images, the module trunk (rematerialised per
-bottleneck under `backbone_remat`) and module FPN, `depth_preds` from
-the `DenseDepthNet`, and the head's training program. The feature column
+(`train=False`, under `torch.no_grad`) picks the trunk by JAX's rule
+(`simpb_tpu/models/detector.py:69-74`): the fused inference trunk of
+`models/backbone.py` (K1-K4) when `backbone_fused_infer` is set and
+`stem_s2d` is not, else the module trunk at inference (BatchNorm on the
+running statistics, the space-to-depth stem under `stem_s2d`) and the
+module FPN; both in `compute_dtype`. Training (`train=True`) runs the
+JAX training path: the grid mask on the folded images, the module trunk
+(rematerialised per bottleneck under `backbone_remat`) and module FPN,
+`depth_preds` from the `DenseDepthNet`, and the head's training
+program. The feature column
 stays in the trunk's dtype; the head computes in `head_dtype`. `rngs`
 holds the training generators under JAX's rng names: "aug" (grid mask),
-"dropout" and "sampling". Not ported yet: `stem_s2d`, FPNs with
-other than 4 levels and ResNet-101 (until it is held to JAX's).
+"dropout" and "sampling". Not ported yet: FPNs with other than 4 levels.
 """
 from __future__ import annotations
 
@@ -38,16 +40,16 @@ def check_serving_config(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a setting the port does not serve or
     train yet; `SimPB` calls it before it builds anything. The port
     trains every configuration it serves, windowed or exact MSDA."""
-    if cfg.stem_s2d:
-        raise NotImplementedError("stem_s2d is not ported yet")
     if cfg.head.num_levels != 4:
         raise NotImplementedError("FPNs with other than 4 levels are not "
                                   "ported yet")
-    if cfg.backbone_depth == 101:
-        raise NotImplementedError("not ported: ResNet-101 (backbone_depth="
-                                  "101) is not yet held to JAX's (ROADMAP "
-                                  "A.5)")
     check_head_config(cfg.head)
+
+
+def uses_fused_trunk(cfg: ModelConfig) -> bool:
+    """JAX's serving rule: the fused trunk iff `backbone_fused_infer` and
+    not `stem_s2d`; else the module trunk."""
+    return cfg.backbone_fused_infer and not cfg.stem_s2d
 
 
 class SimPB(nn.Module):
@@ -59,7 +61,8 @@ class SimPB(nn.Module):
         check_serving_config(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
-        self.img_backbone = ResNet(cfg.backbone_depth)
+        self.fused_trunk = uses_fused_trunk(cfg)
+        self.img_backbone = ResNet(cfg.backbone_depth, cfg.stem_s2d)
         self.img_neck = FPN((256, 512, 1024, 2048), cfg.head.embed_dims)
         self.head = SimPBHead(cfg.head, DTYPES[cfg.head_dtype], train)
         if train:
@@ -71,8 +74,12 @@ class SimPB(nn.Module):
         spatial_shapes)."""
         bs, cams = img.shape[:2]
         x = img.reshape((bs * cams,) + tuple(img.shape[2:]))
-        feats = self.img_backbone(x, self.compute_dtype)
-        feats = self.img_neck(feats, self.compute_dtype)
+        dtype = self.compute_dtype
+        if self.fused_trunk:
+            feats = self.img_neck(self.img_backbone(x, dtype), dtype)
+        else:
+            feats = self.img_neck.forward_train(
+                self.img_backbone.forward_module(x, dtype), dtype)
         feats = [f.reshape((bs, cams) + tuple(f.shape[1:])) for f in feats]
         return pack_feature_maps(feats)
 

@@ -31,8 +31,8 @@ Usage:
       [--confirm-frames N] [--finetune --train-ann-file train.pkl] \\
       [--device cpu]
 
-It runs on the card unless `--device cpu` is given. `--config r101`
-(ResNet-101) is not ported and exits with that message, as the CLIs do;
+It runs on the card unless `--device cpu` is given. `--config r101` is
+`simpb_r101_1408x512` (ResNet-101 at 1408x512, the fused trunk);
 `--config tiny` runs only with `--device cpu` (its levels are smaller
 than the hybrid's window, whose shrinking branch has no kernel).
 The decision logic is the JAX tool's; no speed figure of the TPU is
@@ -46,7 +46,6 @@ import os
 import subprocess
 import sys
 
-NOT_PORTED_FAMILIES = {"r101": "ResNet-101 (ROADMAP A.5)"}
 # families whose hybrid runs only on the CPU: a level smaller than the
 # 8x8 window takes the windowed lane's shrinking branch, which has no
 # kernel on the card
@@ -162,9 +161,6 @@ def _rounded(metrics):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.config in NOT_PORTED_FAMILIES:
-        raise SystemExit(f"not ported: --config {args.config} "
-                         f"({NOT_PORTED_FAMILIES[args.config]})")
     if args.config in CPU_ONLY_FAMILIES and args.device != "cpu":
         raise SystemExit(f"not served on the card: --config {args.config}: "
                          f"{CPU_ONLY_FAMILIES[args.config]}; give --device "

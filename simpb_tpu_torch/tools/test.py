@@ -12,13 +12,16 @@ Usage:
       --config r50-fast --head-bf16 --checkpoint work_dirs/x/ckpt_best \\
       [--out results.json] [--tracking] [--device cpu]
 
-The trunk is always the fused inference trunk (`models/detector.py`), so
-`--fused-trunk` changes nothing. The configs are the JAX CLI's: `r50`
-(the default) and `r50-guarded` sample with exact MSDA, `r50-fast`,
-`r50-fast-guarded` and `--msda-patch` with the windowed one, and
-`r50-hybrid` with the windowed one and an exact correction lane
-(`msda_hybrid`, capacity 256 entries a camera); a config the detector
-refuses (`r101`, `r101-fast`) exits with its "not ported" message. Under a guarded config the metrics
+The CLI serves every config as JAX's serves it under `--fused-trunk`
+(the port's default, so the flag changes nothing): the fused inference
+trunk (K1-K4), except under `stem_s2d` (`r101-fast`), where JAX's rule
+(`models/detector.py::uses_fused_trunk`) takes the module trunk with the
+space-to-depth stem. The configs are the JAX CLI's: `r50` (the default),
+`r50-guarded` and `r101` (ResNet-101 at 1408x512) sample with exact
+MSDA, `r50-fast`, `r50-fast-guarded`, `r101-fast` and `--msda-patch`
+with the windowed one, and `r50-hybrid` with the windowed one and an
+exact correction lane (`msda_hybrid`, capacity 256 entries a camera).
+Under a guarded config the metrics
 hold each `guard_*` counter's maximum over the frames, and a nonzero
 one (a frame that left the exact semantics: for the hybrid,
 `guard_msda_clamp_overflow`, a demand beyond the correction capacity)
@@ -71,7 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--msda-patch", action="store_true",
                    help="windowed (patch-mode) 2D cross-attn sampling")
     p.add_argument("--fused-trunk", action="store_true",
-                   help="the fused inference trunk (the port's only one)")
+                   help="the fused inference trunk (the port's default; "
+                        "stem_s2d configs take the module trunk)")
     p.add_argument("--draft-decode", action="store_true",
                    help="DCT-domain scaled JPEG decode (libjpeg n/8); "
                         "slightly different downscale filter chain, so "

@@ -41,11 +41,11 @@ process arms its own watchdog. `run(args, ...)` takes its world from a
 process group the caller has already initialised.
 
 Refused with "not ported" (ROADMAP.md): `--img-bf16` (a workaround of
-the TPU host link, not ported); the configs the port does not train
-yet (`r101`: ResNet-101, A.5; `r101-fast`: `stem_s2d`, A.5), before any
-model is built. `--config r50`
-(the default) is the released recipe with exact MSDA, `r50-fast` the
-windowed one; `--config tiny` is JAX's tiny config, exact MSDA.
+the TPU host link, not ported), before any model is built. `--config
+r50` (the default) is the released recipe with exact MSDA, `r50-fast`
+the windowed one; `r101` is ResNet-101 at 1408x512 with exact MSDA,
+`r101-fast` the windowed one with the space-to-depth stem; `--config
+tiny` is JAX's tiny config, exact MSDA.
 
 `run(args, dataset=None, eval_dataset=None)` runs a parsed command line
 and returns what it measured (losses, step, producer and queue-wait
@@ -64,12 +64,6 @@ import threading
 import time
 
 import numpy as np
-
-NOT_PORTED_CONFIGS = {
-    "r101": "ResNet-101 (ROADMAP A.5)",
-    "r101-fast": "stem_s2d (ROADMAP A.5)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -127,22 +121,20 @@ def parse_args(argv=None):
 
 def refused_flags(args):
     """The flags given that the port does not serve yet."""
-    refused = ["--img-bf16"] if args.img_bf16 else []
-    if args.config in NOT_PORTED_CONFIGS:
-        refused.append(f"--config {args.config} "
-                       f"({NOT_PORTED_CONFIGS[args.config]}; use r50 or "
-                       "r50-fast)")
-    return refused
+    return ["--img-bf16"] if args.img_bf16 else []
 
 
 def build_config(args):
     """The model configuration of `--config`, as JAX's CLI builds it,
     trunk bf16 and head fp32 (`--bf16`)."""
     from ..configs.base import (
-        simpb_r50_704x256, simpb_r50_704x256_fast, simpb_tiny,
+        simpb_r101_1408x512, simpb_r101_1408x512_fast, simpb_r50_704x256,
+        simpb_r50_704x256_fast, simpb_tiny,
     )
 
     cfg = {"r50": simpb_r50_704x256, "r50-fast": simpb_r50_704x256_fast,
+           "r101": simpb_r101_1408x512,
+           "r101-fast": simpb_r101_1408x512_fast,
            "tiny": simpb_tiny}[args.config]()
     return dataclasses.replace(cfg, compute_dtype="bfloat16",
                                head_dtype="float32")
@@ -205,16 +197,17 @@ def make_batch(dataset, items, rng, prev_pose, cfg):
 
 
 def serving_model(cfg, train_model, model=None):
-    """A serving `SimPB(cfg)` (built when `model` is None) holding the
-    training model's parameters and BatchNorm statistics, in eval mode on
-    the same device. Its trunk is the fused inference trunk, which
-    computes the module trunk's inference function (BN folded from the
-    running statistics)."""
+    """A serving `SimPB` of `cfg` with `backbone_fused_infer` set (built
+    when `model` is None) holding the training model's parameters and
+    BatchNorm statistics, in eval mode on the same device. Its trunk is
+    the fused inference trunk (BN folded from the running statistics),
+    or under `stem_s2d` the module trunk, by JAX's rule."""
     from ..models.detector import SimPB
 
     if model is None:
         dev = next(train_model.parameters()).device
-        model = SimPB(cfg).to(dev).eval()
+        model = SimPB(dataclasses.replace(
+            cfg, backbone_fused_infer=True)).to(dev).eval()
     live = train_model.state_dict()
     model.load_state_dict({k: live[k] for k in model.state_dict()},
                           strict=True)

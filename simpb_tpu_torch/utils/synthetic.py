@@ -249,8 +249,11 @@ def write_synthetic_infos(
                                             k, src_hw, orphan=cam_no == 0))
             path = os.path.join(img_dir, f"img_{i}_{cam_no}.png")
             if write_images:
+                # stored, not deflated: random pixels do not compress,
+                # and deflating 1600x900 ones takes a third of a second
                 Image.fromarray(rng.integers(0, 256, (src_h, src_w, 3),
-                                             dtype=np.uint8)).save(path)
+                                             dtype=np.uint8)).save(
+                    path, compress_level=0)
             cam_infos[f"CAM{cam_no}"] = dict(
                 data_path=path, sensor2lidar_rotation=s2l_rot,
                 sensor2lidar_translation=center, cam_intrinsic=k)

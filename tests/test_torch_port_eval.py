@@ -114,15 +114,16 @@ def test_native_preprocess_refuses_other_shapes(fake_set):
 
 def test_training_side_not_ported(fake_set):
     """What of the training side is still not ported is refused as "not
-    ported" (`--img-bf16`, ResNet-101: ROADMAP A.5); the multi-process
-    run is served since data-parallel training landed: `--multihost`
-    without a launcher's environment or a coordinator raises the
+    ported" (`--img-bf16`; ResNet-101 trains since A.5's second item
+    landed); the multi-process run is served since data-parallel
+    training landed: `--multihost` without a launcher's environment or
+    a coordinator raises the
     rendezvous's error, and never trains alone. The training-mode
     dataset is ported (tests/test_torch_port_train_data.py holds it to
     JAX): it builds, and without a generator its augmentation is the
     fixed test-mode one."""
     pkl, aug = fake_set
-    for extra in (["--img-bf16"], ["--config", "r101"]):
+    for extra in (["--img-bf16"],):
         with pytest.raises(SystemExit, match="not ported"):
             train_cli.main(["--ann-file", pkl, "--config", "tiny",
                             "--device", "cpu"] + extra)
@@ -248,8 +249,8 @@ NOT_PORTED_ARGS = [
     (["--config", "r50-guarded"], "simpb_r50_704x256_guarded"),
     (["--config", "r50-fast-guarded"], "simpb_r50_704x256_fast_guarded"),
     (["--config", "r50-hybrid"], "simpb_r50_704x256_hybrid"),
-    (["--config", "r101-fast"], None),
-    (["--config", "r101"], None),
+    (["--config", "r101-fast"], "simpb_r101_1408x512_fast"),
+    (["--config", "r101"], "simpb_r101_1408x512"),
 ]
 
 
@@ -274,7 +275,9 @@ def test_test_cli_refuses(fake_set, monkeypatch, extra, served):
     (`--cam-shards` > 1 naming ROADMAP A.5, `--show-dir`). The
     configurations it serves run (no model built here): the config equals
     the JAX CLI's of that name, field by field, trunk bf16 and the fused
-    trunk, and `check_serving_config` accepts it. `--multihost` and
+    trunk (`--fused-trunk`; under `stem_s2d`, `r101-fast`, the detector
+    takes the module trunk by JAX's rule), and `check_serving_config`
+    accepts it. `--multihost` and
     `--gather-dir` are served since the multi-process eval landed: with
     `--multihost` the CLI joins the process group first and leaves it
     after (no group is made here, so the world is 1 and the one stream
@@ -551,12 +554,13 @@ def _jax_bench_config(monkeypatch):
 
 
 # each switch the bench refuses (False), or serves (True): then its
-# config is bench.py's under the same switch, with the fused trunk
+# config is bench.py's under the same switch, with the fused trunk but
+# under SIMPB_FUSED_TRUNK=0 (the module trunk, as bench.py sets it)
 BENCH_REFUSED = [("SIMPB_GUARDED", "1", True),
                  ("SIMPB_FAST_GUARDED", "1", True),
                  ("SIMPB_HYBRID", "1", True), ("SIMPB_EXACT", "1", True),
                  ("SIMPB_CLAMP_CAP", "64", True),
-                 ("SIMPB_FUSED_TRUNK", "0", False)]
+                 ("SIMPB_FUSED_TRUNK", "0", True)]
 
 
 @pytest.mark.parametrize("name,value,served", BENCH_REFUSED,
@@ -564,7 +568,8 @@ BENCH_REFUSED = [("SIMPB_GUARDED", "1", True),
 def test_bench_refuses(monkeypatch, name, value, served):
     """A switch the port does not serve exits with "not ported" and its
     name; a served one selects bench.py's config, field by field (the
-    trunk always the fused one), which `check_serving_config` accepts."""
+    fused trunk unless SIMPB_FUSED_TRUNK=0 selects the module trunk),
+    which `check_serving_config` accepts."""
     from simpb_tpu_torch import bench
     from simpb_tpu_torch.models.detector import check_serving_config
 
@@ -576,8 +581,9 @@ def test_bench_refuses(monkeypatch, name, value, served):
         assert name in str(exc.value.code)
         return
     cfg = bench.config()
+    fused = name != "SIMPB_FUSED_TRUNK"
     want = dataclasses.replace(_jax_bench_config(monkeypatch),
-                               backbone_fused_infer=True)
+                               backbone_fused_infer=fused)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
     check_serving_config(cfg)
 

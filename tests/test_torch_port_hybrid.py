@@ -438,7 +438,7 @@ def test_day0_cli_on_cpu(tmp_path):
     config over a synthetic pkl and a synthetic reference `.pth`: the
     demand pass under the hybrid with every entry's capacity (no
     overflow), the decision, its JSON and a confirmation pass; `--config
-    r101` is refused."""
+    r101` is taken (ResNet-101 at 1408x512 on the fused trunk)."""
     from simpb_tpu_torch.tools import day0
     from simpb_tpu_torch.utils.synthetic import write_synthetic_infos
 
@@ -475,9 +475,11 @@ def test_day0_cli_on_cpu(tmp_path):
         "python -m simpb_tpu_torch.tools.test")
     assert "mAP" in d["measurement_metrics"]
     assert "guard_msda_clamp_demand" in d["confirmation_metrics"]
-    with pytest.raises(SystemExit, match="not ported"):
-        day0.main(["--ann-file", pkl, "--torch-checkpoint", str(pth),
-                   "--config", "r101", "--device", "cpu"])
+    r101, _, _ = day0.measurement_config(day0.parse_args(
+        ["--ann-file", pkl, "--torch-checkpoint", str(pth), "--config",
+         "r101"]).config)
+    assert (r101.backbone_depth, r101.input_size) == (101, (1408, 512))
+    assert r101.head.msda_hybrid_mode and r101.backbone_fused_infer
     with pytest.raises(SystemExit, match="ROADMAP B.5"):
         day0.main(["--ann-file", pkl, "--torch-checkpoint", str(pth),
                    "--config", "tiny"])
