@@ -90,7 +90,8 @@ Phases, each printing one JSON line:
              H1 3, H2 3, H3 6); the stream's checks; frame ms, median
              and range, trunk ms, peak memory. Then H1-H3 against their
              plain versions on the demand pass's last-frame calls at
-             the 59,840-row column, as phase 11 holds them.
+             the 59,840-row column, as phase 11 holds them (H3 beside
+             its chains, H1 at each stage count).
 8b. trunk_r101 — phase 8 for the r101 fused trunk, and on the same
              weights the module trunk with the s2d stem: through K1
              equal to its plain route bit for bit, in fp32 and bf16
@@ -133,11 +134,14 @@ Phases, each printing one JSON line:
              each, the launch counts set to 0 just before and read just
              after; 1/4/12/4/3 trunk and DFA launches a frame, and 3 of
              exact MSDA (0 of MSDA-sel), or the reverse for
-             `_fast_guarded`, or for the hybrid H1 3, H2 3 and H3 6 (3 in
-             the op, 3 in the guards' demand) and neither MSDA-sel nor
-             exact MSDA; finite, sorted decodes; frame ms, peak memory,
-             and each guard counter's maximum (the hybrid's
-             `msda_clamp_demand` and `msda_clamp_overflow` among them).
+             `_fast_guarded`, or for the hybrid H1 3, H2 3 and H3 6 (3 of
+             the op's instance, 3 of the guards') and neither MSDA-sel
+             nor exact MSDA; finite, sorted decodes; frame ms, peak
+             memory, and each guard counter's maximum (the hybrid's
+             `msda_clamp_demand` and `msda_clamp_overflow` among them);
+             for the hybrid, the CUDA kernels one more stream frame
+             launches, counted from torch.profiler's kernel events
+             (`frame_kernels`).
              The last frame's sampling calls are recorded. (b) Kernels:
              the exact MSDA kernel against `msda_plain` within EXACT_TOL, and DFA
              at capacities 4096 and 2304 against its plain version, on
@@ -151,19 +155,28 @@ Phases, each printing one JSON line:
              recorded call the kernel is timed beside its probes (one
              sample's rows in flight instead of two, its loads alone,
              its arithmetic alone: what bounds it). (b') The hybrid's
-             kernels: H1 (`_msda_patch_levels`, the MSDA-sel kernels with
-             every level in level order) within SAMPLING_TOL's fp32
-             share, H2 (`msda_hybrid_exact`, the exact lane added in
-             place) within EXACT_TOL and H3 (`clamp_priority`) bit for bit
-             against their plain versions, on the hybrid frame's recorded
-             calls and on synthetic full-width cases in fp32 and bf16
-             (demand under, at and over the capacity, samples past the
-             windows and at and beyond the borders, padded slots among
-             the corrected entries, the guards' 256 slots without
-             weights, 207 queries), each launched twice (bit-identical),
-             timed as in phase 6 (H2 in place), H2 beside the
-             grid_sample chain over its entries, H3 beside one empty
-             launch (its latency floor); `msda_hybrid` on the card
+             kernels: H1 (`_msda_patch_levels`: bf16 the ring of
+             per-level windows, `msda_levels_tc_kernel`, in the hybrid's
+             layout and once in msda_patch's; fp32 MSDA-sel's CUDA-core
+             kernel with every level) within SAMPLING_TOL's fp32 share,
+             H2 (`msda_hybrid_exact`, the exact lane added in place)
+             within EXACT_TOL and H3's two instances bit for bit (the
+             op's `hybrid_selection`: mask and zeroed weights; the
+             guards' `msda_clamp_demand`: counts) against their plain
+             versions, on the hybrid frame's recorded calls and on
+             synthetic full-width cases in fp32 and bf16 (demand under,
+             at and over the capacity, a tie on its boundary, samples
+             past the windows and at and beyond the borders, padded
+             slots among the corrected entries, the guards' 256 slots
+             with padded and invalid ones, 207 queries), each launched
+             twice (bit-identical), timed as in phase 6 (H2 in place), H2
+             beside the grid_sample chain over its entries, each H3
+             instance beside one empty launch (its latency floor) and, on
+             the frame's calls, beside the chain it replaced
+             (`clamp_chain`: the priority kernel kept as its yardstick
+             and the eager selection, zeroing and permuted copies, or the
+             eager count; the same outputs, `chain_ms`);
+             `msda_hybrid` on the card
              against `msda_hybrid_plain` at demand under, at and over the
              capacity and at a tie on its boundary (the corrected entries
              equal); and on the recorded calls, at a capacity of every
@@ -419,7 +432,7 @@ R101_LAUNCHES = {
     # hybrid on the fused trunk, guards on, so H3 twice a layer
     "day0-r101": {**R101_TRUNK, "deformable_aggregation": 3,
                   "msda_patch_levels": 3, "msda_hybrid_exact": 3,
-                  "clamp_priority": 6}}
+                  "clamp_select": 3, "clamp_demand": 3}}
 R101_TRAIN_STEPS = 2  # r101-fast training steps after the warm step
 # the module trunk in bf16 against the fused trunk in fp32 (same weights,
 # r101), relative L2 per FPN level: the module route rounds every conv's
@@ -837,7 +850,8 @@ def recording(calls):
         (sampling, "_msda_patch_levels", recorder("msda_patch_levels")),
         (sampling, "msda_hybrid_exact",
          recorder("msda_hybrid_exact", copied=(5, 6))),
-        (sampling, "clamp_priority", recorder("clamp_priority")))
+        (sampling, "hybrid_selection", recorder("clamp_select")),
+        (group_attn, "msda_clamp_demand", recorder("clamp_demand")))
 
 
 def run_stream(torch, model, cfg, frames, calls=None):
@@ -868,6 +882,39 @@ def run_stream(torch, model, cfg, frames, calls=None):
                        if after[k] - before[k]})
         decs.append(dec)
     return decs, times, counts
+
+
+def frame_kernels(torch, model, cfg, warm=2):
+    """The CUDA kernels one stream frame of `model` launches: a cold frame
+    and `warm` stream frames, then one more under torch.profiler, its
+    kernel events counted (memory copies and sets apart). Returns the
+    count, the copies and sets, and the count by kernel name (names cut
+    to 90 characters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpb_tpu_torch.training.evaluate import make_stream_steps
+
+    cold, stream = make_stream_steps(model, cfg)
+    imgs, proj, t2c, dt = stream_inputs(torch, cfg, warm + 1)
+    _, state = cold(imgs[0], proj)
+    for img in imgs[1:-1]:
+        _, state = stream(img, proj, state, dt, t2c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stream(imgs[-1], proj, state, dt, t2c)
+        torch.cuda.synchronize()
+    names, copies = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+            continue
+        names[e.name[:90]] = names.get(e.name[:90], 0) + 1
+    return dict(kernels=sum(names.values()), copies_and_sets=copies,
+                by_name=dict(sorted(names.items(), key=lambda kv: -kv[1])))
 
 
 def check_stream(torch, decs):
@@ -1165,7 +1212,9 @@ def sampling_bound(name, dname, byts, ops):
 
 def within(got, ref, tol):
     """(ok, max abs errors): each output within `tol` of max(|plain|,
-    1)."""
+    1); a mask or a count as floats."""
+    got, ref = ([t if t.dtype.is_floating_point else t.float() for t in ts]
+                for ts in (got, ref))
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     return all(e <= tol * max(r.abs().max().item(), 1.0)
                for e, r in zip(errs, ref)), errs
@@ -1308,21 +1357,21 @@ def exact_config(switch, **env):
         return bench.config_name(), bench.config()
 
 
-# the hybrid's launches a frame: H1 and H2 once a 2D layer, H3 once in
-# the op and once in the guards' demand
+# the hybrid's launches a frame: H1, H2 and H3's op instance once a 2D
+# layer, H3's guards' instance once a layer with the guards on
 HYBRID_LAUNCHES = {"msda_patch_levels": 3, "msda_hybrid_exact": 3,
-                   "clamp_priority": 6}
+                   "clamp_select": 3, "clamp_demand": 3}
 
 
 def exact_launches(cfg):
     """Launches a frame of a served config: the trunk's and DFA's as the
     flagship's, then exact MSDA, MSDA-sel or the hybrid's H1-H3 for the 2D
-    cross-attention (H3 in the guards too when they are on)."""
+    cross-attention (H3's guards' instance when the guards are on)."""
     want = {k: v for k, v in WANT_LAUNCHES.items() if k != "msda_patch_sel"}
     if cfg.head.msda_hybrid_mode:
         want.update(HYBRID_LAUNCHES)
         if not cfg.head.guard_sampling:
-            want["clamp_priority"] = 3
+            del want["clamp_demand"]
     else:
         want["msda_patch_sel" if cfg.head.msda_patch_mode else "msda"] = 3
     return want
@@ -1370,6 +1419,11 @@ def phase_exact_frames(torch):
                                  f"{bad[0][0]}, want {want}")
         if cfg.head.guard_sampling != bool(guards):
             raise AssertionError(f"{name}: guard maxima {guards}")
+        if cfg.head.msda_hybrid_mode:
+            count = frame_kernels(torch, model, cfg)
+            emit(dict(phase="frame_kernels", config=name, **count))
+            if not count["kernels"]:
+                raise AssertionError(f"{name}: the profiler saw no kernel")
         del model, decs
         free_cuda(torch)
     return launches, calls
@@ -1666,10 +1720,13 @@ def phase_exact_cli(torch, config="r50-guarded", switch="SIMPB_GUARDED",
 # the hybrid's kernels against their plain versions, relative to
 # max(|plain|, 1): H1 is MSDA-sel over every level (SAMPLING_TOL's fp32
 # share: the fp32 sums of up to 4 x 64 weighted pixels a head in another
-# order), H2 exact MSDA's lane (EXACT_TOL), H3 bit for bit (a fixed-order
-# sum: one ulp at the capacity's boundary would swap a corrected entry)
+# order), H2 exact MSDA's lane (EXACT_TOL), H3's two instances bit for bit
+# (the op's mask and zeroed weights, the guards' counts: a fixed-order
+# sum, and one ulp at the capacity's boundary would swap a corrected
+# entry)
 HYBRID_TOL = {"msda_patch_levels": SAMPLING_TOL["float32"],
-              "msda_hybrid_exact": EXACT_TOL["float32"], "clamp_priority": 0.0}
+              "msda_hybrid_exact": EXACT_TOL["float32"], "clamp_select": 0.0,
+              "clamp_demand": 0.0}
 HYBRID_KERNELS = tuple(HYBRID_TOL)
 # the hybrid at a capacity covering every entry against the exact MSDA
 # kernel, relative to max(|exact|, 1): fp32 values within the windowed
@@ -1683,9 +1740,10 @@ HYBRID_CAPS = (256, 832)
 
 
 def hybrid_wrappers():
-    """{name: (wrapper, plain version)} of H1-H3 with the arguments chip_smoke
-    records and makes; the exact lane's wrapper adds into copies of its
-    inputs, so that a case can be launched twice."""
+    """{name: (wrapper, plain version)} of H1, H2 and H3's two instances
+    with the arguments chip_smoke records and makes; the exact lane's
+    wrapper adds into copies of its inputs, so that a case can be
+    launched twice."""
     from simpb_tpu_torch.ops import sampling
 
     def h2(value, ss, loc, attw, sel, sampled, wsum):
@@ -1695,7 +1753,8 @@ def hybrid_wrappers():
     kernels = {n: (w, p) for n, w, p, _ in sampling.KERNELS}
     return {"msda_patch_levels": kernels["msda_patch_levels"],
             "msda_hybrid_exact": (h2, sampling.msda_hybrid_exact_plain),
-            "clamp_priority": kernels["clamp_priority"]}
+            "clamp_select": kernels["clamp_select"],
+            "clamp_demand": kernels["clamp_demand"]}
 
 
 def hybrid_inputs(torch, gen, q, spread, dev="cuda", heads=8):
@@ -1719,15 +1778,25 @@ def hybrid_inputs(torch, gen, q, spread, dev="cuda", heads=8):
     return loc.contiguous(), attw.contiguous()
 
 
+def tie_capacity(torch, prio):
+    """The capacity at which row 0's top-k splits the tie of queries 0
+    and 1 at level 0 (entries 0 and 4): query 0's entry taken, query 1's
+    not."""
+    order = torch.sort(prio[0], descending=True, stable=True)[1]
+    return int((order == 4 * 1 + 0).nonzero()[0, 0].item())
+
+
 def hybrid_cases(torch, dtype, gen, dev="cuda"):
     """Synthetic full-width cases of H1-H3 in the value type `dtype`:
-    (label, name, args). Demand under, at and over the capacity (the
-    corrected entries as the op selects them at 256), samples past the
-    windows and at and beyond the borders, padded slots (location 0)
-    among the corrected entries, a tie at the capacity's boundary; H3 on
-    the guards' 256 slots without weights too. Query 0 of every case has
-    a clamped level 0, a corrected entry and weight on its last level, so
-    that a fault planted on it shows on each case."""
+    (label, name, args). Demand under, at and over the capacity, at a tie
+    on the capacity's boundary (the corrected entries as the op selects
+    them, by the plain selection), samples past the windows and at and
+    beyond the borders, padded slots (location 0) among the corrected
+    entries; H1 in the hybrid's layout and, once, in msda_patch's; H3's
+    guards' instance on the 256 uncompacted slots with padded and invalid
+    slots, and on every op case; a ragged 207 queries. Query 0 of every
+    case has a clamped level 0, a corrected entry and weight on its last
+    level, so that a fault planted on it shows on each case."""
     from simpb_tpu_torch.ops import sampling
     from simpb_tpu_torch.ops.format import SpatialShapes
 
@@ -1740,6 +1809,7 @@ def hybrid_cases(torch, dtype, gen, dev="cuda"):
     for label, q, spread, cap in (("under", 208, 0.004, 832),
                                   ("over", 208, 0.02, 256),
                                   ("at", 208, 0.01, None),
+                                  ("tie", 208, 0.02, "tie"),
                                   ("border", 208, 0.01, 256)):
         loc, attw = hybrid_inputs(torch, gen, q, spread, dev)
         if label == "border":  # borders, and padded slots (location 0)
@@ -1747,58 +1817,95 @@ def hybrid_cases(torch, dtype, gen, dev="cuda"):
                                device=dev) * len(edges)).long()
             loc[:, 2:100] = edges[pick]
             loc[:, 100:140] = 0.0
-        prio = sampling.clamp_priority(ss, loc, attw, 8, 8)
+        prio = sampling.clamp_priority_plain(ss, loc, attw, 8, 8)
         demand = int((prio > 0).sum(-1).max().item())
-        cap = demand if cap is None else cap  # "at": the capacity is it
-        sel = sampling._hybrid_selection(prio, min(cap, q * 4)).reshape(
-            6, q, 4)
+        cap = (demand if cap is None  # "at": the capacity is it
+               else tie_capacity(torch, prio) if cap == "tie" else cap)
+        k_cap = min(cap, q * 4)
+        cases.append((f"clamp_select_{label}", "clamp_select",
+                      (ss, loc, attw, 8, 8, k_cap)))
+        cases.append((f"clamp_demand_{label}", "clamp_demand",
+                      (ss, loc, 8, 8, None)))
+        sel = sampling.hybrid_selection_plain(ss, loc, attw, 8, 8,
+                                              k_cap)[0]
         if label == "border":
             sel[:, 100:140] = True  # padded slots corrected too
         sel[0, 0, 0] = True
-        cases.append((f"clamp_{label}", "clamp_priority",
-                      (ss, loc, attw, 8, 8)))
         attw_win = attw * (~sel)[:, :, None, :, None].float()
-        n = 32
         cases.append((f"levels_{label}", "msda_patch_levels", (
-            value, ss,
-            loc.permute(0, 1, 3, 2, 4, 5).reshape(6, q, 4, n, 2).contiguous(),
-            attw_win.permute(0, 1, 3, 2, 4).reshape(6, q, 4, n).contiguous(),
-            8, 8, 8)))
+            value, ss, loc, attw_win, 8, 8, 8)))
+        if label == "over":  # msda_patch's layout
+            n = 32
+            cases.append((f"levels_{label}_patch_layout",
+                          "msda_patch_levels", (
+                              value, ss, loc.permute(0, 1, 3, 2, 4, 5)
+                              .reshape(6, q, 4, n, 2).contiguous(),
+                              attw_win.permute(0, 1, 3, 2, 4)
+                              .reshape(6, q, 4, n).contiguous(), 8, 8, 8)))
         sampled = torch.randn(6, q, 8, 256, generator=gen, device=dev)
         wsum = torch.rand(6, q, 8, generator=gen, device=dev)
         cases.append((f"exact_lane_{label}", "msda_hybrid_exact",
                       (value, ss, loc, attw, sel.contiguous(), sampled,
                        wsum)))
-    # the guards' call: 256 uncompacted slots, no weights
+    # the guards' call: 256 uncompacted slots, padded and invalid ones
     loc, attw = hybrid_inputs(torch, gen, 256, 0.01, dev)
     loc[:, 200:] = 0.0  # padded slots
-    cases.append(("clamp_guard_slots", "clamp_priority",
-                  (ss, loc, None, 8, 8)))
-    # 207 queries: a ragged last block
+    valid = torch.rand(6, 256, generator=gen, device=dev) < 0.8
+    valid[:, 0] = True
+    valid[:, 200:] = False
+    cases.append(("clamp_demand_guard_slots", "clamp_demand",
+                  (ss, loc, 8, 8, valid.contiguous())))
+    # 207 queries: a ragged warp walk
     loc, attw = hybrid_inputs(torch, gen, 207, 0.01, dev)
-    cases.append(("clamp_ragged", "clamp_priority", (ss, loc, attw, 8, 8)))
+    cases.append(("clamp_select_ragged", "clamp_select",
+                  (ss, loc, attw, 8, 8, 256)))
+    cases.append(("clamp_demand_ragged", "clamp_demand",
+                  (ss, loc, 8, 8, None)))
     return cases
+
+
+def levels_work(sampling, args):
+    """(bytes, operations) an H1 call must move and do at least: the
+    distinct value rows of the windows of its (query, level) items that
+    carry weight (a kept sample of nonzero weight; the others add nothing,
+    and the kernel neither copies nor multiplies them), the locations and
+    weights, the outputs; 2 operations per (item carrying weight, head,
+    pixel, channel)."""
+    value, ss, loc, attw, heads, ph, pw = args[:7]
+    loc, attw = sampling._levels_layout(loc, attw)
+    b, total, c = value.shape
+    q, levels = loc.shape[1:3]
+    rows, _, _, keep, a_s, _, _ = sampling.msda_sel_windows(
+        total, ss, loc, attw, ph, pw, levels)
+    live = ((a_s * keep) != 0).any(-1)  # [B, Q, L]
+    byts = (rows[live].unique().numel() * c * value.element_size()
+            + (loc.numel() + attw.numel()) * 4 + b * q * heads * (c + 1) * 4)
+    return byts, 2 * int(live.sum().item()) * heads * ph * pw * c
 
 
 def hybrid_work(name, args):
     """(bytes, operations) an H1-H3 call must move and do at least. H1:
-    MSDA-sel's over every level. H2: the distinct value rows its
-    corrected entries' samples read at a corner of nonzero weight, their
-    locations and weights, the mask, and the corrected queries' sampled
-    and wsum read and written; 10 operations per (corrected entry, head,
-    point, channel). H3: the locations, weights and priorities once; 40
-    operations a sample."""
+    `levels_work`. H2: the distinct value rows its corrected entries'
+    samples read at a corner of nonzero weight, their locations and
+    weights, the mask, and the corrected queries' sampled and wsum read
+    and written; 10 operations per (corrected entry, head, point,
+    channel). H3: the locations (and the op's weights, or the guards'
+    valid flags) read once, the op's mask and weights or the guards'
+    counts written once; 40 operations a sample."""
     import torch
 
     from simpb_tpu_torch.ops import sampling
 
     if name == "msda_patch_levels":
-        return msda_work(sampling, args + (args[1].num_levels,))
-    if name == "clamp_priority":
-        ss, loc, attw = args[:3]
-        prio = loc.shape[0] * loc.shape[1] * ss.num_levels * 4
-        return (loc.numel() * 4 + (attw.numel() * 4 if attw is not None
-                                   else 0) + prio, 40 * loc.numel() // 2)
+        return levels_work(sampling, args)
+    if name == "clamp_select":
+        loc, attw = args[1:3]
+        return ((loc.numel() + 2 * attw.numel()) * 4 + attw.numel() // 32,
+                40 * loc.numel() // 2)
+    if name == "clamp_demand":
+        loc, valid = args[1], args[4]
+        return (loc.numel() * 4 + (valid.numel() if valid is not None else 0)
+                + loc.shape[0] * 4, 40 * loc.numel() // 2)
     value, ss, loc, attw, sel = args[:5]
     b, total, c = value.shape
     q, heads, levels, points = loc.shape[1:5]
@@ -1834,6 +1941,59 @@ def hybrid_library(name, args):
                              attw * sel[:, :, None, :, None].float())
 
 
+def clamp_chain(torch, name, args):
+    """The chain an H3 instance replaces, as the hybrid ran it before it
+    (a callable returning the instance's outputs): the priority kernel,
+    kept in csrc/sampling.cu as this yardstick (`simpb_clamp_priority`: a
+    warp an entry, the priorities [B, Q * L] written out), then for the
+    op the eager selection (`_hybrid_selection`: a stable sort, a slice,
+    zeros, a compare, a scatter), the weights zeroed (a not, a cast, a
+    multiply) and the two copies that permuted the locations and weights
+    into the windowed lane's layout (returned as the zeroed weights in
+    the op's layout and the copies); for the guards the eager count (a
+    compare, an and, a sum, a cast)."""
+    import ctypes
+
+    from simpb_tpu_torch.ops import _kernels, sampling
+
+    ss, loc = args[:2]
+    attw = args[2] if name == "clamp_select" else None
+    ph, pw = args[3:5] if name == "clamp_select" else args[2:4]
+    b, q, heads, levels, points = loc.shape[:5]
+    dims = _kernels.int_array([b, q, heads, levels, points, ph, pw, 256]
+                              + sampling._level_table(ss.shapes))
+    lib = _kernels.load("sampling")
+
+    def prio():
+        out = torch.empty((b, q * levels), dtype=torch.float32,
+                          device=loc.device)
+        _kernels.check(lib.simpb_clamp_priority(
+            _kernels.ptr(loc), _kernels.ptr(attw), _kernels.ptr(out), dims,
+            ctypes.c_void_p(_kernels.stream_ptr(out))), "clamp chain")
+        return out
+
+    if name == "clamp_select":
+        k_cap = args[5]
+
+        def chain():
+            sel = sampling._hybrid_selection(prio(), k_cap).reshape(
+                b, q, levels)
+            w = attw * (~sel)[:, :, None, :, None].to(attw.dtype)
+            n = heads * points
+            loc.permute(0, 1, 3, 2, 4, 5).reshape(b, q, levels, n, 2)
+            w.permute(0, 1, 3, 2, 4).reshape(b, q, levels, n)
+            return sel, w
+        return chain
+    valid = args[4]
+
+    def chain():
+        c = prio().reshape(b, q, levels) > 0
+        if valid is not None:
+            c = c & valid[:, :, None]
+        return c.sum((1, 2)).float()
+    return chain
+
+
 def launch_floor_ms(torch):
     """Device ms of one launch that does nothing (`torch.cuda._sleep(0)`):
     the floor a latency-bound launch cannot go below."""
@@ -1841,11 +2001,12 @@ def launch_floor_ms(torch):
 
 
 def hold_hybrid(torch, cases, summary, frame_label):
-    """H1, H2 and H3 on `cases` ((label, name, args)) through
+    """H1, H2 and H3's instances on `cases` ((label, name, args)) through
     `hold_case` at HYBRID_TOL (H2 timed in place on scratch copies);
     each kernel's largest error into `summary`, and the times and bounds
     of the cases whose label starts with `frame_label` (one frame's
-    calls)."""
+    calls). On those, each H3 instance's replaced chain (`clamp_chain`)
+    gives the same outputs and is timed on the device (`chain_ms`)."""
     from simpb_tpu_torch.ops import sampling
 
     wrappers = hybrid_wrappers()
@@ -1860,31 +2021,62 @@ def hold_hybrid(torch, cases, summary, frame_label):
                          library=hybrid_library(name, args), timed=timed)
         s = summary[name]
         s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
-        if label.startswith(frame_label):
-            add_frame_call(summary, line)
+        if not label.startswith(frame_label):
+            continue
+        add_frame_call(summary, line)
+        if name.startswith("clamp_"):
+            chain = clamp_chain(torch, name, args)
+            got, ref = wrapper(*args), chain()
+            same = all(torch.equal(g, r) for g, r in zip(
+                got if isinstance(got, tuple) else (got,),
+                ref if isinstance(ref, tuple) else (ref,)))
+            ms = device_ms(chain)
+            s["chain_ms"] = s.get("chain_ms", 0.0) + ms
+            emit(dict(phase="hybrid_chain", case=label, name=name,
+                      chain_device_ms=ms, device_ms=line["device_ms"],
+                      same_outputs=same))
+            if not same:
+                raise AssertionError(f"{label}: the replaced chain's "
+                                     "outputs differ from the kernel's")
+
+
+def positional(fn, args, kwargs):
+    """A recorded call's arguments as positional ones of `fn` (a plain
+    version), its defaults filled."""
+    import inspect
+
+    bound = inspect.signature(fn).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return tuple(bound.args)
+
+
+def recorded_hybrid(calls, label):
+    """The H1-H3 calls of `calls` as hold_hybrid's cases."""
+    wrappers = hybrid_wrappers()
+    return [(f"{label}_call_{i}", n, positional(wrappers[n][1], args, kw))
+            for i, (n, args, kw) in enumerate(calls) if n in HYBRID_KERNELS]
 
 
 def phase_hybrid_kernels(torch, calls, launches):
-    """H1, H2 and H3 against their plain versions on the hybrid config's
-    recorded last-frame calls and on `hybrid_cases` in fp32 and bf16,
-    each launched twice (the repeats bit-identical), timed as in phase 6
-    (H2 in place on scratch copies); then `msda_hybrid` on the card
-    against `msda_hybrid_plain` at demand under, at and over the capacity
-    and at a tie on its boundary (the corrected entries equal), and on
-    the recorded calls at a capacity covering every entry against the
-    exact MSDA kernel (the largest error printed, held at
-    HYBRID_EXACT_TOL). Returns the three kernels' entries of the kernels
-    line: launches of the hybrid's frames, ms / device / plain / bound
-    summed over one frame's calls."""
+    """H1, H2 and H3's instances against their plain versions on the
+    hybrid config's recorded last-frame calls and on `hybrid_cases` in
+    fp32 and bf16, each launched twice (the repeats bit-identical), timed
+    as in phase 6 (H2 in place on scratch copies), H3 beside its replaced
+    chain; then `msda_hybrid` on the card against `msda_hybrid_plain` at
+    demand under, at and over the capacity and at a tie on its boundary
+    (the corrected entries equal), and on the recorded calls at a
+    capacity covering every entry against the exact MSDA kernel (the
+    largest error printed, held at HYBRID_EXACT_TOL). Returns the
+    kernels' entries of the kernels line: launches of the hybrid's
+    frames, ms / device / plain / bound / chain summed over one frame's
+    calls."""
     from simpb_tpu_torch.ops import sampling
 
     main = "simpb_r50_704x256_hybrid"
     tpu = {n: t for n, _, _, t in sampling.KERNELS}
     summary = {n: new_summary() for n in HYBRID_KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    cases = [(f"{main}_call_{i}", n, args)
-             for i, (n, args, _) in enumerate(calls[main])
-             if n in HYBRID_KERNELS]
+    cases = recorded_hybrid(calls[main], main)
     for dtype in (torch.float32, torch.bfloat16):
         cases += hybrid_cases(torch, dtype, gen)
     hold_hybrid(torch, cases, summary, main + "_call")
@@ -1901,22 +2093,21 @@ def phase_hybrid_kernels(torch, calls, launches):
         for label, spread, cap in (("under", 0.004, 256), ("at", 0.01, None),
                                    ("over", 0.02, 256), ("tie", 0.02, None)):
             loc, attw = hybrid_inputs(torch, gen, 208, spread)
-            prio = sampling.clamp_priority(ss, loc, attw, 8, 8)
+            prio = sampling.clamp_priority_plain(ss, loc, attw, 8, 8)
             demand = int((prio > 0).sum(-1).max().item())
             if label == "at":
                 cap = demand
             elif label == "tie":  # the capacity splits queries 0 and 1
-                order = torch.sort(prio[0], descending=True, stable=True)[1]
-                cap = int((order == 4 * 1 + 0).nonzero()[0, 0].item())
+                cap = tie_capacity(torch, prio)
             got = sampling.msda_hybrid(v, ss, loc, attw, clamp_capacity=cap,
                                        raw_heads=True)
             ref = sampling.msda_hybrid_plain(v, ss, loc, attw,
                                              clamp_capacity=cap,
                                              raw_heads=True)
-            sel = sampling._hybrid_selection(prio, min(cap, 832))
-            sel_ref = sampling._hybrid_selection(
-                sampling.clamp_priority_plain(ss, loc, attw, 8, 8),
-                min(cap, 832))
+            sel = sampling.hybrid_selection(ss, loc, attw, 8, 8,
+                                            min(cap, 832))[0]
+            sel_ref = sampling.hybrid_selection_plain(ss, loc, attw, 8, 8,
+                                                      min(cap, 832))[0]
             ok, errs = within(got, ref, SAMPLING_TOL["float32"])
             same_sel = torch.equal(sel, sel_ref)
             emit(dict(phase="hybrid_op", case=label,
@@ -1934,8 +2125,7 @@ def phase_hybrid_kernels(torch, calls, launches):
             continue
         v, ss_, loc, attw = args
         q = loc.shape[1]
-        demand = int((sampling.clamp_priority(ss_, loc, attw, 8, 8) > 0)
-                     .sum(-1).max().item())
+        demand = int(sampling.msda_clamp_demand(ss_, loc, 8, 8).max().item())
         for vt in (v, v.float()):
             dname = str(vt.dtype).split(".")[-1]
             got = sampling.msda_hybrid(vt, ss_, loc, attw, patch_h=8,
@@ -1954,11 +2144,21 @@ def phase_hybrid_kernels(torch, calls, launches):
                 raise AssertionError(f"hybrid against exact MSDA: {errs}")
     rows = {}
     for name in HYBRID_KERNELS:
-        rows[name] = kernel_row(name, tpu[name], launches[main][name],
+        rows[name] = hybrid_row(name, tpu[name], launches[main][name],
                                 summary[name])
-    rows["clamp_priority"]["launch_floor_device_ms"] = floor
+    for name in ("clamp_select", "clamp_demand"):
+        rows[name]["launch_floor_device_ms"] = floor
     rows["msda_hybrid_exact"]["hybrid_vs_exact_max_share"] = worst
     return rows
+
+
+def hybrid_row(name, tpu, launches, s):
+    """A hybrid kernel's entry of the kernels line: `kernel_row`, with
+    H3's replaced chain (`chain_ms`)."""
+    row = kernel_row(name, tpu, launches, s)
+    if "chain_ms" in s:
+        row["chain_ms"] = s["chain_ms"]
+    return row
 
 
 def phase_hybrid_bench(torch):
@@ -2130,12 +2330,11 @@ def phase_r101(torch):
         free_cuda(torch)
     tpu = {n: t for n, _, _, t in sampling.KERNELS}
     summary = {n: new_summary() for n in HYBRID_KERNELS}
-    hold_hybrid(torch, [(f"day0-r101_call_{i}", n, args)
-                        for i, (n, args, _) in enumerate(rec)
-                        if n in HYBRID_KERNELS], summary, "day0-r101_call")
+    hold_hybrid(torch, recorded_hybrid(rec, "day0-r101"), summary,
+                "day0-r101_call")
     del rec
     free_cuda(torch)
-    return out, {n: r101_entry(kernel_row(n, tpu[n], out["day0-r101"][n],
+    return out, {n: r101_entry(hybrid_row(n, tpu[n], out["day0-r101"][n],
                                           summary[n]))
                  for n in HYBRID_KERNELS}
 
@@ -4316,8 +4515,8 @@ def main() -> int:
         ))
     kernels += (list(sampling.values()) + exact + list(train.values())
                 + list(probes.values()))
-    if len(kernels) != 21:
-        raise AssertionError(f"{len(kernels)} kernels, want 21")
+    if len(kernels) != 22:
+        raise AssertionError(f"{len(kernels)} kernels, want 22")
     emit(dict(phase="seconds", total=time.perf_counter() - start))
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -11,13 +11,14 @@
 //   msda_kernel                  <- simpb_tpu/ops/sampling.py::msda
 //       (:611-715, raw_heads; the exact configurations' 2D sampling)
 // and, for the hybrid configuration's msda_hybrid (:1032-1209),
-//   msda_sel_tc_kernel / msda_sel_kernel with every level (H1)
-//                                <- msda_patch's all-level loop (:718,
+//   msda_levels_tc_kernel (H1; fp32 values: msda_sel_kernel with every
+//       level)                   <- msda_patch's all-level loop (:718,
 //       called at :1125 with sel_levels=None)
 //   msda_kernel<..., HYB> (H2)   <- msda_hybrid's exact lane and its
 //       scatter back (:1132-1209)
-//   clamp_prio_kernel (H3)       <- _lost_weights (:208) as msda_hybrid's
-//       priority (:1100-1108) and msda_clamp_demand (:1008)
+//   clamp_select_kernel, clamp_demand_kernel (H3)
+//                                <- _lost_weights (:208) as msda_hybrid's
+//       priority and selection (:1100-1120) and msda_clamp_demand (:1008)
 // and compute what their plain PyTorch versions in ops/sampling.py compute.
 //
 // Exact MSDA: one half-warp per (camera row, query, head), two queries'
@@ -1019,6 +1020,386 @@ int launch_msda_sel_tc(const void* value, const float* loc, const float* attw,
     smem_set = smem;
   }
   msda_sel_tc_kernel<GPW, ONE><<<g.B * g.Q, MSDA_NT, smem, st>>>(
+      (const bf16*)value, loc, attw, g, lv, sampled, wsum);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ H1, the windowed lane
+// Kernel H1 for bf16 values, `msda_levels_tc_kernel`: msda_patch's
+// all-level loop (:718; msda_hybrid's windowed lane, called at :1125 with
+// sel_levels=None), every level in level order. It computes what
+// msda_sel_tc_kernel computes with k = L (each level's window base, the
+// same weights split into the same three bf16 parts, the same mma.sync
+// products, summed in fp32 in the mma registers across the levels), laid
+// out for a stream of windows instead of one query's pairs of levels:
+// - A (query, level) item's window, 64 pixel rows of C bf16 (32 KB at C
+//   256), is one cp.async commit group into a ring of `stages` stages
+//   (LevelsSmem). Every level's window base is known from the query's
+//   locations before its first copy, so item t + stages is issued as
+//   soon as item t's product has read its stage, while items t + 1 ...
+//   are in flight: a block waits on a copy only when every stage it has
+//   in flight is still landing.
+// - Blocks are persistent: as many as fit on the card at once, block b
+//   taking queries b, b + grid, ... (no tail wave). A block reads its
+//   next query's locations and weights into registers before it weighs
+//   the current query's first level, and stages them (window bases,
+//   which levels carry weight) after the product of level L - stages,
+//   just before the next query's first window is due.
+// - An item whose every kept sample has weight 0 (the corrected entries,
+//   whose weights msda_hybrid's selection zeroes, and the items with no
+//   sample on the level) adds nothing: its window is neither copied nor
+//   multiplied. The plain version, JAX's msda_patch and the fp32 instance
+//   multiply that window by zeros instead, so they differ from this
+//   kernel only where the window holds a non-finite value: there they
+//   give NaN and this kernel does not (ROADMAP C.10). On finite values
+//   both add exact zeros.
+// Locations and weights are read in msda_patch's [B, Q, L, n] layout
+// (layout 0) or msda_hybrid's own [B, Q, heads, L, P] (layout 1), so that
+// the hybrid passes its tensors without a permuted copy. What bounds it:
+// the window rows it copies (up to 32 KB an item, mostly from L2: at r50
+// 1,248 queries x 4 levels are up to 164 MB a call, 3.5 times the value
+// column); its products are small (three bf16 products a weight on the
+// tensor cores). On the card its time is set by each block's serial
+// chain of phases (weights, barrier, product, barrier, copies), hidden by
+// the other blocks of its SM: the ring's depth barely moves it and a
+// third block an SM does (PERF.md §6), so the planner's ring is 2
+// stages at C 256, three blocks an SM.
+constexpr int LV_NT = 256;          // threads of an H1 block: 8 warps
+constexpr int LV_MAX_STAGES = 4;    // window stages of the ring at most
+constexpr int LV_AL = WIN + 8;      // bf16 a row of one level's weights
+
+struct LevelsArgs {
+  int B, Q, heads, C, T, stages, layout;
+};
+
+// Shared memory of an H1 block (offsets in bytes): the ring of `stages`
+// windows V [64][C] bf16 (rows swizzled as MSDA-sel's), the weight parts
+// A [25][LV_AL] bf16 (MSDA-sel's rows, one level wide), and two query
+// slots (the current query and the next): locations [L][n] float2,
+// weights [L][n], window bases [L] int2 and whether each level carries
+// weight [L].
+struct LevelsSmem {
+  int a, loc, attw, base, live, total;
+  __host__ __device__ LevelsSmem(int C, int L, int n, int stages) {
+    a = stages * WIN * C * 2;
+    loc = a + MsdaSmem::a_rows * LV_AL * 2;
+    attw = loc + 2 * L * n * 8;
+    base = attw + 2 * L * n * 4;
+    live = base + 2 * L * 8;
+    total = live + 2 * L * 4;
+  }
+};
+
+// Wait until at most n (a uniform 0-3) commit groups are pending.
+__device__ __forceinline__ void cp_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
+  }
+}
+
+// Sample i = h * PTS + p of level l of query bq in layout 0 ([B, Q, L,
+// n]) or 1 ([B, Q, heads, L, P]); locations at twice it.
+__device__ __forceinline__ long long lv_sample(long long bq, int l, int i,
+                                               int L, int H, int layout) {
+  return layout ? ((bq * H + i / PTS) * L + l) * PTS + i % PTS
+                : (bq * L + l) * (H * PTS) + i;
+}
+
+template <int GPW>
+__global__ void __launch_bounds__(LV_NT, 3)
+msda_levels_tc_kernel(const bf16* __restrict__ value,
+                      const float* __restrict__ loc,
+                      const float* __restrict__ attw, LevelsArgs g,
+                      Levels lv, float* __restrict__ sampled,
+                      float* __restrict__ wsum) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = lv.n, H = g.heads, n = H * PTS, C = g.C, cch = C / 8;
+  const int S = g.stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const LevelsSmem sm(C, L, n, S);
+  bf16* sv = reinterpret_cast<bf16*>(smem_raw);
+  bf16* A = reinterpret_cast<bf16*>(smem_raw + sm.a);
+  float2* sl = reinterpret_cast<float2*>(smem_raw + sm.loc);
+  float* sa = reinterpret_cast<float*>(smem_raw + sm.attw);
+  int2* sb = reinterpret_cast<int2*>(smem_raw + sm.base);
+  int* slive = reinterpret_cast<int*>(smem_raw + sm.live);
+  const long long BQ = (long long)g.B * g.Q;
+  const int nq = (int)((BQ - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  const int items = nq * L;
+  // rows of A that no head fills stay zero (heads past H, the zero row)
+  for (int i = tid; i < MsdaSmem::a_rows * LV_AL / 8; i += LV_NT)
+    reinterpret_cast<uint4*>(A)[i] = make_uint4(0, 0, 0, 0);
+
+  // warp l < L, lane i < n: sample i of level l of query bq, in registers
+  float2 nl = make_float2(0.f, 0.f);
+  float na = 0.f;
+  auto fetch = [&](long long bq) {
+    if (warp < L && lane < n) {
+      const long long s = lv_sample(bq, warp, lane, L, H, g.layout);
+      nl = make_float2(loc[2 * s], loc[2 * s + 1]);
+      na = attw[s];
+    }
+  };
+  // ... then into query slot `slot`: the samples, level l's window base
+  // (the midrange of its kept samples, 1e9 sentinels when none is kept,
+  // rounded half to even, clamped into [0, size - 8]; min and max are
+  // exact in any order) and whether a kept sample has weight
+  auto stage_query = [&](int slot) {
+    if (warp < L) {
+      const int l = warp, h = lv.h[l], w = lv.w[l], e = slot * L + l;
+      const float px = pix(nl.x, w), py = pix(nl.y, h);
+      const bool keep = lane < n && px > -1.f && px < (float)w &&
+                        py > -1.f && py < (float)h;
+      if (lane < n) {
+        sl[e * n + lane] = nl;
+        sa[e * n + lane] = na;
+      }
+      float mnx = keep ? px : 1e9f, mxx = keep ? px : -1e9f;
+      float mny = keep ? py : 1e9f, mxy = keep ? py : -1e9f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mnx = fminf(mnx, __shfl_xor_sync(0xffffffffu, mnx, o));
+        mxx = fmaxf(mxx, __shfl_xor_sync(0xffffffffu, mxx, o));
+        mny = fminf(mny, __shfl_xor_sync(0xffffffffu, mny, o));
+        mxy = fmaxf(mxy, __shfl_xor_sync(0xffffffffu, mxy, o));
+      }
+      const bool live = __any_sync(0xffffffffu, keep && na != 0.f);
+      if (lane == 0) {
+        const float midx = __fmul_rn(0.5f, __fadd_rn(mnx, mxx));
+        const float midy = __fmul_rn(0.5f, __fadd_rn(mny, mxy));
+        const int bx = (int)rintf(__fsub_rn(midx, (WIN_W - 1) / 2.0f));
+        const int by = (int)rintf(__fsub_rn(midy, (WIN_H - 1) / 2.0f));
+        sb[e] = make_int2(min(max(bx, 0), w - WIN_W),
+                          min(max(by, 0), h - WIN_H));
+        slive[e] = live;
+      }
+    }
+  };
+  // item u's window into stage u % S, one commit group (empty when the
+  // item carries no weight or is past the block's last)
+  auto issue = [&](int u) {
+    if (u < items) {
+      const int iu = u / L, l = u - iu * L, e = (iu & 1) * L + l;
+      if (slive[e]) {
+        const long long bq = blockIdx.x + (long long)iu * gridDim.x;
+        const int2 base = sb[e];
+        const int w = lv.w[l];
+        const bf16* src =
+            value + ((bq / g.Q) * g.T + lv.start[l] +
+                     (long long)base.y * w + base.x) * C;
+        bf16* dst = sv + (u % S) * WIN * C;
+        const long long row_stride = (long long)w * C;
+        for (int i = tid; i < WIN_W * cch; i += LV_NT) {
+          const int ex_ = i / cch, c = i - ex_ * cch;
+          const bf16* sp = src + ex_ * C + c * 8;
+#pragma unroll
+          for (int ey = 0; ey < WIN_H; ++ey) {
+            const int r = ey * WIN_W + ex_;
+            cp_async16(dst + r * C + ((c ^ (r & 7)) << 3),
+                       sp + ey * row_stride);
+          }
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  fetch(blockIdx.x);
+  stage_query(0);
+  __syncthreads();
+  for (int u = 0; u < S; ++u) issue(u);  // S <= L: all of the first query
+
+  const int eya = lane >> 3, eyb = eya + 4, ex = lane & 7;
+  const int gid = lane >> 2, tig = lane & 3;
+  int arow[2];  // this lane's ldmatrix row of each A tile, as MSDA-sel's
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int p = 2 * m + ((lane & 15) >> 3);
+    arow[m] = (p < 3 ? 8 * p + (lane & 7) : MsdaSmem::a_rows - 1) * LV_AL +
+              (lane >> 4) * 8;
+  }
+  float acc[GPW][2][2][4];
+#pragma unroll
+  for (int gi = 0; gi < GPW; ++gi)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gi][m][nn][e] = 0.f;
+  float wsum_t = 0.f;  // warp h < H: head h's window weight, fp32
+  for (int t = 0; t < items; ++t) {
+    const int i = t / L, l = t - i * L, slot = i & 1, e = slot * L + l;
+    const long long bq = blockIdx.x + (long long)i * gridDim.x;
+    const bool more = i + 1 < nq;
+    if (more && l == 0) fetch(bq + gridDim.x);
+    const bool live = slive[e];
+    if (live && warp < H) {
+      // warp h, head h's row of the level's weights: lanes p < 4
+      // taper-clamp the head's points into [base - 1 + 1e-4, base + 8 -
+      // 1e-4], then every lane weighs pixels lane and lane + 32 of the
+      // window (separable bilinear one-hots, a corner outside the window
+      // adds nothing, times the attention, summed over the points) and
+      // writes their three bf16 parts into A's rows 8 part + h
+      float fxp = 0.f, fyp = 0.f, ap = 0.f;
+      int ixp = 0, iyp = 0;
+      if (lane < PTS) {
+        const int h = lv.h[l], w = lv.w[l], s = warp * PTS + lane;
+        const float2 p2 = sl[e * n + s];
+        const float px = pix(p2.x, w), py = pix(p2.y, h);
+        const bool keep =
+            px > -1.f && px < (float)w && py > -1.f && py < (float)h;
+        const int2 base = sb[e];
+        const float ax =
+            fmaxf(fminf(px, __fsub_rn((float)(base.x + WIN_W), 1e-4f)),
+                  __fadd_rn((float)(base.x - 1), 1e-4f));
+        const float ay =
+            fmaxf(fminf(py, __fsub_rn((float)(base.y + WIN_H), 1e-4f)),
+                  __fadd_rn((float)(base.y - 1), 1e-4f));
+        const float x0 = floorf(ax), y0 = floorf(ay);
+        fxp = __fsub_rn(ax, x0);
+        fyp = __fsub_rn(ay, y0);
+        ixp = (int)x0 - base.x;
+        iyp = (int)y0 - base.y;
+        ap = __fmul_rn(sa[e * n + s], keep ? 1.f : 0.f);
+      }
+      float acca = 0.f, accb = 0.f;
+#pragma unroll
+      for (int p = 0; p < PTS; ++p) {
+        const float fy = __shfl_sync(0xffffffffu, fyp, p);
+        const float fx = __shfl_sync(0xffffffffu, fxp, p);
+        const float a = __shfl_sync(0xffffffffu, ap, p);
+        const int yi = __shfl_sync(0xffffffffu, iyp, p);
+        const int xi = __shfl_sync(0xffffffffu, ixp, p);
+        const float wx =
+            ex == xi ? __fsub_rn(1.f, fx) : (ex == xi + 1 ? fx : 0.f);
+        const float wya = eya == yi ? __fsub_rn(1.f, fy)
+                                    : (eya == yi + 1 ? fy : 0.f);
+        const float wyb = eyb == yi ? __fsub_rn(1.f, fy)
+                                    : (eyb == yi + 1 ? fy : 0.f);
+        acca = __fadd_rn(acca, __fmul_rn(__fmul_rn(wya, wx), a));
+        accb = __fadd_rn(accb, __fmul_rn(__fmul_rn(wyb, wx), a));
+      }
+      bf16* row = A + warp * LV_AL + lane;
+      const float accs[2] = {acca, accb};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const bf16 hi = __float2bfloat16_rn(accs[k]);
+        const float r = __fsub_rn(accs[k], __bfloat162float(hi));
+        const bf16 mid = __float2bfloat16_rn(r);
+        row[32 * k] = hi;
+        row[32 * k + 8 * LV_AL] = mid;
+        row[32 * k + 16 * LV_AL] =
+            __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+      }
+      // the head's weight: its 64 pixels in a fixed butterfly (every
+      // lane ends with the same bits)
+      float ws = __fadd_rn(acca, accb);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ws = __fadd_rn(ws, __shfl_xor_sync(0xffffffffu, ws, o));
+      wsum_t = __fadd_rn(wsum_t, ws);
+    }
+    cp_wait_pending(S - 1);  // item t's window has landed
+    __syncthreads();
+    if (live) {  // the level's product on the tensor cores
+      const bf16* vs = sv + (t % S) * WIN * C;
+#pragma unroll
+      for (int ks = 0; ks < WIN / 16; ++ks) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) ldsm_x4(af[m], A + arow[m] + ks * 16);
+        const int r = ks * 16 + (lane & 15);
+#pragma unroll
+        for (int gi = 0; gi < GPW; ++gi) {
+          const int grp = warp + 8 * gi;
+          if (grp * 16 >= C) break;
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr,
+                    vs + r * C + (((2 * grp + (lane >> 4)) ^ (r & 7)) << 3));
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_bf16(acc[gi][m][0], af[m], bfr[0], bfr[1]);
+            mma_bf16(acc[gi][m][1], af[m], bfr[2], bfr[3]);
+          }
+        }
+      }
+    }
+    // the next query staged as late as its first window's issue allows,
+    // so that its loads have had the items since l == 0 to land
+    if (more && l == L - S) stage_query(slot ^ 1);
+    if (l == L - 1) {  // the query's outputs: out[h, c] = hi + mid + lo
+      if (warp < H && lane == 0) wsum[bq * H + warp] = wsum_t;
+      wsum_t = 0.f;
+#pragma unroll
+      for (int gi = 0; gi < GPW; ++gi) {
+        const int grp = warp + 8 * gi;
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn) {
+          float* h0 = acc[gi][0][nn];
+          float* h1 = acc[gi][1][nn];
+          if (grp * 16 < C && gid < H) {
+            const int c = grp * 16 + nn * 8 + 2 * tig;
+            *reinterpret_cast<float2*>(sampled + (bq * H + gid) * C + c) =
+                make_float2(__fadd_rn(__fadd_rn(h0[0], h0[2]), h1[0]),
+                            __fadd_rn(__fadd_rn(h0[1], h0[3]), h1[1]));
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) h0[k] = h1[k] = 0.f;
+        }
+      }
+    }
+    __syncthreads();  // stage t % S and A are read; next query staged
+    issue(t + S);
+  }
+}
+
+// The H1 grid: as many blocks as fit on the card at once at `smem` bytes
+// (the occupancy of the instance, times the SMs), at most one a query.
+template <int GPW>
+int levels_grid(int smem, long long queries) {
+  static int smem_attr = 0, smem_at = -1, per_sm = 0, sms = 0;
+  if (smem != smem_at) {
+    if (smem > smem_attr) {  // the attribute only grows (one card)
+      cudaFuncSetAttribute(msda_levels_tc_kernel<GPW>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(msda_levels_tc_kernel<GPW>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+      smem_attr = smem;
+    }
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, msda_levels_tc_kernel<GPW>, LV_NT, smem);
+    smem_at = smem;
+  }
+  return (int)(queries < (long long)per_sm * sms ? queries
+                                                 : (long long)per_sm * sms);
+}
+
+bool levels_takes(const LevelsArgs& g, const Levels& lv, int threads,
+                  int smem) {
+  return threads == LV_NT && g.stages >= 1 && g.stages <= LV_MAX_STAGES &&
+         g.stages <= lv.n && lv.n >= 1 && g.C % 64 == 0 && g.C <= 256 &&
+         g.heads >= 1 && g.heads <= TC_HEADS &&
+         (g.layout == 0 || g.layout == 1) && (long long)g.B * g.Q >= 1 &&
+         LevelsSmem(g.C, lv.n, g.heads * PTS, g.stages).total <= smem;
+}
+
+template <int GPW>
+int launch_msda_levels(const void* value, const float* loc, const float* attw,
+                       float* sampled, float* wsum, const LevelsArgs& g,
+                       const Levels& lv, int threads, int smem,
+                       cudaStream_t st) {
+  if (!levels_takes(g, lv, threads, smem)) return (int)cudaErrorInvalidValue;
+  const int grid = levels_grid<GPW>(smem, (long long)g.B * g.Q);
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  msda_levels_tc_kernel<GPW><<<grid, LV_NT, smem, st>>>(
       (const bf16*)value, loc, attw, g, lv, sampled, wsum);
   return (int)cudaGetLastError();
 }
@@ -2344,54 +2725,67 @@ int launch_msda(const void* value, const float* loc, const float* attw,
 // ------------------------------------------------------- clamp priority
 // Kernel H3: msda_hybrid's clamp priority. It replaces
 // simpb_tpu/ops/sampling.py::_lost_weights (:208-257) with the priority
-// msda_hybrid makes of it (:1100-1108) and msda_clamp_demand's count
-// (:1008-1029). Per (camera row, query, level) entry of loc [B, Q, heads,
-// L, P, 2] (fp32): the level's window (shrink_patch's size, placed at the
-// midrange of the entry's in-image samples as _window_base places it),
-// each sample's lost bilinear weight (its corners inside the image but
-// outside the window, the four in _lost_weights' order: x0 then x0 + 1,
-// y0 then y0 + 1 within each), and
+// msda_hybrid makes of it (:1100-1108), the selection of the corrected
+// entries (:1108-1120) and msda_clamp_demand's count (:1008-1029). Per
+// (camera row, query, level) entry of loc [B, Q, heads, L, P, 2] (fp32):
+// the level's window (shrink_patch's size, placed at the midrange of the
+// entry's in-image samples as _window_base places it), each sample's lost
+// bilinear weight (its corners inside the image but outside the window,
+// the four in _lost_weights' order: x0 then x0 + 1, y0 then y0 + 1 within
+// each), and
 //   prio = sum(lost > 0 ? attw : 0) + 1e-6   if any sample loses weight,
 //          0                                 else,
-// fp32, written once into prio [B, Q * L]. With attw NULL a lost sample
-// weighs 1 (the guard's demand reads locations alone). A warp per entry,
-// a lane per sample (heads x points <= 32); the window's min and max
-// reduce with shuffles (exact in any order), and the sum is a fixed tree,
-// lane l + 16 onto lane l, then + 8, + 4, + 2, + 1, read from lane 0, so
-// that the plain version (ops/sampling.py::clamp_priority_plain) repeats
-// it bit for bit: one ulp at the capacity's boundary would swap which
-// entry the hybrid corrects. It reads 12 bytes a sample and writes 4 an
-// entry (about 2 MB a layer of the hybrid): bound by its latency, the
-// loads, the shuffles and one launch.
+// fp32 (`clamp_entry`): a warp an entry, a lane a sample (heads x points
+// <= 32); the window's min and max reduce with shuffles (exact in any
+// order), and the sum is a fixed tree, lane l + 16 onto lane l, then + 8,
+// + 4, + 2, + 1, read from lane 0, so that the plain version
+// (ops/sampling.py::clamp_priority_plain) repeats it bit for bit: one ulp
+// at the capacity's boundary would swap which entry the hybrid corrects.
+// Two instances, a thread-block cluster of CS_CL blocks a camera row each
+// (the row's selection needs all of its entries, and one block a row left
+// 6 of 132 SMs to fetch the row's locations: latency-bound at 3x the
+// time), block k taking the k-th slice of the row's queries, a warp a
+// query, the next query's samples loaded before the current one's are
+// used:
+// - `clamp_select_kernel`, the op's: every entry's priority as a sort
+//   key (the priority's bits made monotonic and inverted, then the
+//   entry's index: ascending keys are descending priorities, the lower
+//   index first among ties), stored into every block of the cluster
+//   through distributed shared memory; an entry's rank is the number of
+//   the row's keys below its own, and the entry at rank r is corrected iff
+//   r < k_cap and its priority > 0: `_hybrid_selection`'s and
+//   jax.lax.top_k's order. It writes the mask sel [B, Q, L] and the
+//   windowed lane's weights attw_win = attw x (1 - sel) in attw's layout,
+//   which H1 reads.
+// - `clamp_demand_kernel`, the guards': the entries of the valid queries
+//   with a sample that loses weight, counted in integers (order-free, so
+//   the eager count's value) and added across the cluster in block 0,
+//   written once as demand [B] float32.
+// Both are bound by their latency: the row's loads (12 bytes a sample),
+// the shuffle trees, the cluster's barriers and, for the op, the ranks'
+// counting (Q x L keys an entry).
+// `clamp_prio_kernel` (a warp an entry, 8 a block, the priorities [B, Q *
+// L] written out for an eager selection after it) is the first link of
+// the chain the two instances replace; it runs on no path and stays as
+// chip_smoke's yardstick for them.
 struct ClampArgs {
   int B, Q, heads, L, P, ph, pw;
 };
 constexpr int CP_NT = 256;  // eight entries a block
 
-__global__ void __launch_bounds__(CP_NT)
-clamp_prio_kernel(const float* __restrict__ loc,
-                  const float* __restrict__ attw, ClampArgs g, Levels lv,
-                  float* __restrict__ prio) {
-  const int lane = threadIdx.x & 31;
-  const long long e =
-      (long long)blockIdx.x * (CP_NT / 32) + (threadIdx.x >> 5);
-  if (e >= (long long)g.B * g.Q * g.L) return;  // a whole warp
-  const int l = (int)(e % g.L), n = g.heads * g.P;
-  const long long bq = e / g.L;
+// The clamp flag of this lane's sample of an entry at level l (`in`: the
+// lane holds a sample, at location (lx, ly)): in the image and losing
+// bilinear weight to the entry's window. A whole warp.
+__device__ __forceinline__ bool clamp_entry(float lx, float ly, bool in,
+                                            int l, const Levels& lv,
+                                            int ph0, int pw0) {
   const int h = lv.h[l], w = lv.w[l];
-  const int ph = min(g.ph, h);  // shrink_patch: at most the level, even
-  int pw = min(g.pw, w);
+  const int ph = min(ph0, h);  // shrink_patch: at most the level, even
+  int pw = min(pw0, w);
   pw = max(2, pw - pw % 2);
-  float px = 0.f, py = 0.f, a = 0.f;
-  bool keep = false;
-  if (lane < n) {
-    const int hh = lane / g.P, pt = lane - hh * g.P;
-    const long long s = ((bq * g.heads + hh) * g.L + l) * g.P + pt;
-    px = pix(loc[2 * s], w);
-    py = pix(loc[2 * s + 1], h);
-    a = attw ? attw[s] : 1.f;
-    keep = px > -1.f && px < (float)w && py > -1.f && py < (float)h;
-  }
+  const float px = pix(lx, w), py = pix(ly, h);
+  const bool keep =
+      in && px > -1.f && px < (float)w && py > -1.f && py < (float)h;
   float mnx = keep ? px : 1e9f, mxx = keep ? px : -1e9f;
   float mny = keep ? py : 1e9f, mxy = keep ? py : -1e9f;
 #pragma unroll
@@ -2427,7 +2821,28 @@ clamp_prio_kernel(const float* __restrict__ loc,
       lost = __fadd_rn(lost, __fmul_rn(__fmul_rn(c, wx), wy));
     }
   }
-  const bool flag = lane < n && __fmul_rn(lost, keep ? 1.f : 0.f) > 0.f;
+  return in && __fmul_rn(lost, keep ? 1.f : 0.f) > 0.f;
+}
+
+__global__ void __launch_bounds__(CP_NT)
+clamp_prio_kernel(const float* __restrict__ loc,
+                  const float* __restrict__ attw, ClampArgs g, Levels lv,
+                  float* __restrict__ prio) {
+  const int lane = threadIdx.x & 31;
+  const long long e =
+      (long long)blockIdx.x * (CP_NT / 32) + (threadIdx.x >> 5);
+  if (e >= (long long)g.B * g.Q * g.L) return;  // a whole warp
+  const int l = (int)(e % g.L), n = g.heads * g.P;
+  const long long bq = e / g.L;
+  float lx = 0.f, ly = 0.f, a = 0.f;
+  if (lane < n) {
+    const int hh = lane / g.P, pt = lane - hh * g.P;
+    const long long s = ((bq * g.heads + hh) * g.L + l) * g.P + pt;
+    lx = loc[2 * s];
+    ly = loc[2 * s + 1];
+    a = attw ? attw[s] : 1.f;
+  }
+  const bool flag = clamp_entry(lx, ly, lane < n, l, lv, g.ph, g.pw);
   float t = __fmul_rn(flag ? 1.f : 0.f, a);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -2446,6 +2861,231 @@ int launch_clamp_prio(const float* loc, const float* attw, float* prio,
   clamp_prio_kernel<<<(int)((entries + CP_NT / 32 - 1) / (CP_NT / 32)),
                       CP_NT, 0, st>>>(loc, attw, g, lv, prio);
   return (int)cudaGetLastError();
+}
+
+constexpr int CS_NT = 512;  // threads of an H3 block: 16 warps
+constexpr int CS_CL = 8;    // H3 blocks a camera row: one cluster
+constexpr int CS_MAX_KEYS = 8192;  // a row's sort keys at most (64 KB)
+
+// A warp's samples of query q of a row: lane i = h * P + p < n holds
+// sample (h, p) of every level (x, y, weight); `a` may be NULL (weight 1).
+struct ClampQuery {
+  float x[MAX_LEVELS], y[MAX_LEVELS], a[MAX_LEVELS];
+  __device__ __forceinline__ void load(const float* loc, const float* attw,
+                                       const ClampArgs& g, long long bq,
+                                       int lane) {
+    const int hh = lane / g.P, pt = lane - hh * g.P;
+#pragma unroll
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+      x[l] = y[l] = a[l] = 0.f;
+      if (l < g.L && lane < g.heads * g.P) {
+        const long long s = ((bq * g.heads + hh) * g.L + l) * g.P + pt;
+        x[l] = loc[2 * s];
+        y[l] = loc[2 * s + 1];
+        a[l] = attw ? attw[s] : 1.f;
+      }
+    }
+  }
+};
+
+// Sort keys: the priority's bits made monotonic (NaN as the canonical
+// NaN, above +inf, where torch.sort puts it; -0 as +0), inverted, then
+// the entry's index: ascending keys are descending priorities, the lower
+// index first among ties, and no two keys are equal.
+__device__ __forceinline__ unsigned long long select_key(float p, int e) {
+  uint32_t u = isnan(p) ? 0x7fc00000u : __float_as_uint(p == 0.f ? 0.f : p);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)~u << 32) | (uint32_t)e;
+}
+__device__ __forceinline__ float key_priority(unsigned long long k) {
+  const uint32_t u = ~(uint32_t)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A block's slice of its camera row's queries: [qa, qb).
+__device__ __forceinline__ void clamp_slice(const ClampArgs& g, unsigned k,
+                                            int& qa, int& qb) {
+  const int qs = (g.Q + CS_CL - 1) / CS_CL;
+  qa = min(g.Q, (int)k * qs);
+  qb = min(g.Q, qa + qs);
+}
+
+// The op's instance: a cluster of CS_CL blocks a camera row, block k
+// taking the k-th slice of its queries. 1. A warp a query: its entries'
+// keys, stored into every block of the cluster (each holds the row's Q x L
+// keys), and the weights copied into attw_win. 2. Each of the slice's
+// entries ranked by counting the row's keys below its own, a group of
+// `te` neighbouring threads an entry, each an interleaved share of the
+// keys, the shares added by shuffles (integers: any order); rank r is
+// corrected iff r < k_cap and its priority > 0, its mask written once
+// and its weights zeroed (attw x 0, after step 1's copy).
+__global__ void __launch_bounds__(CS_NT)
+clamp_select_kernel(const float* __restrict__ loc,
+                    const float* __restrict__ attw, ClampArgs g, Levels lv,
+                    int k_cap, unsigned char* __restrict__ sel,
+                    float* __restrict__ attw_win) {
+  extern __shared__ __align__(16) unsigned long long key[];  // [Q * L]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int L = g.L, n = g.heads * g.P, QL = g.Q * L, nw = CS_NT / 32;
+  const long long row = blockIdx.x / CS_CL, q0 = row * g.Q;
+  int qa, qb;
+  clamp_slice(g, cluster.block_rank(), qa, qb);
+  ClampQuery cur, nxt;
+  if (qa + warp < qb) cur.load(loc, attw, g, q0 + qa + warp, lane);
+  cluster.sync();  // every block of the cluster runs: its keys may be set
+  for (int q = qa + warp; q < qb; q += nw) {
+    if (q + nw < qb) nxt.load(loc, attw, g, q0 + q + nw, lane);
+#pragma unroll
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+      if (l >= L) break;
+      const bool flag = clamp_entry(cur.x[l], cur.y[l], lane < n, l, lv,
+                                    g.ph, g.pw);
+      float t = __fmul_rn(flag ? 1.f : 0.f, lane < n ? cur.a[l] : 0.f);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, o));
+      const bool any = __any_sync(0xffffffffu, flag);
+      // every lane holds lane 0's sum: the butterfly adds the same pairs
+      if (lane < CS_CL)
+        cluster.map_shared_rank(key, lane)[q * L + l] =
+            select_key(any ? __fadd_rn(t, 1e-6f) : 0.f, q * L + l);
+      if (lane < n) {
+        const int hh = lane / g.P, pt = lane - hh * g.P;
+        attw_win[(((q0 + q) * g.heads + hh) * L + l) * g.P + pt] =
+            __fmul_rn(cur.a[l], 1.f);
+      }
+    }
+    cur = nxt;
+  }
+  cluster.sync();  // every block holds the row's keys
+  const int es = (qb - qa) * L, e0 = qa * L;
+  int te = 1;  // threads an entry: a power of two, at most a warp
+  while (te < 32 && 2 * te * es <= CS_NT) te <<= 1;
+  for (int base = 0; base < es * te; base += CS_NT) {
+    const int idx = base + tid, i = idx / te, c = idx - i * te;
+    const bool has = i < es;
+    const unsigned long long mine = has ? key[e0 + i] : 0ull;
+    int below = 0;
+    if (has)
+      for (int j = c; j < QL; j += te) below += key[j] < mine;
+    for (int o = te >> 1; o > 0; o >>= 1)
+      below += __shfl_xor_sync(0xffffffffu, below, o);
+    if (has && c == 0) {
+      const bool taken = below < k_cap && key_priority(mine) > 0.f;
+      const int e = e0 + i, q = e / L, l = e - q * L;
+      sel[row * QL + e] = taken;
+      if (taken) {
+        for (int s = 0; s < n; ++s) {
+          const int hh = s / g.P, pt = s - hh * g.P;
+          const long long o =
+              (((q0 + q) * g.heads + hh) * L + l) * g.P + pt;
+          attw_win[o] = __fmul_rn(attw[o], 0.f);
+        }
+      }
+    }
+  }
+}
+
+// The guards' instance: a cluster of CS_CL blocks a camera row, block k
+// counting the valid queries of the k-th slice (valid [B, Q] uint8, or
+// NULL) with a clamped entry each, warp by warp, then block 0 adding the
+// blocks' counts in rank order (integers) into demand [B] float32.
+__global__ void __launch_bounds__(CS_NT)
+clamp_demand_kernel(const float* __restrict__ loc,
+                    const unsigned char* __restrict__ valid, ClampArgs g,
+                    Levels lv, float* __restrict__ demand) {
+  __shared__ int counts[CS_NT / 32], slices[CS_CL];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = g.heads * g.P, nw = CS_NT / 32;
+  const unsigned k = cluster.block_rank();
+  const long long row = blockIdx.x / CS_CL, q0 = row * g.Q;
+  int qa, qb;
+  clamp_slice(g, k, qa, qb);
+  int count = 0;
+  ClampQuery cur, nxt;
+  if (qa + warp < qb) cur.load(loc, nullptr, g, q0 + qa + warp, lane);
+  for (int q = qa + warp; q < qb; q += nw) {
+    if (q + nw < qb) nxt.load(loc, nullptr, g, q0 + q + nw, lane);
+    if (!valid || valid[q0 + q]) {
+#pragma unroll
+      for (int l = 0; l < MAX_LEVELS; ++l) {
+        if (l >= g.L) break;
+        count += __any_sync(0xffffffffu,
+                            clamp_entry(cur.x[l], cur.y[l], lane < n, l, lv,
+                                        g.ph, g.pw));
+      }
+    }
+    cur = nxt;
+  }
+  if (lane == 0) counts[warp] = count;
+  cluster.sync();  // block 0 runs; this block's counts are set
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < nw; ++w) total += counts[w];
+    cluster.map_shared_rank(slices, 0)[k] = total;
+  }
+  cluster.sync();
+  if (k == 0 && tid == 0) {
+    int total = 0;
+    for (int r = 0; r < CS_CL; ++r) total += slices[r];
+    demand[row] = (float)total;
+  }
+}
+
+bool clamp_takes(const ClampArgs& g, const Levels& lv, int threads) {
+  return threads == CS_NT && g.heads >= 1 && g.P >= 1 &&
+         g.heads * g.P <= 32 && g.L == lv.n && g.L <= MAX_LEVELS &&
+         g.ph >= 1 && g.pw >= 1 && g.B >= 1 && g.Q >= 1;
+}
+
+// One H3 launch: B clusters of CS_CL blocks (the arguments take the
+// kernel's parameter types).
+template <typename T> struct Same { typedef T type; };
+template <typename... Args>
+int launch_clusters(void (*kernel)(Args...), int rows, int smem,
+                    cudaStream_t st, typename Same<Args>::type... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS_CL * rows);
+  cfg.blockDim = dim3(CS_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CS_CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? err : (int)cudaGetLastError();
+}
+
+int launch_clamp_select(const float* loc, const float* attw,
+                        unsigned char* sel, float* attw_win,
+                        const ClampArgs& g, const Levels& lv, int k_cap,
+                        int threads, int smem, cudaStream_t st) {
+  const int ql = g.Q * g.L;
+  if (!clamp_takes(g, lv, threads) || ql > CS_MAX_KEYS || ql * 8 > smem ||
+      k_cap < 0 || k_cap > ql)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;  // the attribute only grows (one card)
+  if (smem > smem_set) {
+    cudaFuncSetAttribute(clamp_select_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    smem_set = smem;
+  }
+  return launch_clusters(clamp_select_kernel, g.B, smem, st, loc, attw, g,
+                         lv, k_cap, sel, attw_win);
+}
+
+int launch_clamp_demand(const float* loc, const unsigned char* valid,
+                        float* demand, const ClampArgs& g, const Levels& lv,
+                        int threads, cudaStream_t st) {
+  if (!clamp_takes(g, lv, threads)) return (int)cudaErrorInvalidValue;
+  return launch_clusters(clamp_demand_kernel, g.B, 0, st, loc, valid, g, lv,
+                         demand);
 }
 
 // ------------------------------------------------- exact MSDA backward
@@ -3248,6 +3888,24 @@ Levels read_levels(int L, const int* d) {
   return lv;
 }
 
+// H1's dims (simpb_msda_levels) and H3's (simpb_clamp_select,
+// simpb_clamp_demand, simpb_clamp_priority) as arguments.
+LevelsArgs levels_args(const int* dims) {
+  LevelsArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[4]; g.C = dims[5];
+  g.T = dims[6]; g.stages = dims[7]; g.layout = dims[8];
+  return g;
+}
+
+// H3's dims: B, Q, heads, L, P, ph, pw, threads, smem (the op's keys),
+// then the L level heights, widths and start rows.
+ClampArgs clamp_args(const int* dims) {
+  ClampArgs g;
+  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
+  g.P = dims[4]; g.ph = dims[5]; g.pw = dims[6];
+  return g;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (col / value; DFA's points and weights
@@ -3348,14 +4006,58 @@ int simpb_msda_hybrid(const void* value, const void* loc, const void* attw,
                                            st);
 }
 
-// Kernel H3, the clamp priority: dims B, Q, heads, L, P, ph, pw, threads
-// (CP_NT), then the L level heights, widths and start rows; attw may be
-// NULL (a lost sample weighs 1).
+// Kernel H1 for bf16 values: dims B, Q, L, n, heads, C, T, stages,
+// layout (0: loc [B, Q, L, n, 2], 1: loc [B, Q, heads, L, P, 2]; attw
+// alike), threads (LV_NT), smem, then the L level heights, widths and
+// start rows.
+int simpb_msda_levels(const void* value, const void* loc, const void* attw,
+                      void* sampled, void* wsum, const int* dims,
+                      void* stream) {
+  const LevelsArgs g = levels_args(dims);
+  const Levels lv = read_levels(dims[2], dims + 11);
+  if (dims[3] != g.heads * PTS) return (int)cudaErrorInvalidValue;
+  const float* l = (const float*)loc;
+  const float* a = (const float*)attw;
+  cudaStream_t st = (cudaStream_t)stream;
+  return g.C <= 128
+             ? launch_msda_levels<1>(value, l, a, (float*)sampled,
+                                     (float*)wsum, g, lv, dims[9], dims[10],
+                                     st)
+             : launch_msda_levels<2>(value, l, a, (float*)sampled,
+                                     (float*)wsum, g, lv, dims[9], dims[10],
+                                     st);
+}
+
+// Kernel H3, the op's instance: sel [B, Q, L] (uint8) and attw_win
+// (attw's layout) of the k_cap = min(capacity, Q * L) corrected entries.
+int simpb_clamp_select(const void* loc, const void* attw, void* sel,
+                       void* attw_win, const int* dims, int k_cap,
+                       void* stream) {
+  const ClampArgs g = clamp_args(dims);
+  const Levels lv = read_levels(dims[3], dims + 9);
+  return launch_clamp_select((const float*)loc, (const float*)attw,
+                             (unsigned char*)sel, (float*)attw_win, g, lv,
+                             k_cap, dims[7], dims[8], (cudaStream_t)stream);
+}
+
+// Kernel H3, the guards' instance: demand [B] float32 over the valid
+// queries (valid [B, Q] uint8, or NULL: every query); dims as above.
+int simpb_clamp_demand(const void* loc, const void* valid, void* demand,
+                       const int* dims, void* stream) {
+  const ClampArgs g = clamp_args(dims);
+  const Levels lv = read_levels(dims[3], dims + 9);
+  return launch_clamp_demand((const float*)loc, (const unsigned char*)valid,
+                             (float*)demand, g, lv, dims[7],
+                             (cudaStream_t)stream);
+}
+
+// The chain's first link, chip_smoke's yardstick for H3 (no path runs
+// it): the priorities prio [B, Q * L]; dims B, Q, heads, L, P, ph, pw,
+// threads (CP_NT), then the L level heights, widths and start rows; attw
+// may be NULL (a lost sample weighs 1).
 int simpb_clamp_priority(const void* loc, const void* attw, void* prio,
                          const int* dims, void* stream) {
-  ClampArgs g;
-  g.B = dims[0]; g.Q = dims[1]; g.heads = dims[2]; g.L = dims[3];
-  g.P = dims[4]; g.ph = dims[5]; g.pw = dims[6];
+  const ClampArgs g = clamp_args(dims);
   const Levels lv = read_levels(dims[3], dims + 8);
   return launch_clamp_prio((const float*)loc, (const float*)attw,
                            (float*)prio, g, lv, dims[7],

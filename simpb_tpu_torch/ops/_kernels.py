@@ -88,7 +88,13 @@ SIGNATURES = {
         # value, loc, attw, sel, sampled, wsum (in place), dims, dtype,
         # stream
         "simpb_msda_hybrid": ((P,) * 7 + (I, P), I),
-        # loc, attw (or NULL), prio, dims, stream
+        # value, loc, attw, sampled, wsum, dims, stream (H1, bf16)
+        "simpb_msda_levels": ((P,) * 6 + (P,), I),
+        # loc, attw, sel, attw_win, dims, k_cap, stream (H3, the op's)
+        "simpb_clamp_select": ((P,) * 5 + (I, P), I),
+        # loc, valid (or NULL), demand, dims, stream (H3, the guards')
+        "simpb_clamp_demand": ((P,) * 4 + (P,), I),
+        # loc, attw (or NULL), prio, dims, stream (chip_smoke's yardstick)
         "simpb_clamp_priority": ((P,) * 4 + (P,), I),
         # col, points, weights, thresholds, grad out, grad col, grad
         # points, grad weights, scratch, dims, strides, dtype, stages,

@@ -12,7 +12,7 @@ Port of the serving path of `simpb_tpu/ops/sampling.py`:
 * `msda` — exact multi-scale deformable attention (the exact configs'
   2D cross-attention);
 * `msda_hybrid` — the hybrid config's: windowed MSDA over every level
-  with the entries whose samples leave their windows (`clamp_priority`,
+  with the entries whose samples leave their windows (`hybrid_selection`,
   `msda_clamp_demand`) zeroed there and sampled exactly instead, added
   back (`msda_hybrid_exact`). Served only.
 
@@ -30,10 +30,13 @@ the forward of each is a hand-written CUDA kernel in `csrc/sampling.cu`:
 `deformable_aggregation`, `_msda_patch_sel` and `msda` are the
 wrappers, and `deformable_aggregation_plain` / `_msda_patch_sel_plain` /
 `msda_plain` their plain versions; the hybrid's three are
-`_msda_patch_levels` (H1, the MSDA-sel kernels with every level),
-`msda_hybrid_exact` (H2, the exact kernel over the corrected entries)
-and `clamp_priority` (H3), beside `_msda_patch_levels_plain`,
-`msda_hybrid_exact_plain` and `clamp_priority_plain` (`KERNELS`). A
+`_msda_patch_levels` (H1: bf16 a ring of per-level windows, fp32 the
+MSDA-sel kernel with every level), `msda_hybrid_exact` (H2, the exact
+kernel over the corrected entries) and H3 in two instances,
+`hybrid_selection` (the op's priorities, selection and zeroed weights)
+and `msda_clamp_demand` (the guards' count), beside
+`_msda_patch_levels_plain`, `msda_hybrid_exact_plain`,
+`hybrid_selection_plain` and `msda_clamp_demand_plain` (`KERNELS`). A
 wrapper checks its arguments, runs the plain version only
 for tensors on the CPU, and for CUDA tensors launches the kernel or
 raises. Each wrapper counts its launches (`launch_counts()`); the count
@@ -41,7 +44,8 @@ lives in this module, so it holds even while a caller has rebound a
 wrapper's name to record or reroute its calls.
 
 The launch of each comes from a cached planner, `plan_dfa`,
-`plan_msda_sel`, `plan_msda` and `plan_clamp_priority`: grid, threads,
+`plan_msda_sel`, `plan_msda`, `plan_msda_levels` and
+`plan_clamp_priority`: grid, threads,
 shared memory and the host int array
 the C entry reads, built once per shape; a shape the kernels do not take
 raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
@@ -86,7 +90,7 @@ MSDA_THREADS = 256  # threads of an MSDA-sel tensor-core block
 MSDA_TC_SHAPE = (2, 8, 8, 4)
 _LAUNCHES = {"deformable_aggregation": 0, "msda_patch_sel": 0, "msda": 0,
              "msda_patch_levels": 0, "msda_hybrid_exact": 0,
-             "clamp_priority": 0,
+             "clamp_select": 0, "clamp_demand": 0,
              "deformable_aggregation_backward": 0,
              "msda_patch_sel_backward": 0, "msda_backward": 0}
 def hybrid_window_refusal(spatial_shapes, patch_h: int, patch_w: int):
@@ -969,11 +973,23 @@ def _patch_fits_all(spatial_shapes: SpatialShapes, patch_h: int,
                for h_, w_ in spatial_shapes.shapes)
 
 
+def _levels_layout(loc: torch.Tensor, attw: torch.Tensor):
+    """Locations and weights of the windowed lane in `msda_patch`'s
+    layout ([B, Q, L, n, 2], head-major samples): those given in
+    `msda_hybrid`'s ([B, Q, heads, L, P, 2]) permuted into it."""
+    if loc.dim() == 5:
+        return loc, attw
+    b, q, heads, num_levels, num_points = loc.shape[:5]
+    n = heads * num_points
+    return (loc.permute(0, 1, 3, 2, 4, 5).reshape(b, q, num_levels, n, 2),
+            attw.permute(0, 1, 3, 2, 4).reshape(b, q, num_levels, n))
+
+
 def _msda_patch_levels_plain(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
-    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
-    attw: torch.Tensor,  # [B, Q, L, n]
+    loc: torch.Tensor,  # [B, Q, L, n, 2] or [B, Q, heads, L, P, 2]
+    attw: torch.Tensor,  # [B, Q, L, n] or [B, Q, heads, L, P]
     heads: int,
     patch_h: int,
     patch_w: int,
@@ -981,8 +997,10 @@ def _msda_patch_levels_plain(
     """`msda_patch` over every level, plain PyTorch, as JAX's all-level
     loop (simpb_tpu/ops/sampling.py:796-866): each level in order, its
     window shrunk to a level smaller than it (`shrink_patch`), the
-    level's sums added to the running ones. Returns (sampled [B, Q,
-    heads, C], wsum [B, Q, heads]) float32."""
+    level's sums added to the running ones. Locations and weights in
+    `msda_patch`'s layout (head-major samples) or `msda_hybrid`'s.
+    Returns (sampled [B, Q, heads, C], wsum [B, Q, heads]) float32."""
+    loc, attw = _levels_layout(loc, attw)
     b, total_hw, c = value.shape
     q, num_levels, n = loc.shape[1:4]
     num_points = n // heads
@@ -1625,24 +1643,97 @@ def _msda_patch_sel(
                                   patch_h, patch_w, sel_levels)
 
 
+LEVELS_THREADS = 256  # threads of an H1 block (bf16)
+LEVELS_MAX_STAGES = 4  # window stages of H1's ring at most
+LEVELS_BLOCKS_SM = 3  # H1 blocks an SM the default stage count keeps
+SM_SMEM = 228 * 1024  # shared memory of an SM (H100), 1 KB a block reserved
+
+
+def _levels_smem(num_levels: int, n: int, c: int, stages: int) -> int:
+    """Shared memory of an H1 block (csrc/sampling.cu `LevelsSmem`): the
+    ring of `stages` windows (64 pixel rows of C bf16 each), the weights'
+    three bf16 parts (8 rows each and a zero row, of 72), and two query
+    slots of locations, weights, window bases and level flags."""
+    win = MSDA_TC_SHAPE[1] * MSDA_TC_SHAPE[2]
+    return (stages * win * c * 2 + 25 * (win + 8) * 2
+            + 24 * num_levels * n + 24 * num_levels)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda_levels(num_rows: int, num_queries: int, heads: int, c: int,
+                     shapes: Tuple[Tuple[int, int], ...],
+                     layout: int) -> SamplingPlan:
+    """H1's launch for bf16 values [num_rows, ΣHW, c] over the levels
+    `shapes`, num_queries queries a row, 8x8 windows, 4 points a head;
+    locations and weights in `msda_patch`'s layout (0) or `msda_hybrid`'s
+    (1). The block's ring holds the most windows (at most one per level
+    and LEVELS_MAX_STAGES) that keep LEVELS_BLOCKS_SM blocks an SM (2 at
+    C 256, 4 at C 128: a third block an SM saves more than a deeper
+    ring, PERF.md §6). The grid is
+    at most a block a query: the kernel launches as many blocks as fit
+    on the card at once, each walking its queries. Raises ValueError on a
+    shape the kernel does not take."""
+    what = "_msda_patch_levels"
+    num_levels = len(shapes)
+    n = heads * MSDA_TC_SHAPE[3]
+    most = min(num_levels, LEVELS_MAX_STAGES)
+    if (not 0 < num_levels <= MAX_LEVELS or not 0 < heads <= 8
+            or c % 64 or not 0 < c <= 256 or num_rows * num_queries < 1
+            or layout not in (0, 1)):
+        raise ValueError(f"{what}: the bf16 kernel takes 1 to {MAX_LEVELS} "
+                         "levels, 1 to 8 heads, C a multiple of 64 up to 256 "
+                         f"and at least one query, got {num_levels} levels, "
+                         f"{heads} heads, C = {c}, {num_rows} x "
+                         f"{num_queries} queries")
+    stages = max([1] + [
+        k for k in range(1, most + 1)
+        if LEVELS_BLOCKS_SM * (_levels_smem(num_levels, n, c, k) + 1024)
+        <= SM_SMEM])
+    smem = _levels_smem(num_levels, n, c, stages)
+    if smem > _kernels.MAX_SMEM:
+        raise ValueError(f"{what}: {smem} bytes of shared memory a block do "
+                         "not fit")
+    dims = [num_rows, num_queries, num_levels, n, heads, c,
+            sum(h * w for h, w in shapes), stages, layout, LEVELS_THREADS,
+            smem]
+    return SamplingPlan((num_rows * num_queries, 1), LEVELS_THREADS, smem, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
 def _msda_patch_levels(
     value: torch.Tensor,  # [B, ΣHW, C]
     spatial_shapes: SpatialShapes,
-    loc: torch.Tensor,  # [B, Q, L, n, 2] (head-major samples)
-    attw: torch.Tensor,  # [B, Q, L, n]
+    loc: torch.Tensor,  # [B, Q, L, n, 2] or [B, Q, heads, L, P, 2]
+    attw: torch.Tensor,  # [B, Q, L, n] or [B, Q, heads, L, P]
     heads: int,
     patch_h: int,
     patch_w: int,
 ):
     """Kernel H1: windowed MSDA over every level, in level order (see
     `_msda_patch_levels_plain`, its plain version) -> (sampled [B, Q,
-    heads, C], wsum [B, Q, heads]) float32. The MSDA-sel kernels with k =
-    L: bf16 on the tensor cores, two levels' windows at a time, fp32 on
-    the CUDA cores. Every level must hold the window. Served only: on the
-    card it raises where a gradient is needed."""
+    heads, C], wsum [B, Q, heads]) float32. Locations and weights in
+    `msda_patch`'s layout or `msda_hybrid`'s, contiguous. bf16 values:
+    `msda_levels_tc_kernel`, each (query, level) window a stage of a ring
+    (`plan_msda_levels`), read in the given layout; fp32: the
+    MSDA-sel CUDA-core kernel with k = L (in `msda_patch`'s layout). Every
+    level must hold the window. Served only: on the card it raises where
+    a gradient is needed."""
     num_levels = spatial_shapes.num_levels
-    _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
-                    patch_w, num_levels)
+    what = "_msda_patch_levels"
+    if loc.dim() == 5:
+        _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
+                        patch_w, num_levels)
+        num_points = loc.shape[3] // heads
+    else:  # msda_hybrid's layout: checked as the exact lane's, no copy
+        _check_msda(value, spatial_shapes, loc, attw)
+        num_points = loc.shape[4]
+        if loc.shape[2] != heads or patch_w % 2 or any(
+                h_ < patch_h or w_ < patch_w
+                for h_, w_ in spatial_shapes.shapes):
+            raise ValueError(f"{what}: {loc.shape[2]} heads given for "
+                             f"{heads}, or a {patch_h}x{patch_w} window "
+                             "(even width) that does not fit every level of "
+                             f"{spatial_shapes.shapes}")
     if value.device.type == "cpu":
         return _msda_patch_levels_plain(value, spatial_shapes, loc, attw,
                                         heads, patch_h, patch_w)
@@ -1651,8 +1742,28 @@ def _msda_patch_levels(
             "msda_patch over every level on the card is served only (kernel "
             "H1 has no backward; no trainer configuration samples every "
             "level through the window)")
-    return _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
-                            patch_w, num_levels, count="msda_patch_levels")
+    if value.dtype == torch.float32:
+        return _msda_sel_launch(value, spatial_shapes,
+                                *_levels_layout(loc, attw), heads, patch_h,
+                                patch_w, num_levels,
+                                count="msda_patch_levels")
+    if (patch_h, patch_w, num_points) != MSDA_TC_SHAPE[1:]:
+        raise ValueError(f"{what}: the bf16 kernel takes (window, points a "
+                         f"head) = {MSDA_TC_SHAPE[1:]}, got "
+                         f"{(patch_h, patch_w, num_points)}")
+    b, _, c = value.shape
+    q = loc.shape[1]
+    plan = plan_msda_levels(b, q, heads, c, spatial_shapes.shapes,
+                            int(loc.dim() == 6))
+    _check_aligned(what, value, "value")
+    dev = value.device
+    sampled = torch.empty((b, q, heads, c), dtype=torch.float32, device=dev)
+    wsum = torch.empty((b, q, heads), dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.load("sampling").simpb_msda_levels(
+        *map(_kernels.ptr, (value, loc, attw, sampled, wsum)), plan.dims,
+        ctypes.c_void_p(_kernels.stream_ptr(value))), what)
+    _LAUNCHES["msda_patch_levels"] += 1
+    return sampled, wsum
 
 
 def msda_hybrid_exact_plain(value, spatial_shapes, sampling_locations,
@@ -1735,8 +1846,10 @@ def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
     return sampled, wsum
 
 
-CLAMP_THREADS = 256  # threads of an H3 block: a warp an entry
+CLAMP_THREADS = 512  # threads of an H3 block: 16 warps
+CLAMP_CLUSTER = 8  # H3 blocks a camera row: one thread-block cluster
 CLAMP_LANES = 32  # samples of an entry (heads x points) at most
+CLAMP_MAX_KEYS = 8192  # the op's sort keys a camera row at most (Q x L)
 
 
 def _tree_sum32(x: torch.Tensor) -> torch.Tensor:
@@ -1781,86 +1894,55 @@ def clamp_priority_plain(spatial_shapes: SpatialShapes,
 def plan_clamp_priority(num_rows: int, num_queries: int, heads: int,
                         num_points: int, ph: int, pw: int,
                         shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
-    """H3's launch: a warp per (camera row, query, level) entry, a lane a
-    sample, CLAMP_THREADS // 32 entries a block. Raises ValueError on a
-    shape the kernel does not take: more than CLAMP_LANES samples an
-    entry, more than MAX_LEVELS levels, no entry."""
+    """H3's launch, both instances: a cluster of CLAMP_CLUSTER blocks of
+    CLAMP_THREADS per camera row, a block a slice of its queries, a warp a
+    query at a time, a lane a sample of each of its entries; the op's
+    instance keeps the row's Q x L sort keys (8 bytes each) in every
+    block's shared memory. Raises ValueError on a shape the kernels do not
+    take: more than CLAMP_LANES samples an entry, more than MAX_LEVELS
+    levels, no query, more than CLAMP_MAX_KEYS entries a row."""
     num_levels = len(shapes)
+    entries = num_queries * num_levels
     if (not 0 < heads * num_points <= CLAMP_LANES or heads < 1
             or not 0 < num_levels <= MAX_LEVELS or ph < 1 or pw < 1
-            or num_rows * num_queries < 1):
-        raise ValueError(f"clamp_priority: the kernel takes 1 to "
+            or num_rows < 1 or num_queries < 1
+            or entries > CLAMP_MAX_KEYS):
+        raise ValueError(f"clamp_priority: the kernels take 1 to "
                          f"{CLAMP_LANES} samples (heads x points) an entry, "
-                         f"1 to {MAX_LEVELS} levels and at least one query, "
-                         f"got {heads} x {num_points} samples, {num_levels} "
+                         f"1 to {MAX_LEVELS} levels, at least one query and "
+                         f"at most {CLAMP_MAX_KEYS} entries a row, got "
+                         f"{heads} x {num_points} samples, {num_levels} "
                          f"levels, {num_rows} x {num_queries} queries")
-    entries = num_rows * num_queries * num_levels
-    per_block = CLAMP_THREADS // 32
     dims = [num_rows, num_queries, heads, num_levels, num_points, ph, pw,
-            CLAMP_THREADS]
-    return SamplingPlan((-(-entries // per_block), 1), CLAMP_THREADS, 0, 0,
+            CLAMP_THREADS, 8 * entries]
+    return SamplingPlan((CLAMP_CLUSTER * num_rows, 1), CLAMP_THREADS,
+                        8 * entries, 0,
                         _kernels.int_array(dims + _level_table(shapes)))
 
 
-def clamp_priority(spatial_shapes: SpatialShapes,
-                   sampling_locations: torch.Tensor,
-                   attention_weights: Optional[torch.Tensor],
-                   patch_h: int, patch_w: int) -> torch.Tensor:
-    """Kernel H3: the clamp priority [B, Q * L] float32 of every entry (see
-    `clamp_priority_plain`, whose bits it gives). Locations [B, Q, heads,
-    L, P, 2] and weights [B, Q, heads, L, P] (or None) float32,
-    contiguous; on the CPU the plain version."""
-    what = "clamp_priority"
+def _check_clamp(what, spatial_shapes, sampling_locations, attention_weights,
+                 valid=None):
     tensors = [sampling_locations] + (
-        [] if attention_weights is None else [attention_weights])
+        [] if attention_weights is None else [attention_weights]) + (
+        [] if valid is None else [valid])
     _check_devices(what, *tensors)
-    for t in tensors:
+    for t in tensors[:2 if attention_weights is not None else 1]:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: locations and weights must be "
                              f"contiguous float32, got {t.dtype}")
-    b, q, heads, num_levels, num_points = sampling_locations.shape[:5]
+    b, q = sampling_locations.shape[:2]
     if (sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2
-            or num_levels != spatial_shapes.num_levels
+            or sampling_locations.shape[3] != spatial_shapes.num_levels
             or (attention_weights is not None
                 and tuple(attention_weights.shape)
-                != tuple(sampling_locations.shape[:5]))):
+                != tuple(sampling_locations.shape[:5]))
+            or (valid is not None and (
+                tuple(valid.shape) != (b, q) or valid.dtype != torch.bool
+                or not valid.is_contiguous()))):
         raise ValueError(f"{what}: locations "
-                         f"{tuple(sampling_locations.shape)} and weights do "
-                         f"not fit {spatial_shapes.num_levels} levels")
-    if sampling_locations.device.type == "cpu":
-        return clamp_priority_plain(spatial_shapes, sampling_locations,
-                                    attention_weights, patch_h, patch_w)
-    plan = plan_clamp_priority(b, q, heads, num_points, patch_h, patch_w,
-                               spatial_shapes.shapes)
-    prio = torch.empty((b, q * num_levels), dtype=torch.float32,
-                       device=sampling_locations.device)
-    _kernels.check(_kernels.load("sampling").simpb_clamp_priority(
-        _kernels.ptr(sampling_locations), _kernels.ptr(attention_weights),
-        _kernels.ptr(prio), plan.dims,
-        ctypes.c_void_p(_kernels.stream_ptr(prio))), what)
-    _LAUNCHES["clamp_priority"] += 1
-    return prio
-
-
-def msda_clamp_demand(
-    spatial_shapes: SpatialShapes,
-    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
-    patch_h: int,
-    patch_w: int,
-    valid: Optional[torch.Tensor] = None,  # [B, Q] bool
-) -> torch.Tensor:
-    """Per batch row, the (query, level) entries the hybrid must correct:
-    those with a sample that loses bilinear weight to its window (H3's
-    priority above 0, from the locations alone), counted over the `valid`
-    queries; float32 [B]. `max(demand - clamp_capacity, 0)` is the guard
-    counter."""
-    b, q = sampling_locations.shape[:2]
-    num_levels = sampling_locations.shape[3]
-    clamped = clamp_priority(spatial_shapes, sampling_locations, None,
-                             patch_h, patch_w).reshape(b, q, num_levels) > 0
-    if valid is not None:
-        clamped = clamped & valid[:, :, None]
-    return clamped.sum((1, 2)).float()
+                         f"{tuple(sampling_locations.shape)}, weights and "
+                         f"valid do not fit {spatial_shapes.num_levels} "
+                         "levels")
 
 
 def _hybrid_selection(prio: torch.Tensor, k_cap: int) -> torch.Tensor:
@@ -1871,30 +1953,126 @@ def _hybrid_selection(prio: torch.Tensor, k_cap: int) -> torch.Tensor:
     return torch.zeros_like(prio, dtype=torch.bool).scatter_(1, idx, vals > 0)
 
 
-def _hybrid(lanes, value, spatial_shapes, sampling_locations,
-            attention_weights, patch_h, patch_w, clamp_capacity, raw_heads):
-    """`msda_hybrid` in JAX's order (simpb_tpu/ops/sampling.py:1032-1209)
-    through `lanes`, (clamp priority, windowed lane over every level,
-    exact lane): the priorities, the top `clamp_capacity` of each batch
-    row gated to those that clamp, the windowed lane with their weights
-    zeroed (their windows still placed by their locations), and the exact
-    lane over them added back."""
-    priority, windowed, exact = lanes
-    b = value.shape[0]
-    q, heads, num_levels, num_points = sampling_locations.shape[1:5]
-    n = heads * num_points
-    k_cap = min(clamp_capacity, q * num_levels)
-    sel = _hybrid_selection(priority(
+def hybrid_selection_plain(spatial_shapes: SpatialShapes,
+                           sampling_locations: torch.Tensor,
+                           attention_weights: torch.Tensor, patch_h: int,
+                           patch_w: int, k_cap: int):
+    """The hybrid's selection, plain PyTorch, as JAX's msda_hybrid makes
+    it (simpb_tpu/ops/sampling.py:1097-1120): every entry's clamp priority
+    (`clamp_priority_plain`), the top k_cap of each camera row gated to
+    those above 0 (`_hybrid_selection`), and the windowed lane's weights
+    with the corrected entries' zeroed. Returns (sel [B, Q, L] bool,
+    attw_win [B, Q, heads, L, P] float32)."""
+    b, q, _, num_levels = sampling_locations.shape[:4]
+    sel = _hybrid_selection(clamp_priority_plain(
         spatial_shapes, sampling_locations, attention_weights, patch_h,
         patch_w), k_cap).reshape(b, q, num_levels)
     attw_win = attention_weights * (~sel)[:, :, None, :, None].to(
         attention_weights.dtype)
-    sampled, wsum = windowed(
-        value, spatial_shapes,
-        sampling_locations.permute(0, 1, 3, 2, 4, 5).reshape(
-            b, q, num_levels, n, 2),
-        attw_win.permute(0, 1, 3, 2, 4).reshape(b, q, num_levels, n),
-        heads, patch_h, patch_w)
+    return sel, attw_win
+
+
+def hybrid_selection(spatial_shapes: SpatialShapes,
+                     sampling_locations: torch.Tensor,
+                     attention_weights: torch.Tensor, patch_h: int,
+                     patch_w: int, k_cap: int):
+    """Kernel H3, the op's instance (see `hybrid_selection_plain`, whose
+    mask and weights it gives bit for bit): one launch a call, a cluster
+    of blocks a camera row. Locations [B, Q, heads, L, P, 2] and weights
+    [B, Q, heads, L, P] float32, contiguous; k_cap at most Q x L. On the
+    CPU the plain version."""
+    what = "hybrid_selection"
+    _check_clamp(what, spatial_shapes, sampling_locations, attention_weights)
+    b, q, heads, num_levels, num_points = sampling_locations.shape[:5]
+    if not 0 <= k_cap <= q * num_levels:
+        raise ValueError(f"{what}: k_cap {k_cap} outside [0, {q} x "
+                         f"{num_levels}]")
+    if sampling_locations.device.type == "cpu":
+        return hybrid_selection_plain(spatial_shapes, sampling_locations,
+                                      attention_weights, patch_h, patch_w,
+                                      k_cap)
+    plan = plan_clamp_priority(b, q, heads, num_points, patch_h, patch_w,
+                               spatial_shapes.shapes)
+    dev = sampling_locations.device
+    sel = torch.empty((b, q, num_levels), dtype=torch.bool, device=dev)
+    attw_win = torch.empty_like(attention_weights)
+    _kernels.check(_kernels.load("sampling").simpb_clamp_select(
+        *map(_kernels.ptr, (sampling_locations, attention_weights, sel,
+                            attw_win)), plan.dims, k_cap,
+        ctypes.c_void_p(_kernels.stream_ptr(sel))), what)
+    _LAUNCHES["clamp_select"] += 1
+    return sel, attw_win
+
+
+def msda_clamp_demand_plain(
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    patch_h: int,
+    patch_w: int,
+    valid: Optional[torch.Tensor] = None,  # [B, Q] bool
+) -> torch.Tensor:
+    """`msda_clamp_demand`, plain PyTorch: the entries whose clamp
+    priority from the locations alone (`clamp_priority_plain`, a lost
+    sample weighing 1) is above 0, counted over the valid queries;
+    float32 [B]."""
+    b, q = sampling_locations.shape[:2]
+    num_levels = sampling_locations.shape[3]
+    clamped = clamp_priority_plain(spatial_shapes, sampling_locations, None,
+                                   patch_h, patch_w).reshape(
+                                       b, q, num_levels) > 0
+    if valid is not None:
+        clamped = clamped & valid[:, :, None]
+    return clamped.sum((1, 2)).float()
+
+
+def msda_clamp_demand(
+    spatial_shapes: SpatialShapes,
+    sampling_locations: torch.Tensor,  # [B, Q, heads, L, P, 2]
+    patch_h: int,
+    patch_w: int,
+    valid: Optional[torch.Tensor] = None,  # [B, Q] bool
+) -> torch.Tensor:
+    """Per batch row, the (query, level) entries the hybrid must correct:
+    those with a sample that loses bilinear weight to its window, counted
+    over the `valid` queries; float32 [B]. `max(demand - clamp_capacity,
+    0)` is the guard counter. Kernel H3, the guards' instance (see
+    `msda_clamp_demand_plain`, whose values it gives): one launch a call,
+    a cluster of blocks a camera row, the count in integers. Locations
+    float32,
+    contiguous; `valid` bool, contiguous. On the CPU the plain version."""
+    what = "msda_clamp_demand"
+    _check_clamp(what, spatial_shapes, sampling_locations, None, valid)
+    if sampling_locations.device.type == "cpu":
+        return msda_clamp_demand_plain(spatial_shapes, sampling_locations,
+                                       patch_h, patch_w, valid)
+    b, q, heads, _, num_points = sampling_locations.shape[:5]
+    plan = plan_clamp_priority(b, q, heads, num_points, patch_h, patch_w,
+                               spatial_shapes.shapes)
+    demand = torch.empty((b,), dtype=torch.float32,
+                         device=sampling_locations.device)
+    _kernels.check(_kernels.load("sampling").simpb_clamp_demand(
+        *map(_kernels.ptr, (sampling_locations, valid, demand)), plan.dims,
+        ctypes.c_void_p(_kernels.stream_ptr(demand))), what)
+    _LAUNCHES["clamp_demand"] += 1
+    return demand
+
+
+def _hybrid(lanes, value, spatial_shapes, sampling_locations,
+            attention_weights, patch_h, patch_w, clamp_capacity, raw_heads):
+    """`msda_hybrid` in JAX's order (simpb_tpu/ops/sampling.py:1032-1209)
+    through `lanes`, (selection, windowed lane over every level, exact
+    lane): the top `clamp_capacity` clamp priorities of each batch row
+    gated to those that clamp, with the windowed lane's weights of those
+    entries zeroed; the windowed lane (their windows still placed by their
+    locations), and the exact lane over them added back. The three take
+    the op's own layouts: nothing runs between them."""
+    select, windowed, exact = lanes
+    q, heads, num_levels = sampling_locations.shape[1:4]
+    k_cap = min(clamp_capacity, q * num_levels)
+    sel, attw_win = select(spatial_shapes, sampling_locations,
+                           attention_weights, patch_h, patch_w, k_cap)
+    sampled, wsum = windowed(value, spatial_shapes, sampling_locations,
+                             attw_win, heads, patch_h, patch_w)
     sampled, wsum = exact(value, spatial_shapes, sampling_locations,
                           attention_weights, sel, sampled, wsum)
     return (sampled, wsum) if raw_heads else _split_heads(sampled)
@@ -1904,9 +2082,9 @@ def msda_hybrid_plain(value, spatial_shapes, sampling_locations,
                       attention_weights, patch_h=8, patch_w=8,
                       clamp_capacity=128, raw_heads=False):
     """`msda_hybrid`, plain PyTorch (`_hybrid` through the plain versions
-    of H3, H1 and H2)."""
+    of H3's op instance, H1 and H2)."""
     return _hybrid(
-        (clamp_priority_plain, _msda_patch_levels_plain,
+        (hybrid_selection_plain, _msda_patch_levels_plain,
          msda_hybrid_exact_plain), value, spatial_shapes, sampling_locations,
         attention_weights, patch_h, patch_w, clamp_capacity, raw_heads)
 
@@ -1928,9 +2106,10 @@ def msda_hybrid(
     demand (`msda_clamp_demand`) fits the capacity the result is exact
     `msda` up to the order of the sums (and the windowed lane's fp32
     weights, which bf16 exact MSDA rounds). Same outputs as `msda`. On
-    the card: H3 (`clamp_priority`), the selection, H1
-    (`_msda_patch_levels`) and H2 (`msda_hybrid_exact`); on the CPU
-    `msda_hybrid_plain`. On the card it raises where a gradient is
+    the card: H3's op instance (`hybrid_selection`: the priorities, the
+    selection and the windowed lane's zeroed weights in one launch), H1
+    (`_msda_patch_levels`) and H2 (`msda_hybrid_exact`), nothing between
+    them; on the CPU `msda_hybrid_plain`. On the card it raises where a gradient is
     needed (served only) and where a level is smaller than the window
     (`hybrid_window_refusal`)."""
     _check_msda(value, spatial_shapes, sampling_locations,
@@ -1945,7 +2124,7 @@ def msda_hybrid(
     if _needs_grad(value, sampling_locations, attention_weights):
         raise NotImplementedError(HYBRID_SERVED_ONLY)
     return _hybrid(
-        (clamp_priority, _msda_patch_levels, msda_hybrid_exact), value,
+        (hybrid_selection, _msda_patch_levels, msda_hybrid_exact), value,
         spatial_shapes, sampling_locations, attention_weights, patch_h,
         patch_w, clamp_capacity, raw_heads)
 
@@ -1961,13 +2140,16 @@ KERNELS = (
     # the hybrid's three: H1, the windowed lane over every level
     # (msda_patch's loop, called at :1125 with sel_levels=None); H2, the
     # exact lane (:1032, its exact core :1156); H3, the clamp priority
-    # (_lost_weights :208, msda_clamp_demand :1008)
+    # (_lost_weights :208) in its two instances, the op's with the
+    # selection (:1100-1120) and the guards' msda_clamp_demand (:1008)
     ("msda_patch_levels", _msda_patch_levels, _msda_patch_levels_plain,
      "simpb_tpu/ops/sampling.py:718"),
     ("msda_hybrid_exact", msda_hybrid_exact, msda_hybrid_exact_plain,
      "simpb_tpu/ops/sampling.py:1032"),
-    ("clamp_priority", clamp_priority, clamp_priority_plain,
+    ("clamp_select", hybrid_selection, hybrid_selection_plain,
      "simpb_tpu/ops/sampling.py:208"),
+    ("clamp_demand", msda_clamp_demand, msda_clamp_demand_plain,
+     "simpb_tpu/ops/sampling.py:1008"),
 )
 # the backward kernels: (name, wrapper, plain version, the JAX op whose
 # gradient it computes)

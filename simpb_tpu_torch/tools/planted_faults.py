@@ -16,7 +16,8 @@ accumulation in B2, kernel D's records as D1 writes them, kernel D's bin
 pass (a tile list that loses its last record), kernel C's value-gradient
 accumulation in C3, the exact MSDA kernel's corner rows, H1's last level
 of query 0 (one line in each of its two kernels, fp32 and bf16), H2's
-last corrected level of query 0, or H3's priority of entry 0), builds
+last corrected level of query 0, the zeroing of H3's op instance for a
+row's entry 0, or the count of H3's guards' instance for query 0), builds
 that copy and runs chip_smoke's synthetic gradient cases, exact MSDA
 cases and hybrid cases (fp32 and bf16) on it. It prints one JSON
 line per (fault, case): whether the check passes, whether the bound it
@@ -27,8 +28,9 @@ the unchanged copy fails a case, or when a fault passes the check on any
 case of the kernel it edits (every case has live entries for each fault
 to hit: the dead-anchor cases keep anchor 0 live, query 0 of every
 exact case samples the interior, for the forward and for D, and query 0
-of every hybrid case has a clamped level 0 and a corrected entry). The
-copies are removed at the end. Needs the card.
+of every hybrid case has a clamped level 0, a corrected entry and
+weight on its last level). The copies are removed at the end. Needs the
+card.
 """
 from __future__ import annotations
 
@@ -47,9 +49,10 @@ _D_LIST = "    tc[t] = e - s;\n"
 _EXACT_CORNERS = "            if (ld) dfa_corners(vl, w, r, g.C, v[u][i]);\n"
 _H1_FP32 = ("          if (hh < g.heads) "
             "acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n")
-_H1_TC = "        if (grp * 16 >= C) continue;\n"
+_H1_LEVELS = "    if (live) {  // the level's product on the tensor cores\n"
 _H2_LEVELS = "    S = __popc(marked) * g.P;\n"
-_H3_PRIO = "  if (lane == 0) prio[e] = any ? __fadd_rn(t, 1e-6f) : 0.f;\n"
+_H3_SELECT = "    if (taken) {\n"
+_H3_DEMAND = "    if (!valid || valid[q0 + q]) {\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement); a
 # fault of a kernel with two instances edits a tuple of lines, one each
 FAULTS = {
@@ -93,25 +96,29 @@ FAULTS = {
         "msda", _EXACT_CORNERS,
         "            if (ld) { dfa_corners(vl, w, r, g.C, v[u][i]); "
         "if (bqh < g.heads) v[u][i][3].zero(); }\n"),
-    # H1: query 0 of camera row 0 leaves its last level (fp32, block (0,
-    # 0)) or its last pair of levels (bf16, block 0) out of the windowed
-    # sums
+    # H1: query 0 of camera row 0 leaves its last level out of the
+    # windowed sums (fp32: block (0, 0) of msda_sel_kernel; bf16: the
+    # ring kernel's product of item (query 0, last level))
     "msda_patch_levels_last_level_of_query0": (
-        "msda_patch_levels", (_H1_FP32, _H1_TC), (
+        "msda_patch_levels", (_H1_FP32, _H1_LEVELS), (
             "          if (hh < g.heads && !(K == L && q == 0 && b == 0 && "
             "j == K - 1)) acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n",
-            "        if (grp * 16 >= C || (bq == 0 && g.K == L && "
-            "j0 + SEL_K == g.K)) continue;\n")),
+            "    if (live && (bq || l < L - 1)) {  // the level's product on "
+            "the tensor cores\n")),
     # H2: query 0 of camera row 0 (its heads' items) corrects one marked
     # level fewer
     "msda_hybrid_exact_drops_last_level_of_query0": (
         "msda_hybrid_exact", _H2_LEVELS,
         "    if (bqh < g.heads) S = (__popc(marked) - 1) * g.P; "
         "else S = __popc(marked) * g.P;\n"),
-    # H3: entry 0 (camera row 0, query 0, level 0) never clamps
-    "clamp_priority_entry0_never_clamps": (
-        "clamp_priority", _H3_PRIO,
-        "  if (lane == 0) prio[e] = any && e ? __fadd_rn(t, 1e-6f) : 0.f;\n"),
+    # H3, the op's instance: a camera row's corrected entry 0 (query 0,
+    # level 0) keeps its weights in the windowed lane
+    "clamp_select_entry0_keeps_weights": (
+        "clamp_select", _H3_SELECT, "    if (taken && e) {\n"),
+    # H3, the guards' instance: query 0 of camera row 0 is not counted
+    "clamp_demand_skips_query0": (
+        "clamp_demand", _H3_DEMAND,
+        "    if ((!valid || valid[q0 + q]) && (q || blockIdx.x)) {\n"),
 }
 MAX_SCALED = {"float32": 1e-5, "bfloat16": 1e-2}
 

@@ -1,7 +1,9 @@
 """The hybrid serving path of the port (`simpb_r50_704x256_hybrid`) against
 the JAX package, on the CPU: the clamp priority and `msda_clamp_demand`
-(kernel H3's plain version) against JAX's `_lost_weights` and
-`msda_clamp_demand`; `msda_hybrid_plain` against JAX's `msda_hybrid`
+(kernel H3's plain versions) against JAX's `_lost_weights` and
+`msda_clamp_demand`; H3's two instances' plain versions against the
+eager chains they replace, and a plain mirror of the op instance's
+selection by sort keys; `msda_hybrid_plain` against JAX's `msda_hybrid`
 (fp32 and bf16, raw heads on and off, demand under the capacity, where
 the top-k's padding is gated out, and over it, with a tie at the
 capacity's boundary); the windowed lane over every level (H1's plain
@@ -105,21 +107,29 @@ def test_clamp_priority_and_demand_match_jax(shapes):
     _, loc, attw = _inputs(rng, shapes=shapes)
     ss = SpatialShapes(shapes)
     jprio, _ = _jax_selection(shapes, loc, attw, 1)
-    got = tsmp.clamp_priority(ss, _t(loc), _t(attw), 8, 8).numpy()
+    got = tsmp.clamp_priority_plain(ss, _t(loc), _t(attw), 8, 8).numpy()
     assert got.dtype == np.float32 and got.shape == jprio.shape
     np.testing.assert_array_equal(got > 0, jprio > 0)
     assert 0 < (got > 0).sum() < got.size
     np.testing.assert_allclose(got, jprio, rtol=2.5e-7, atol=0)
     assert (got[got <= 0] == 0).all()
-    counts = tsmp.clamp_priority(ss, _t(loc), None, 8, 8).numpy()
+    counts = tsmp.clamp_priority_plain(ss, _t(loc), None, 8, 8).numpy()
     np.testing.assert_array_equal(counts > 0, jprio > 0)
     valid = rng.uniform(size=loc.shape[:2]) < 0.7
     wants = jax.jit(lambda l_, v_: [jsmp.msda_clamp_demand(
         JSS(shapes), l_, 8, 8, valid=v) for v in (None, v_)])(loc, valid)
     for v, want in zip((None, valid), wants):
-        dem = tsmp.msda_clamp_demand(ss, _t(loc), 8, 8,
-                                     valid=None if v is None else _t(v))
+        tv = None if v is None else _t(v)
+        dem = tsmp.msda_clamp_demand(ss, _t(loc), 8, 8, valid=tv)
         np.testing.assert_array_equal(dem.numpy(), np.asarray(want))
+        # the guards' plain version: the eager count it replaces
+        eager = torch.from_numpy(counts > 0).reshape(loc.shape[:2] + (-1,))
+        if tv is not None:
+            eager = eager & tv[:, :, None]
+        plain = tsmp.msda_clamp_demand_plain(ss, _t(loc), 8, 8, valid=tv)
+        assert plain.dtype == torch.float32
+        assert torch.equal(plain, eager.sum((1, 2)).float())
+        assert torch.equal(plain, dem)
     # the fixed tree: lane l + 16 onto lane l, then + 8, + 4, + 2, + 1
     x = torch.from_numpy(rng.normal(size=(3, 20)).astype(np.float32))
     pad = np.zeros((3, 32), np.float32)
@@ -150,7 +160,7 @@ def test_msda_hybrid_matches_jax(dtype, regime, raw):
     value, loc, attw = _inputs(rng)
     b, q, _, levels = loc.shape[:4]
     ss = SpatialShapes(SHAPES)
-    prio = tsmp.clamp_priority(ss, _t(loc), _t(attw), 8, 8)
+    prio = tsmp.clamp_priority_plain(ss, _t(loc), _t(attw), 8, 8)
     demand = int((prio > 0).sum(-1).max())
     cap = (q * levels if regime == "under"
            else _boundary_tie_capacity(prio.numpy()))
@@ -171,6 +181,84 @@ def test_msda_hybrid_matches_jax(dtype, regime, raw):
         j = np.asarray(j)
         assert g.dtype == torch.float32 and g.shape == j.shape
         assert np.abs(g.numpy() - j).max() <= tol * np.abs(j).max()
+
+
+def _select_by_keys(prio, k_cap):
+    """A plain mirror of H3's op instance's selection: each entry's sort
+    key (its priority's bits made monotonic, NaN canonical and -0 as +0,
+    inverted, then its index; no two equal), its rank the number of keys
+    below it (its place in the ascending order); rank r corrected iff
+    r < k_cap and its priority > 0."""
+    p = np.where(prio == 0, np.float32(0), prio).astype(np.float32)
+    u = p.view(np.uint32).astype(np.uint64)
+    u = np.where(np.isnan(p), np.uint64(0x7FC00000), u)
+    u = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    idx = np.arange(p.shape[-1], dtype=np.uint64)
+    keys = ((~u & 0xFFFFFFFF) << np.uint64(32)) | idx
+    order = np.argsort(keys, axis=-1)
+    taken = np.zeros(p.shape, bool)
+    for r in range(p.shape[0]):
+        top = order[r, :k_cap]
+        taken[r, top] = p[r, top] > 0
+    return taken
+
+
+@pytest.mark.parametrize("regime", ["tie", "none_clamp", "cap_covers",
+                                    "padded"])
+def test_hybrid_selection_plain_is_the_old_chain(regime):
+    """H3's op instance, plain version (`hybrid_selection_plain`, which
+    the CPU wrapper runs) against the chain it replaces, bit for bit: the
+    clamp priority, `_hybrid_selection`, the weights zeroed and permuted
+    into the windowed lane's layout, then H1's plain version on either
+    layout. At a tie on the capacity's boundary, with no entry clamping,
+    at a capacity of every entry, and with padded slots (location 0),
+    which never clamp, beside corrected entries. The sort-key mirror of the kernel's
+    selection gives the same mask, here and on ties, NaN and zero
+    priorities."""
+    rng = np.random.default_rng(7)
+    value, loc, attw = _inputs(rng, spread=0.0 if regime == "none_clamp"
+                               else 0.12)
+    if regime == "none_clamp":  # every sample well inside every window
+        loc[:] = 0.5
+    if regime == "padded":
+        loc[:, 4:7] = 0.0
+    b, q, heads, levels, points = loc.shape[:5]
+    ss = SpatialShapes(SHAPES)
+    tl, ta = _t(loc), _t(attw)
+    prio = tsmp.clamp_priority_plain(ss, tl, ta, 8, 8)
+    cap = {"tie": _boundary_tie_capacity(prio.numpy()) if regime == "tie"
+           else 0, "none_clamp": 5, "cap_covers": q * levels,
+           "padded": 9}[regime]
+    old_sel = tsmp._hybrid_selection(prio, cap).reshape(b, q, levels)
+    old_w = ta * (~old_sel)[:, :, None, :, None].to(ta.dtype)
+    sel, attw_win = tsmp.hybrid_selection(ss, tl, ta, 8, 8, cap)
+    assert sel.dtype == torch.bool and attw_win.dtype == torch.float32
+    assert torch.equal(sel, old_sel) and torch.equal(attw_win, old_w)
+    assert torch.equal(sel, tsmp.hybrid_selection_plain(ss, tl, ta, 8, 8,
+                                                        cap)[0])
+    np.testing.assert_array_equal(
+        _select_by_keys(prio.numpy(), cap).reshape(b, q, levels),
+        sel.numpy())
+    if regime == "none_clamp":
+        assert not sel.any() and torch.equal(attw_win, ta)
+    elif regime == "cap_covers":
+        assert torch.equal(sel.reshape(b, -1), prio > 0)
+    elif regime == "padded":  # their samples share one pixel: no loss
+        assert sel.any() and not sel[:, 4:7].any()
+    n = heads * points
+    tv = _t(value)
+    flat = tsmp._msda_patch_levels_plain(
+        tv, ss, tl.permute(0, 1, 3, 2, 4, 5).reshape(b, q, levels, n, 2),
+        old_w.permute(0, 1, 3, 2, 4).reshape(b, q, levels, n), heads, 8, 8)
+    for g, w in zip(tsmp._msda_patch_levels(tv, ss, tl, attw_win, heads, 8,
+                                            8), flat):
+        assert torch.equal(g, w)
+    # the key order on ties, zeros and NaN, against the stable sort's
+    p = np.array([[0.5, 0.0, 0.5, np.nan, 0.25, 0.5, 0.0, 1.0]], np.float32)
+    for k in range(p.shape[1] + 1):
+        np.testing.assert_array_equal(
+            _select_by_keys(p, k),
+            tsmp._hybrid_selection(torch.from_numpy(p), k).numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -289,21 +377,40 @@ def test_query_group_msda_hybrid():
 
 def test_hybrid_planners_and_limits():
     """H3's planner at the served shapes (the op's compacted 208 slots and
-    the guards' 256) and its refusals; H1 as MSDA-sel with every level (the
-    bf16 kernel in pairs of levels, shared memory and three blocks an SM
-    kept; an odd level count refused in bf16); H2 on the exact kernel's
-    plan. Every configuration of configs/base.py fits the limits (ROADMAP
-    C.4)."""
-    for rows, q in ((6, 208), (6, 256)):
+    the guards' 256, a cluster of 8 blocks a camera row, each holding the
+    row's sort keys; 900 anchors x 4 levels taken) and its refusals; H1's
+    bf16 plan (a ring of 2 window stages at C 256 and 4 at C 128, three
+    blocks an SM; an odd level count taken; its refusals) and MSDA-sel's
+    with every level (fp32 H1); H2 on the exact kernel's plan. Every
+    configuration of configs/base.py fits the limits (ROADMAP C.4)."""
+    for rows, q in ((6, 208), (6, 256), (6, 900)):
         plan = tsmp.plan_clamp_priority(rows, q, 8, 4, 8, 8, R50_SHAPES)
-        assert plan.threads == 256 and plan.smem == 0
-        assert plan.grid == (-(-rows * q * 4 // 8), 1)
-        assert list(plan.dims[:8]) == [rows, q, 8, 4, 4, 8, 8, 256]
+        assert plan.threads == 512 and plan.smem == 8 * q * 4
+        assert plan.grid == (8 * rows, 1)
+        assert list(plan.dims[:9]) == [rows, q, 8, 4, 4, 8, 8, 512,
+                                       8 * q * 4]
     for bad in ((6, 208, 16, 4, 8, 8, R50_SHAPES),  # 64 samples an entry
                 (6, 208, 8, 4, 8, 8, R50_SHAPES * 3),  # 12 levels
-                (0, 208, 8, 4, 8, 8, R50_SHAPES)):
+                (0, 208, 8, 4, 8, 8, R50_SHAPES),
+                (6, 2049, 8, 4, 8, 8, R50_SHAPES)):  # 8,196 entries a row
         with pytest.raises(ValueError, match="clamp_priority"):
             tsmp.plan_clamp_priority(*bad)
+    h1 = tsmp.plan_msda_levels(6, 208, 8, 256, R50_SHAPES, 1)
+    assert list(h1.dims[:11]) == [6, 208, 4, 32, 8, 256, 14960, 2, 1, 256,
+                                  h1.smem]
+    assert h1.smem == tsmp._levels_smem(4, 32, 256, 2)
+    assert 3 * (h1.smem + 1024) <= 228 * 1024 < 3 * (
+        tsmp._levels_smem(4, 32, 256, 3) + 1024)
+    assert tsmp.plan_msda_levels(6, 208, 8, 128, R50_SHAPES, 0).dims[7] == 4
+    assert tsmp.plan_msda_levels(6, 208, 8, 256, R50_SHAPES[:3], 0).dims[7] \
+        == 2
+    for bad in ((6, 208, 8, 96, R50_SHAPES, 0), (6, 208, 9, 256,
+                                                 R50_SHAPES, 0),
+                (6, 208, 8, 256, R50_SHAPES, 2),
+                (6, 0, 8, 256, R50_SHAPES, 0),
+                (6, 208, 8, 256, R50_SHAPES * 3, 0)):
+        with pytest.raises(ValueError, match="_msda_patch_levels"):
+            tsmp.plan_msda_levels(*bad)
     two = tsmp.plan_msda_sel(6, 208, 32, 8, 256, 2, 8, 8, torch.bfloat16,
                              R50_SHAPES)
     four = tsmp.plan_msda_sel(6, 208, 32, 8, 256, 4, 8, 8, torch.bfloat16,
@@ -332,6 +439,9 @@ def test_hybrid_planners_and_limits():
                                    4 * h.num_groups, h.num_groups,
                                    h.embed_dims, len(shapes),
                                    *h.msda_patch_hw, dtype, shapes)
+            for layout in (0, 1):
+                tsmp.plan_msda_levels(6, h.allocation_capacity, h.num_groups,
+                                      h.embed_dims, shapes, layout)
 
 
 def test_hybrid_refuses_small_levels_off_the_cpu(monkeypatch):

@@ -445,6 +445,8 @@ def test_every_planner_takes_r101(bs):
         sampling.plan_msda(b, q, 8, 4, 256, R101_SHAPES)
         sampling.plan_msda_backward(b, q, 8, 4, 256, R101_SHAPES)
         sampling.plan_clamp_priority(b, q, 8, 4, 8, 8, R101_SHAPES)
+        for layout in (0, 1):  # H1 (bf16) in either layout
+            sampling.plan_msda_levels(b, q, 8, 256, R101_SHAPES, layout)
 
 
 # ------------------------------------------------------------ data
