@@ -159,7 +159,8 @@ Phases, each printing one JSON line:
              per-level windows, `msda_levels_tc_kernel`, in the hybrid's
              layout and once in msda_patch's; fp32 MSDA-sel's CUDA-core
              kernel with every level) within SAMPLING_TOL's fp32 share,
-             H2 (`msda_hybrid_exact`, the exact lane added in place)
+             H2 (`msda_hybrid_exact`: `msda_hybrid_kernel`, the exact
+             lane added in place)
              within EXACT_TOL and H3's two instances bit for bit (the
              op's `hybrid_selection`: mask and zeroed weights; the
              guards' `msda_clamp_demand`: counts) against their plain
@@ -168,14 +169,17 @@ Phases, each printing one JSON line:
              at and over the capacity, a tie on its boundary, samples
              past the windows and at and beyond the borders, padded
              slots among the corrected entries, the guards' 256 slots
-             with padded and invalid ones, 207 queries), each launched
-             twice (bit-identical), timed as in phase 6 (H2 in place), H2
-             beside the grid_sample chain over its entries, each H3
-             instance beside one empty launch (its latency floor) and, on
-             the frame's calls, beside the chain it replaced
-             (`clamp_chain`: the priority kernel kept as its yardstick
-             and the eager selection, zeroing and permuted copies, or the
-             eager count; the same outputs, `chain_ms`);
+             with padded and invalid ones, 207 queries; for H2 also a
+             sparse lane, about 5 % of a row's entries corrected), each
+             launched twice (bit-identical), timed as in phase 6 (H2 in
+             place), H2 beside the grid_sample chain over its entries,
+             with each case's corrected entries and marked queries
+             (`exact_lane` lines) and, on one frame call, its probes
+             (no entry marked; every entry marked, with the frame's
+             samples, with every sample at one point and spread over the
+             levels: what sets its time), each
+             H3 instance and the sparse H2 case beside one empty launch
+             (its latency floor);
              `msda_hybrid` on the card
              against `msda_hybrid_plain` at demand under, at and over the
              capacity and at a tie on its boundary (the corrected entries
@@ -1794,7 +1798,8 @@ def hybrid_cases(torch, dtype, gen, dev="cuda"):
     beyond the borders, padded slots (location 0) among the corrected
     entries; H1 in the hybrid's layout and, once, in msda_patch's; H3's
     guards' instance on the 256 uncompacted slots with padded and invalid
-    slots, and on every op case; a ragged 207 queries. Query 0 of every
+    slots, and on every op case; H2 with about 5 % of the entries
+    corrected; a ragged 207 queries. Query 0 of every
     case has a clamped level 0, a corrected entry and weight on its last
     level, so that a fault planted on it shows on each case."""
     from simpb_tpu_torch.ops import sampling
@@ -1847,6 +1852,15 @@ def hybrid_cases(torch, dtype, gen, dev="cuda"):
         cases.append((f"exact_lane_{label}", "msda_hybrid_exact",
                       (value, ss, loc, attw, sel.contiguous(), sampled,
                        wsum)))
+    # H2 in the trained-checkpoint regime: about 5 % of a row's 832
+    # entries corrected (its top 42), query 0's level 0 among them
+    loc, attw = hybrid_inputs(torch, gen, 208, 0.01, dev)
+    sel = sampling.hybrid_selection_plain(ss, loc, attw, 8, 8, 42)[0]
+    sel[:, 0, 0] = True
+    cases.append(("exact_lane_sparse", "msda_hybrid_exact", (
+        value, ss, loc, attw, sel.contiguous(),
+        torch.randn(6, 208, 8, 256, generator=gen, device=dev),
+        torch.rand(6, 208, 8, generator=gen, device=dev))))
     # the guards' call: 256 uncompacted slots, padded and invalid ones
     loc, attw = hybrid_inputs(torch, gen, 256, 0.01, dev)
     loc[:, 200:] = 0.0  # padded slots
@@ -1941,59 +1955,6 @@ def hybrid_library(name, args):
                              attw * sel[:, :, None, :, None].float())
 
 
-def clamp_chain(torch, name, args):
-    """The chain an H3 instance replaces, as the hybrid ran it before it
-    (a callable returning the instance's outputs): the priority kernel,
-    kept in csrc/sampling.cu as this yardstick (`simpb_clamp_priority`: a
-    warp an entry, the priorities [B, Q * L] written out), then for the
-    op the eager selection (`_hybrid_selection`: a stable sort, a slice,
-    zeros, a compare, a scatter), the weights zeroed (a not, a cast, a
-    multiply) and the two copies that permuted the locations and weights
-    into the windowed lane's layout (returned as the zeroed weights in
-    the op's layout and the copies); for the guards the eager count (a
-    compare, an and, a sum, a cast)."""
-    import ctypes
-
-    from simpb_tpu_torch.ops import _kernels, sampling
-
-    ss, loc = args[:2]
-    attw = args[2] if name == "clamp_select" else None
-    ph, pw = args[3:5] if name == "clamp_select" else args[2:4]
-    b, q, heads, levels, points = loc.shape[:5]
-    dims = _kernels.int_array([b, q, heads, levels, points, ph, pw, 256]
-                              + sampling._level_table(ss.shapes))
-    lib = _kernels.load("sampling")
-
-    def prio():
-        out = torch.empty((b, q * levels), dtype=torch.float32,
-                          device=loc.device)
-        _kernels.check(lib.simpb_clamp_priority(
-            _kernels.ptr(loc), _kernels.ptr(attw), _kernels.ptr(out), dims,
-            ctypes.c_void_p(_kernels.stream_ptr(out))), "clamp chain")
-        return out
-
-    if name == "clamp_select":
-        k_cap = args[5]
-
-        def chain():
-            sel = sampling._hybrid_selection(prio(), k_cap).reshape(
-                b, q, levels)
-            w = attw * (~sel)[:, :, None, :, None].to(attw.dtype)
-            n = heads * points
-            loc.permute(0, 1, 3, 2, 4, 5).reshape(b, q, levels, n, 2)
-            w.permute(0, 1, 3, 2, 4).reshape(b, q, levels, n)
-            return sel, w
-        return chain
-    valid = args[4]
-
-    def chain():
-        c = prio().reshape(b, q, levels) > 0
-        if valid is not None:
-            c = c & valid[:, :, None]
-        return c.sum((1, 2)).float()
-    return chain
-
-
 def launch_floor_ms(torch):
     """Device ms of one launch that does nothing (`torch.cuda._sleep(0)`):
     the floor a latency-bound launch cannot go below."""
@@ -2002,11 +1963,12 @@ def launch_floor_ms(torch):
 
 def hold_hybrid(torch, cases, summary, frame_label):
     """H1, H2 and H3's instances on `cases` ((label, name, args)) through
-    `hold_case` at HYBRID_TOL (H2 timed in place on scratch copies);
+    `hold_case` at HYBRID_TOL (H2 timed in place on scratch copies, its
+    corrected entries and marked queries beside its time in an
+    `exact_lane` line, kept in summary["msda_hybrid_exact"]["lanes"]);
     each kernel's largest error into `summary`, and the times and bounds
     of the cases whose label starts with `frame_label` (one frame's
-    calls). On those, each H3 instance's replaced chain (`clamp_chain`)
-    gives the same outputs and is timed on the device (`chain_ms`)."""
+    calls)."""
     from simpb_tpu_torch.ops import sampling
 
     wrappers = hybrid_wrappers()
@@ -2021,23 +1983,49 @@ def hold_hybrid(torch, cases, summary, frame_label):
                          library=hybrid_library(name, args), timed=timed)
         s = summary[name]
         s["max_abs_err"] = max([s["max_abs_err"]] + line["max_abs_err"])
-        if not label.startswith(frame_label):
-            continue
-        add_frame_call(summary, line)
-        if name.startswith("clamp_"):
-            chain = clamp_chain(torch, name, args)
-            got, ref = wrapper(*args), chain()
-            same = all(torch.equal(g, r) for g, r in zip(
-                got if isinstance(got, tuple) else (got,),
-                ref if isinstance(ref, tuple) else (ref,)))
-            ms = device_ms(chain)
-            s["chain_ms"] = s.get("chain_ms", 0.0) + ms
-            emit(dict(phase="hybrid_chain", case=label, name=name,
-                      chain_device_ms=ms, device_ms=line["device_ms"],
-                      same_outputs=same))
-            if not same:
-                raise AssertionError(f"{label}: the replaced chain's "
-                                     "outputs differ from the kernel's")
+        if name == "msda_hybrid_exact":
+            sel = args[4]
+            lane = dict(phase="exact_lane", case=label,
+                        dtype=line["dtype"],
+                        corrected_entries=int(sel.sum().item()),
+                        entries=sel.numel(),
+                        marked_queries=int(sel.any(-1).sum().item()),
+                        queries=sel.shape[0] * sel.shape[1],
+                        device_ms=line["device_ms"],
+                        bound_ms=line["bound_ms"])
+            emit(lane)
+            s.setdefault("lanes", {})[f"{label}_{line['dtype']}"] = lane
+        if label.startswith(frame_label):
+            add_frame_call(summary, line)
+
+
+def exact_lane_probes(torch, args):
+    """H2's device ms on one call's shapes: with its own inputs; with no
+    entry marked (the launch and the items returning at once); with every
+    entry marked (every item walks every level); every entry marked with
+    every sample at the image's centre (the corner rows stay in L1: the
+    loads' floor) and with the samples spread uniformly over each level
+    (no reuse: every corner row from L2 or HBM): what sets H2's time
+    (PERF.md §6)."""
+    from simpb_tpu_torch.ops import sampling
+
+    value, ss, loc, attw, sel, sampled, wsum = args
+    gen = torch.Generator(device=loc.device).manual_seed(7)
+    every = torch.ones_like(sel)
+    centre = (0.5 + 1e-3 * torch.rand(loc.shape, generator=gen,
+                                      device=loc.device)).contiguous()
+    spread = torch.rand(loc.shape, generator=gen,
+                        device=loc.device).contiguous()
+    out = {}
+    for key, l_, mask in (("call", loc, sel),
+                          ("none_marked", loc, torch.zeros_like(sel)),
+                          ("all_marked", loc, every),
+                          ("all_marked_rows_in_l1", centre, every),
+                          ("all_marked_rows_spread", spread, every)):
+        s_, w_ = sampled.clone(), wsum.clone()
+        out[key] = device_ms(lambda: sampling.msda_hybrid_exact(
+            value, ss, l_, attw, mask, s_, w_))
+    return out
 
 
 def positional(fn, args, kwargs):
@@ -2061,15 +2049,16 @@ def phase_hybrid_kernels(torch, calls, launches):
     """H1, H2 and H3's instances against their plain versions on the
     hybrid config's recorded last-frame calls and on `hybrid_cases` in
     fp32 and bf16, each launched twice (the repeats bit-identical), timed
-    as in phase 6 (H2 in place on scratch copies), H3 beside its replaced
-    chain; then `msda_hybrid` on the card against `msda_hybrid_plain` at
-    demand under, at and over the capacity and at a tie on its boundary
-    (the corrected entries equal), and on the recorded calls at a
-    capacity covering every entry against the exact MSDA kernel (the
-    largest error printed, held at HYBRID_EXACT_TOL). Returns the
-    kernels' entries of the kernels line: launches of the hybrid's
-    frames, ms / device / plain / bound / chain summed over one frame's
-    calls."""
+    as in phase 6 (H2 in place on scratch copies; its probes on the
+    first frame call, `exact_lane_probes`); then `msda_hybrid` on the
+    card against `msda_hybrid_plain` at demand under, at and over the
+    capacity and at a tie on its boundary (the corrected entries equal),
+    and on the recorded calls at a capacity covering every entry against
+    the exact MSDA kernel (the largest error printed, held at
+    HYBRID_EXACT_TOL). Returns the kernels' entries of the kernels line:
+    launches of the hybrid's frames, ms / device / plain / bound summed
+    over one frame's calls; H2's with its probes and its sparse case
+    beside the empty-launch floor."""
     from simpb_tpu_torch.ops import sampling
 
     main = "simpb_r50_704x256_hybrid"
@@ -2082,6 +2071,10 @@ def phase_hybrid_kernels(torch, calls, launches):
     hold_hybrid(torch, cases, summary, main + "_call")
     floor = launch_floor_ms(torch)
     emit(dict(phase="hybrid_floor", launch_floor_device_ms=floor))
+    probes = exact_lane_probes(torch, next(
+        a for _, n, a in cases if n == "msda_hybrid_exact"))
+    emit(dict(phase="exact_lane_probes", case=f"{main}_call",
+              device_ms=probes))
 
     # the op on the card against its plain version, the selection equal
     from simpb_tpu_torch.ops.format import SpatialShapes
@@ -2144,21 +2137,19 @@ def phase_hybrid_kernels(torch, calls, launches):
                 raise AssertionError(f"hybrid against exact MSDA: {errs}")
     rows = {}
     for name in HYBRID_KERNELS:
-        rows[name] = hybrid_row(name, tpu[name], launches[main][name],
+        rows[name] = kernel_row(name, tpu[name], launches[main][name],
                                 summary[name])
     for name in ("clamp_select", "clamp_demand"):
         rows[name]["launch_floor_device_ms"] = floor
-    rows["msda_hybrid_exact"]["hybrid_vs_exact_max_share"] = worst
+    h2 = rows["msda_hybrid_exact"]
+    h2["hybrid_vs_exact_max_share"] = worst
+    h2["probes_device_ms"] = probes
+    lanes = summary["msda_hybrid_exact"]["lanes"]
+    h2["sparse"] = {d: dict(launch_floor_device_ms=floor, **{
+        k: lanes[f"exact_lane_sparse_{d}"][k] for k in (
+            "device_ms", "bound_ms", "corrected_entries",
+            "marked_queries")}) for d in ("float32", "bfloat16")}
     return rows
-
-
-def hybrid_row(name, tpu, launches, s):
-    """A hybrid kernel's entry of the kernels line: `kernel_row`, with
-    H3's replaced chain (`chain_ms`)."""
-    row = kernel_row(name, tpu, launches, s)
-    if "chain_ms" in s:
-        row["chain_ms"] = s["chain_ms"]
-    return row
 
 
 def phase_hybrid_bench(torch):
@@ -2334,7 +2325,7 @@ def phase_r101(torch):
                 "day0-r101_call")
     del rec
     free_cuda(torch)
-    return out, {n: r101_entry(hybrid_row(n, tpu[n], out["day0-r101"][n],
+    return out, {n: r101_entry(kernel_row(n, tpu[n], out["day0-r101"][n],
                                           summary[n]))
                  for n in HYBRID_KERNELS}
 

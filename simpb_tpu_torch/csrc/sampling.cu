@@ -14,7 +14,7 @@
 //   msda_levels_tc_kernel (H1; fp32 values: msda_sel_kernel with every
 //       level)                   <- msda_patch's all-level loop (:718,
 //       called at :1125 with sel_levels=None)
-//   msda_kernel<..., HYB> (H2)   <- msda_hybrid's exact lane and its
+//   msda_hybrid_kernel (H2)      <- msda_hybrid's exact lane and its
 //       scatter back (:1132-1209)
 //   clamp_select_kernel, clamp_demand_kernel (H3)
 //                                <- _lost_weights (:208) as msda_hybrid's
@@ -2451,14 +2451,6 @@ __device__ __forceinline__ void msda_corners(float lx, float ly, int h, int w,
   rows = make_int4(r0 + xc0, r0 + xc1, r1 + xc0, r1 + xc1);
 }
 
-// The exact kernel's warp barrier: the warp's, or (HYB, whose half-warps
-// walk different counts of samples) this half-warp's.
-template <bool HALF>
-__device__ __forceinline__ void half_sync() {
-  if (HALF) __syncwarp(0xffffu << (threadIdx.x & 16));
-  else __syncwarp();
-}
-
 // bf16 pairs with one rounding each, written out so that nothing fuses:
 // a product of two bf16 values is exact in fp32, and a bf16 sum rounded
 // once equals torch's fp32 sum rounded to bf16 (double rounding through
@@ -2539,27 +2531,13 @@ __device__ __forceinline__ void msda_bilinear<bf16>(
 // beside it (PERF.md): U 2 (more rows in flight: no faster), MODE 1
 // loads the corner rows and skips the arithmetic (each row word still
 // feeds the sums), MODE 2 does the arithmetic on rows it does not load.
-//
-// HYB: kernel H2, msda_hybrid's exact correction lane (it replaces the
-// exact lane of simpb_tpu/ops/sampling.py::msda_hybrid, :1132-1185, and
-// its one-hot scatter back, :1189-1209). `sel` [B, Q, L] marks the
-// (camera row, query, level) entries the selection corrects; an item
-// walks the samples of its query's marked levels only, level by level in
-// level order, and adds each level's exact sum (its points' weighted
-// samples, and attention x mass) into H1's sampled and wsum in place.
-// An item with no marked level returns at once: the windowed lane's
-// sums stand. Each item owns its row of sampled and wsum, so there are
-// no atomics and repeats are bit-identical; the half-warps of a warp
-// may walk different counts of samples, so they synchronise apart. (Its
-// fp32 instance takes one block an SM: at two it spills.)
-template <typename T, int U = 1, int MODE = 0, bool HYB = false>
-__global__ void __launch_bounds__(MX_NT, HYB && sizeof(T) == 4 ? 1 : 2)
+template <typename T, int U = 1, int MODE = 0>
+__global__ void __launch_bounds__(MX_NT, 2)
 msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
             const float* __restrict__ attw,
             const __grid_constant__ MsdaExactArgs g,
             const __grid_constant__ Levels lv, float* __restrict__ sampled,
-            float* __restrict__ wsum,
-            const unsigned char* __restrict__ sel = nullptr) {
+            float* __restrict__ wsum) {
   __shared__ float4 sCw[MX_ITEMS][16];
   __shared__ int4 sRow[MX_ITEMS][16];
   __shared__ float sA[MX_ITEMS][16];
@@ -2567,19 +2545,11 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   const long long items = (long long)g.B * g.Q * g.heads;
   const long long item = (long long)blockIdx.x * MX_ITEMS + hw;
   const long long bqh = item < items ? item : items - 1;
-  const int packs = g.C / 8;
-  int S = g.L * g.P;
-  unsigned marked = 0;  // HYB: the levels to correct, a bit a level
-  if (HYB) {
-    const unsigned char* sq = sel + bqh / g.heads * g.L;
-    for (int l = 0; l < g.L; ++l) marked |= (sq[l] ? 1u : 0u) << l;
-    S = __popc(marked) * g.P;
-    if (!S) return;
-  }
+  const int packs = g.C / 8, S = g.L * g.P;
   const float* lq = loc + bqh * g.L * g.P * 2;
   const float* aq = attw + bqh * g.L * g.P;
   const T* vrow = value + bqh / ((long long)g.Q * g.heads) * g.T * g.C;
-  float wsum_h = HYB ? wsum[bqh] : 0.f;
+  float wsum_h = 0.f;
   for (int pk0 = 0; pk0 < packs; pk0 += 16 * MX_PACKS) {
     bool on[MX_PACKS];
     float acc[MX_PACKS][8], lacc[MX_PACKS][8];
@@ -2588,28 +2558,14 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       on[i] = pk0 + j + 16 * i < packs;
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[i][c] = lacc[i][c] = 0.f;
-      if (HYB && on[i]) {
-        const float4* src = reinterpret_cast<const float4*>(
-            sampled + bqh * g.C + (pk0 + j + 16 * i) * 8);
-        const float4 a0 = src[0], a1 = src[1];
-        acc[i][0] = a0.x; acc[i][1] = a0.y; acc[i][2] = a0.z;
-        acc[i][3] = a0.w; acc[i][4] = a1.x; acc[i][5] = a1.y;
-        acc[i][6] = a1.z; acc[i][7] = a1.w;
-      }
     }
     float lw = 0.f;
     int p = 0;
     for (int s0 = 0; s0 < S; s0 += 16) {
       const int n = min(16, S - s0);
-      half_sync<HYB>();  // the previous group is read
+      __syncwarp();  // the previous group is read
       if (j < n) {
-        int s = s0 + j, l = s / g.P;
-        if (HYB) {  // the (s / P)-th marked level, its point s % P
-          int k = l;
-          for (l = 0; l < g.L; ++l)
-            if (((marked >> l) & 1u) && k-- == 0) break;
-          s = l * g.P + s % g.P;
-        }
+        const int s = s0 + j, l = s / g.P;
         float4 cw;
         int4 cr;
         msda_corners<T>(lq[2 * s], lq[2 * s + 1], lv.h[l], lv.w[l],
@@ -2618,7 +2574,7 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         sRow[hw][j] = cr;
         sA[hw][j] = aq[s];
       }
-      half_sync<HYB>();
+      __syncwarp();
       for (int t = 0; t < n; t += U) {
         Row8<T> v[U][MX_PACKS][4];
 #pragma unroll
@@ -2701,14 +2657,195 @@ bool msda_takes(const MsdaExactArgs& g, const Levels& lv, int threads) {
          g.P >= 1 && g.L == lv.n && threads == MX_NT && g.B * g.Q >= 1;
 }
 
+// --------------------------------------------------- hybrid exact lane
+// Kernel H2, msda_hybrid's exact correction lane. It replaces the exact
+// lane of simpb_tpu/ops/sampling.py::msda_hybrid (:1132-1185) and its
+// one-hot scatter back (:1189-1209). `sel` [B, Q, L] (uint8) marks the
+// (camera row, query, level) entries the selection corrects. For each
+// (row, query, head) item of a query with a marked level, it adds each
+// marked level's exact sum, in level order, into H1's sampled [B, Q,
+// heads, C] and wsum [B, Q, heads] (fp32) in place: the level's points'
+// bilinear samples weighted by attention, summed in point order in fp32
+// with msda_kernel's roundings (msda_corners, msda_bilinear; the same
+// bits as msda_kernel's sums), and attention x in-image mass. Items with
+// no marked level return at once: the windowed lane's sums stand.
+// Bound: bytes, the corrected queries' rows of sampled and wsum read and
+// written (16 KB a query at 8 heads x 256 channels) and each distinct
+// corner row once. What sets its time on the card is the exact
+// forward's: a corner row (512 bytes in bf16) loaded per sample and
+// corner, then the sample's arithmetic, in series in each half-warp;
+// with every row in L1 a frame call's work takes 9 % less, with the
+// samples spread over the levels 55 % more (PERF.md §6). A
+// persistent grid whose warps walk static shares of the marked items
+// was tried first and lost: a warp's items run one after the other, so
+// the warp with the most sets the time, where the hardware's block
+// scheduler balances short blocks. So the grid stays a block a query
+// (HX_NT / 16 items), each item a half-warp (a lane two packs of 8
+// channels, one sample's corner rows in flight, msda_kernel's engine),
+// and the item's chain is cut:
+// - the level mask (its L bytes loaded at once) and sample j's location
+//   and weight (lane j, the item's first 16 samples, before the mask is
+//   known) go out together, one round trip; lane k then takes its
+//   sample of the walk from lane l * P + p by a shuffle;
+// - lane k places sample k's corner weights, its corner rows (-1 for a
+//   corner of weight 0, which is not read) and attention x mass in the
+//   half-warp's shared memory, so a sample costs the other lanes its
+//   loads and its arithmetic only;
+// - a block is one query's heads at 8 heads: 4 blocks an SM (bf16),
+//   16 warps, and an empty query frees its block at once; fp32 runs 2
+//   blocks an SM (its registers) without spilling.
+// Each item owns its rows of sampled and wsum: no atomics, and repeats
+// are bit-identical.
+constexpr int HX_NT = 128;  // threads of an H2 block: 8 items
+constexpr int HX_ITEMS = HX_NT / 16;
+
+template <typename T>
+__global__ void __launch_bounds__(HX_NT, sizeof(T) == 2 ? 4 : 2)
+msda_hybrid_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                   const float* __restrict__ attw,
+                   const unsigned char* __restrict__ sel,
+                   const __grid_constant__ MsdaExactArgs g,
+                   const __grid_constant__ Levels lv,
+                   float* __restrict__ sampled, float* __restrict__ wsum) {
+  __shared__ float4 sW[HX_ITEMS][16];  // a sample's corner weights
+  __shared__ int4 sRow[HX_ITEMS][16];  // its corner rows (-1: not read)
+  __shared__ float2 sA[HX_ITEMS][16];  // its attention, attention x mass
+  const int hw = threadIdx.x >> 4, j = threadIdx.x & 15;
+  const unsigned half = 0xffffu << (threadIdx.x & 16);
+  const long long items = (long long)g.B * g.Q * g.heads;
+  const long long item = (long long)blockIdx.x * HX_ITEMS + hw;
+  const long long bqh = item < items ? item : items - 1;
+  const int LP = g.L * g.P, packs = g.C / 8;
+  const float* lq = loc + bqh * LP * 2;
+  const float* aq = attw + bqh * LP;
+  const unsigned char* sq = sel + bqh / g.heads * g.L;
+  unsigned marked = 0;
+#pragma unroll
+  for (int l = 0; l < MAX_LEVELS; ++l)
+    if (l < g.L) marked |= (sq[l] ? 1u : 0u) << l;
+  float x0 = 0.f, y0 = 0.f, a0 = 0.f;
+  if (j < LP) {
+    x0 = lq[2 * j];
+    y0 = lq[2 * j + 1];
+    a0 = aq[j];
+  }
+  const int S = __popc(marked) * g.P;  // the walk: marked levels' points
+  if (!S) return;
+  const T* vrow = value + bqh / ((long long)g.Q * g.heads) * g.T * g.C;
+  float wsum_h = wsum[bqh];
+  for (int pk0 = 0; pk0 < packs; pk0 += 16 * MX_PACKS) {
+    bool on[MX_PACKS];
+    float acc[MX_PACKS][8], lacc[MX_PACKS][8];
+#pragma unroll
+    for (int i = 0; i < MX_PACKS; ++i) {
+      on[i] = pk0 + j + 16 * i < packs;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = lacc[i][c] = 0.f;
+      if (on[i]) {
+        const float4* src = reinterpret_cast<const float4*>(
+            sampled + bqh * g.C + (pk0 + j + 16 * i) * 8);
+        const float4 p0 = src[0], p1 = src[1];
+        acc[i][0] = p0.x; acc[i][1] = p0.y; acc[i][2] = p0.z;
+        acc[i][3] = p0.w; acc[i][4] = p1.x; acc[i][5] = p1.y;
+        acc[i][6] = p1.z; acc[i][7] = p1.w;
+      }
+    }
+    float lw = 0.f;
+    int p = 0;
+    for (int s0 = 0; s0 < S; s0 += 16) {
+      // lane j's sample of the walk, s0 + j: its index s = l * P + p
+      // among the item's samples, from lane s where s < 16
+      const int k = s0 + j;
+      int n = k / g.P, l = 0;  // the n-th marked level
+      for (; l < g.L; ++l)
+        if (((marked >> l) & 1u) && n-- == 0) break;
+      const int s = l * g.P + k % g.P;
+      float x = x0, y = y0, a = a0;
+      if (LP <= 16) {
+        x = __shfl_sync(half, x0, s, 16);
+        y = __shfl_sync(half, y0, s, 16);
+        a = __shfl_sync(half, a0, s, 16);
+      } else if (k < S) {
+        x = lq[2 * s];
+        y = lq[2 * s + 1];
+        a = aq[s];
+      }
+      __syncwarp(half);  // the previous group is read
+      if (k < S) {
+        float4 cw;
+        int4 cr;
+        msda_corners<T>(x, y, lv.h[l], lv.w[l], lv.start[l], cw, cr);
+        sW[hw][j] = cw;
+        sRow[hw][j] = make_int4(cw.z != 0.f && cw.x != 0.f ? cr.x : -1,
+                                cw.z != 0.f && cw.y != 0.f ? cr.y : -1,
+                                cw.w != 0.f && cw.x != 0.f ? cr.z : -1,
+                                cw.w != 0.f && cw.y != 0.f ? cr.w : -1);
+        // in-image bilinear mass (wx0 + wx1)(wy0 + wy1), sums in T
+        const float mass = __fmul_rn(R<T>(__fadd_rn(cw.x, cw.y)),
+                                     R<T>(__fadd_rn(cw.z, cw.w)));
+        sA[hw][j] = make_float2(a, __fmul_rn(a, mass));
+      }
+      __syncwarp(half);
+      const int ns = min(16, S - s0);
+      for (int t = 0; t < ns; ++t) {
+        const int4 r = sRow[hw][t];
+        const int rr[4] = {r.x, r.y, r.z, r.w};
+        Row8<T> v[MX_PACKS][4];
+#pragma unroll
+        for (int i = 0; i < MX_PACKS; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            v[i][c].zero();
+            if (on[i] && rr[c] >= 0)
+              v[i][c].load(vrow + (long long)rr[c] * g.C +
+                           (pk0 + j + 16 * i) * 8);
+          }
+        const float4 w = sW[hw][t];
+        const float2 am = sA[hw][t];
+#pragma unroll
+        for (int i = 0; i < MX_PACKS; ++i) {
+          float smp[8], vx0[8], vx1[8];
+          msda_bilinear<T>(smp, vx0, vx1, w, v[i]);
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            lacc[i][c] = __fadd_rn(lacc[i][c], __fmul_rn(smp[c], am.x));
+        }
+        lw = __fadd_rn(lw, am.y);
+        if (++p == g.P) {  // a level ends
+          p = 0;
+#pragma unroll
+          for (int i = 0; i < MX_PACKS; ++i)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              acc[i][c] = __fadd_rn(acc[i][c], lacc[i][c]);
+              lacc[i][c] = 0.f;
+            }
+          wsum_h = pk0 ? wsum_h : __fadd_rn(wsum_h, lw);
+          lw = 0.f;
+        }
+      }
+    }
+    if (item < items) {
+#pragma unroll
+      for (int i = 0; i < MX_PACKS; ++i)
+        if (on[i]) store8(sampled + bqh * g.C + (pk0 + j + 16 * i) * 8,
+                          acc[i]);
+    }
+  }
+  if (j == 0 && item < items) wsum[bqh] = wsum_h;
+}
+
 template <typename T>
 int launch_msda_hybrid(const void* value, const float* loc,
                        const float* attw, const unsigned char* sel,
                        float* sampled, float* wsum, const MsdaExactArgs& g,
                        const Levels& lv, int threads, cudaStream_t st) {
-  if (!msda_takes(g, lv, threads)) return (int)cudaErrorInvalidValue;
-  msda_kernel<T, 1, 0, true><<<msda_blocks(g), MX_NT, 0, st>>>(
-      (const T*)value, loc, attw, g, lv, sampled, wsum, sel);
+  if (!msda_takes(g, lv, MX_NT) || threads != HX_NT)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)g.B * g.Q * g.heads;
+  msda_hybrid_kernel<T>
+      <<<(int)((items + HX_ITEMS - 1) / HX_ITEMS), HX_NT, 0, st>>>(
+          (const T*)value, loc, attw, sel, g, lv, sampled, wsum);
   return (int)cudaGetLastError();
 }
 
@@ -2764,14 +2901,9 @@ int launch_msda(const void* value, const float* loc, const float* attw,
 // Both are bound by their latency: the row's loads (12 bytes a sample),
 // the shuffle trees, the cluster's barriers and, for the op, the ranks'
 // counting (Q x L keys an entry).
-// `clamp_prio_kernel` (a warp an entry, 8 a block, the priorities [B, Q *
-// L] written out for an eager selection after it) is the first link of
-// the chain the two instances replace; it runs on no path and stays as
-// chip_smoke's yardstick for them.
 struct ClampArgs {
   int B, Q, heads, L, P, ph, pw;
 };
-constexpr int CP_NT = 256;  // eight entries a block
 
 // The clamp flag of this lane's sample of an entry at level l (`in`: the
 // lane holds a sample, at location (lx, ly)): in the image and losing
@@ -2822,45 +2954,6 @@ __device__ __forceinline__ bool clamp_entry(float lx, float ly, bool in,
     }
   }
   return in && __fmul_rn(lost, keep ? 1.f : 0.f) > 0.f;
-}
-
-__global__ void __launch_bounds__(CP_NT)
-clamp_prio_kernel(const float* __restrict__ loc,
-                  const float* __restrict__ attw, ClampArgs g, Levels lv,
-                  float* __restrict__ prio) {
-  const int lane = threadIdx.x & 31;
-  const long long e =
-      (long long)blockIdx.x * (CP_NT / 32) + (threadIdx.x >> 5);
-  if (e >= (long long)g.B * g.Q * g.L) return;  // a whole warp
-  const int l = (int)(e % g.L), n = g.heads * g.P;
-  const long long bq = e / g.L;
-  float lx = 0.f, ly = 0.f, a = 0.f;
-  if (lane < n) {
-    const int hh = lane / g.P, pt = lane - hh * g.P;
-    const long long s = ((bq * g.heads + hh) * g.L + l) * g.P + pt;
-    lx = loc[2 * s];
-    ly = loc[2 * s + 1];
-    a = attw ? attw[s] : 1.f;
-  }
-  const bool flag = clamp_entry(lx, ly, lane < n, l, lv, g.ph, g.pw);
-  float t = __fmul_rn(flag ? 1.f : 0.f, a);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, o));
-  const bool any = __any_sync(0xffffffffu, flag);
-  if (lane == 0) prio[e] = any ? __fadd_rn(t, 1e-6f) : 0.f;
-}
-
-int launch_clamp_prio(const float* loc, const float* attw, float* prio,
-                      const ClampArgs& g, const Levels& lv, int threads,
-                      cudaStream_t st) {
-  const long long entries = (long long)g.B * g.Q * g.L;
-  if (threads != CP_NT || g.heads * g.P > 32 || g.heads < 1 || g.P < 1 ||
-      g.L != lv.n || g.ph < 1 || g.pw < 1 || entries < 1)
-    return (int)cudaErrorInvalidValue;
-  clamp_prio_kernel<<<(int)((entries + CP_NT / 32 - 1) / (CP_NT / 32)),
-                      CP_NT, 0, st>>>(loc, attw, g, lv, prio);
-  return (int)cudaGetLastError();
 }
 
 constexpr int CS_NT = 512;  // threads of an H3 block: 16 warps
@@ -3889,7 +3982,7 @@ Levels read_levels(int L, const int* d) {
 }
 
 // H1's dims (simpb_msda_levels) and H3's (simpb_clamp_select,
-// simpb_clamp_demand, simpb_clamp_priority) as arguments.
+// simpb_clamp_demand) as arguments.
 LevelsArgs levels_args(const int* dims) {
   LevelsArgs g;
   g.B = dims[0]; g.Q = dims[1]; g.heads = dims[4]; g.C = dims[5];
@@ -3987,7 +4080,7 @@ int simpb_msda(const void* value, const void* loc, const void* attw,
 
 // Kernel H2, msda_hybrid's exact lane: adds the exact samples of the
 // (row, query, level) entries `sel` [B, Q, L] (uint8) marks into sampled
-// and wsum in place; dims as simpb_msda's.
+// and wsum in place; dims as simpb_msda's, threads HX_NT.
 int simpb_msda_hybrid(const void* value, const void* loc, const void* attw,
                       const void* sel, void* sampled, void* wsum,
                       const int* dims, int dtype, void* stream) {
@@ -3999,11 +4092,12 @@ int simpb_msda_hybrid(const void* value, const void* loc, const void* attw,
   const float* l = (const float*)loc;
   const float* a = (const float*)attw;
   const unsigned char* m = (const unsigned char*)sel;
-  return dtype ? launch_msda_hybrid<bf16>(value, l, a, m, (float*)sampled,
-                                          (float*)wsum, g, lv, dims[7], st)
-               : launch_msda_hybrid<float>(value, l, a, m, (float*)sampled,
-                                           (float*)wsum, g, lv, dims[7],
-                                           st);
+  return dtype ? launch_msda_hybrid<bf16>(
+                     value, l, a, m, (float*)sampled, (float*)wsum, g, lv,
+                     dims[7], st)
+               : launch_msda_hybrid<float>(
+                     value, l, a, m, (float*)sampled, (float*)wsum, g, lv,
+                     dims[7], st);
 }
 
 // Kernel H1 for bf16 values: dims B, Q, L, n, heads, C, T, stages,
@@ -4049,19 +4143,6 @@ int simpb_clamp_demand(const void* loc, const void* valid, void* demand,
   return launch_clamp_demand((const float*)loc, (const unsigned char*)valid,
                              (float*)demand, g, lv, dims[7],
                              (cudaStream_t)stream);
-}
-
-// The chain's first link, chip_smoke's yardstick for H3 (no path runs
-// it): the priorities prio [B, Q * L]; dims B, Q, heads, L, P, ph, pw,
-// threads (CP_NT), then the L level heights, widths and start rows; attw
-// may be NULL (a lost sample weighs 1).
-int simpb_clamp_priority(const void* loc, const void* attw, void* prio,
-                         const int* dims, void* stream) {
-  const ClampArgs g = clamp_args(dims);
-  const Levels lv = read_levels(dims[3], dims + 8);
-  return launch_clamp_prio((const float*)loc, (const float*)attw,
-                           (float*)prio, g, lv, dims[7],
-                           (cudaStream_t)stream);
 }
 
 // The exact MSDA kernel's probes (bf16 values only; see msda_kernel):

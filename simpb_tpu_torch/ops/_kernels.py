@@ -94,8 +94,6 @@ SIGNATURES = {
         "simpb_clamp_select": ((P,) * 5 + (I, P), I),
         # loc, valid (or NULL), demand, dims, stream (H3, the guards')
         "simpb_clamp_demand": ((P,) * 4 + (P,), I),
-        # loc, attw (or NULL), prio, dims, stream (chip_smoke's yardstick)
-        "simpb_clamp_priority": ((P,) * 4 + (P,), I),
         # col, points, weights, thresholds, grad out, grad col, grad
         # points, grad weights, scratch, dims, strides, dtype, stages,
         # stream

@@ -44,8 +44,8 @@ lives in this module, so it holds even while a caller has rebound a
 wrapper's name to record or reroute its calls.
 
 The launch of each comes from a cached planner, `plan_dfa`,
-`plan_msda_sel`, `plan_msda`, `plan_msda_levels` and
-`plan_clamp_priority`: grid, threads,
+`plan_msda_sel`, `plan_msda`, `plan_msda_levels`, `plan_msda_hybrid`
+and `plan_clamp_priority`: grid, threads,
 shared memory and the host int array
 the C entry reads, built once per shape; a shape the kernels do not take
 raises `ValueError`. bf16 values of MSDA-sel run on the tensor cores,
@@ -1801,14 +1801,39 @@ def msda_hybrid_exact_plain(value, spatial_shapes, sampling_locations,
     return out, out_w
 
 
+HYBRID_EXACT_THREADS = 128  # threads of an H2 block: 8 half-warps
+HYBRID_EXACT_ITEMS = HYBRID_EXACT_THREADS // 16  # items of an H2 block
+
+
+@functools.lru_cache(maxsize=None)
+def plan_msda_hybrid(num_rows: int, num_queries: int, heads: int,
+                     num_points: int, c: int,
+                     shapes: Tuple[Tuple[int, int], ...]) -> SamplingPlan:
+    """H2's launch for [num_rows, ΣHW, c] values over the levels `shapes`:
+    a half-warp per (camera row, query, head) item, HYBRID_EXACT_ITEMS of
+    them a block in (row, query, head) order (one query's heads at 8
+    heads), a lane 16 channels a pass. Raises ValueError where
+    `plan_msda` does: the same limits."""
+    _check_exact_shape("msda_hybrid_exact: the kernel takes", heads, c,
+                       shapes, num_points, num_rows, num_queries)
+    items = num_rows * num_queries * heads
+    dims = [num_rows, num_queries, heads, len(shapes), num_points, c,
+            sum(h * w for h, w in shapes), HYBRID_EXACT_THREADS]
+    return SamplingPlan((-(-items // HYBRID_EXACT_ITEMS), 1),
+                        HYBRID_EXACT_THREADS, 0, 0,
+                        _kernels.int_array(dims + _level_table(shapes)))
+
+
 def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
                       attention_weights, sel, sampled, wsum):
     """Kernel H2: adds the exact samples of the entries `sel` [B, Q, L]
     (bool) marks into sampled [B, Q, heads, C] and wsum [B, Q, heads]
     (float32, contiguous) in place and returns them (see
-    `msda_hybrid_exact_plain`). On the card a half-warp per (camera row,
-    query, head), as the exact MSDA kernel, walking only its query's
-    marked levels; a query with none returns at once. Served only."""
+    `msda_hybrid_exact_plain`). On the card `msda_hybrid_kernel`
+    (`plan_msda_hybrid`): a half-warp per (camera row, query, head), a
+    block a query at 8 heads; an item of a query with no marked level
+    returns at once, the others walk their marked levels' samples with
+    the exact MSDA kernel's arithmetic. Served only."""
     _check_msda(value, spatial_shapes, sampling_locations,
                 attention_weights)
     what = "msda_hybrid_exact"
@@ -1835,7 +1860,8 @@ def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
         return sampled, wsum
     if _needs_grad(value, sampling_locations, attention_weights, sampled):
         raise NotImplementedError(HYBRID_SERVED_ONLY)
-    plan = plan_msda(b, q, heads, num_points, c, spatial_shapes.shapes)
+    plan = plan_msda_hybrid(b, q, heads, num_points, c,
+                            spatial_shapes.shapes)
     _check_aligned(what, value, "value")
     _kernels.check(_kernels.load("sampling").simpb_msda_hybrid(
         *map(_kernels.ptr, (value, sampling_locations, attention_weights,

@@ -16,8 +16,9 @@ accumulation in B2, kernel D's records as D1 writes them, kernel D's bin
 pass (a tile list that loses its last record), kernel C's value-gradient
 accumulation in C3, the exact MSDA kernel's corner rows, H1's last level
 of query 0 (one line in each of its two kernels, fp32 and bf16), H2's
-last corrected level of query 0, the zeroing of H3's op instance for a
-row's entry 0, or the count of H3's guards' instance for query 0), builds
+last corrected level of query 0, H2's walk skipping query 0, the
+zeroing of H3's op instance for a row's entry 0, or the count of H3's
+guards' instance for query 0), builds
 that copy and runs chip_smoke's synthetic gradient cases, exact MSDA
 cases and hybrid cases (fp32 and bf16) on it. It prints one JSON
 line per (fault, case): whether the check passes, whether the bound it
@@ -50,7 +51,9 @@ _EXACT_CORNERS = "            if (ld) dfa_corners(vl, w, r, g.C, v[u][i]);\n"
 _H1_FP32 = ("          if (hh < g.heads) "
             "acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n")
 _H1_LEVELS = "    if (live) {  // the level's product on the tensor cores\n"
-_H2_LEVELS = "    S = __popc(marked) * g.P;\n"
+_H2_LEVELS = ("            lacc[i][c] = __fadd_rn(lacc[i][c], "
+              "__fmul_rn(smp[c], am.x));\n")
+_H2_WALK = "  if (!S) return;\n"
 _H3_SELECT = "    if (taken) {\n"
 _H3_DEMAND = "    if (!valid || valid[q0 + q]) {\n"
 # fault -> (kernel edited, text in csrc/sampling.cu, its replacement); a
@@ -105,12 +108,18 @@ FAULTS = {
             "j == K - 1)) acc[hh] = fmaf(Wj[hh * win + e], v, acc[hh]);\n",
             "    if (live && (bq || l < L - 1)) {  // the level's product on "
             "the tensor cores\n")),
-    # H2: query 0 of camera row 0 (its heads' items) corrects one marked
-    # level fewer
+    # H2: query 0 of camera row 0 (its heads' items, bqh < heads) leaves
+    # the samples of its last marked level (the walk's last P) out of its
+    # sums
     "msda_hybrid_exact_drops_last_level_of_query0": (
         "msda_hybrid_exact", _H2_LEVELS,
-        "    if (bqh < g.heads) S = (__popc(marked) - 1) * g.P; "
-        "else S = __popc(marked) * g.P;\n"),
+        "            if (bqh >= g.heads || s0 + t < S - g.P) lacc[i][c] = "
+        "__fadd_rn(lacc[i][c], __fmul_rn(smp[c], am.x));\n"),
+    # H2's walk: the half-warps that hold query 0 of camera row 0 skip it
+    # as if it had no marked level
+    "msda_hybrid_exact_walk_skips_query0": (
+        "msda_hybrid_exact", _H2_WALK,
+        "  if (!S || bqh < g.heads) return;\n"),
     # H3, the op's instance: a camera row's corrected entry 0 (query 0,
     # level 0) keeps its weights in the windowed lane
     "clamp_select_entry0_keeps_weights": (

@@ -8,10 +8,12 @@ selection by sort keys; `msda_hybrid_plain` against JAX's `msda_hybrid`
 the top-k's padding is gated out, and over it, with a tie at the
 capacity's boundary); the windowed lane over every level (H1's plain
 version) against JAX's `msda_patch(sel_levels=None)`; the exact lane's
-wrapper (H2) in place; the hybrid `QueryGroupMSDA` against JAX's layer,
-outputs and its three counters; the planners' limits and refusals; the
-bench's hybrid switches; the day-0 tool's decision against JAX's and its
-command line on the tiny config.
+wrapper (H2) in place, and a plain mirror of its kernel's walk (the
+items each block walks, and the sums in that order); the hybrid
+`QueryGroupMSDA` against JAX's layer, outputs and its three counters;
+the planners' limits and refusals; the bench's hybrid switches; the
+day-0 tool's decision against JAX's and its command line on the tiny
+config.
 
 Inputs come from numpy seeds; the JAX side is jitted. Tolerances: the
 corrected entries and the clamp flags equal; the priorities within two
@@ -50,6 +52,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((16, 24), (8, 12), (8, 8), (8, 10))  # the window fits each level
 TINY_SHAPES = ((8, 16), (4, 8), (2, 4), (1, 2))  # simpb_tiny's pyramid
 R50_SHAPES = ((64, 176), (32, 88), (16, 44), (8, 22))
+R101_SHAPES = ((128, 352), (64, 176), (32, 88), (16, 44))
 
 
 def _inputs(rng, b=2, q=10, heads=8, points=4, c=32, shapes=SHAPES,
@@ -325,6 +328,91 @@ def test_exact_lane_in_place_and_hybrid_exactness():
     np.testing.assert_allclose(hyb.numpy(), exact, atol=2e-4)
 
 
+def _exact_lane_walk(sel, heads, grid):
+    """A plain mirror of H2's walk: for each of the plan's `grid` blocks,
+    the (camera row, query, head) items that walk their samples, in its
+    half-warps' order. Block b holds the 8 items from b x 8 in (row,
+    query, head) order; an item whose query has no level marked in `sel`
+    [B, Q, L] returns at once."""
+    b, q = sel.shape[:2]
+    items = b * q * heads
+    marked = sel.reshape(b * q, -1).any(-1).tolist()
+    per = tsmp.HYBRID_EXACT_ITEMS
+    return [[(i // (q * heads), i // heads % q, i % heads)
+             for i in range(blk * per, min(blk * per + per, items))
+             if marked[i // heads]] for blk in range(grid)]
+
+
+@pytest.mark.parametrize("shapes,q", [(R50_SHAPES, 208), (R101_SHAPES, 208),
+                                      (R50_SHAPES, 207)],
+                         ids=["r50", "r101", "ragged207"])
+def test_exact_lane_walk_visits_each_marked_item_once(shapes, q):
+    """A plain mirror of H2's walk (`_exact_lane_walk`) on the plan's
+    grid: block b holds the 8 items from b x 8 in (row, query, head)
+    order (one query's heads at 8 heads), and an item whose query has no
+    marked level returns at once, so every item of a query with a marked
+    level walks exactly once and no other, in item order. At the r50 and
+    r101 plans (208 queries) and a ragged 207 (its last block's items
+    past the end hold none), with about 5 %, 30 % and every entry
+    marked, and at 4 heads (two queries a block)."""
+    rng = np.random.default_rng(11)
+    for heads in (8, 4):
+        plan = tsmp.plan_msda_hybrid(6, q, heads, 4, 256, shapes)
+        items = 6 * q * heads
+        assert plan.threads == 128 and plan.grid == (-(-items // 8), 1)
+        assert list(plan.dims[:8]) == [6, q, heads, 4, 4, 256,
+                                       sum(h * w for h, w in shapes), 128]
+        for share in (0.05, 0.3, 1.0):
+            sel = torch.from_numpy(rng.uniform(size=(6, q, 4)) < share)
+            sel[0, 0, 0] = True
+            rows, queries = np.nonzero(sel.any(-1).numpy())
+            want = [(r, qq, h) for r, qq in zip(rows.tolist(),
+                                                queries.tolist())
+                    for h in range(heads)]
+            walks = _exact_lane_walk(sel, heads, plan.grid[0])
+            assert len(walks) == plan.grid[0]
+            got = [it for walk in walks for it in walk]
+            assert got == want
+            for blk, walk in enumerate(walks):
+                assert all(((r * q + qq) * heads + h) // 8 == blk
+                           for r, qq, h in walk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_lane_walk_sums_reproduce_plain(dtype):
+    """Adding, item by item in H2's walk order, each walked item's marked
+    levels' terms (the plain version's per-level sums, level by level in
+    level order) into sampled and wsum reproduces
+    `msda_hybrid_exact_plain` bit for bit: the walk's items own their
+    rows, and unwalked items keep their inputs."""
+    rng = np.random.default_rng(12)
+    value, loc, attw = _inputs(rng)
+    b, q, heads, levels = loc.shape[:4]
+    ss = SpatialShapes(SHAPES)
+    tv, tl, ta = _t(value).to(getattr(torch, dtype)), _t(loc), _t(attw)
+    sel = torch.from_numpy(rng.uniform(size=(b, q, levels)) < 0.3)
+    sampled = torch.randn(b, q, heads, value.shape[-1])
+    wsum = torch.rand(b, q, heads)
+    want = tsmp.msda_hybrid_exact_plain(tv, ss, tl, ta, sel, sampled, wsum)
+    terms = []
+    for lvl in range(levels):  # each level's sums alone, from zero
+        one = torch.zeros_like(sel)
+        one[:, :, lvl] = True
+        terms.append(tsmp.msda_hybrid_exact_plain(
+            tv, ss, tl, ta, one, torch.zeros_like(sampled),
+            torch.zeros_like(wsum)))
+    out, out_w = sampled.clone(), wsum.clone()
+    plan = tsmp.plan_msda_hybrid(b, q, heads, 4, value.shape[-1], SHAPES)
+    for walk in _exact_lane_walk(sel, heads, plan.grid[0]):
+        for r, qq, h in walk:
+            for lvl in range(levels):
+                if sel[r, qq, lvl]:
+                    out[r, qq, h] = out[r, qq, h] + terms[lvl][0][r, qq, h]
+                    out_w[r, qq, h] = out_w[r, qq, h] + terms[lvl][1][r, qq,
+                                                                     h]
+    assert torch.equal(out, want[0]) and torch.equal(out_w, want[1])
+
+
 def test_query_group_msda_hybrid():
     """The hybrid 2D cross-attention against JAX's
     `QueryGroupMSDA(hybrid_mode=True)` in post-projection mode (a pair
@@ -381,8 +469,9 @@ def test_hybrid_planners_and_limits():
     row's sort keys; 900 anchors x 4 levels taken) and its refusals; H1's
     bf16 plan (a ring of 2 window stages at C 256 and 4 at C 128, three
     blocks an SM; an odd level count taken; its refusals) and MSDA-sel's
-    with every level (fp32 H1); H2 on the exact kernel's plan. Every
-    configuration of configs/base.py fits the limits (ROADMAP C.4)."""
+    with every level (fp32 H1); H2's plan (the exact kernel's limits).
+    Every configuration of configs/base.py fits the limits (ROADMAP
+    C.4)."""
     for rows, q in ((6, 208), (6, 256), (6, 900)):
         plan = tsmp.plan_clamp_priority(rows, q, 8, 4, 8, 8, R50_SHAPES)
         assert plan.threads == 512 and plan.smem == 8 * q * 4
@@ -423,6 +512,11 @@ def test_hybrid_planners_and_limits():
         tsmp.plan_msda_sel(6, 208, 32, 8, 256, 3, 8, 8, torch.bfloat16,
                            R50_SHAPES)
     tsmp.plan_msda(6, 208, 8, 4, 256, R50_SHAPES)
+    for bad in ((6, 208, 9, 4, 256, R50_SHAPES), (6, 208, 8, 4, 252,
+                                                  R50_SHAPES),
+                (6, 208, 8, 4, 256, R50_SHAPES * 3)):
+        with pytest.raises(ValueError, match="msda_hybrid_exact"):
+            tsmp.plan_msda_hybrid(*bad)
     for name in dir(tbase):
         if not name.startswith("simpb_"):
             continue
@@ -433,6 +527,8 @@ def test_hybrid_planners_and_limits():
                                  *h.msda_patch_hw, shapes)
         tsmp.plan_msda(6, h.allocation_capacity, h.num_groups, 4,
                        h.embed_dims, shapes)
+        tsmp.plan_msda_hybrid(6, h.allocation_capacity, h.num_groups, 4,
+                              h.embed_dims, shapes)
         if tsmp._patch_fits_all(SpatialShapes(shapes), *h.msda_patch_hw):
             for dtype in (torch.float32, torch.bfloat16):
                 tsmp.plan_msda_sel(6, h.allocation_capacity,
