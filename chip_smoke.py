@@ -121,6 +121,31 @@ Phases, each printing one JSON line:
              prints the bench's JSON line; fps > 0 and a peak are set.
              Then the same under SIMPB_FUSED_TRUNK=0, on the module
              trunk (launches K1 1, DFA 3, MSDA-sel 3 a frame).
+10a. profile — `python -m simpb_tpu_torch.tools.profile` (JAX's
+             profiled frame, `simpb_r50_704x256` trunk bf16: K1, DFA,
+             exact MSDA) over PROFILE_FRAMES frames and with `--train`
+             (`tools/train.py --config r50`, bs 4) over PROFILE_STEPS
+             steps: its table, total device ms, window ms and idle share;
+             the launches its trace counts equal the wrappers' counters
+             and the frame's and step's launches.
+10b. tools_bench — `python -m simpb_tpu_torch.tools.benchmark --config
+             r50-fast` (JAX's tool: the module trunk, bf16): its JSON
+             line; K1 1, DFA 3, MSDA-sel 3 a frame.
+10c. export — `python -m simpb_tpu_torch.tools.export --config r50-fast
+             --fused-trunk --smoke`: the export's seconds and the
+             artifact's bytes; then EXPORT_FRAMES frames through the
+             loaded artifact, bit for bit the model's, every plain
+             version refused while it runs, 1/4/12/4/3/3 launches a frame.
+10d. encoder2d — the flagship with one encoder layer, unshared (the
+             decoupled attention on) and shared (off): ENCODER_FRAMES
+             frames each, launches 1/4/12/4/3/3 and 1 exact MSDA a frame,
+             each frame's outputs through the kernels and the plain route
+             against the fp32 plain route (the parity phase's rule); then
+             the exact MSDA kernel and kernel D on the encoder's call
+             ([6, 14,960, 256] values) against `msda_plain` (EXACT_TOL)
+             and the chunked plain gradients (GRAD_TOL), in bf16 and fp32,
+             repeats bit-identical; the kernels line's `msda` and
+             `msda_backward` rows gain an `encoder2d` entry.
 11. exact  — the exact-sampling serving path. (a) Frames: the configs
              the bench serves under SIMPB_EXACT (`simpb_r50_704x256`:
              exact MSDA, no slot capacity, DFA capacity 4096),
@@ -2661,6 +2686,335 @@ def phase_bench(torch):
                                  f"{want}")
 
 
+PROFILE_FRAMES = 4  # profiled stream frames (the tool's default)
+PROFILE_STEPS = 2  # profiled training steps
+TOOLS_BENCH_FRAMES = 16  # the benchmark CLI's window (one warm, one timed)
+EXPORT_FRAMES = 3  # frames through the exported artifact
+ENCODER_FRAMES = 3  # cold + stream frames of each encoder config
+ENCODER_CHUNK = 2048  # queries a chunk of kernel D's plain reference
+# the encoder's configs: (share_encoder2d, decouple_attn and _2d)
+ENCODER_CONFIGS = ((False, True), (True, False))
+
+
+def phase_profile(torch):
+    """`python -m simpb_tpu_torch.tools.profile` and its `--train`, run
+    in this process: each prints its table, total device ms and window
+    ms. The launches it counts in the trace (the kernel each wrapper
+    launches once a call) must equal the wrappers' counters over the
+    window, and be JAX's profiled frame's (K1 1, DFA 3, exact MSDA 3) and
+    `--config r50`'s step's (`want_train_launches`) per frame or step."""
+    import tempfile
+
+    from simpb_tpu_torch.tools import profile
+
+    modes = (("serve", ["--frames", str(PROFILE_FRAMES)],
+              {"maxpool_3x3_s2": 1, "deformable_aggregation": 3,
+               "msda": 3}),
+             ("train", ["--train", "--frames", str(PROFILE_STEPS)],
+              want_train_launches(train_config("r50"))))
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, argv, want in modes:
+            res = profile.run(profile.parse_args(["--out", tmp] + argv))
+            n = res["frames"]
+            got = {k: v / n for k, v in res["wrapper_launches"].items()}
+            emit(dict(phase="profile", mode=mode, config=res["config"],
+                      batch_size=res["batch_size"], frames=n,
+                      total_device_ms=res["total_device_ms"],
+                      window_ms=res["window_ms"],
+                      idle_share=res["idle_share"],
+                      wrapper_launches=res["wrapper_launches"],
+                      kernel_launches=res["kernel_launches"],
+                      top=res["top"]))
+            if got != want:
+                raise AssertionError(f"profile {mode}: launches {got} a "
+                                     f"frame, want {want}")
+            if res["kernel_launches"] != res["wrapper_launches"]:
+                raise AssertionError(
+                    f"profile {mode}: the trace counts "
+                    f"{res['kernel_launches']}, the wrappers "
+                    f"{res['wrapper_launches']}")
+            free_cuda(torch)
+
+
+def phase_tools_bench(torch):
+    """`python -m simpb_tpu_torch.tools.benchmark --config r50-fast` in
+    this process (JAX's tool's config: the module trunk, trunk and head
+    bf16), the launch counts set to 0 just before and read just after:
+    K1 1, DFA 3, MSDA-sel 3 a frame over both windows."""
+    from simpb_tpu_torch.tools import benchmark
+
+    reset_launch_counts()
+    line = benchmark.main(["--config", "r50-fast", "--frames",
+                           str(TOOLS_BENCH_FRAMES)])
+    got = {k: n for k, n in launch_counts().items() if n}
+    free_cuda(torch)
+    want = {k: 2 * TOOLS_BENCH_FRAMES * n
+            for k, n in MODULE_TRUNK_LAUNCHES.items()}
+    emit(dict(phase="tools_bench", line=line, launches=got))
+    if not line["six_cam_fps_per_chip"] > 0 or got != want:
+        raise AssertionError(f"tools_bench: {line}, launches {got}, want "
+                             f"{want}")
+
+
+def plain_refused():
+    """Bind every kernel's plain version to a function that raises, for
+    the duration: an artifact run on the card must reach none."""
+    from simpb_tpu_torch.ops import conv_fused, sampling
+
+    def refuse(name):
+        def make(_):
+            def call(*args, **kwargs):
+                raise AssertionError(f"{name} ran on the card")
+            return call
+        return make
+
+    names = ((conv_fused, ("maxpool_3x3_s2_plain", "bottleneck_plain",
+                           "conv3x3_bias_plain")),
+             (sampling, ("deformable_aggregation_plain",
+                         "_msda_patch_sel_plain", "msda_plain",
+                         "_msda_patch_levels_plain",
+                         "msda_hybrid_exact_plain", "hybrid_selection_plain",
+                         "msda_clamp_demand_plain")))
+    return rebound(*((mod, n, refuse(n)) for mod, ns in names for n in ns))
+
+
+def phase_export(torch):
+    """`python -m simpb_tpu_torch.tools.export --config r50-fast
+    --fused-trunk --smoke` in this process (the flagship, trunk and head
+    bf16, random weights of seed 0): the export's seconds and the
+    artifact's bytes, the CLI's two-frame smoke, then EXPORT_FRAMES
+    frames through the loaded artifact against the model's step, every
+    output bit for bit, with every plain version refused while the
+    artifact runs and the launch counts of each of its frames
+    1/4/12/4/3/3 (WANT_LAUNCHES)."""
+    import tempfile
+
+    from simpb_tpu_torch.tools import export as export_cli
+    from simpb_tpu_torch.utils.export import make_serving_fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = export_cli.run(export_cli.parse_args([
+            "--config", "r50-fast", "--fused-trunk", "--smoke", "--out",
+            os.path.join(tmp, "simpb_r50_fast.pt2")]))
+    cfg, model, served = res["cfg"], res["model"], res["served"]
+    hc = cfg.head
+    step = make_serving_fn(cfg, model)
+    imgs, proj, t2c, dt = stream_inputs(torch, cfg, EXPORT_FRAMES - 1)
+    ours = theirs = served.init_temporal(1, hc.num_temp_instances,
+                                         hc.num_anchor, hc.embed_dims)
+    counts, same, art_ms, model_ms = [], [], [], []
+    for img in imgs:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_refused(), torch.inference_mode():
+            out = served(img, proj, dt, t2c, ours)
+        torch.cuda.synchronize()
+        art_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append({k: n for k, n in launch_counts().items() if n})
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = step(img, proj, dt, t2c, theirs)
+        torch.cuda.synchronize()
+        model_ms.append((time.perf_counter() - t0) * 1e3)
+        same.append(all(torch.equal(out[k], ref[k]) for k in out
+                        if k != "temporal") and all(
+            torch.equal(a, b) for a, b in zip(out["temporal"],
+                                              ref["temporal"])))
+        ours, theirs = out["temporal"], ref["temporal"]
+    emit(dict(phase="export", config="simpb_r50_704x256_fast",
+              fused_trunk=True, trunk=cfg.compute_dtype, head=cfg.head_dtype,
+              export_seconds=res["seconds"], artifact_bytes=len(res["data"]),
+              frames=len(imgs), bit_identical=same,
+              launches_per_frame=counts, artifact_frame_ms=art_ms,
+              model_frame_ms=model_ms,
+              valid_last_frame=int(out["valid"].sum().item()),
+              top_score_last_frame=float(out["scores"][0, 0].item())))
+    del res, model, served, step
+    free_cuda(torch)
+    if not all(same):
+        raise AssertionError(f"export: artifact frames differ from the "
+                             f"model's: {same}")
+    if any(c != WANT_LAUNCHES for c in counts):
+        raise AssertionError(f"export: launches {counts}, want "
+                             f"{WANT_LAUNCHES} a frame")
+
+
+def encoder_config(share, decouple, dtype="bfloat16"):
+    """The flagship with one encoder layer (the JAX test's setting) and
+    the decoupled attention on or off, trunk and head in `dtype`."""
+    import dataclasses
+
+    cfg = flagship(dtype, dtype)
+    return dataclasses.replace(cfg, head=dataclasses.replace(
+        cfg.head, encoder2d_layers=1, share_encoder2d=share,
+        decouple_attn=decouple, decouple_attn2d=decouple))
+
+
+def msda_plain_grads(torch, value, ss, loc, attw, gs, gw,
+                     chunk=ENCODER_CHUNK):
+    """`msda_backward_plain` over query chunks (the whole column's
+    autograd does not fit the card): `msda_plain`'s arithmetic on an fp32
+    leaf of the values with the roundings of their type; each query's
+    location and weight gradients from its chunk, the value gradient
+    summed over the chunks in fp32 and rounded once to the value's type,
+    as the plain version rounds it."""
+    from simpb_tpu_torch.ops import sampling
+
+    b, total, c = value.shape
+    q, heads, _, points = loc.shape[1:5]
+    table = value.detach().reshape(b * total, c).float().requires_grad_()
+    base = (torch.arange(b, device=value.device) * total)[:, None]
+    g_table, g_loc, g_attw = torch.zeros_like(table), [], []
+    for q0 in range(0, q, chunk):
+        n = min(chunk, q - q0)
+        l_ = loc[:, q0:q0 + n].detach().requires_grad_()
+        a_ = attw[:, q0:q0 + n].detach().requires_grad_()
+        acc = torch.zeros((b, n, heads, c), device=value.device)
+        acc_w = torch.zeros((b, n, heads), device=value.device)
+        for lvl, (h, w) in enumerate(ss.shapes):
+            smp, mass = sampling._msda_level(
+                table, base + ss.start_indices[lvl], h, w,
+                l_[:, :, :, lvl].reshape(b, -1, 2), value.dtype)
+            w_l = a_[:, :, :, lvl].float()
+            acc = acc + torch.einsum("bqhpc,bqhp->bqhc", smp.reshape(
+                b, n, heads, points, c), w_l)
+            acc_w = acc_w + torch.einsum("bqhp,bqhp->bqh", w_l, mass.reshape(
+                b, n, heads, points))
+        gt, gl, ga = torch.autograd.grad(
+            [acc, acc_w], [table, l_, a_],
+            [gs[:, q0:q0 + n], gw[:, q0:q0 + n]])
+        g_table += gt
+        g_loc.append(gl)
+        g_attw.append(ga)
+    return (g_table.to(value.dtype).reshape(value.shape),
+            torch.cat(g_loc, 1), torch.cat(g_attw, 1))
+
+
+def phase_encoder2d(torch):
+    """The flagship with the 2D encoder (ENCODER_CONFIGS: unshared with
+    the decoupled attention, shared with it off), ENCODER_FRAMES frames
+    each: launches 1/4/12/4/3/3 plus the encoder's exact MSDA a frame;
+    every frame's last-layer outputs through the kernels and through the
+    plain route (trunk, DFA, MSDA-sel and the encoder's MSDA plain) on the
+    same carried state, both held against the fp32 plain route as the
+    parity phase holds them. Then the exact MSDA kernel on the encoder's
+    recorded call ([6, 14,960, 256] values, 14,960 queries a camera row)
+    against `msda_plain` at EXACT_TOL in bf16 and fp32, and kernel D there
+    against the plain gradients (`msda_plain_grads`) at GRAD_TOL, both
+    repeated bit for bit. Returns each kernel's `encoder2d` entry for the
+    kernels line."""
+    from simpb_tpu_torch.models import encoder2d
+    from simpb_tpu_torch.ops import sampling
+    from simpb_tpu_torch.training.evaluate import build_model
+
+    keys = ("prediction", "classification", "quality")
+    want = dict(WANT_LAUNCHES, msda=1)
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    plain_msda = lambda *a, **k: sampling.msda_plain(*a, **k)
+    calls = []
+    for share, decouple in ENCODER_CONFIGS:
+        cfg = encoder_config(share, decouple)
+        model = build_model(cfg, device="cuda", seed=0)
+        model32 = build_model(encoder_config(share, decouple, "float32"),
+                              device="cuda", seed=0)
+        imgs, proj, t2c, dt = stream_inputs(torch, cfg, ENCODER_FRAMES - 1)
+        state, frames, counts = None, [], []
+        for f, img in enumerate(imgs):
+            kw = {} if state is None else dict(
+                temporal=state, time_interval=dt, temp2cur=t2c)
+            reset_launch_counts()
+            record = (rebound((encoder2d, "msda", lambda fn: lambda *a, **k:
+                               calls.append(a) or fn(*a, **k)))
+                      if not calls and f == len(imgs) - 1
+                      else contextlib.nullcontext())
+            with record, torch.inference_mode():
+                out = model(img, proj, **kw)
+            counts.append({k: n for k, n in launch_counts().items() if n})
+            with plain_route(), rebound(
+                    (encoder2d, "msda", lambda _: plain_msda)), \
+                    torch.inference_mode():
+                plain16 = model(img, proj, **kw)
+                plain32 = model32(img, proj, **kw)
+            line = {}
+            for key in keys:
+                k16, p16, p32 = (o[key][-1].float()
+                                 for o in (out, plain16, plain32))
+                ek, ep = rel(k16, p32), rel(p16, p32)
+                line[key] = dict(kernels=ek, plain_bf16=ep,
+                                 kernels_vs_plain_bf16=rel(k16, p16), ok=bool(
+                    torch.isfinite(k16).all())
+                    and ek <= BF16_SLICE_RATIO * ep + BF16_SLICE_FLOOR)
+            frames.append(line)
+            state = out["temporal_state"]
+        emit(dict(phase="encoder2d", config="simpb_r50_704x256_fast",
+                  encoder2d_layers=1, share_encoder2d=share,
+                  decouple_attn=decouple, trunk="bfloat16", head="bfloat16",
+                  reference="fp32 plain route", ratio=BF16_SLICE_RATIO,
+                  floor=BF16_SLICE_FLOOR, rel_l2_vs_fp32_plain=frames,
+                  launches_per_frame=counts))
+        del model, model32, out, plain16, plain32, state
+        free_cuda(torch)
+        bad = [(f, k) for f, line in enumerate(frames)
+               for k, v in line.items() if not v["ok"]]
+        if bad or any(c != want for c in counts):
+            raise AssertionError(f"encoder2d (share {share}): frames {bad} "
+                                 f"off, launches {counts}, want {want}")
+
+    # the exact MSDA kernel and kernel D at the encoder's shape
+    kernels = {n: (w, p, tpu) for n, w, p, tpu in sampling.KERNELS}
+    # the recorded tensors were made under inference mode: copies for
+    # autograd
+    value, ss, loc, attw = calls[0][:4]
+    value, loc, attw = (t.clone() for t in (value, loc, attw))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args = (value.to(dtype), ss, loc, attw)
+        wrapper, plain, _ = kernels["msda"]
+        line = hold_case(torch, f"encoder2d_call_{dname}", "msda", wrapper,
+                         plain, args, {"raw_heads": True}, EXACT_TOL[dname],
+                         msda_exact_work(args),
+                         library=grid_sample_chain(*args))
+        gs = torch.randn(loc.shape[:3] + (value.shape[-1],), generator=gen,
+                         device="cuda")
+        gw = torch.randn(loc.shape[:3], generator=gen, device="cuda")
+        bargs = args + (gs, gw)
+        got = sampling.msda_backward(*bargs)
+        again = sampling.msda_backward(*bargs)
+        ref = msda_plain_grads(torch, *bargs)
+        ok, recs = grad_check(got, ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        byts, ops = msda_exact_bwd_work(bargs)
+        bound, bound_by = sampling_bound("msda_backward", dname, byts, ops)
+        dline = dict(phase="encoder2d_grad", case=f"encoder2d_call_{dname}",
+                     name="msda_backward", dtype=dname, ok=ok,
+                     deterministic=same, grads=recs,
+                     ms=cuda_ms(lambda: sampling.msda_backward(*bargs),
+                                iters=3),
+                     plain_ms=cuda_ms(lambda: msda_plain_grads(
+                         torch, *bargs), iters=1),
+                     library_ms=cuda_ms(grid_sample_chain_backward(
+                         *args, gs), iters=3),
+                     bound_ms=bound, bound_by=bound_by)
+        emit(dline)
+        if not (ok and same):
+            raise AssertionError(f"encoder2d kernel D ({dname}): {recs}, "
+                                 f"repeat bit-identical {same}")
+        if dtype == torch.bfloat16:  # the encoder's own type
+            rows["msda"] = {k: line[k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}
+            rows["msda_backward"] = {k: dline[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        del got, again, ref, gs, gw
+        free_cuda(torch)
+    for row in rows.values():
+        row.update(launches_per_frame=1, shape=[6, 14960, 256])
+    return rows
+
+
 TRAIN_STEPS = 4  # timed training steps after one warm step
 TRAIN_BS = 4  # TrainConfig.batch_size, the reference's per-GPU batch
 # kernels B and C against their plain versions (fp32 sums of the same
@@ -4457,6 +4811,10 @@ def main() -> int:
     phase_trunk(torch, "r101", module=True)
     phase_eval(torch)
     phase_bench(torch)
+    phase_profile(torch)
+    phase_tools_bench(torch)
+    phase_export(torch)
+    encoder = phase_encoder2d(torch)
     exact = phase_exact(torch)  # exact MSDA, then the hybrid's H1-H3
     for row in exact:  # day 0's r101 demand pass
         if row["name"] in r101_hybrid:
@@ -4478,6 +4836,11 @@ def main() -> int:
                                EXACT_TRAIN_KERNELS, synthetic=False)
     del train_calls
     train["msda_backward"]["r101"] = r101_entry(d101["msda_backward"])
+    # the encoder's column: 14,960 queries a camera row
+    train["msda_backward"]["encoder2d"] = encoder["msda_backward"]
+    for row in exact:
+        if row["name"] == "msda":
+            row["encoder2d"] = encoder["msda"]
     phase_train_cli(torch)
     phase_train_cli_exact(torch)
     phase_ddp(torch)

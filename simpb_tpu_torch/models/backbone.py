@@ -65,6 +65,7 @@ from ..ops.conv_fused import (
     fold_block_params, fold_bn, fold_downsample_params, maxpool_3x3_s2_fused,
 )
 from ..parallel.mesh import all_reduce_sum, is_initialized
+from .layers import cast
 
 RESNET_STAGE_BLOCKS = {
     26: (1, 1, 1, 1),
@@ -94,16 +95,16 @@ def _bn_affine(xf, mean, var, bn: nn.BatchNorm2d, dtype):
     mul = torch.rsqrt(var + BN_EPS) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
                                                                  None]
-    return y.to(dtype)
+    return cast(y, dtype)
 
 
 def batch_norm_infer(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
     """flax `nn.BatchNorm(use_running_average=True, dtype=dtype)` on an
     NCHW map: the running statistics in fp32, x promoted to fp32 (or
     wider), the result in `dtype`."""
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    return _bn_affine(xf, bn.running_mean.to(xf.dtype),
-                      bn.running_var.to(xf.dtype), bn, dtype)
+    xf = cast(x, torch.promote_types(x.dtype, torch.float32))
+    return _bn_affine(xf, cast(bn.running_mean, xf.dtype),
+                      cast(bn.running_var, xf.dtype), bn, dtype)
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype):
@@ -146,8 +147,8 @@ def update_running_stats(bn: nn.BatchNorm2d, stats) -> None:
 
 
 def _conv(mod: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    b = mod.bias.to(dtype) if mod.bias is not None else None
-    return F.conv2d(x.to(dtype), mod.weight.to(dtype), b, mod.stride,
+    b = cast(mod.bias, dtype) if mod.bias is not None else None
+    return F.conv2d(cast(x, dtype), cast(mod.weight, dtype), b, mod.stride,
                     mod.padding)
 
 
@@ -236,7 +237,10 @@ class Bottleneck(nn.Module):
 
 class _FoldCache(nn.Module):
     """Caches derived inference tensors per (device, dtype); loading a
-    state dict drops the cache."""
+    state dict drops the cache. Under `torch.export` the cache is
+    neither read nor filled: the derived tensors are built in the traced
+    graph from the parameters, so the exported program folds its own
+    weights and the cache never holds a traced tensor."""
 
     def __init__(self):
         super().__init__()
@@ -247,6 +251,8 @@ class _FoldCache(nn.Module):
         self._cache.clear()
 
     def _cached(self, device, dtype, build):
+        if torch.compiler.is_exporting():  # inside the model's no_grad
+            return build()
         key = (str(device), dtype)
         if key not in self._cache:
             with torch.no_grad():

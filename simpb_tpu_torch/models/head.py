@@ -4,10 +4,16 @@
 The decoder is a program over named ops (allocation / qg_self_attn /
 qg_cross_attn / refine2d / aggregation / gnn / temp_gnn / deformable /
 refine3d / ffn / norm). Each op's module is registered as
-`op{i}_{name}`, the JAX tree's names. Decoupled attention concatenates
-query and positional embedding and shares the fc_before / fc_after
-projections. The 2D feature encoder (`encoder2d`, off in every released
-configuration) is not ported.
+`op{i}_{name}`, the JAX tree's names. Decoupled attention
+(`decouple_attn`, `decouple_attn2d`, on in every released
+configuration) concatenates query and positional embedding and shares
+the fc_before / fc_after projections; off, the attention runs at the
+embedding width with the positional embedding added to query and key,
+and no projection around it (JAX's identities). With `encoder2d_layers`
+(off in every released configuration) a deformable encoder
+(`models/encoder2d.py`) refines the feature column once a frame, and
+the 2D cross-attention samples its memory (DFA too under
+`share_encoder2d`).
 
 Training (`train=True`) runs the JAX training program: the denoising
 (DN) anchors of a `DnBundle` join the queries behind an attention mask
@@ -45,6 +51,7 @@ from .allocation import Allocation, allocate_queries, dispatch_to_2d
 from .det2d_blocks import SparseBox2DEncoder, SparseBox2DRefinementModule
 from .det3d_blocks import SparseBox3DEncoder, SparseBox3DRefinementModule
 from .dfa import DeformableFeatureAggregation
+from .encoder2d import DeformableEncoder2D
 from .group_attn import QueryGroupMSDA, QueryGroupSelfAttention
 from .instance_bank import InstanceBank, TemporalState
 from .layers import AsymmetricFFN, Dense, LayerNorm, ResidualAttention
@@ -53,11 +60,8 @@ from .layers import AsymmetricFFN, Dense, LayerNorm, ResidualAttention
 def check_head_config(c: HeadConfig) -> None:
     """The knobs of the serving path this port covers so far."""
     unsupported = {
-        "decouple_attn": not c.decouple_attn,
-        "decouple_attn2d": not c.decouple_attn2d,
         "dfa_sel_levels": bool(c.dfa_sel_levels),
         "dfa_level_capacity": bool(c.dfa_level_capacity),
-        "encoder2d_layers": bool(c.encoder2d_layers),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -115,11 +119,19 @@ class SimPBHead(nn.Module):
         self.anchor_encoder = SparseBox3DEncoder(
             (e // 2, e // 8, e // 8, e // 4), dtype=dtype)
         self.anchor_encoder2d = SparseBox2DEncoder(e, dtype)
+        if c.encoder2d_layers:
+            self.encoder2d = DeformableEncoder2D(
+                e, c.num_groups, c.num_levels, 4, c.encoder2d_layers, 4 * e,
+                c.drop_out, dtype)
         dense = lambda i, o: Dense(i, o, bias=False, dtype=dtype)
-        self.fc_before = dense(e, 2 * e)
-        self.fc_after = dense(2 * e, e)
-        self.fc_before2d = dense(e, 2 * e)
-        self.fc_after2d = dense(2 * e, e)
+        if c.decouple_attn:
+            self.fc_before = dense(e, 2 * e)
+            self.fc_after = dense(2 * e, e)
+        if c.decouple_attn2d:
+            self.fc_before2d = dense(e, 2 * e)
+            self.fc_after2d = dense(2 * e, e)
+        attn_dims = 2 * e if c.decouple_attn else e
+        attn2d_dims = 2 * e if c.decouple_attn2d else e
 
         order = c.operation_order
         self.op_names: List[Optional[str]] = []
@@ -130,7 +142,7 @@ class SimPBHead(nn.Module):
             elif op == "norm":
                 mod = LayerNorm(e, dtype)
             elif op in ("gnn", "temp_gnn"):
-                mod = ResidualAttention(2 * e, c.num_groups, dtype,
+                mod = ResidualAttention(attn_dims, c.num_groups, dtype,
                                         c.drop_out)
             elif op == "deformable":
                 mod = DeformableFeatureAggregation(
@@ -153,8 +165,9 @@ class SimPBHead(nn.Module):
                 mod = SparseBox2DRefinementModule(e, num_cls=c.num_classes,
                                                   dtype=dtype)
             elif op == "qg_self_attn":
-                mod = QueryGroupSelfAttention(2 * e, c.num_groups, c.num_cams,
-                                              dtype, c.drop_out, 0.1)
+                mod = QueryGroupSelfAttention(attn2d_dims, c.num_groups,
+                                              c.num_cams, dtype, c.drop_out,
+                                              0.1)
             elif op == "qg_cross_attn":
                 mod = QueryGroupMSDA(
                     e, c.num_groups, c.num_levels, 4, c.num_cams,
@@ -168,7 +181,7 @@ class SimPBHead(nn.Module):
             elif op == "aggregation":
                 self.add_module(f"op{i}_reweight", ReWeight(e, dtype))
                 op = "aggregation_attn"
-                mod = ResidualAttention(2 * e, c.num_groups, dtype,
+                mod = ResidualAttention(attn_dims, c.num_groups, dtype,
                                         c.drop_out)
             elif op == "allocation":
                 self.op_names.append(None)
@@ -182,7 +195,11 @@ class SimPBHead(nn.Module):
     def graph_model(self, layer, query, key=None, value=None,
                     query_pos=None, key_pos=None, attn_mask=None):
         """Decoupled attention: concat (query, pos) [and (key, pos)],
-        value through fc_before, output through fc_after."""
+        value through fc_before, output through fc_after. Without
+        `decouple_attn`, the layer adds the positions itself."""
+        if not self.cfg.decouple_attn:
+            return layer(query, key, value, query_pos=query_pos,
+                         key_pos=key_pos, attn_mask=attn_mask)
         query = torch.cat([query, query_pos], dim=-1)
         if key is not None:
             key = torch.cat([key, key_pos], dim=-1)
@@ -247,6 +264,14 @@ class SimPBHead(nn.Module):
         anchor2d = anchor_embed2d = feat2d = None
         last = len(c.operation_order) - 1
 
+        # the 2D cross-attention samples the encoder's memory; under
+        # share_encoder2d so does DFA
+        memory2d = col_feats
+        if c.encoder2d_layers:
+            memory2d = self.encoder2d(col_feats, spatial_shapes)
+            if c.share_encoder2d:
+                col_feats = memory2d
+
         for i, op in enumerate(c.operation_order):
             layer = (getattr(self, self.op_names[i])
                      if self.op_names[i] else None)
@@ -280,7 +305,7 @@ class SimPBHead(nn.Module):
                                             alloc, dn2d)
             elif op == "qg_cross_attn":
                 feat2d = self._qg_cross_attn(layer, feat2d, anchor_embed2d,
-                                             alloc, dn2d, col_feats,
+                                             alloc, dn2d, memory2d,
                                              spatial_shapes, train, guards)
             elif op == "refine2d":
                 box2d, cls2d, alpha2d = layer(feat2d, anchor2d,
@@ -424,6 +449,9 @@ class SimPBHead(nn.Module):
         q2 = alloc.valid.shape[1]
 
         def run(query, pos, valid):
+            if not self.cfg.decouple_attn2d:
+                # the residual's identity is the query without positions
+                return layer(query + pos, query, valid, identity=query)
             out = layer(torch.cat([query, pos], dim=-1),
                         self.fc_before2d(query), valid)
             return self.fc_after2d(out)

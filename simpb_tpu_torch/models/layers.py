@@ -70,6 +70,13 @@ def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t.to(dtype)`, skipped where t has the type already (the same
+    tensor either way; `torch.export` records a `.to` that casts
+    nothing as two graph nodes)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 class Dense(nn.Linear):
     """`nn.Linear` computing in `dtype` (flax `nn.Dense(dtype=...)`): the
     input, weight and bias are cast to it, and the product is rounded to
@@ -83,8 +90,8 @@ class Dense(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        y = F.linear(cast(x, self.dtype), cast(self.weight, self.dtype))
+        return y if self.bias is None else y + cast(self.bias, self.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -96,7 +103,7 @@ class LayerNorm(nn.LayerNorm):
         self.dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.float()).to(self.dtype)
+        return cast(super().forward(cast(x, torch.float32)), self.dtype)
 
 
 class MLPStack(nn.Module):
@@ -135,7 +142,7 @@ class Scale(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        return x * self.scale.to(x.dtype)
+        return x * cast(self.scale, x.dtype)
 
 
 def masked_softmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -17,9 +17,12 @@ sources' notes on what bounds each kernel and how its design answers it:
 * `conv3x3_bias_fused` — same-padding 3x3 conv + bias (K4).
 
 Activations are NHWC, weights HWIO / [in, out] with BatchNorm folded
-(`fold_block_params`). A wrapper runs its plain version only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its kernel launches in its `launches` attribute.
+(`fold_block_params`). Each wrapper calls its op, a
+`torch.library.custom_op` named `simpb::<kernel>` with a fake (shape)
+implementation, so that `torch.export` keeps the launch in its graph
+(`utils/export.py`). The op runs the plain version only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises. Each
+wrapper counts its kernel launches in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -127,10 +130,14 @@ def conv3x3_bias_plain(
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
-def _check_act(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
+def _check_device(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
                          f"{x.device}")
+
+
+def _check_act(x: torch.Tensor, what: str) -> None:
+    _check_device(x, what)
     if x.dtype not in _kernels.DTYPE_CODE:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -397,9 +404,8 @@ def plan_bottleneck_down_tc(b: int, h: int, w: int, c: int, cm: int,
     return min(plans)[1]
 
 
-def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
-    """3x3/s2/p1 max-pool of an NHWC map, [B, H, W, C] ->
-    [B, ceil(H/2), ceil(W/2), C]."""
+@torch.library.custom_op("simpb::maxpool_3x3_s2", mutates_args=())
+def _maxpool_op(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return maxpool_3x3_s2_plain(x)
     _check_act(x, "maxpool_3x3_s2_fused")
@@ -418,6 +424,19 @@ def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
     _kernels.check(code, "maxpool_3x3_s2_fused")
     maxpool_3x3_s2_fused.launches += 1
     return y
+
+
+@_maxpool_op.register_fake
+def _(x):
+    b, h, w, c = x.shape
+    return x.new_empty((b, (h + 1) // 2, (w + 1) // 2, c))
+
+
+def maxpool_3x3_s2_fused(x: torch.Tensor) -> torch.Tensor:
+    """3x3/s2/p1 max-pool of an NHWC map, [B, H, W, C] ->
+    [B, ceil(H/2), ceil(W/2), C] (op `simpb::maxpool_3x3_s2`)."""
+    _check_device(x, "maxpool_3x3_s2_fused")
+    return _maxpool_op(x)
 
 
 def _bottleneck_cuda(x, folded, folded_down, stride, what):
@@ -523,11 +542,11 @@ def launch_conv3x3_tc(x, kernel, bias, y, plan: TcPlan) -> int:
         ctypes.c_void_p(_kernels.stream_ptr(x)))
 
 
-def bottleneck_fused_infer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
-    """One stride-1 bottleneck with identity residual, [B, H, W, C] ->
-    [B, H, W, C]; compute in x.dtype with fp32 accumulation. On the card
-    bf16 runs on the tensor cores (csrc/conv_tc.cu), fp32 on the CUDA
-    cores (csrc/conv_fused.cu)."""
+@torch.library.custom_op("simpb::bottleneck", mutates_args=())
+def _bottleneck_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                   b3: torch.Tensor) -> torch.Tensor:
+    folded = (w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded)
     what = "bottleneck_fused_infer"
@@ -540,16 +559,26 @@ def bottleneck_fused_infer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     return y
 
 
-def bottleneck_down_fused_infer(
-    x: torch.Tensor,
-    folded: Folded,
-    folded_down: Tuple[torch.Tensor, torch.Tensor],
-    stride: int,
-) -> torch.Tensor:
-    """One stage-head bottleneck (strided 1x1 downsample skip), [B, H, W,
-    C] -> [B, H / stride, W / stride, Co]. On the card bf16 runs on the
-    tensor cores (csrc/conv_tc.cu), fp32 on the CUDA cores
-    (csrc/conv_fused.cu)."""
+@_bottleneck_op.register_fake
+def _(x, w1, b1, w2, b2, w3, b3):
+    return torch.empty_like(x)
+
+
+def bottleneck_fused_infer(x: torch.Tensor, folded: Folded) -> torch.Tensor:
+    """One stride-1 bottleneck with identity residual, [B, H, W, C] ->
+    [B, H, W, C]; compute in x.dtype with fp32 accumulation (op
+    `simpb::bottleneck`). On the card bf16 runs on the tensor cores
+    (csrc/conv_tc.cu), fp32 on the CUDA cores (csrc/conv_fused.cu)."""
+    _check_device(x, "bottleneck_fused_infer")
+    return _bottleneck_op(x, *folded)
+
+
+@torch.library.custom_op("simpb::bottleneck_down", mutates_args=())
+def _bottleneck_down_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                        w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                        b3: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+                        stride: int) -> torch.Tensor:
+    folded, folded_down = (w1, b1, w2, b2, w3, b3), (wd, bd)
     if x.device.type == "cpu":
         return bottleneck_plain(x, folded, folded_down, stride)
     what = "bottleneck_down_fused_infer"
@@ -562,12 +591,29 @@ def bottleneck_down_fused_infer(
     return y
 
 
-def conv3x3_bias_fused(
-    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
+@_bottleneck_down_op.register_fake
+def _(x, w1, b1, w2, b2, w3, b3, wd, bd, stride):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h // stride, w // stride, w3.shape[-1]))
+
+
+def bottleneck_down_fused_infer(
+    x: torch.Tensor,
+    folded: Folded,
+    folded_down: Tuple[torch.Tensor, torch.Tensor],
+    stride: int,
 ) -> torch.Tensor:
-    """Same-padding 3x3 conv + bias; kernel [3, 3, C, Co], bias [Co]. On
-    the card bf16 runs on the tensor cores (csrc/conv_tc.cu), fp32 on the
-    CUDA cores (csrc/conv_fused.cu)."""
+    """One stage-head bottleneck (strided 1x1 downsample skip), [B, H, W,
+    C] -> [B, H / stride, W / stride, Co] (op `simpb::bottleneck_down`).
+    On the card bf16 runs on the tensor cores (csrc/conv_tc.cu), fp32 on
+    the CUDA cores (csrc/conv_fused.cu)."""
+    _check_device(x, "bottleneck_down_fused_infer")
+    return _bottleneck_down_op(x, *folded, *folded_down, stride)
+
+
+@torch.library.custom_op("simpb::conv3x3_bias", mutates_args=())
+def _conv3x3_op(x: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_bias_plain(x, kernel, bias)
     what = "conv3x3_bias_fused"
@@ -596,6 +642,22 @@ def conv3x3_bias_fused(
     _kernels.check(code, what)
     conv3x3_bias_fused.launches += 1
     return y
+
+
+@_conv3x3_op.register_fake
+def _(x, kernel, bias):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h, w, kernel.shape[-1]))
+
+
+def conv3x3_bias_fused(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """Same-padding 3x3 conv + bias; kernel [3, 3, C, Co], bias [Co] (op
+    `simpb::conv3x3_bias`). On the card bf16 runs on the tensor cores
+    (csrc/conv_tc.cu), fp32 on the CUDA cores (csrc/conv_fused.cu)."""
+    _check_device(x, "conv3x3_bias_fused")
+    return _conv3x3_op(x, kernel, bias)
 
 
 # the kernels of this module: (name, wrapper, plain version, the Pallas

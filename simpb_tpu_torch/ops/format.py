@@ -38,6 +38,16 @@ class SpatialShapes:
     def total(self) -> int:
         return sum(self.sizes)
 
+    @property
+    def flat(self) -> List[int]:
+        """[h0, w0, h1, w1, ...]: the shapes as a custom op's int list."""
+        return [n for hw in self.shapes for n in hw]
+
+    @staticmethod
+    def from_flat(flat: Sequence[int]) -> "SpatialShapes":
+        return SpatialShapes(tuple((int(flat[i]), int(flat[i + 1]))
+                                   for i in range(0, len(flat), 2)))
+
 
 def pack_feature_maps(
     feature_maps: Sequence[torch.Tensor],

@@ -37,11 +37,17 @@ kernel over the corrected entries) and H3 in two instances,
 and `msda_clamp_demand` (the guards' count), beside
 `_msda_patch_levels_plain`, `msda_hybrid_exact_plain`,
 `hybrid_selection_plain` and `msda_clamp_demand_plain` (`KERNELS`). A
-wrapper checks its arguments, runs the plain version only
-for tensors on the CPU, and for CUDA tensors launches the kernel or
-raises. Each wrapper counts its launches (`launch_counts()`); the count
-lives in this module, so it holds even while a caller has rebound a
-wrapper's name to record or reroute its calls.
+wrapper checks its arguments and, where no gradient is to be computed,
+calls its forward op: a `torch.library.custom_op` in the `simpb`
+namespace (`simpb::deformable_aggregation`, `msda_patch_sel`, `msda`,
+`msda_patch_levels`, `msda_hybrid_exact`, `clamp_select`,
+`clamp_demand`) with a fake (shape) implementation, so that
+`torch.export` keeps the launch in its graph (`utils/export.py`). The
+op runs the plain version only for tensors on the CPU, and for CUDA
+tensors launches the kernel or raises. Each op counts its launches
+(`launch_counts()`); the count lives in this module, so it holds even
+while a caller has rebound a wrapper's name to record or reroute its
+calls.
 
 The launch of each comes from a cached planner, `plan_dfa`,
 `plan_msda_sel`, `plan_msda`, `plan_msda_levels`, `plan_msda_hybrid`
@@ -54,7 +60,8 @@ kernel for both dtypes.
 
 Training: the three wrappers are differentiable. On the CPU autograd
 runs through the plain versions. On the card each is a
-`torch.autograd.Function` whose backward is a kernel of its own
+`torch.autograd.Function` whose forward calls the op and whose
+backward is a kernel of its own
 (`deformable_aggregation_backward`, kernel B: DFA's Function saves the
 forward's capacity thresholds, so the backward keeps exactly the slots
 the forward kept; `msda_patch_sel_backward`, kernel C, and
@@ -431,6 +438,47 @@ def _dfa_launch(col_feats, spatial_shapes, points_2d, weights,
     return out, scratch
 
 
+def _capacity_arg(gather_capacity: Optional[int]) -> int:
+    """A capacity as a custom op's int: -1 for None (uncapped)."""
+    return -1 if gather_capacity is None else gather_capacity
+
+
+def _capacity(arg: int) -> Optional[int]:
+    return None if arg < 0 else arg
+
+
+@torch.library.custom_op("simpb::deformable_aggregation", mutates_args=())
+def _dfa_op(col_feats: torch.Tensor, points_2d: torch.Tensor,
+            weights: torch.Tensor, shapes: list[int],
+            gather_capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """DFA's forward -> (out [bs, A, C] float32, the rank pass's count
+    thresholds: int32, empty where the capacity does not bite or on the
+    CPU). CPU: the plain version; CUDA: the kernel."""
+    ss = SpatialShapes.from_flat(shapes)
+    cap = _capacity(gather_capacity)
+    if col_feats.device.type == "cpu":
+        return (deformable_aggregation_plain(col_feats, ss, points_2d,
+                                             weights, cap),
+                torch.empty(0, dtype=torch.int32))
+    out, thresholds = _dfa_launch(col_feats, ss, points_2d, weights, cap)
+    if thresholds is None:
+        thresholds = torch.empty(0, dtype=torch.int32,
+                                 device=col_feats.device)
+    return out, thresholds
+
+
+@_dfa_op.register_fake
+def _(col_feats, points_2d, weights, shapes, gather_capacity):
+    scratch = 0
+    if col_feats.device.type == "cuda":
+        scratch = _dfa_plan(col_feats, SpatialShapes.from_flat(shapes),
+                            points_2d, weights,
+                            _capacity(gather_capacity)).scratch
+    return (col_feats.new_empty((col_feats.shape[0], points_2d.shape[1],
+                                 col_feats.shape[-1]), dtype=torch.float32),
+            col_feats.new_empty(scratch, dtype=torch.int32))
+
+
 B2_TILE = 8  # B2's pixel tile side (csrc/sampling.cu)
 
 
@@ -652,8 +700,11 @@ class _DfaFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, col_feats, points_2d, weights, spatial_shapes,
                 gather_capacity):
-        out, thresholds = _dfa_launch(col_feats, spatial_shapes, points_2d,
-                                      weights, gather_capacity)
+        out, thresholds = _dfa_op(col_feats, points_2d, weights,
+                                  spatial_shapes.flat,
+                                  _capacity_arg(gather_capacity))
+        if not thresholds.numel():
+            thresholds = None
         ctx.save_for_backward(col_feats, points_2d, weights, thresholds)
         ctx.spatial_shapes = spatial_shapes
         ctx.gather_capacity = gather_capacity
@@ -681,13 +732,16 @@ def deformable_aggregation(
 
     Points and weights share the features' dtype (float32 or bfloat16)
     and may have any strides; the features must be contiguous (on the
-    card 16-byte aligned, with C/G a multiple of 8)."""
+    card 16-byte aligned, with C/G a multiple of 8). Without a gradient
+    to compute, the op `simpb::deformable_aggregation`."""
     _check_dfa(col_feats, spatial_shapes, points_2d, weights)
-    if col_feats.device.type == "cpu":
-        return _DfaPlainFunction.apply(col_feats, points_2d, weights,
-                                       spatial_shapes, gather_capacity)
-    return _DfaFunction.apply(col_feats, points_2d, weights, spatial_shapes,
-                              gather_capacity)
+    if _needs_grad(col_feats, points_2d, weights):
+        fn = (_DfaPlainFunction if col_feats.device.type == "cpu"
+              else _DfaFunction)
+        return fn.apply(col_feats, points_2d, weights, spatial_shapes,
+                        gather_capacity)
+    return _dfa_op(col_feats, points_2d, weights, spatial_shapes.flat,
+                   _capacity_arg(gather_capacity))[0]
 
 
 def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -859,6 +913,30 @@ def _msda_launch(value, spatial_shapes, sampling_locations,
     return sampled, wsum
 
 
+@torch.library.custom_op("simpb::msda", mutates_args=())
+def _msda_op(value: torch.Tensor, sampling_locations: torch.Tensor,
+             attention_weights: torch.Tensor,
+             shapes: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact MSDA's forward with raw heads -> (sampled, wsum). CPU: the
+    plain version; CUDA: the kernel."""
+    ss = SpatialShapes.from_flat(shapes)
+    if value.device.type == "cpu":
+        return msda_plain(value, ss, sampling_locations, attention_weights,
+                          raw_heads=True)
+    return _msda_launch(value, ss, sampling_locations, attention_weights)
+
+
+def _raw_heads_fake(value, q, heads):
+    return (value.new_empty((value.shape[0], q, heads, value.shape[-1]),
+                            dtype=torch.float32),
+            value.new_empty((value.shape[0], q, heads), dtype=torch.float32))
+
+
+@_msda_op.register_fake
+def _(value, sampling_locations, attention_weights, shapes):
+    return _raw_heads_fake(value, *sampling_locations.shape[1:3])
+
+
 class _MsdaFunction(torch.autograd.Function):
     """Exact MSDA on the card: the forward kernel, and kernel D as its
     backward. Saves only its inputs: D recomputes the samples (what
@@ -869,8 +947,8 @@ class _MsdaFunction(torch.autograd.Function):
                 spatial_shapes):
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         ctx.spatial_shapes = spatial_shapes
-        return _msda_launch(value, spatial_shapes, sampling_locations,
-                            attention_weights)
+        return _msda_op(value, sampling_locations, attention_weights,
+                        spatial_shapes.flat)
 
     @staticmethod
     def backward(ctx, grad_sampled, grad_wsum):
@@ -893,15 +971,24 @@ def msda(
     float32 or bfloat16, contiguous (16-byte aligned on the card);
     locations and weights float32, contiguous. On the CPU the plain
     version (under autograd when asked); on the card the forward kernel,
-    with kernel D (`msda_backward`) as its backward."""
+    with kernel D (`msda_backward`) as its backward. Without a gradient
+    to compute, the op `simpb::msda`."""
     _check_msda(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type == "cpu":
+    cpu = value.device.type == "cpu"
+    grad = _needs_grad(value, sampling_locations, attention_weights)
+    if cpu and grad:
         return msda_plain(value, spatial_shapes, sampling_locations,
                           attention_weights, raw_heads)
-    sampled, wsum = _MsdaFunction.apply(value, sampling_locations,
-                                        attention_weights, spatial_shapes)
+    if grad:
+        sampled, wsum = _MsdaFunction.apply(
+            value, sampling_locations, attention_weights, spatial_shapes)
+    else:
+        sampled, wsum = _msda_op(value, sampling_locations,
+                                 attention_weights, spatial_shapes.flat)
     if raw_heads:
         return sampled, wsum
+    if cpu:  # msda_plain's split
+        return _split_heads(sampled)
     # each channel from its own head: the diagonal blocks of [heads,
     # heads, C / heads], whose gradient reaches kernel D as a contiguous
     # g_sampled (a head mask's einsum would hand it a transposed one)
@@ -1352,6 +1439,25 @@ def _msda_sel_launch(value, spatial_shapes, loc, attw, heads, patch_h,
     return sampled, wsum
 
 
+@torch.library.custom_op("simpb::msda_patch_sel", mutates_args=())
+def _msda_sel_op(value: torch.Tensor, loc: torch.Tensor, attw: torch.Tensor,
+                 shapes: list[int], heads: int, patch_h: int, patch_w: int,
+                 sel_levels: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed MSDA at the top `sel_levels` levels -> (sampled, wsum).
+    CPU: the plain version; CUDA: the kernel."""
+    ss = SpatialShapes.from_flat(shapes)
+    if value.device.type == "cpu":
+        return _msda_patch_sel_plain(value, ss, loc, attw, heads, patch_h,
+                                     patch_w, sel_levels)
+    return _msda_sel_launch(value, ss, loc, attw, heads, patch_h, patch_w,
+                            sel_levels)
+
+
+@_msda_sel_op.register_fake
+def _(value, loc, attw, shapes, heads, patch_h, patch_w, sel_levels):
+    return _raw_heads_fake(value, loc.shape[1], heads)
+
+
 MSDA_BWD_THREADS = 256  # threads of a C1 block
 BWD_HEADS = 8  # kernel C's heads at most (csrc/sampling.cu BWD_HEADS)
 GV_TILE = 8  # C3's pixel tile (csrc/sampling.cu GV_TILE)
@@ -1470,8 +1576,8 @@ class _MsdaSelFunction(torch.autograd.Function):
                 patch_w, sel_levels):
         ctx.save_for_backward(value, loc, attw)
         ctx.args = (spatial_shapes, heads, patch_h, patch_w, sel_levels)
-        return _msda_sel_launch(value, spatial_shapes, loc, attw, heads,
-                                patch_h, patch_w, sel_levels)
+        return _msda_sel_op(value, loc, attw, spatial_shapes.flat, heads,
+                            patch_h, patch_w, sel_levels)
 
     @staticmethod
     def backward(ctx, grad_sampled, grad_wsum):
@@ -1633,9 +1739,13 @@ def _msda_patch_sel(
     [B, Q, heads]), float32, differentiable in value, loc and attw.
     Value float32 or bfloat16, locations and weights float32, all
     contiguous; every level must hold the window. On the card bf16
-    values run on the tensor cores, fp32 on the CUDA cores."""
+    values run on the tensor cores, fp32 on the CUDA cores. Without a
+    gradient to compute, the op `simpb::msda_patch_sel`."""
     _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
                     patch_w, sel_levels)
+    if not _needs_grad(value, loc, attw):
+        return _msda_sel_op(value, loc, attw, spatial_shapes.flat, heads,
+                            patch_h, patch_w, sel_levels)
     if value.device.type == "cpu":
         return _msda_patch_sel_plain(value, spatial_shapes, loc, attw, heads,
                                      patch_h, patch_w, sel_levels)
@@ -1723,10 +1833,8 @@ def _msda_patch_levels(
     if loc.dim() == 5:
         _check_msda_sel(value, spatial_shapes, loc, attw, heads, patch_h,
                         patch_w, num_levels)
-        num_points = loc.shape[3] // heads
     else:  # msda_hybrid's layout: checked as the exact lane's, no copy
         _check_msda(value, spatial_shapes, loc, attw)
-        num_points = loc.shape[4]
         if loc.shape[2] != heads or patch_w % 2 or any(
                 h_ < patch_h or w_ < patch_w
                 for h_, w_ in spatial_shapes.shapes):
@@ -1734,14 +1842,33 @@ def _msda_patch_levels(
                              f"{heads}, or a {patch_h}x{patch_w} window "
                              "(even width) that does not fit every level of "
                              f"{spatial_shapes.shapes}")
-    if value.device.type == "cpu":
-        return _msda_patch_levels_plain(value, spatial_shapes, loc, attw,
-                                        heads, patch_h, patch_w)
     if _needs_grad(value, loc, attw):
+        if value.device.type == "cpu":
+            return _msda_patch_levels_plain(value, spatial_shapes, loc, attw,
+                                            heads, patch_h, patch_w)
         raise NotImplementedError(
             "msda_patch over every level on the card is served only (kernel "
             "H1 has no backward; no trainer configuration samples every "
             "level through the window)")
+    return _msda_levels_op(value, loc, attw, spatial_shapes.flat, heads,
+                           patch_h, patch_w)
+
+
+@torch.library.custom_op("simpb::msda_patch_levels", mutates_args=())
+def _msda_levels_op(value: torch.Tensor, loc: torch.Tensor,
+                    attw: torch.Tensor, shapes: list[int], heads: int,
+                    patch_h: int,
+                    patch_w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel H1 -> (sampled, wsum). CPU: the plain version; CUDA: the
+    kernel (bf16) or the MSDA-sel kernel with k = L (fp32)."""
+    what = "_msda_patch_levels"
+    spatial_shapes = SpatialShapes.from_flat(shapes)
+    num_levels = spatial_shapes.num_levels
+    if value.device.type == "cpu":
+        return _msda_patch_levels_plain(value, spatial_shapes, loc, attw,
+                                        heads, patch_h, patch_w)
+    num_points = (loc.shape[3] // heads if loc.dim() == 5
+                  else loc.shape[4])
     if value.dtype == torch.float32:
         return _msda_sel_launch(value, spatial_shapes,
                                 *_levels_layout(loc, attw), heads, patch_h,
@@ -1764,6 +1891,11 @@ def _msda_patch_levels(
         ctypes.c_void_p(_kernels.stream_ptr(value))), what)
     _LAUNCHES["msda_patch_levels"] += 1
     return sampled, wsum
+
+
+@_msda_levels_op.register_fake
+def _(value, loc, attw, shapes, heads, patch_h, patch_w):
+    return _raw_heads_fake(value, loc.shape[1], heads)
 
 
 def msda_hybrid_exact_plain(value, spatial_shapes, sampling_locations,
@@ -1851,15 +1983,34 @@ def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
                          f"contiguous bool [{b}, {q}, {num_levels}] and "
                          "float32 outputs of the exact lane's shapes")
     _check_devices(what, value, sel, sampled, wsum)
+    if value.device.type != "cpu" and _needs_grad(
+            value, sampling_locations, attention_weights, sampled):
+        raise NotImplementedError(HYBRID_SERVED_ONLY)
+    _msda_hybrid_exact_op(value, sampling_locations, attention_weights, sel,
+                          sampled, wsum, spatial_shapes.flat)
+    return sampled, wsum
+
+
+@torch.library.custom_op("simpb::msda_hybrid_exact",
+                         mutates_args=("sampled", "wsum"))
+def _msda_hybrid_exact_op(value: torch.Tensor,
+                          sampling_locations: torch.Tensor,
+                          attention_weights: torch.Tensor, sel: torch.Tensor,
+                          sampled: torch.Tensor, wsum: torch.Tensor,
+                          shapes: list[int]) -> None:
+    """Kernel H2, adding into sampled and wsum in place. CPU: the plain
+    version, copied in; CUDA: the kernel."""
+    what = "msda_hybrid_exact"
+    spatial_shapes = SpatialShapes.from_flat(shapes)
     if value.device.type == "cpu":
         got, got_w = msda_hybrid_exact_plain(
             value, spatial_shapes, sampling_locations, attention_weights,
             sel, sampled, wsum)
         sampled.copy_(got)
         wsum.copy_(got_w)
-        return sampled, wsum
-    if _needs_grad(value, sampling_locations, attention_weights, sampled):
-        raise NotImplementedError(HYBRID_SERVED_ONLY)
+        return
+    b, _, c = value.shape
+    q, heads, _, num_points = sampling_locations.shape[1:5]
     plan = plan_msda_hybrid(b, q, heads, num_points, c,
                             spatial_shapes.shapes)
     _check_aligned(what, value, "value")
@@ -1869,7 +2020,12 @@ def msda_hybrid_exact(value, spatial_shapes, sampling_locations,
         _kernels.DTYPE_CODE[value.dtype],
         ctypes.c_void_p(_kernels.stream_ptr(value))), what)
     _LAUNCHES["msda_hybrid_exact"] += 1
-    return sampled, wsum
+
+
+@_msda_hybrid_exact_op.register_fake
+def _(value, sampling_locations, attention_weights, sel, sampled, wsum,
+      shapes):
+    return None
 
 
 CLAMP_THREADS = 512  # threads of an H3 block: 16 warps
@@ -2013,10 +2169,24 @@ def hybrid_selection(spatial_shapes: SpatialShapes,
     if not 0 <= k_cap <= q * num_levels:
         raise ValueError(f"{what}: k_cap {k_cap} outside [0, {q} x "
                          f"{num_levels}]")
+    return _clamp_select_op(sampling_locations, attention_weights,
+                            spatial_shapes.flat, patch_h, patch_w, k_cap)
+
+
+@torch.library.custom_op("simpb::clamp_select", mutates_args=())
+def _clamp_select_op(sampling_locations: torch.Tensor,
+                     attention_weights: torch.Tensor, shapes: list[int],
+                     patch_h: int, patch_w: int,
+                     k_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel H3, the op's instance -> (sel, attw_win). CPU: the plain
+    version; CUDA: the kernel."""
+    what = "hybrid_selection"
+    spatial_shapes = SpatialShapes.from_flat(shapes)
     if sampling_locations.device.type == "cpu":
         return hybrid_selection_plain(spatial_shapes, sampling_locations,
                                       attention_weights, patch_h, patch_w,
                                       k_cap)
+    b, q, heads, num_levels, num_points = sampling_locations.shape[:5]
     plan = plan_clamp_priority(b, q, heads, num_points, patch_h, patch_w,
                                spatial_shapes.shapes)
     dev = sampling_locations.device
@@ -2028,6 +2198,15 @@ def hybrid_selection(spatial_shapes: SpatialShapes,
         ctypes.c_void_p(_kernels.stream_ptr(sel))), what)
     _LAUNCHES["clamp_select"] += 1
     return sel, attw_win
+
+
+@_clamp_select_op.register_fake
+def _(sampling_locations, attention_weights, shapes, patch_h, patch_w,
+      k_cap):
+    b, q, _, num_levels = sampling_locations.shape[:4]
+    return (sampling_locations.new_empty((b, q, num_levels),
+                                         dtype=torch.bool),
+            torch.empty_like(attention_weights))
 
 
 def msda_clamp_demand_plain(
@@ -2068,6 +2247,18 @@ def msda_clamp_demand(
     contiguous; `valid` bool, contiguous. On the CPU the plain version."""
     what = "msda_clamp_demand"
     _check_clamp(what, spatial_shapes, sampling_locations, None, valid)
+    return _clamp_demand_op(sampling_locations, valid, spatial_shapes.flat,
+                            patch_h, patch_w)
+
+
+@torch.library.custom_op("simpb::clamp_demand", mutates_args=())
+def _clamp_demand_op(sampling_locations: torch.Tensor,
+                     valid: Optional[torch.Tensor], shapes: list[int],
+                     patch_h: int, patch_w: int) -> torch.Tensor:
+    """Kernel H3, the guards' instance -> demand [B]. CPU: the plain
+    version; CUDA: the kernel."""
+    what = "msda_clamp_demand"
+    spatial_shapes = SpatialShapes.from_flat(shapes)
     if sampling_locations.device.type == "cpu":
         return msda_clamp_demand_plain(spatial_shapes, sampling_locations,
                                        patch_h, patch_w, valid)
@@ -2081,6 +2272,12 @@ def msda_clamp_demand(
         ctypes.c_void_p(_kernels.stream_ptr(demand))), what)
     _LAUNCHES["clamp_demand"] += 1
     return demand
+
+
+@_clamp_demand_op.register_fake
+def _(sampling_locations, valid, shapes, patch_h, patch_w):
+    return sampling_locations.new_empty((sampling_locations.shape[0],),
+                                        dtype=torch.float32)
 
 
 def _hybrid(lanes, value, spatial_shapes, sampling_locations,

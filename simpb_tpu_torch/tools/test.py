@@ -39,9 +39,13 @@ r` in each): each process streams one sequence shard
 scores the whole set, prints the metrics, writes `--out` and exits 3 on
 a guard violation; the other ranks return after writing their shard.
 One process with several cards and no `--device` streams one shard a
-card as the slots of a batch (`multidevice_streaming_eval`). Not ported
-(exit non-zero, naming the flag): `--cam-shards` > 1 (ROADMAP A.5) and
-`--show-dir` (A.6).
+card as the slots of a batch (`multidevice_streaming_eval`).
+`--show-dir DIR` renders each frame's detections above
+`--show-threshold` on its images and a BEV panel and writes
+`DIR/detections.mp4` (host-side OpenCV: without cv2 it raises, naming
+it); it streams the one shard of a single stream, as JAX's CLI does.
+Not ported (exit non-zero, naming the flag): `--cam-shards` > 1
+(ROADMAP A.5).
 """
 import argparse
 import dataclasses
@@ -67,7 +71,9 @@ def parse_args(argv=None):
     p.add_argument("--out", default=None, help="submission json path")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--tracking", action="store_true")
-    p.add_argument("--show-dir", default=None, help="not ported")
+    p.add_argument("--show-dir", default=None,
+                   help="render the detections to DIR/detections.mp4 "
+                        "(needs OpenCV)")
     p.add_argument("--show-threshold", type=float, default=0.3)
     p.add_argument("--cam-shards", type=int, default=1,
                    help="camera-axis sharding: only 1 is ported")
@@ -106,8 +112,6 @@ def refused_flags(args):
     if args.cam_shards > 1:
         refused.append("--cam-shards > 1 (one stream's cameras over "
                        "several cards, ROADMAP A.5)")
-    if args.show_dir:
-        refused.append("--show-dir")
     return refused
 
 
@@ -247,12 +251,13 @@ def evaluate(args):
         if result is None:
             return None  # this rank's shard is written; rank 0 reports
         metrics, preds, tokens = result
-    elif args.device is None and _cards() > 1:
+    elif args.device is None and _cards() > 1 and not args.show_dir:
         metrics, preds, tokens = ev.multidevice_streaming_eval(
             model, cfg, dataset, **kw)
-    else:
-        metrics, preds, tokens = ev.streaming_eval(model, cfg, dataset,
-                                                   **kw)
+    else:  # one stream (a rendered eval is one stream, as in JAX)
+        metrics, preds, tokens = ev.streaming_eval(
+            model, cfg, dataset, show_dir=args.show_dir,
+            show_threshold=args.show_threshold, **kw)
     # NaN marks classes absent from the eval split; emit null so the
     # output stays strict JSON
     print(json.dumps(

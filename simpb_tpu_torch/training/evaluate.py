@@ -14,9 +14,10 @@ The model holds its weights, so the evals take no separate variables.
 `multidevice_streaming_eval` streams several sequence shards as the
 slots of one batch (slots that share a card run as one batch there);
 `distributed_streaming_eval` streams one shard a process and gathers
-the parts on disk for rank 0 to score. Not ported yet: camera-axis
-sharding (`cam_shards > 1`, ROADMAP A.5) and rendering (`show_dir`,
-ROADMAP A.6).
+the parts on disk for rank 0 to score. `streaming_eval(show_dir=...)`
+renders each frame (`data/visualize.py`, host-side OpenCV) and writes
+`detections.mp4` there. Not ported yet: camera-axis sharding
+(`cam_shards > 1`, ROADMAP A.5).
 """
 from __future__ import annotations
 
@@ -158,10 +159,15 @@ def _stream_shard(
     dataset,
     shard: List[int],
     progress: bool = False,
+    show_dir: Optional[str] = None,
+    show_threshold: float = 0.3,
 ):
     """Stream one sequence-aligned shard; returns (preds, gts,
     scene_ids, tokens, guard_max) with boxes in the global frame and
-    guard_max each `guard_*` counter's maximum over the frames."""
+    guard_max each `guard_*` counter's maximum over the frames. With
+    `show_dir`, each frame's detections above `show_threshold` are drawn
+    on its six images and a BEV panel, and the frames written to
+    `<show_dir>/detections.mp4`."""
     device = next(model.parameters()).device
     cold_step, stream_step = make_stream_steps(model, cfg)
 
@@ -171,6 +177,7 @@ def _stream_shard(
     scene_ids: List[int] = []
     guard_max: Dict[str, float] = {}
     scene_no = 0
+    vis_frames: List[np.ndarray] = []
     state = None
     prev_ts = prev_t_global = None
     for n, idx in enumerate(shard):
@@ -203,8 +210,27 @@ def _stream_shard(
         gts.append(gt_d)
         tokens.append(dataset.data_infos[idx]["token"])
 
+        if show_dir:
+            from ..data.transforms import IMG_MEAN, IMG_STD
+            from ..data.visualize import render_frame
+
+            frame = render_frame(
+                list(sample["img"] * IMG_STD + IMG_MEAN),
+                {k: dec[k] for k in ("boxes_3d", "scores_3d", "labels_3d")},
+                list(sample["projection_mat"]),
+                score_threshold=show_threshold,
+            )
+            vis_frames.append(frame[..., ::-1])  # RGB -> BGR for cv2
+
         if progress and (n + 1) % 100 == 0:
             print(f"{n + 1}/{len(shard)} frames", flush=True)
+
+    if show_dir and vis_frames:
+        from ..data.visualize import write_video
+
+        os.makedirs(show_dir, exist_ok=True)
+        write_video(vis_frames, os.path.join(show_dir, "detections.mp4"))
+        print(f"wrote {len(vis_frames)}-frame video to {show_dir}")
 
     return preds, gts, scene_ids, tokens, guard_max
 
@@ -235,6 +261,7 @@ def streaming_eval(
     dataset,
     max_frames: Optional[int] = None,
     show_dir: Optional[str] = None,
+    show_threshold: float = 0.3,
     progress: bool = False,
     tracking: bool = False,
     world_size: int = 1,
@@ -251,7 +278,8 @@ def streaming_eval(
     with the native AMOTA/AMOTP evaluator (data/tracking_eval.py).
     `world_size`/`rank` select one sequence-aligned shard (metrics then
     cover that shard only). Under `guard_sampling` the metrics also hold
-    each `guard_*` counter's maximum over the frames."""
+    each `guard_*` counter's maximum over the frames. `show_dir`:
+    render the frames there (`_stream_shard`; needs OpenCV)."""
     from ..data.sampler import sequence_eval_shards
 
     if cam_shards > 1:
@@ -259,16 +287,12 @@ def streaming_eval(
             "cam_shards > 1 (camera-axis sharding: one stream's cameras "
             "over several cards) is not ported yet (ROADMAP A.5)"
         )
-    if show_dir:
-        raise NotImplementedError(
-            "show_dir (rendering with data/visualize.py) is not ported "
-            "yet (ROADMAP A.6)"
-        )
     shard = sequence_eval_shards(dataset, world_size)[rank]
     if max_frames:
         shard = shard[:max_frames]
     preds, gts, scene_ids, tokens, guard_max = _stream_shard(
-        model, cfg, dataset, shard, progress=progress,
+        model, cfg, dataset, shard, progress=progress, show_dir=show_dir,
+        show_threshold=show_threshold,
     )
     metrics = _score(preds, gts, scene_ids, tracking)
     metrics.update(guard_max)

@@ -242,7 +242,8 @@ def test_scorers_match_jax():
 # each flag the CLI refuses (None), or a configuration it now serves: the
 # JAX configuration that `--config` selects
 NOT_PORTED_ARGS = [
-    (["--cam-shards", "2"], None), (["--show-dir", "vis"], None),
+    (["--cam-shards", "2"], None),
+    (["--show-dir", "vis"], "simpb_r50_704x256"),
     (["--multihost"], "simpb_r50_704x256"),
     (["--gather-dir", "gather"], "simpb_r50_704x256"),
     (["--config", "r50"], "simpb_r50_704x256"),
@@ -272,7 +273,9 @@ def _fake_eval(monkeypatch, metrics):
                          ids=[" ".join(a) for a, _ in NOT_PORTED_ARGS])
 def test_test_cli_refuses(fake_set, monkeypatch, extra, served):
     """Every flag the port does not serve exits with "not ported"
-    (`--cam-shards` > 1 naming ROADMAP A.5, `--show-dir`). The
+    (`--cam-shards` > 1 naming ROADMAP A.5). `--show-dir` is served
+    since the rendering landed (held to JAX's in
+    tests/test_torch_port_tools.py). The
     configurations it serves run (no model built here): the config equals
     the JAX CLI's of that name, field by field, trunk bf16 and the fused
     trunk (`--fused-trunk`; under `stem_s2d`, `r101-fast`, the detector
@@ -430,17 +433,28 @@ def test_test_cli_runs_on_cpu(fake_set, tmp_path, capsys):
 
 
 def test_streaming_eval_refuses(monkeypatch, tmp_path):
-    """`cam_shards > 1` (ROADMAP A.5) and `show_dir` are refused; the
+    """`cam_shards > 1` (ROADMAP A.5) is refused; `show_dir` is served
+    (the stream renders its frames, tests/test_torch_port_tools.py); the
     multi-slot and distributed evals are served (held to the bs-1 stream
     and to JAX in tests/test_torch_port_slice.py): one slot is the one
     stream, and the disk gather merges the ranks' parts in rank order
     with their guard maxima."""
+    from simpb_tpu_torch.data import sampler
     from simpb_tpu_torch.training import evaluate
 
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         evaluate.streaming_eval(None, None, None, cam_shards=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        evaluate.streaming_eval(None, None, None, show_dir="vis")
+    shown = []
+    with monkeypatch.context() as m:
+        m.setattr(sampler, "sequence_eval_shards", lambda ds, n: [[0, 1]])
+        m.setattr(evaluate, "_stream_shard",
+                  lambda *a, **k: shown.append(k) or ([], [], [], [], {}))
+        m.setattr(evaluate, "_score", lambda *a: {"mAP": 0.0})
+        assert evaluate.streaming_eval(
+            None, None, None, show_dir="vis", show_threshold=0.5)[0] == {
+                "mAP": 0.0}
+    assert (shown[0]["show_dir"], shown[0]["show_threshold"]) == ("vis",
+                                                                  0.5)
     streamed = []
     monkeypatch.setattr(evaluate, "streaming_eval",
                         lambda *a, **k: streamed.append(k) or "one")

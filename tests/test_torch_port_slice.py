@@ -255,10 +255,10 @@ def test_from_jax_variables_strict(slice_run):
 
 def test_port_imports_no_jax():
     """The port (every module `walk_packages` finds, the probe tool, the
-    three CLIs and the checkpoint and watchdog modules among them) and
-    chip_smoke.py import neither JAX nor
-    the JAX package, and none imports PIL at module level (the card's
-    machine has no Pillow)."""
+    CLIs, the checkpoint, watchdog, export, BN-folding, dataset-wrapper,
+    rendering and encoder modules among them) and chip_smoke.py import
+    neither JAX nor the JAX package, and none imports PIL or OpenCV at
+    module level (the card's machine has neither)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import simpb_tpu_torch
@@ -266,12 +266,16 @@ def test_port_imports_no_jax():
                                        "simpb_tpu_torch."):
             importlib.import_module(m.name)
         for name in ("tools.mosaic_probe", "tools.test", "tools.train",
-                     "training.checkpoint", "utils.watchdog", "bench"):
+                     "tools.profile", "tools.benchmark", "tools.export",
+                     "tools.fuse_conv_bn", "training.checkpoint",
+                     "utils.watchdog", "utils.export", "utils.fuse_bn",
+                     "data.wrappers", "data.visualize", "models.encoder2d",
+                     "bench"):
             assert "simpb_tpu_torch." + name in sys.modules, name
         import chip_smoke
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "simpb_tpu",
-                                      "orbax", "PIL")]
+                                      "orbax", "PIL", "cv2")]
         assert not bad, bad
         print("ok")
     """)
